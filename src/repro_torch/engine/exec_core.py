@@ -1,0 +1,184 @@
+"""Shared normalization / accumulation / update core.
+
+Every executor runs the paper's Algorithm 1 through these helpers, so the
+numerics live in one place:
+
+  * loss normalization (§3.4, eq. 14): either folded into the micro loss
+    before differentiation ("scaled" form — loss/N_Sμ for "paper",
+    Σ/N_B_valid for "exact"), or deferred to the accumulate ("raw" form —
+    the unscaled micro loss's gradient is accumulated with the scale fused
+    in, paper Fig. 2 step ❹, which is what kernel K1 does);
+  * gradient accumulation in ``accum_dtype`` (fp32 by default);
+  * the single optimizer update per mini-batch (step ❺) + shared metrics.
+
+Scales, learning rates and norms stay device tensors: nothing here syncs
+with the host.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from .. import tree
+from ..kernels import (fused_adam, fused_sgd, grad_accum_buckets,
+                       grad_accum_tree)
+from .flat import FlatSpec
+
+
+def denominators(micro_batches) -> Tuple[int, torch.Tensor]:
+    """(N_Sμ, N_B_valid) of a split batch: N_B_valid is the total sample
+    weight when a mask is present (padding contributes 0), else N_Sμ·N_μ."""
+    first = next(iter(micro_batches.values()))
+    n_s = first.shape[0]
+    w = micro_batches.get("sample_weight")
+    total_valid = (torch.sum(w) if w is not None
+                   else torch.full((), float(n_s * first.shape[1]),
+                                   device=first.device))
+    return n_s, total_valid
+
+
+def init_accum(params, dtype):
+    """Zero gradient accumulator shaped like params, in ``accum_dtype``."""
+    return tree.map(lambda p: torch.zeros(p.shape, dtype=dtype,
+                                          device=p.device), params)
+
+
+def micro_loss_fn(loss_fn: Callable, normalization: str, n_s, total_valid,
+                  mb, *, defer_scale: bool = False) -> Callable:
+    """The per-micro-batch loss to differentiate.
+
+    ``defer_scale=False``: normalization folded in (Algorithm 1 line 11 for
+    "paper"; the exact denominator for "exact") — accumulate with a plain
+    add. ``defer_scale=True``: the raw micro loss; the 1/N_Sμ (resp.
+    1/N_B_valid) scale is fused into the accumulate (:func:`deferred_scale`).
+    """
+    def f(p):
+        if normalization == "paper":
+            loss, metrics = loss_fn(p, mb)
+            return (loss, metrics) if defer_scale else (loss / n_s, metrics)
+        if normalization != "exact":
+            raise ValueError(f"unknown normalization {normalization!r}")
+        denom = 1.0 if defer_scale else total_valid
+        return loss_fn(p, mb, exact_denom=denom)
+    return f
+
+
+def deferred_scale(normalization: str, n_s, total_valid):
+    """The scale fused into the accumulate when the micro loss was raw."""
+    if normalization == "paper":
+        return 1.0 / n_s
+    return 1.0 / total_valid
+
+
+def value_and_grad(lfn: Callable, params) -> Tuple[torch.Tensor, Any, Any]:
+    """(loss, metrics, grads) of ``lfn`` at ``params``. Leaves are detached
+    aliases of the caller's tensors (no copy), so a tree of views into flat
+    buffers stays a tree of views."""
+    leaves, treedef = tree.flatten(params)
+    req = [p.detach().requires_grad_() for p in leaves]
+    loss, metrics = lfn(tree.unflatten(treedef, req))
+    grads = torch.autograd.grad(loss, req, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(req, grads)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree.unflatten(treedef, grads))
+
+
+def accumulate(acc, grads, *, scale=None, fused: bool = False):
+    """acc ← acc + [scale ·] grads, in the accumulator's dtype.
+
+    ``fused=True`` routes through kernel K1 leaf by leaf (in place on the
+    fp32 accumulator; the scaled gradient is never materialized)."""
+    if fused:
+        return grad_accum_tree(acc, grads, 1.0 if scale is None else scale)
+    if scale is None:
+        return tree.map(lambda a, g: a.add_(g.to(a.dtype)), acc, grads)
+    return tree.map(lambda a, g: a.add_((g * scale).to(a.dtype)), acc, grads)
+
+
+def apply_update(optimizer, grads, opt_state, params):
+    """Paper Fig. 2 step ❺: one optimizer update per mini-batch."""
+    updates, new_opt_state = optimizer.update(grads, opt_state, params)
+    new_params = tree.map(lambda p, u: p + u.to(p.dtype), params, updates)
+    return new_params, new_opt_state
+
+
+def accumulate_flat(acc_buffers, spec: FlatSpec, grads, *, scale=None):
+    """Bucketed step ❹: route a micro-batch's gradient tree into the flat
+    layout (one transient copy of the gradient, as ``FlatSpec.flatten``)
+    and add it with one K1 launch per dtype bucket."""
+    gbufs = spec.flatten(grads, dtype=acc_buffers[0].dtype)
+    return grad_accum_buckets(acc_buffers, gbufs,
+                              1.0 if scale is None else scale)
+
+
+def apply_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,
+                      params):
+    """Step ❺ over flat buffers: one in-place kernel launch per bucket.
+
+    ``params`` (and the optimizer state trees) must be view trees of flat
+    buffers (``FlatSpec.as_flat``); K2/K3/K4 write those buffers in place
+    and the same view trees come back. The global-norm clip scale is
+    computed from the flat accumulator and carried into the kernel.
+    Optimizers without a ``fused`` hook take the reference tree update."""
+    fs = getattr(optimizer, "fused", None)
+    if fs is None:
+        return apply_update(optimizer, spec.unflatten(acc_buffers, cast=False),
+                            opt_state, params)
+    gscale = 1.0
+    if fs.clip_norm is not None:
+        norm = global_grad_norm(acc_buffers)
+        gscale = torch.clamp(fs.clip_norm / (norm + 1e-12), max=1.0)
+    step = opt_state["step"]
+    lr_t = fs.schedule(step)
+    flat_p = _buffers(spec, params)
+
+    if fs.kind == "sgd":
+        if fs.momentum:
+            flat_m = _buffers(spec, opt_state["mom"])
+            for p, g, m in zip(flat_p, acc_buffers, flat_m):
+                fused_sgd(p, g, m, lr_t, gscale, momentum=fs.momentum,
+                          weight_decay=fs.weight_decay, nesterov=fs.nesterov)
+            return params, {"mom": opt_state["mom"], "step": step + 1}
+        for p, g in zip(flat_p, acc_buffers):
+            fused_sgd(p, g, None, lr_t, gscale, weight_decay=fs.weight_decay)
+        return params, {"mom": None, "step": step + 1}
+
+    if fs.kind == "adam":
+        step1 = step + 1
+        bc1 = 1 - fs.b1 ** step1.float()
+        bc2 = 1 - fs.b2 ** step1.float()
+        flat_m = _buffers(spec, opt_state["m"])
+        flat_v = _buffers(spec, opt_state["v"])
+        for p, g, m, v in zip(flat_p, acc_buffers, flat_m, flat_v):
+            fused_adam(p, g, m, v, lr_t, bc1, bc2, gscale, b1=fs.b1,
+                       b2=fs.b2, eps=fs.eps, weight_decay=fs.weight_decay,
+                       decoupled=fs.decoupled)
+        return params, {"m": opt_state["m"], "v": opt_state["v"],
+                        "step": step1}
+
+    raise ValueError(f"unknown fused update kind {fs.kind!r}")
+
+
+def _buffers(spec: FlatSpec, t):
+    bufs = spec.buffers_of(t)
+    if bufs is None:
+        raise ValueError("the fused flat update writes in place: pass view "
+                         "trees of flat buffers (FlatSpec.as_flat)")
+    return bufs
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    """sqrt(Σ g²) in fp32 over a tree or a list of flat buffers, without a
+    squared copy of any buffer."""
+    return torch.sqrt(sum(torch.square(torch.linalg.vector_norm(
+        g, dtype=torch.float32)) for g in tree.leaves(grads)))
+
+
+def finalize_metrics(metric_sum: Dict[str, Any], loss, grads
+                     ) -> Dict[str, Any]:
+    out = dict(metric_sum)
+    out["loss"] = loss  # Σ normalized micro losses == mini-batch mean loss
+    out["grad_norm"] = global_grad_norm(grads)
+    return out

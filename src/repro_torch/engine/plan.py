@@ -1,0 +1,201 @@
+"""MBS planner — batch geometry + normalization/accumulation policy.
+
+  * when the caller does not pin a micro-batch size, ``plan_mbs`` asks the
+    analytic memory model (``core/memory_model.py``) for the largest
+    micro-batch that fits the budget — by default the card's own memory;
+  * ragged mini-batches (N_B % N_μ != 0) zero-pad the tail micro-batch
+    and carry a ``sample_weight`` mask; a ragged ``"paper"`` plan is
+    upgraded to ``"exact"`` (eq. 15–17 hold for any split there).
+
+Plans equal the JAX package's field for field for the same inputs on one
+device (the mesh, calibration and pipeline fields of the JAX plan keep
+their single-device defaults there).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def num_micro_batches(mini_batch_size: int, micro_batch_size: int) -> int:
+    """Algorithm 1 lines 1–5: N_μ ← min(N_μ, N_B); N_Sμ = ceil(N_B / N_μ)."""
+    micro = min(micro_batch_size, mini_batch_size)
+    return int(math.ceil(mini_batch_size / micro))
+
+
+def split_minibatch(batch: Dict[str, np.ndarray], micro_batch_size: int
+                    ) -> Dict[str, np.ndarray]:
+    """Host-side split (paper Fig. 2 step ❶): every leaf ``(N_B, ...)`` →
+    ``(N_Sμ, N_μ, ...)``, zero-padding the ragged tail, plus a
+    ``sample_weight`` mask (1 = real sample, 0 = padding) composed with any
+    dataset-provided weights."""
+    existing_w = batch.get("sample_weight")
+    rest = {k: v for k, v in batch.items() if k != "sample_weight"}
+    n_b = next(iter(rest.values())).shape[0]
+    n_mu = min(micro_batch_size, n_b)
+    n_s = num_micro_batches(n_b, n_mu)
+    pad = n_s * n_mu - n_b
+
+    def split(x):
+        if pad:
+            x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+        return x.reshape(n_s, n_mu, *x.shape[1:])
+
+    out = {k: split(np.asarray(v)) for k, v in rest.items()}
+    w = np.ones((n_b,), np.float32)
+    if existing_w is not None:
+        w = w * np.asarray(existing_w, np.float32).reshape(n_b)
+    if pad:
+        w = np.concatenate([w, np.zeros((pad,), np.float32)])
+    out["sample_weight"] = w.reshape(n_s, n_mu)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MBSPlan:
+    """Batch geometry + accumulation policy for one training setup.
+
+    ``mini_batch_size`` samples are split into ``num_micro_batches``
+    micro-batches of ``micro_batch_size``, with ``pad`` zero samples at the
+    tail (masked by ``sample_weight``). ``normalization`` is Algorithm 1
+    verbatim ("paper": micro mean / N_Sμ) or ragged-exact ("exact": Σ valid
+    per-sample losses / N_B_valid); ``accum_dtype`` is the accumulator's
+    precision; ``remat_policy`` the checkpointing grade the loss must be
+    built with (``auto_policy``: chosen by the planner)."""
+    mini_batch_size: int
+    micro_batch_size: int
+    num_micro_batches: int  # N_Sμ
+    pad: int  # zero samples appended to the last micro-batch
+    normalization: str = "paper"  # "paper" | "exact"
+    accum_dtype: Any = torch.float32
+    auto_micro: bool = False  # micro size chosen by the memory model
+    auto_normalization: bool = False  # "paper" upgraded to "exact" (ragged)
+    remat_policy: str = "period"  # none | dots | period | full
+    auto_policy: bool = False  # policy chosen by the planner ("auto")
+
+    def split(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Pad-and-mask split of a host mini-batch. Non-uniform dataset
+        weights are only normalized correctly by "exact" mode, so they are
+        refused under "paper"."""
+        w = batch.get("sample_weight")
+        if w is not None and self.normalization == "paper":
+            w = np.asarray(w)
+            if w.size and not np.all(w == w.flat[0]):
+                raise ValueError(
+                    'batch carries a non-uniform sample_weight, which '
+                    '"paper" normalization cannot weight correctly — '
+                    'build the plan with normalization="exact"')
+        return split_minibatch(batch, self.micro_batch_size)
+
+    def device_split(self, batch: Dict[str, np.ndarray], device
+                     ) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in self.split(batch).items()}
+
+    def describe(self) -> str:
+        src = "memory model" if self.auto_micro else "pinned"
+        norm = self.normalization + (" (auto)" if self.auto_normalization
+                                     else "")
+        pol = self.remat_policy + (" (auto)" if self.auto_policy else "")
+        accum = str(self.accum_dtype).replace("torch.", "")
+        return (f"MBSPlan: mini-batch {self.mini_batch_size} -> "
+                f"{self.num_micro_batches} x micro-batch "
+                f"{self.micro_batch_size} (pad {self.pad}, micro {src}, "
+                f"normalization {norm}, remat {pol}, accum {accum})")
+
+
+def plan_mbs(mini_batch_size: int, *,
+             micro_batch_size: Optional[int] = None,
+             num_microbatches: Optional[int] = None,
+             model_cfg=None, seq_len: Optional[int] = None,
+             budget_bytes: Optional[int] = None, device="cuda",
+             normalization: str = "paper",
+             accum_dtype: Any = torch.float32,
+             opt_slots: Optional[int] = None,
+             act_bytes: int = 2, remat: bool = True,
+             remat_policy: Optional[str] = None,
+             optimizer: str = "sgd", fused_update: bool = False) -> MBSPlan:
+    """Produce an :class:`MBSPlan` for one training setup.
+
+    Micro-batch size, in priority order:
+      1. ``micro_batch_size`` pinned by the caller;
+      2. ``num_microbatches`` pinned → ceil(N_B / N_Sμ);
+      3. the memory model (needs ``model_cfg`` and ``seq_len``): the
+         largest power of two that fits ``budget_bytes`` (default: the
+         total memory of CUDA ``device``; a CPU caller passes a budget);
+      4. no model config → one micro-batch.
+
+    ``remat_policy``: an explicit policy is used as given; ``"auto"``
+    chooses it jointly with the micro size (cheapest recompute that meets
+    the whole mini-batch, or with a pinned size the cheapest that admits
+    it); ``None`` maps the ``remat`` bool (True → "period")."""
+    if mini_batch_size < 1:
+        raise ValueError(f"mini_batch_size must be >= 1, got {mini_batch_size}")
+    from ..core import memory_model  # deferred: core imports this package
+    from ..models import remat as remat_lib
+    auto_policy_requested = remat_policy == "auto"
+    policy = (None if auto_policy_requested
+              else remat_lib.resolve(remat, remat_policy))
+    can_search = model_cfg is not None and seq_len is not None
+    mm_kw = dict(opt_slots=opt_slots, act_bytes=act_bytes,
+                 optimizer=optimizer, fused_update=fused_update)
+
+    def budget() -> int:
+        return budget_bytes or memory_model.device_memory_bytes(device)
+
+    auto = False
+    policy_searched = False
+    if micro_batch_size is not None:
+        micro = micro_batch_size
+    elif num_microbatches is not None:
+        if num_microbatches < 1:
+            raise ValueError(
+                f"num_microbatches must be >= 1, got {num_microbatches}")
+        micro = int(math.ceil(mini_batch_size / num_microbatches))
+    elif model_cfg is not None:
+        if seq_len is None:
+            raise ValueError("auto micro-batch sizing needs seq_len")
+        if auto_policy_requested:
+            policy, local = memory_model.suggest_remat_policy_and_micro(
+                model_cfg, seq_len, mini_batch_size, budget_bytes=budget(),
+                **mm_kw)
+            policy_searched = True
+        else:
+            local = memory_model.suggest_micro_batch_size(
+                model_cfg, seq_len, mini_batch_size, budget_bytes=budget(),
+                remat_policy=policy, **mm_kw)
+        micro = local or 1
+        auto = True
+    else:
+        micro = mini_batch_size
+
+    micro = max(1, min(micro, mini_batch_size))  # Algorithm 1 lines 2–4
+    if policy is None:  # "auto" with a pinned micro size (or no model cfg)
+        if can_search:
+            policy = memory_model.POLICY_ORDER[-1]
+            for p in memory_model.POLICY_ORDER:
+                est = memory_model.estimate(model_cfg, seq_len,
+                                            remat_policy=p, **mm_kw)
+                if est.total(micro) <= budget():
+                    policy = p
+                    break
+            policy_searched = True
+        else:
+            # nothing to search against: the legacy bool decides, and the
+            # plan must not claim the planner validated the choice
+            policy = remat_lib.resolve(remat, None)
+    n_s = num_micro_batches(mini_batch_size, micro)
+    pad = n_s * micro - mini_batch_size
+    auto_norm = False
+    if pad and normalization == "paper":
+        # Algorithm 1 divides each micro mean by N_Sμ, which over-weights a
+        # short tail; "exact" reproduces the mini-batch gradient for any split
+        normalization, auto_norm = "exact", True
+    return MBSPlan(mini_batch_size, micro, n_s, pad, normalization,
+                   accum_dtype, auto_micro=auto,
+                   auto_normalization=auto_norm, remat_policy=policy,
+                   auto_policy=auto_policy_requested and policy_searched)

@@ -1,0 +1,3 @@
+from .optimizers import (FusedUpdateSpec, Optimizer, adam, adamw,  # noqa: F401
+                         clip_by_global_norm, constant, cosine_decay,
+                         linear_decay, memory_model_kw, sgd)

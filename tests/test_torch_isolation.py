@@ -1,0 +1,75 @@
+"""The port stands alone: importing every ``repro_torch`` module and
+``chip_smoke`` loads neither JAX nor the JAX package, the launcher runs on
+the CPU when asked, and without a GPU the CUDA entry points fail loudly
+instead of running somewhere else."""
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAIN = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2-1.5b", "--reduced", "--steps", "2", "--executor", "flat"]
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k.startswith("jax") or k == "repro" or k.startswith("repro."))
+print("LEAKED", bad)
+"""
+
+
+def _run(cmd, cwd=ROOT, timeout=300):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    return subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def _no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = _run([sys.executable, "-c", IMPORT_ALL])
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_launcher_runs_on_cpu_when_asked():
+    out = _run(TRAIN + ["--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    assert "MBSPlan: mini-batch 16" in out.stdout
+    assert "step    1  loss" in out.stdout
+
+
+def test_launcher_without_gpu_fails_clearly():
+    _no_gpu()
+    out = _run(TRAIN)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    assert "step" not in out.stdout
+
+
+def test_chip_smoke_without_gpu_fails_and_prints_no_result(tmp_path):
+    _no_gpu()
+    out = _run([sys.executable, "chip_smoke.py"])
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is false" in out.stderr
+    assert '"ok"' not in out.stdout
+    # alone in a directory, without the repository, it fails too
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
