@@ -25,7 +25,25 @@ Phases (any failure exits non-zero before the last line is printed):
   5. each kernel at the main path's full bucket size: held against its
      plain version once more, then timed with CUDA events beside its
      bound, its plain version and the PyTorch call that computes the same
-     function, where there is one.
+     function, where there is one;
+  6. kernels K5 (fused cross-entropy, Triton) and K6 (flash attention,
+     CUDA C++ built by ``nvcc`` into ``build/cuda`` at its first use)
+     against their plain versions at edge shapes in fp32 and bf16, labels
+     outside [0, V) among them — the per-token NLL within 1e-4, attention
+     within 2e-5 in fp32 and 1 ulp + 2e-5 in bf16 (sums are taken in
+     another order); ptxas's register and spill lines for every K6
+     instance, and the shared memory each asks for, from the library;
+  7. the kernel-API path (``repro_torch.kernels.flash_attention`` and
+     ``.cross_entropy``, forward and backward) at full width: qwen2-1.5b
+     attention and LM-head loss, a gemma2-9b layer (softcap 50, window
+     4096) and a gemma3-12b local layer (window 1024), with the launch
+     counters zeroed just before and read just after (one K6 launch per
+     attention forward, one K5 launch per loss forward, none in a
+     backward); outputs and gradients held against autograd through the
+     plain versions, then each case timed beside its bound, its plain
+     version and the PyTorch call that computes it (SDPA; for gemma2's
+     softcap, a compiled ``flex_attention``, checked against the plain
+     version within the reference tests' bf16 tolerance, 2e-2).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +62,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 RAGGED_SIZES = [1, 1000, 4097, (1 << 20) + 3]
 CHUNK = 1 << 27  # elements per slice when the plain version runs in slices
 MAIN_ARGV = ["--arch", "qwen2-1.5b", "--executor", "flat",
@@ -85,9 +104,11 @@ def card_line() -> str:
 # comparison and timing
 # ---------------------------------------------------------------------------
 
-def max_violation(got, want) -> tuple:
+def max_violation(got, want, atol: float = 1e-6, rtol: float = 1e-6,
+                  bf16_atol: float = 0.0) -> tuple:
     """(max abs error, whether every element is within tolerance):
-    |a-b| <= 1e-6 + 1e-6|b| in fp32, one ulp in bf16."""
+    |a-b| <= atol + rtol|b| in fp32 (1e-6 + 1e-6|b| by default), one ulp
+    (plus ``bf16_atol``) in bf16."""
     import torch
     a, b = got.float(), want.float()
     err = (a - b).abs()
@@ -96,9 +117,9 @@ def max_violation(got, want) -> tuple:
         _, exp = torch.frexp(mag)
         ulp = torch.ldexp(torch.ones_like(mag), exp - 8)
         ulp = torch.clamp(ulp, min=2.0 ** -133)
-        ok = bool(torch.all(err <= ulp))
+        ok = bool(torch.all(err <= ulp + bf16_atol))
     else:
-        ok = bool(torch.all(err <= 1e-6 + 1e-6 * b.abs()))
+        ok = bool(torch.all(err <= atol + rtol * b.abs()))
     return float(err.max()) if err.numel() else 0.0, ok
 
 
@@ -415,17 +436,348 @@ def full_size_phase(dev, n: int, errs) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# K5 and K6: build, edge shapes, the kernel-API path at full width
+# ---------------------------------------------------------------------------
+
+API_KERNELS = {
+    "cross_entropy": ("triton", "src/repro_torch/kernels/cross_entropy.py",
+                      "src/repro/kernels/cross_entropy.py:26"),
+    "flash_attention": ("cuda",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:29"),
+}
+# Attention sums in another order than the plain version: the two fp32
+# results agree within ATTN_ATOL, and in bf16 each then rounds, so they
+# agree within one ulp plus ATTN_ATOL (an output near 0 after cancelling
+# sums has an ulp far below the fp32 sums' rounding).
+ATTN_ATOL = 2e-5
+CE_ATOL = 1e-4  # per-token NLL: both sum in fp32
+CE_GRAD_ATOL = 1e-6
+CE_OPS_PER_ELEM = 5  # max, subtract, exp, add, gold compare
+LIB_BF16_ATOL = 2e-2  # a library call rounds P to bf16: the reference
+                      # tests' bf16 attention tolerance
+
+# (name, source of the widths, B, H, Hkv, S, hd, options, library call)
+ATTN_CASES = [
+    ("qwen2-1.5b", "src/repro_torch/configs/qwen2_1_5b.py; one micro-batch "
+     "of the main path", 4, 12, 2, 1024, 128, {}, "sdpa causal"),
+    ("gemma2-9b layer", "src/repro/configs/gemma2_9b.py:10-14; train_4k",
+     1, 16, 8, 4096, 256, {"softcap": 50.0, "window": 4096},
+     "flex_attention"),
+    ("gemma3-12b local layer", "src/repro/configs/gemma3_12b.py:15-17",
+     1, 16, 8, 4096, 256, {"window": 1024}, "sdpa mask"),
+]
+LIBRARY_CALLS = {
+    "sdpa causal": "F.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True)",
+    "sdpa mask": "F.scaled_dot_product_attention(attn_mask=<causal & "
+                 "window>, enable_gqa=True)",
+    "flex_attention": "torch.compile(flex_attention)(score_mod=tanh cap, "
+                      "block_mask=<causal & window>, enable_gqa=True)",
+}
+CE_CASE = ("qwen2-1.5b LM head", 4096, 151936, 0.25)
+
+
+def build_k6() -> None:
+    """Builds K6's library (``nvcc``) at its first use and prints the build
+    time, ptxas's lines for each instance, and the dynamic shared memory
+    each head dim asks for, as the library computes it."""
+    from repro_torch.kernels import _cuda, flash_attention_kernels as fa
+    t0 = time.perf_counter()
+    _cuda.load("flash_attention")
+    seconds = time.perf_counter() - t0
+    print(f"build: K6 library in {seconds:.1f}s (nvcc, sm_90a)", flush=True)
+    for line in _cuda.build_log("flash_attention").splitlines():
+        if ("entry function" in line or "spill stores" in line
+                or "Used " in line):
+            print(f"build: ptxas: {line.strip()}", flush=True)
+    print("build: K6 dynamic shared memory a block (library's layout): "
+          + ", ".join(f"hd {hd} {fa.smem_bytes(hd)} B"
+                      for hd in fa.HEAD_DIMS), flush=True)
+
+
+def kept_pairs(S: int, causal: bool, window) -> int:
+    """(q, k) pairs the causal and window masks keep."""
+    total = 0
+    for r in range(S):
+        lo = max(0, r - window + 1) if window is not None else 0
+        hi = r if causal else S - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _attn_inputs(gen, dev, B, H, Hkv, S, hd, dtype):
+    import torch
+    return [torch.randn(B, h, S, hd, generator=gen, device=dev).to(dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+def _ce_inputs(gen, dev, T, V, dtype):
+    import torch
+    x = (torch.randn(T, V, generator=gen, device=dev) * 3).to(dtype)
+    return x, torch.randint(0, V, (T,), generator=gen, device=dev)
+
+
+def edge_phase(dev, errs) -> None:
+    """K5 and K6 against their plain versions at edge shapes."""
+    import torch
+    from repro_torch import kernels
+    ref, fa, ce = (kernels.ref, kernels.flash_attention_kernels,
+                   kernels.cross_entropy_kernels)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    t0 = time.perf_counter()
+    n, n_built = 0, None
+    for dt in (torch.float32, torch.bfloat16):
+        for T, V, outside in ((1, 1, False), (37, 777, False),
+                              (4099, 151936, False), (37, 777, True)):
+            x, lab = _ce_inputs(gen, dev, T, V, dt)
+            if outside:  # labels below 0 and at or past V: lse · scale
+                lab[::3] = torch.tensor([-1, V, V + 4096, -300] * 4,
+                                        device=dev)[:len(lab[::3])]
+            got = ce.cross_entropy(x, lab, scale=0.25)
+            err, ok = max_violation(got, ref.cross_entropy_ref(x, lab) * 0.25,
+                                    atol=CE_ATOL, rtol=0.0)
+            errs["cross_entropy"] = max(errs["cross_entropy"], err)
+            check(ok, f"K5 [{T}x{V} {dt} outside={outside}] disagrees with "
+                      f"its plain version: max abs err {err:.3e}")
+            n += 1
+            del x, lab, got
+        attn = [  # (B, H, Hkv, S, hd, options): the reference tests' shapes
+            (2, 4, 4, 128, 64, {}), (2, 4, 2, 256, 64, {}),
+            (2, 8, 1, 256, 32, {}), (2, 2, 2, 384, 64, {}),
+            (1, 4, 2, 256, 64, {"window": 64}),
+            (1, 4, 2, 256, 64, {"softcap": 30.0}),
+            (1, 4, 2, 256, 64, {"window": 96, "softcap": 50.0}),
+            (1, 2, 2, 200, 64, {}),  # unaligned S, causal
+            (1, 2, 1, 128, 32, {"causal": False}),
+            # hd 128 and 256 with GQA groups 1, 6 and 2
+            (1, 6, 6, 256, 128, {}), (1, 12, 2, 256, 128, {}),
+            (1, 4, 2, 256, 256, {}),
+            # windows 64 and 1024 with softcap 50 at hd 256
+            (1, 4, 2, 1536, 256, {"window": 1024, "softcap": 50.0}),
+            (1, 2, 1, 333, 256, {"window": 64, "softcap": 50.0}),
+        ]
+        if n_built is None:  # K6's first use builds its library
+            build_k6()
+            n_built = n
+        for B, H, Hkv, S, hd, kw in attn:
+            q, k, v = _attn_inputs(gen, dev, B, H, Hkv, S, hd, dt)
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()  # a fault shows here, where it happened
+            opts = {o: kw[o] for o in ("causal", "window", "softcap")
+                    if o in kw}
+            err, ok = max_violation(got, ref.attention_ref(q, k, v, **opts),
+                                    atol=ATTN_ATOL, rtol=0.0,
+                                    bf16_atol=ATTN_ATOL)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            check(ok, f"K6 [B{B} H{H}/{Hkv} S{S} hd{hd} {kw} {dt}] disagrees "
+                      f"with its plain version: max abs err {err:.3e}")
+            n += 1
+    torch.cuda.synchronize()
+    print(f"kernels: K5 and K6 match their plain versions at {n} edge shapes "
+          f"in fp32 and bf16 ({time.perf_counter() - t0:.1f}s incl. K5 "
+          f"and K6 builds)", flush=True)
+
+
+def _attn_mask(S, window, dev):
+    import torch
+    r = torch.arange(S, device=dev)[:, None]
+    c = torch.arange(S, device=dev)[None, :]
+    return (c <= r) & (c > r - window)
+
+
+def _flex_call(q, k, v, window, softcap):
+    """One compiled ``flex_attention`` call computing K6's function at
+    these options (scale, then tanh cap, then causal and window masks;
+    GQA). A yardstick only: the port never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    S = q.shape[2]
+
+    def score_mod(score, b, h, qi, ki):
+        return torch.tanh(score / softcap) * softcap if softcap else score
+
+    def mask_mod(b, h, qi, ki):
+        ok = ki <= qi
+        return ok & (ki > qi - window) if window is not None else ok
+
+    block_mask = create_block_mask(mask_mod, None, None, S, S,
+                                   device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                        enable_gqa=True)
+
+
+def _library_call(lib: str, q, k, v, window, softcap):
+    """The PyTorch call of ``LIBRARY_CALLS[lib]`` on these inputs."""
+    import torch.nn.functional as F
+    if lib == "sdpa causal":
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    if lib == "sdpa mask":
+        mask = _attn_mask(q.shape[2], window, q.device)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    return _flex_call(q, k, v, window, softcap)
+
+
+def api_phase(dev, errs) -> dict:
+    """The kernel-API path at full width, forward and backward, with the
+    launch counters zeroed just before and read just after; then each
+    output and gradient against autograd through the plain version, and
+    each case timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    ref = kernels.ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for name, src, B, H, Hkv, S, hd, opts, lib in ATTN_CASES:
+        q, k, v = _attn_inputs(gen, dev, B, H, Hkv, S, hd, torch.bfloat16)
+        gout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        cases.append([name, (q, k, v), gout, opts])
+    _, T, V, scale = CE_CASE
+    logits, labels = _ce_inputs(gen, dev, T, V, torch.float32)
+    gce = torch.randn(T, generator=gen, device=dev)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    results = []
+    for name, ins, gout, opts in cases:
+        ins = [x.requires_grad_() for x in ins]
+        out = kernels.flash_attention(*ins, True, opts.get("window"),
+                                      opts.get("softcap"))
+        out.backward(gout)
+        results.append((out.detach(), [x.grad for x in ins]))
+    logits.requires_grad_()
+    ce_out = kernels.cross_entropy(logits, labels, scale)
+    ce_out.backward(gce)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=len(cases), cross_entropy=1)
+    check(counts == want, f"kernel-API path launched {counts}, expected "
+                          f"{want}")
+
+    # outputs and gradients against autograd through the plain versions
+    for (name, ins, gout, opts), (out, grads) in zip(cases, results):
+        plain_in = [x.detach().requires_grad_() for x in ins]
+        plain = ref.attention_ref(*plain_in, window=opts.get("window"),
+                                  softcap=opts.get("softcap"))
+        plain.backward(gout)
+        err, ok = max_violation(out, plain.detach(), atol=ATTN_ATOL,
+                                rtol=0.0, bf16_atol=ATTN_ATOL)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        check(ok, f"K6 [{name}] output disagrees with its plain version: "
+                  f"max abs err {err:.3e}")
+        gerr = 0.0
+        for g, pg in zip(grads, (x.grad for x in plain_in)):
+            e, ok = max_violation(g, pg, bf16_atol=ATTN_ATOL)
+            gerr = max(gerr, e)
+            check(ok, f"[{name}] gradient through kernels.flash_attention "
+                      f"disagrees with autograd through the plain version: "
+                      f"max abs err {e:.3e}")
+        print(f"api path: {name}: output max abs err {err:.3e}, gradients "
+              f"{gerr:.3e}", flush=True)
+        del plain, plain_in
+        torch.cuda.empty_cache()
+    plain_in = logits.detach().requires_grad_()
+    plain = ref.cross_entropy_ref(plain_in, labels) * scale
+    plain.backward(gce)
+    err, ok = max_violation(ce_out.detach(), plain.detach(), atol=CE_ATOL,
+                            rtol=0.0)
+    errs["cross_entropy"] = max(errs["cross_entropy"], err)
+    check(ok, f"K5 [{CE_CASE[0]}] output disagrees with its plain version: "
+              f"max abs err {err:.3e}")
+    gerr, ok = max_violation(logits.grad, plain_in.grad, atol=CE_GRAD_ATOL,
+                             rtol=0.0)
+    check(ok, f"gradient through kernels.cross_entropy disagrees with "
+              f"autograd through the plain version: max abs err {gerr:.3e}")
+    print(f"api path: {CE_CASE[0]}: output max abs err {err:.3e}, gradient "
+          f"{gerr:.3e}; launches {counts}", flush=True)
+    del plain, plain_in, results
+    logits.grad = None
+    torch.cuda.empty_cache()
+
+    # timings: kernel, plain version, library call
+    fa, ce = kernels.flash_attention_kernels, kernels.cross_entropy_kernels
+    records = {"flash_attention": [], "cross_entropy": []}
+    for (name, src, B, H, Hkv, S, hd, opts, lib), (_, ins, _, _) in zip(
+            ATTN_CASES, cases):
+        q, k, v = (x.detach() for x in ins)
+        w, cap = opts.get("window"), opts.get("softcap")
+        ms = event_ms(lambda: fa.flash_attention(q, k, v, window=w,
+                                                 softcap=cap), 5)
+        plain_ms = event_ms(lambda: ref.attention_ref(q, k, v, window=w,
+                                                      softcap=cap), 5)
+        lib_fn = _library_call(lib, q, k, v, w, cap)
+        t0 = time.perf_counter()
+        lib_out = lib_fn()  # flex_attention compiles at its first call
+        lib_first_s = time.perf_counter() - t0
+        lib_err, ok = max_violation(lib_out, ref.attention_ref(
+            q, k, v, window=w, softcap=cap), atol=LIB_BF16_ATOL, rtol=0.0,
+            bf16_atol=LIB_BF16_ATOL)
+        check(ok, f"[{name}] the library call {LIBRARY_CALLS[lib]} does not "
+                  f"compute the plain version's function: max abs err "
+                  f"{lib_err:.3e}")
+        del lib_out
+        lib_ms = event_ms(lib_fn, 5)
+        lib_fn = None
+        pairs = kept_pairs(S, True, w)
+        flops = 4 * hd * pairs * B * H
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        op_ms = flops / BF16_FLOPS_PER_S * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        records["flash_attention"].append({
+            "case": name, "widths_from": src,
+            "shape": {"B": B, "H": H, "Hkv": Hkv, "S": S, "hd": hd},
+            "options": {"causal": True, **opts}, "dtype": "bfloat16",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": LIBRARY_CALLS[lib], "library_max_abs_err": lib_err,
+            "library_first_call_s": lib_first_s,
+            "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "fp32_bound_ms": flops / FP32_FLOPS_PER_S * 1e3,
+            "flops": flops, "bytes": nbytes, "kept_pairs": pairs})
+        torch.cuda.empty_cache()
+    x = logits.detach()
+    ms = event_ms(lambda: ce.cross_entropy(x, labels, scale=scale), 10)
+    plain_ms = event_ms(lambda: ref.cross_entropy_ref(x, labels) * scale, 10)
+    lib_ms = event_ms(lambda: F.cross_entropy(x, labels, reduction="none"),
+                      10)
+    nbytes = x.numel() * 4 + labels.numel() * labels.element_size() + T * 4
+    op_ms = x.numel() * CE_OPS_PER_ELEM / FP32_FLOPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    records["cross_entropy"].append({
+        "case": CE_CASE[0], "shape": {"T": T, "V": V}, "dtype": "float32",
+        "scale": scale, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library": "F.cross_entropy(reduction='none'), unscaled",
+        "bound_ms": max(op_ms, byte_ms),
+        "bound_by": "operations" if op_ms > byte_ms else "bytes",
+        "bytes": nbytes})
+    for rec in records["flash_attention"] + records["cross_entropy"]:
+        print(f"api timing: {rec['case']}: kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
+              f"({rec['library']}), bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})", flush=True)
+    del cases, logits, labels, x
+    torch.cuda.empty_cache()
+    return {"counts": counts, "records": records}
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(ROOT, "build", "inductor"))
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this script "
                            "drives the port on a GPU and has no CPU mode")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    from repro_torch import kernels
-
     card = card_line()
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -435,15 +787,17 @@ def run() -> dict:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
     dev = torch.device("cuda", 0)
-    errs = {k: 0.0 for k in KERNELS}
+    errs = {k: 0.0 for k in list(KERNELS) + list(API_KERNELS)}
 
     kernel_phase(dev, errs)
+    edge_phase(dev, errs)
     cross_check_phase(dev)
     main = main_path_phase(dev)
     n = main["bucket_size"]
     times = full_size_phase(dev, n, errs)
+    api = api_phase(dev, errs)
     # launches of the comparisons above do not count: the counts are the
-    # main path's, read right after it
+    # main path's and the kernel-API path's, each read right after it
     records = []
     for name, (src, replaces, bytes_per, flops_per) in KERNELS.items():
         ms, plain_ms, lib_ms = times[name]
@@ -456,6 +810,17 @@ def run() -> dict:
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": lib_ms, "n": n})
+    for name, (route, src, replaces) in API_KERNELS.items():
+        # the top-level numbers are the first case's (qwen2-1.5b, the
+        # main path's model); "cases" holds every full-width case
+        cases = api["records"][name]
+        records.append({
+            "name": name, "route": route, "source": src,
+            "replaces": replaces, "launches": api["counts"][name],
+            "max_abs_err": errs[name],
+            **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "cases": cases})
     print(json.dumps({"kernels": records}), flush=True)
     print(f"card: {card_line()}", flush=True)
     return {"ok": True, "device": {"platform": "gpu",
@@ -467,7 +832,7 @@ def main() -> int:
     try:
         result = run()
     except (SmokeFailure, ImportError, subprocess.SubprocessError,
-            OSError) as e:
+            OSError, RuntimeError, ValueError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr, flush=True)
         return 1

@@ -24,17 +24,26 @@ def _weighted_mean(per_sample: torch.Tensor, sample_weight, exact_denom):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  token_weight: Optional[torch.Tensor] = None,
                   sample_weight: Optional[torch.Tensor] = None,
                   exact_denom=None) -> torch.Tensor:
     """LM / classification CE. logits: (..., V); labels: int (...).
 
-    Per-sample loss = mean over tokens; batch loss = mean over samples."""
+    Per-sample loss = mean over tokens (with ``token_weight``, the
+    weighted mean, its denominator clamped at 1 so an all-zero row gives
+    0); batch loss = mean over samples."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     if nll.dim() > 1:  # sequence models: mean over tokens per sample
-        per_sample = torch.mean(nll, dim=tuple(range(1, nll.dim())))
+        dims = tuple(range(1, nll.dim()))
+        if token_weight is not None:
+            per_sample = (torch.sum(nll * token_weight, dim=dims)
+                          / torch.clamp(torch.sum(token_weight, dim=dims),
+                                        min=1))
+        else:
+            per_sample = torch.mean(nll, dim=dims)
     else:
         per_sample = nll
     return _weighted_mean(per_sample, sample_weight, exact_denom)

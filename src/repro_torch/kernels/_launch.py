@@ -1,22 +1,24 @@
-"""What the 1-D streaming kernels share: argument checks, the launch
-heuristic, the launch counters and the fp32 scalar operand.
+"""What the kernels share: argument checks, the launch heuristic of the
+1-D streaming kernels, the launch-geometry hooks, the launch counters and
+the fp32 scalar operand.
 
-The kernels here are bound by HBM bytes (a few flops per element against
-12–28 bytes moved), so a launch only has to keep enough 16-byte loads in
-flight to saturate the memory system. The TPU package sized its blocks to
-VMEM; on Hopper a block is a tile of registers, so the heuristic keeps
-blocks small and lets the grid supply the parallelism.
+The 1-D kernels (K1–K4) are bound by HBM bytes (a few flops per element
+against 12–28 bytes moved), so a launch only has to keep enough 16-byte
+loads in flight to saturate the memory system. The TPU package sized its
+blocks to VMEM; on Hopper a block is a tile of registers, so the
+heuristic keeps blocks small and lets the grid supply the parallelism.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
 # Launch counters, one per kernel: a wrapper adds one where it launches
 # its kernel and nowhere else (the CPU plain path does not count).
 LAUNCHES: Dict[str, int] = {"grad_accum": 0, "fused_sgd_mom": 0,
-                            "fused_sgd": 0, "fused_adam": 0}
+                            "fused_sgd": 0, "fused_adam": 0,
+                            "cross_entropy": 0, "flash_attention": 0}
 
 SMALL_N = 1 << 20  # below this, smaller blocks spread a buffer over more SMs
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
@@ -37,7 +39,76 @@ def launch_config(n: int) -> Tuple[int, int]:
     still spans every SM), 4096 over 8 warps above it — 16 elements a
     thread, four 16-byte fp32 vectors, with ceil(n / 4096) blocks in the
     grid. Any block gives identical values; this choice changes speed only."""
-    return (1024, 4) if n < SMALL_N else (4096, 8)
+    block = 1024 if n < SMALL_N else 4096
+    return block, num_warps(block)
+
+
+def num_warps(block: int) -> int:
+    """Warps for a 1-D block: 4 up to 2048 elements, 8 from 4096 on."""
+    return 8 if block >= 4096 else 4
+
+
+# Tuning-cache hook, the counterpart of the reference's (installed by a
+# tuner; the kernels stay dependency-free). The resolver maps
+# (kind, dtype_str, n, interpret) to a measured-best block, or None to
+# keep the default. The key is the reference's: ``dtype_str`` is
+# "float32" or "bfloat16", and ``interpret`` is True for the plain CPU
+# path, which the reference's interpret mode stands for. The port needs a
+# tuning cache of its own all the same: the keys are the reference's, the
+# values must be measured on the card. The reference's TPU values (VMEM
+# sizes such as 128-row flash tiles or 256-row cross-entropy blocks) are
+# refused by K6, which has instances for fewer tiles, or oversize K5.
+_BLOCK_RESOLVER: Optional[Callable[[str, str, int, bool], Optional[int]]] = None
+
+
+def set_block_resolver(fn: Optional[Callable]) -> None:
+    """Install (or clear, with None) the tuned-block lookup that a kernel
+    wrapper consults when it is called without a block."""
+    global _BLOCK_RESOLVER
+    _BLOCK_RESOLVER = fn
+
+
+def check_block(what: str, block) -> int:
+    """Triton takes a block only as a power of two: anything else is
+    refused, never rounded."""
+    if not isinstance(block, int) or block < 1 or block & (block - 1):
+        raise ValueError(f"{what}: block {block!r} is not a power of two")
+    return block
+
+
+def lookup_tuned_block(kind: str, dtype, n: int,
+                       interpret: Optional[bool] = None) -> Optional[int]:
+    """The resolver's block for this (kind, dtype, size), clamped to
+    [1, n] with n rounded up to a power of two (a Triton block masks its
+    ragged edge, and must be a power of two; for n a power of two this is
+    the reference's clamp) — or None when no resolver is installed or it
+    has no entry. A block that is not a power of two is refused."""
+    if _BLOCK_RESOLVER is None:
+        return None
+    if interpret is None:
+        interpret = not torch.cuda.is_available()
+    tuned = _BLOCK_RESOLVER(kind, str(dtype).removeprefix("torch."), int(n),
+                            bool(interpret))
+    if not tuned:
+        return None
+    return min(check_block(f"resolver block for {kind!r}", tuned),
+               1 << max(int(n) - 1, 0).bit_length())
+
+
+def resolve_block(kind: str, dtype, n: int,
+                  interpret: Optional[bool] = None) -> int:
+    """Block for an ``n``-element 1-D stream: the resolver's when it has
+    one, else :func:`launch_config`'s."""
+    return (lookup_tuned_block(kind, dtype, n, interpret)
+            or launch_config(n)[0])
+
+
+def stream_geometry(kind: str, dtype, n: int) -> Tuple[int, int]:
+    """(BLOCK, num_warps) that a 1-D kernel launches with on the card:
+    :func:`resolve_block`'s block. With no resolver installed this is
+    :func:`launch_config`."""
+    block = resolve_block(kind, dtype, n, interpret=False)
+    return block, num_warps(block)
 
 
 def check_buffers(name: str, bufs: Iterable[torch.Tensor]) -> torch.device:

@@ -12,7 +12,7 @@ counterpart of the Pallas kernels' ``input_output_aliases`` plus donation.
 
 All three are bound by bytes: per fp32 element K2 moves 20 bytes (read
 p, g, m; write p, m), K3 12 and K4 28, against 5–15 flops. The design is
-one masked, vectorised pass over a 1-D grid (``_launch.launch_config``).
+one masked, vectorised pass over a 1-D grid (``_launch.stream_geometry``).
 The traced scalars (learning rate, global-norm clip scale, Adam bias
 corrections) arrive through one small fp32 device tensor, the Pallas
 ``s_ref``; the static hyperparameters (momentum, weight decay, nesterov,
@@ -33,7 +33,7 @@ import functools
 import torch
 
 from . import ref
-from ._launch import LAUNCHES, check_buffers, launch_config, scalars
+from ._launch import LAUNCHES, check_buffers, scalars, stream_geometry
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,7 +157,7 @@ def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
         return params, mom
     triton, sgd_mom, sgd, _ = _kernels()
     n = params.numel()
-    block, warps = launch_config(n)
+    block, warps = stream_geometry("fused_update", params.dtype, n)
     grid = (triton.cdiv(n, block),)
     wd = ref.weak(weight_decay, torch.float32)
     with torch.cuda.device(dev):
@@ -195,7 +195,7 @@ def fused_adam(params, grads, m, v, lr, bias_corr1, bias_corr2,
         return params, m, v
     triton, _, _, adam = _kernels()
     n = params.numel()
-    block, warps = launch_config(n)
+    block, warps = stream_geometry("fused_update", params.dtype, n)
     with torch.cuda.device(dev):
         adam[(triton.cdiv(n, block),)](
             params, grads, m, v, s, n,

@@ -8,7 +8,7 @@ Replaces ``repro/kernels/grad_accum.py::_accum_kernel`` (the Pallas
 kernel, ``input_output_aliases={1: 0}``). Bound by bytes: 12 bytes an
 element for fp32 operands (read acc, read grad, write acc) against two
 flops, so the design is one masked, vectorised pass over a 1-D grid
-(``_launch.launch_config``) that keeps every load 16 bytes wide. The
+(``_launch.stream_geometry``) that keeps every load 16 bytes wide. The
 scale arrives as a 1-element fp32 device tensor, the counterpart of the
 Pallas ``scale_ref``: no host sync per micro-batch. The ragged tail is
 masked in the kernel; nothing is padded. Floating-point contraction is
@@ -24,7 +24,7 @@ import torch
 
 from .. import tree
 from . import ref
-from ._launch import LAUNCHES, check_buffers, launch_config, scalars
+from ._launch import LAUNCHES, check_buffers, scalars, stream_geometry
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,7 +49,7 @@ def _launch(acc: torch.Tensor, grad: torch.Tensor, s: torch.Tensor) -> None:
     no GPU or no Triton."""
     triton, kern = _kernel()
     n = acc.numel()
-    block, warps = launch_config(n)
+    block, warps = stream_geometry("grad_accum", acc.dtype, n)
     with torch.cuda.device(acc.device):
         kern[(triton.cdiv(n, block),)](acc, grad, s, n, BLOCK=block,
                                        num_warps=warps,

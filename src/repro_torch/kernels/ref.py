@@ -53,11 +53,17 @@ def attention_ref(q, k, v, *, causal: bool = True,
 
 
 def cross_entropy_ref(logits, labels) -> torch.Tensor:
-    """logits: (T, V); labels: (T,) int. Returns per-token NLL (T,) fp32."""
+    """logits: (T, V); labels: (T,) int. Returns per-token NLL (T,) fp32.
+    A label outside [0, V) has no gold logit, so its row gives the
+    logsumexp, as the reference's kernel gives (its oracle leaves such a
+    label undefined)."""
     logits = logits.float()
+    V = logits.shape[-1]
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
-    return lse - gold
+    hit = (labels >= 0) & (labels < V)
+    gold = torch.gather(logits, -1,
+                        labels.long().clamp(0, max(V - 1, 0))[:, None])[:, 0]
+    return lse - torch.where(hit, gold, torch.zeros_like(gold))
 
 
 def grad_accum_ref(acc, grad, scale) -> torch.Tensor:

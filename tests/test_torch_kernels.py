@@ -7,8 +7,6 @@ the two frameworks round bf16 at slightly different places (XLA may keep
 excess precision inside a fusion). The kernels themselves are held
 against these plain versions on the card by ``chip_smoke.py``.
 """
-import importlib
-
 import numpy as np
 import pytest
 import torch
@@ -156,7 +154,7 @@ def test_fused_adam_matches_pallas(n, dtype, case):
 def test_cuda_path_raises_instead_of_falling_back():
     """Without a GPU or without Triton the kernel launch raises; the plain
     version is reachable only through a CPU tensor, and nothing counts."""
-    ga = importlib.import_module("repro_torch.kernels.grad_accum")
+    ga = kernels.grad_accum_kernels
     acc, g = torch.zeros(8), torch.ones(8)
     before = kernels.launch_counts()
     with pytest.raises((ImportError, RuntimeError, ValueError)):

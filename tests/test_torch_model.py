@@ -184,3 +184,29 @@ def test_accuracy_matches_reference():
     assert float(losses.accuracy(torch.from_numpy(logits),
                                  torch.from_numpy(labels))) == \
         float(jlosses.accuracy(jnp.asarray(logits), jnp.asarray(labels)))
+
+
+@pytest.mark.parametrize("sample_weight", [None, [1.0, 0.5, 0.0]])
+def test_token_weight_matches_reference(sample_weight):
+    """Per-sample weighted token mean with its denominator clamped at 1;
+    row 1's weights are all 0, so its per-sample loss is 0."""
+    from repro.core import losses as jlosses
+    from repro_torch.core import losses
+    rng = np.random.default_rng(6)
+    logits = rng.normal(size=(3, 5, 9)).astype(np.float32)
+    labels = rng.integers(0, 9, (3, 5)).astype(np.int32)
+    tw = rng.uniform(size=(3, 5)).astype(np.float32)
+    tw[1] = 0.0
+    tw[2, :2] = 0.0
+    jkw = {"token_weight": jnp.asarray(tw)}
+    tkw = {"token_weight": torch.from_numpy(tw)}
+    if sample_weight is not None:
+        sw = np.asarray(sample_weight, np.float32)
+        jkw["sample_weight"] = jnp.asarray(sw)
+        tkw["sample_weight"] = torch.from_numpy(sw)
+    want = jlosses.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                 **jkw)
+    got = losses.cross_entropy(torch.from_numpy(logits),
+                               torch.from_numpy(labels), **tkw)
+    assert np.isfinite(float(got))
+    _assert_close(float(got), want, f"token_weight [{sample_weight}]")
