@@ -23,27 +23,37 @@ Phases (any failure exits non-zero before the last line is printed):
      loss finite, the first near ln(vocab), K1 launched steps × N_Sμ ×
      buckets times and K2 steps × buckets times;
   5. each kernel at the main path's full bucket size: held against its
-     plain version once more, then timed with CUDA events beside its
-     bound, its plain version and the PyTorch call that computes the same
-     function, where there is one;
+     plain version once more, then timed with CUDA events (the calls
+     queued behind a sleep kernel, so the device's time is measured and
+     not the host's launch overhead) beside its bound, its plain version and the PyTorch call that computes the same
+     function, where there is one (K4's, ``torch._fused_adamw_``, first
+     checked against K4's plain version on copies of the same inputs,
+     within 1e-6 + 1e-5 (|old| + |new − old|): the same update with its
+     roundings in another order);
   6. kernels K5 (fused cross-entropy, Triton) and K6 (flash attention,
      CUDA C++ built by ``nvcc`` into ``build/cuda`` at its first use)
      against their plain versions at edge shapes in fp32 and bf16, labels
      outside [0, V) among them — the per-token NLL within 1e-4, attention
      within 2e-5 in fp32 and 1 ulp + 2e-5 in bf16 (sums are taken in
-     another order); ptxas's register and spill lines for every K6
-     instance, and the shared memory each asks for, from the library;
+     another order), each dtype through its own K6 kernel (bf16 the wgmma
+     kernel, fp32 the SIMT kernel, by the per-kernel launch counts);
+     ptxas's register and spill lines for every K6 instance (a spill or a
+     serialized wgmma in a bf16 instance fails the phase), the shared
+     memory each asks for, from the library, and the count of HGMMA
+     instructions in the library's SASS (``cuobjdump``);
   7. the kernel-API path (``repro_torch.kernels.flash_attention`` and
      ``.cross_entropy``, forward and backward) at full width: qwen2-1.5b
      attention and LM-head loss, a gemma2-9b layer (softcap 50, window
      4096) and a gemma3-12b local layer (window 1024), with the launch
      counters zeroed just before and read just after (one K6 launch per
-     attention forward, one K5 launch per loss forward, none in a
-     backward); outputs and gradients held against autograd through the
-     plain versions, then each case timed beside its bound, its plain
-     version and the PyTorch call that computes it (SDPA; for gemma2's
-     softcap, a compiled ``flex_attention``, checked against the plain
-     version within the reference tests' bf16 tolerance, 2e-2).
+     attention forward, all three by the wgmma kernel, one K5 launch per
+     loss forward, none in a backward); outputs and gradients held
+     against autograd through the plain versions, then each case timed
+     beside its bound, the bf16 design's own floor (the bound × 1.5: PV
+     runs twice), its plain version and the PyTorch call that computes it
+     (SDPA; for gemma2's softcap, a compiled ``flex_attention``, checked
+     against the plain version within the reference tests' bf16
+     tolerance, 2e-2).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -54,6 +64,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +72,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SLEEP_CYCLES = 50_000_000  # ~27 ms at 1.83 GHz: the host queues the calls
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 RAGGED_SIZES = [1, 1000, 4097, (1 << 20) + 3]
@@ -68,6 +80,12 @@ CHUNK = 1 << 27  # elements per slice when the plain version runs in slices
 MAIN_ARGV = ["--arch", "qwen2-1.5b", "--executor", "flat",
              "--dtype", "bfloat16", "--seq", "1024", "--mini-batch", "16",
              "--microbatches", "4", "--steps", "3", "--log-every", "1"]
+
+# torch._fused_adamw_ against K4's plain version: the same update, its
+# roundings in another order, so each new value within 1e-6 plus 1e-5 of
+# the magnitudes it sums, |old| + |new - old| (a large step onto a small
+# result cancels: on the card the two were 3.8e-6 apart at the bucket)
+ADAMW_ATOL, ADAMW_RTOL = 1e-6, 1e-5
 
 # per kernel: source, the Pallas kernel it replaces, bytes and flops moved
 # per fp32 element (each input read once, each output written once)
@@ -124,11 +142,15 @@ def max_violation(got, want, atol: float = 1e-6, rtol: float = 1e-6,
 
 
 def event_ms(fn, reps: int) -> float:
+    """Device time of one call: CUDA events around ``reps`` calls queued
+    behind a sleep kernel, so that a call shorter than the host's launch
+    overhead is timed on the device and not on the host."""
     import torch
     fn()  # warm-up (and first-use compile)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -422,6 +444,32 @@ def full_size_phase(dev, n: int, errs) -> dict:
     compare("fused_adam", lambda c: zip((p[c], m[c], v[c]), ref.fused_adam_ref(
         p0[c], g[c], m0[c], v0[c], lr4, bc1, bc2, clip, weight_decay=1e-2,
         decoupled=True)))
+    # the yardstick: torch's fused AdamW at step 1 (bias corrections 0.1
+    # and 0.001, K4's bc1 and bc2; clip 1) computes K4's decoupled update
+    step = torch.ones((), device=dev)
+
+    def adamw(p, g, m, v):
+        torch._fused_adamw_([p], [g], [m], [v], [], [step], lr=1e-3,
+                            beta1=0.9, beta2=0.999, weight_decay=1e-2,
+                            eps=1e-8, amsgrad=False, maximize=False)
+    adamw_err = 0.0
+    for lo in range(0, n, CHUNK):
+        c = slice(lo, min(lo + CHUNK, n))
+        got = [x[c].clone() for x in (p0, m0, v0)]
+        adamw(got[0], g[c], got[1], got[2])
+        for x0, a, b in zip((p0[c], m0[c], v0[c]), got, ref.fused_adam_ref(
+                p0[c], g[c], m0[c], v0[c], lr4, bc1, bc2, clip,
+                weight_decay=1e-2, decoupled=True)):
+            err = (a - b).abs()
+            lim = ADAMW_ATOL + ADAMW_RTOL * (x0.abs() + (b - x0).abs())
+            adamw_err = max(adamw_err, float(err.max()))
+            check(bool((err <= lim).all()),
+                  f"torch._fused_adamw_ does not compute K4's plain "
+                  f"version's update: max abs err {float(err.max()):.3e}")
+        del got
+    print(f"full size: torch._fused_adamw_ matches K4's plain version: max "
+          f"abs err {adamw_err:.3e} (within {ADAMW_ATOL} + {ADAMW_RTOL} "
+          f"(|old| + |new - old|))", flush=True)
     del p0, m0, v0
     res["fused_adam"] = (
         event_ms(lambda: kernels.fused_adam(p, g, m, v, lr4, bc1, bc2, clip,
@@ -430,7 +478,7 @@ def full_size_phase(dev, n: int, errs) -> dict:
         event_ms(lambda: _plain_in_slices(lambda c: ref.fused_adam_ref(
             p[c], g[c], m[c], v[c], lr4, bc1, bc2, clip, weight_decay=1e-2,
             decoupled=True), n), reps),
-        None)
+        event_ms(lambda: adamw(p, g, m, v), reps))
     del p, g, m, v
     torch.cuda.empty_cache()
     return res
@@ -452,6 +500,7 @@ API_KERNELS = {
 # agree within one ulp plus ATTN_ATOL (an output near 0 after cancelling
 # sums has an ulp far below the fp32 sums' rounding).
 ATTN_ATOL = 2e-5
+ATTN_REPS = 20  # launches a K6 case is timed over
 CE_ATOL = 1e-4  # per-token NLL: both sum in fp32
 CE_GRAD_ATOL = 1e-6
 CE_OPS_PER_ELEM = 5  # max, subtract, exp, add, gold compare
@@ -479,22 +528,99 @@ LIBRARY_CALLS = {
 CE_CASE = ("qwen2-1.5b LM head", 4096, 151936, 0.25)
 
 
-def build_k6() -> None:
-    """Builds K6's library (``nvcc``) at its first use and prints the build
-    time, ptxas's lines for each instance, and the dynamic shared memory
-    each head dim asks for, as the library computes it."""
+def _k6_instance(fn: str) -> str:
+    """'wgmma_bf16 hd 128 tile 128 x 128' and the like, from a mangled K6
+    kernel name."""
+    m = re.search(r"flash_fwd_wgmmaILi(\d+)ELi(\d+)E", fn)
+    if m:
+        return f"wgmma_bf16 hd {m.group(1)} tile 128 x {m.group(2)}"
+    m = re.search(r"flash_fwd_simtIfLi(\d+)E", fn)
+    return f"simt_fp32 hd {m.group(1)} tile 64 x 64" if m else fn
+
+
+def _sass_stats(so: str):
+    """By K6 instance, the HGMMA instructions in the library's SASS and the
+    highest register it names (above ptxas's launch count where setmaxnreg
+    gave the consumers more); None when no cuobjdump is found (the
+    toolkit's, beside nvcc, or Triton's)."""
+    from repro_torch.kernels import _cuda
+    tools = [os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if os.access(t, os.X_OK)), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    stats = {}
+    for fn in sass.split("Function : ")[1:]:
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", fn)]
+        stats[_k6_instance(fn.split()[0])] = {
+            "hgmma": fn.count("HGMMA"), "max_register": max(regs, default=0)}
+    return stats
+
+
+def build_k6() -> dict:
+    """Builds K6's library (``nvcc``) at its first use; prints the build
+    time, ptxas's lines for each instance, the dynamic shared memory each
+    head dim asks for (as the library computes it) and the HGMMA count of
+    the SASS. Fails on a spill or a serialized wgmma in a bf16 instance,
+    and on a bf16 instance without HGMMA."""
+    import torch
     from repro_torch.kernels import _cuda, flash_attention_kernels as fa
     t0 = time.perf_counter()
     _cuda.load("flash_attention")
     seconds = time.perf_counter() - t0
     print(f"build: K6 library in {seconds:.1f}s (nvcc, sm_90a)", flush=True)
+    report = {"build_s": seconds, "instances": {}}
+    cur = None
     for line in _cuda.build_log("flash_attention").splitlines():
-        if ("entry function" in line or "spill stores" in line
-                or "Used " in line):
-            print(f"build: ptxas: {line.strip()}", flush=True)
-    print("build: K6 dynamic shared memory a block (library's layout): "
-          + ", ".join(f"hd {hd} {fa.smem_bytes(hd)} B"
-                      for hd in fa.HEAD_DIMS), flush=True)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = _k6_instance(m.group(1))
+            report["instances"][cur] = {}
+        elif "serialized" in line:
+            fn = re.search(r"function '(\S+)'", line)
+            name = _k6_instance(fn.group(1)) if fn else cur
+            check(not name.startswith("wgmma"),
+                  f"K6 [{name}]: ptxas serialized its wgmma: {line.strip()}")
+        elif cur and "spill stores" in line:
+            st, ld = (int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+            report["instances"][cur].update(spill_stores=st, spill_loads=ld)
+            check(not (cur.startswith("wgmma") and (st or ld)),
+                  f"K6 [{cur}] spills: {line.strip()}")
+        elif cur and "Used " in line:
+            report["instances"][cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+        else:
+            continue
+        print(f"build: ptxas: {line.strip()}", flush=True)
+    for name, info in report["instances"].items():
+        print(f"build: K6 {name}: {info}", flush=True)
+    report["smem_bytes"] = {
+        f"{kind} hd {hd}": fa.smem_bytes(hd, dt)
+        for kind, dt in (("wgmma_bf16", torch.bfloat16),
+                         ("simt_fp32", torch.float32))
+        for hd in fa.HEAD_DIMS}
+    print(f"build: K6 dynamic shared memory a block (library's layout): "
+          f"{report['smem_bytes']}", flush=True)
+    sass = _sass_stats(_cuda._library_path("flash_attention"))
+    if sass is None:
+        print("build: K6 SASS HGMMA count: not available (no cuobjdump)",
+              flush=True)
+    else:
+        print(f"build: K6 SASS HGMMA count and highest register: {sass}",
+              flush=True)
+        for name, st in sass.items():
+            check(st["hgmma"] > 0 or not name.startswith("wgmma"),
+                  f"K6 [{name}] has no HGMMA instruction in its SASS")
+    report["sass"] = sass
+    return report
 
 
 def kept_pairs(S: int, causal: bool, window) -> int:
@@ -519,8 +645,9 @@ def _ce_inputs(gen, dev, T, V, dtype):
     return x, torch.randint(0, V, (T,), generator=gen, device=dev)
 
 
-def edge_phase(dev, errs) -> None:
-    """K5 and K6 against their plain versions at edge shapes."""
+def edge_phase(dev, errs) -> dict:
+    """K5 and K6 against their plain versions at edge shapes, each dtype
+    through its own K6 kernel. Returns K6's build report."""
     import torch
     from repro_torch import kernels
     ref, fa, ce = (kernels.ref, kernels.flash_attention_kernels,
@@ -557,10 +684,13 @@ def edge_phase(dev, errs) -> None:
             # windows 64 and 1024 with softcap 50 at hd 256
             (1, 4, 2, 1536, 256, {"window": 1024, "softcap": 50.0}),
             (1, 2, 1, 333, 256, {"window": 64, "softcap": 50.0}),
+            # S below one tile: boxes past S are zero-filled
+            (1, 2, 1, 1, 64, {}), (1, 2, 1, 20, 128, {}),
         ]
         if n_built is None:  # K6's first use builds its library
-            build_k6()
+            report = build_k6()
             n_built = n
+        before = kernels.variant_launch_counts()
         for B, H, Hkv, S, hd, kw in attn:
             q, k, v = _attn_inputs(gen, dev, B, H, Hkv, S, hd, dt)
             got = fa.flash_attention(q, k, v, **kw)
@@ -574,10 +704,18 @@ def edge_phase(dev, errs) -> None:
             check(ok, f"K6 [B{B} H{H}/{Hkv} S{S} hd{hd} {kw} {dt}] disagrees "
                       f"with its plain version: max abs err {err:.3e}")
             n += 1
+        took = {k: v - before[k]
+                for k, v in kernels.variant_launch_counts().items()}
+        want = {k: 0 for k in took}
+        want[fa.VARIANTS[dt]] = len(attn)
+        check(took == want, f"K6 at the {dt} edge shapes launched {took}, "
+                            f"expected {want}")
+        print(f"kernels: K6 {dt} edge shapes launched {took}", flush=True)
     torch.cuda.synchronize()
     print(f"kernels: K5 and K6 match their plain versions at {n} edge shapes "
           f"in fp32 and bf16 ({time.perf_counter() - t0:.1f}s incl. K5 "
           f"and K6 builds)", flush=True)
+    return report
 
 
 def _attn_mask(S, window, dev):
@@ -656,10 +794,14 @@ def api_phase(dev, errs) -> dict:
     ce_out.backward(gce)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    variants = kernels.variant_launch_counts()
     want = {k: 0 for k in counts}
     want.update(flash_attention=len(cases), cross_entropy=1)
     check(counts == want, f"kernel-API path launched {counts}, expected "
                           f"{want}")
+    want = {"wgmma_bf16": len(cases), "simt_fp32": 0}
+    check(variants == want, f"kernel-API path launched K6's kernels "
+                            f"{variants}, expected {want}")
 
     # outputs and gradients against autograd through the plain versions
     for (name, ins, gout, opts), (out, grads) in zip(cases, results):
@@ -696,7 +838,8 @@ def api_phase(dev, errs) -> dict:
     check(ok, f"gradient through kernels.cross_entropy disagrees with "
               f"autograd through the plain version: max abs err {gerr:.3e}")
     print(f"api path: {CE_CASE[0]}: output max abs err {err:.3e}, gradient "
-          f"{gerr:.3e}; launches {counts}", flush=True)
+          f"{gerr:.3e}; launches {counts}, K6 by kernel {variants}",
+          flush=True)
     del plain, plain_in, results
     logits.grad = None
     torch.cuda.empty_cache()
@@ -709,9 +852,10 @@ def api_phase(dev, errs) -> dict:
         q, k, v = (x.detach() for x in ins)
         w, cap = opts.get("window"), opts.get("softcap")
         ms = event_ms(lambda: fa.flash_attention(q, k, v, window=w,
-                                                 softcap=cap), 5)
+                                                 softcap=cap), ATTN_REPS)
         plain_ms = event_ms(lambda: ref.attention_ref(q, k, v, window=w,
-                                                      softcap=cap), 5)
+                                                      softcap=cap),
+                            ATTN_REPS)
         lib_fn = _library_call(lib, q, k, v, w, cap)
         t0 = time.perf_counter()
         lib_out = lib_fn()  # flex_attention compiles at its first call
@@ -723,7 +867,7 @@ def api_phase(dev, errs) -> dict:
                   f"compute the plain version's function: max abs err "
                   f"{lib_err:.3e}")
         del lib_out
-        lib_ms = event_ms(lib_fn, 5)
+        lib_ms = event_ms(lib_fn, ATTN_REPS)
         lib_fn = None
         pairs = kept_pairs(S, True, w)
         flops = 4 * hd * pairs * B * H
@@ -739,6 +883,8 @@ def api_phase(dev, errs) -> dict:
             "library_first_call_s": lib_first_s,
             "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            # the bf16 kernel's own floor: PV runs twice (P_hi, P_lo)
+            "design_floor_ms": 1.5 * max(op_ms, byte_ms),
             "fp32_bound_ms": flops / FP32_FLOPS_PER_S * 1e3,
             "flops": flops, "bytes": nbytes, "kept_pairs": pairs})
         torch.cuda.empty_cache()
@@ -764,7 +910,7 @@ def api_phase(dev, errs) -> dict:
               f"({rec['bound_by']})", flush=True)
     del cases, logits, labels, x
     torch.cuda.empty_cache()
-    return {"counts": counts, "records": records}
+    return {"counts": counts, "variants": variants, "records": records}
 
 
 def run() -> dict:
@@ -790,7 +936,7 @@ def run() -> dict:
     errs = {k: 0.0 for k in list(KERNELS) + list(API_KERNELS)}
 
     kernel_phase(dev, errs)
-    edge_phase(dev, errs)
+    k6_build = edge_phase(dev, errs)
     cross_check_phase(dev)
     main = main_path_phase(dev)
     n = main["bucket_size"]
@@ -821,6 +967,9 @@ def run() -> dict:
             **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
             "cases": cases})
+        if name == "flash_attention":
+            records[-1].update(variant_launches=api["variants"],
+                               build=k6_build)
     print(json.dumps({"kernels": records}), flush=True)
     print(f"card: {card_line()}", flush=True)
     return {"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,8 @@
   * ``set_block_resolver`` / ``lookup_tuned_block`` / ``resolve_block`` —
     the launch-geometry hooks a tuner installs into;
   * ``launch_counts`` / ``reset_launch_counts`` — the per-kernel launch
-    counters, which show that a run went through the kernels.
+    counters, which show that a run went through the kernels;
+    ``variant_launch_counts`` splits K6's by the kernel its dtype took.
 
 A wrapper launches its kernel for CUDA tensors and raises when it cannot
 (no GPU, no Triton, no ``nvcc``); for CPU tensors it runs the plain
@@ -29,7 +30,7 @@ from . import grad_accum as grad_accum_kernels  # noqa: F401
 from . import fused_update, ops, ref  # noqa: F401
 from ._launch import (launch_counts, lookup_tuned_block,  # noqa: F401
                       reset_launch_counts, resolve_block,
-                      set_block_resolver)
+                      set_block_resolver, variant_launch_counts)
 from .fused_update import fused_adam, fused_sgd  # noqa: F401
 from .grad_accum import (grad_accum, grad_accum_buckets,  # noqa: F401
                          grad_accum_tree)

@@ -19,18 +19,25 @@ import torch
 LAUNCHES: Dict[str, int] = {"grad_accum": 0, "fused_sgd_mom": 0,
                             "fused_sgd": 0, "fused_adam": 0,
                             "cross_entropy": 0, "flash_attention": 0}
+# K6's launches by kernel (it dispatches by dtype), beside its total above
+VARIANT_LAUNCHES: Dict[str, int] = {"wgmma_bf16": 0, "simt_fp32": 0}
 
 SMALL_N = 1 << 20  # below this, smaller blocks spread a buffer over more SMs
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def variant_launch_counts() -> Dict[str, int]:
+    return dict(VARIANT_LAUNCHES)
 
 
 def launch_config(n: int) -> Tuple[int, int]:
@@ -55,9 +62,10 @@ def num_warps(block: int) -> int:
 # "float32" or "bfloat16", and ``interpret`` is True for the plain CPU
 # path, which the reference's interpret mode stands for. The port needs a
 # tuning cache of its own all the same: the keys are the reference's, the
-# values must be measured on the card. The reference's TPU values (VMEM
-# sizes such as 128-row flash tiles or 256-row cross-entropy blocks) are
-# refused by K6, which has instances for fewer tiles, or oversize K5.
+# values must be measured on the card. The reference's TPU values are
+# VMEM sizes: K6 refuses a flash tile it has no instance for (128-row
+# tiles at fp32, whose instance is 64 × 64), and 256-row cross-entropy
+# blocks oversize K5.
 _BLOCK_RESOLVER: Optional[Callable[[str, str, int, bool], Optional[int]]] = None
 
 

@@ -4,20 +4,33 @@
 Replaces ``repro/kernels/flash_attention.py::_flash_kernel``: blockwise
 online-softmax attention whose (S, S) score matrix never exists, with
 causal and sliding-window masks (fully masked k-tiles skipped), tanh
-soft-capping and GQA. The kernel's design and what bounds it are noted in
-the source. The wrapper checks the operands, picks the tiles and launches
-on the current stream; a CPU tensor takes the plain version
+soft-capping and GQA. The wrapper checks the operands, picks the tiles and
+launches on the current stream; a CPU tensor takes the plain version
 (``ref.attention_ref``).
 
-The kernel has one tile, 64 × 64, instantiated for ``hd`` ∈ {32, 64,
-128, 256} — the head dims of every config of the reference, full and
-reduced. ``block_q``/``block_k`` are kept, as the reference's arguments
-and the tuner's keys, and take only the tiles in :data:`TILES`; another
-tile gets an instance once a tuner has measured that it pays. The kernel
-masks the ragged tail of S itself, so no copy is padded; the reference's
-contract is kept all the same: where S is not a multiple of the tiles
-(each clamped to S), only causal attention is accepted, as the
-reference's padded path asserts.
+The library holds two kernels, and the wrapper dispatches by dtype (not a
+fallback: each dtype has exactly one kernel, and a launch that fails
+raises):
+
+  * bf16 → ``wgmma_bf16``: QKᵀ and PV on the tensor cores (``wgmma``),
+    K/V tiles fed by TMA into a 2-stage ring, warp-specialised. P enters
+    PV as two bf16 terms, ``P_hi = bf16(P)`` and ``P_lo = bf16(P − P_hi)``,
+    into one fp32 accumulator, so the reference's fp32 P is kept to ~16
+    bits where one bf16 rounding would keep 8. Its operands must be
+    16-byte aligned (TMA), which the wrapper checks.
+  * fp32 → ``simt_fp32``: both products as fp32 FMAs on the CUDA cores
+    (``wgmma`` on fp32 operands is TF32, which would drop the reference's
+    fp32 products).
+
+The design and what bounds it are noted in the source. Each kernel has one
+tile per head dim, in :data:`TILES`: bf16 128 × 128 at hd ≤ 128 and
+128 × 64 at hd 256, fp32 64 × 64. ``block_q``/``block_k`` are kept, as the
+reference's arguments and the tuner's keys (``flash_q``/``flash_k``), and
+take only the instance's tile; another tile gets an instance once a tuner
+has measured that it pays. The kernels mask the ragged tail of S
+themselves, so no copy is padded; the reference's contract is kept all the
+same: where S is not a multiple of the tiles (each clamped to S), only
+causal attention is accepted, as the reference's padded path asserts.
 """
 from __future__ import annotations
 
@@ -29,12 +42,16 @@ from typing import Optional, Tuple
 import torch
 
 from . import _cuda, ref
-from ._launch import FLOAT_DTYPES, LAUNCHES, check_block, lookup_tuned_block
+from ._launch import (FLOAT_DTYPES, LAUNCHES, VARIANT_LAUNCHES, check_block,
+                      lookup_tuned_block)
 
 HEAD_DIMS = (32, 64, 128, 256)
-TILES = (64,)
-DEFAULT_BLOCK_Q = 64
-DEFAULT_BLOCK_K = 64
+# (block_q, block_k) of the one kernel instance for each (dtype, head dim)
+TILES = {**{(torch.float32, hd): (64, 64) for hd in HEAD_DIMS},
+         **{(torch.bfloat16, hd): (128, 64 if hd == 256 else 128)
+            for hd in HEAD_DIMS}}
+# the kernel each dtype launches, as counted in VARIANT_LAUNCHES
+VARIANTS = {torch.bfloat16: "wgmma_bf16", torch.float32: "simt_fp32"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,41 +67,72 @@ def _entry():
     return fn, lib.repro_cuda_error_string
 
 
-def smem_bytes(hd: int) -> int:
-    """The dynamic shared memory K6 asks for at head dim ``hd``, in bytes,
-    as the library computes it (builds the library at first use)."""
+def smem_bytes(hd: int, dtype) -> int:
+    """The dynamic shared memory K6 asks for at head dim ``hd`` for
+    ``dtype`` inputs, in bytes, as the library computes it (builds the
+    library at first use)."""
     fn = _cuda.load("flash_attention").repro_flash_attention_smem_bytes
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
-    return int(fn(hd))
+    return int(fn(hd, int(dtype == torch.bfloat16)))
+
+
+def tile(dtype, hd: Optional[int] = None) -> Tuple[int, int]:
+    """The instance's (block_q, block_k) for ``dtype`` at head dim ``hd``.
+    Without ``hd``, the dtype's tile where it is one for every head dim
+    (fp32's); bf16's depends on the head dim and needs it."""
+    if hd is not None:
+        if (dtype, hd) not in TILES:
+            raise ValueError(f"flash_attention: no kernel instance for "
+                             f"{dtype} at head dim {hd}")
+        return TILES[(dtype, hd)]
+    tiles = {t for (dt, _), t in TILES.items() if dt == dtype}
+    if len(tiles) != 1:
+        raise ValueError(f"flash_attention: the {dtype} tile depends on the "
+                         f"head dim; pass hd")
+    return tiles.pop()
 
 
 def launch_blocks(S: int, dtype, block_q: Optional[int] = None,
-                  block_k: Optional[int] = None,
-                  interpret: bool = False) -> Tuple[int, int]:
+                  block_k: Optional[int] = None, interpret: bool = False,
+                  hd: Optional[int] = None) -> Tuple[int, int]:
     """(block_q, block_k) for a sequence of ``S``: the arguments, else the
     tuning resolver's (kinds ``flash_q``/``flash_k``, the reference's),
-    else 64 × 64. Only the tiles the kernel has instances for are taken."""
+    else the instance's tile (:func:`tile`). Only that tile is taken."""
+    inst = tile(dtype, hd)
     if block_q is None:
-        block_q = _tuned("flash_q", dtype, S, interpret) or DEFAULT_BLOCK_Q
+        block_q = _tuned("flash_q", dtype, S, interpret, inst[0]) or inst[0]
     if block_k is None:
-        block_k = _tuned("flash_k", dtype, S, interpret) or DEFAULT_BLOCK_K
-    for what, blk in (("block_q", block_q), ("block_k", block_k)):
+        block_k = _tuned("flash_k", dtype, S, interpret, inst[1]) or inst[1]
+    for what, blk, want in (("block_q", block_q, inst[0]),
+                            ("block_k", block_k, inst[1])):
         check_block(f"flash_attention {what}", blk)
-        if blk not in TILES:
+        if blk != want:
             raise ValueError(f"flash_attention: no kernel instance for "
-                             f"{what} {blk}; the tiles are {TILES}")
+                             f"{what} {blk}; {dtype} at head dim {hd} has "
+                             f"the tile {inst}")
     return block_q, block_k
 
 
-def _tuned(kind: str, dtype, S: int, interpret: bool) -> Optional[int]:
+def _tuned(kind: str, dtype, S: int, interpret: bool,
+           inst: int) -> Optional[int]:
     """The resolver's tile, clamped to S. A tile that spans S is one tile
-    for the whole sequence, which the smallest instance that covers S
-    gives as well (the kernel masks rows and columns past S)."""
+    for the whole sequence, which the instance's tile gives as well when
+    it covers S (the kernel masks rows and columns past S)."""
     blk = lookup_tuned_block(kind, dtype, S, interpret)
-    if blk is not None and blk >= S:
-        blk = next((t for t in TILES if t >= S), blk)
+    if blk is not None and blk >= S and inst >= S:
+        blk = inst
     return blk
+
+
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """The bf16 kernel reads its operands through TMA, which needs each
+    base address 16-byte aligned: raise on one that is not."""
+    for x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 operands must be "
+                             f"16-byte aligned for TMA; one starts at "
+                             f"address {x.data_ptr():#x}")
 
 
 def _check(q, k, v) -> torch.device:
@@ -124,11 +172,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, Hkv, S, hd) → (B, H, S, hd) in q's
-    dtype. A CUDA tensor launches K6; a CPU one takes the plain version."""
+    dtype. A CUDA tensor launches K6 (bf16: the wgmma kernel, fp32: the
+    SIMT kernel); a CPU one takes the plain version."""
     dev = _check(q, k, v)
     B, H, S, hd = q.shape
     bq, bk = launch_blocks(S, q.dtype, block_q, block_k,
-                           interpret=dev.type == "cpu")
+                           interpret=dev.type == "cpu", hd=hd)
     if not causal and S and (S % min(bq, S) or S % min(bk, S)):
         raise ValueError(f"flash_attention: S={S} is not a multiple of the "
                          f"tiles ({bq}, {bk}); there, as in the reference, "
@@ -140,6 +189,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        check_aligned(q, k, v, out)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, k.shape[1], S, hd, int(q.dtype == torch.bfloat16),
@@ -151,4 +202,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention: the launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
     LAUNCHES["flash_attention"] += 1
+    VARIANT_LAUNCHES[VARIANTS[q.dtype]] += 1
     return out
