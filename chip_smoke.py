@@ -8,40 +8,52 @@ Phases (any failure exits non-zero before the last line is printed):
 
   1. the card's name and power limit (``nvidia-smi``); TF32 stated and
      switched off for fp32 matmuls and convolutions;
-  2. kernels K1–K4 (Triton, built from ``src/repro_torch/kernels`` at first
-     use, cached under ``build/triton``) against their plain PyTorch
-     versions at ragged sizes in every dtype combination — rtol 1e-6 /
-     atol 1e-6 in fp32 and 1 ulp in bf16 (the kernels launch with
-     floating-point contraction off and round where the plain versions
-     round, so this only allows for the last place);
-  3. one ``flat`` step against one ``compiled`` step at qwen2-1.5b width,
-     depth cut to 2 layers, bf16 compute, same seed: params and momentum
-     within the same tolerance;
-  4. the main path: ``repro_torch.launch.train`` for full qwen2-1.5b
-     (28 layers, d 1536, vocab 151936) through the ``flat`` executor, with
-     the launch counters zeroed just before and read just after: every
-     loss finite, the first near ln(vocab), K1 launched steps × N_Sμ ×
-     buckets times and K2 steps × buckets times;
-  5. each kernel at the main path's full bucket size: held against its
-     plain version once more, then timed with CUDA events (the calls
-     queued behind a sleep kernel, so the device's time is measured and
-     not the host's launch overhead) beside its bound, its plain version and the PyTorch call that computes the same
-     function, where there is one (K4's, ``torch._fused_adamw_``, first
-     checked against K4's plain version on copies of the same inputs,
-     within 1e-6 + 1e-5 (|old| + |new − old|): the same update with its
-     roundings in another order);
-  6. kernels K5 (fused cross-entropy, Triton) and K6 (flash attention,
-     CUDA C++ built by ``nvcc`` into ``build/cuda`` at its first use)
+  2. the CUDA C++ kernels built from ``src/repro_torch/kernels/csrc`` by
+     ``nvcc`` into ``build/cuda``, one process per source, all started
+     together: K1 (``grad_accum.cu``) and K6 (``flash_attention.cu``);
+     ptxas's register and spill lines for every instance (a spill in K1,
+     or a spill or a serialized wgmma in a bf16 K6 instance, fails the
+     phase), the shared memory each K6 instance asks for, from the
+     library, and the count of HGMMA instructions in K6's SASS
+     (``cuobjdump``);
+  3. kernels K1 (CUDA C++) and K2–K4 (Triton, built at first use, cached
+     under ``build/triton``) against their plain PyTorch versions at
+     ragged sizes in every dtype combination — rtol 1e-6 / atol 1e-6 in
+     fp32 and 1 ulp in bf16 (the kernels round where the plain versions
+     round, so this only allows for the last place), K1 bit for bit; and
+     K1 over lists of (accumulator, gradient) pairs — views at unaligned
+     offsets, bf16 gradients and accumulators, an empty leaf, more pairs
+     than one launch takes — bit for bit, one launch per group;
+  4. kernels K5 (fused cross-entropy, Triton) and K6 (flash attention)
      against their plain versions at edge shapes in fp32 and bf16, labels
      outside [0, V) among them — the per-token NLL within 1e-4, attention
      within 2e-5 in fp32 and 1 ulp + 2e-5 in bf16 (sums are taken in
      another order), each dtype through its own K6 kernel (bf16 the wgmma
      kernel, fp32 the SIMT kernel, by the per-kernel launch counts);
-     ptxas's register and spill lines for every K6 instance (a spill or a
-     serialized wgmma in a bf16 instance fails the phase), the shared
-     memory each asks for, from the library, and the count of HGMMA
-     instructions in the library's SASS (``cuobjdump``);
-  7. the kernel-API path (``repro_torch.kernels.flash_attention`` and
+  5. one ``flat`` and one ``fused`` step against one ``compiled`` step at
+     qwen2-1.5b width, depth cut to 2 layers, bf16 compute, same seed:
+     params and momentum within the same tolerance, K1 launched once a
+     micro-batch by each of the two;
+  6. the main path: ``repro_torch.launch.train`` for full qwen2-1.5b
+     (28 layers, d 1536, vocab 151936) through the ``flat`` executor, with
+     the launch counters zeroed just before and read just after: every
+     loss finite, the first near ln(vocab), K1 launched steps × N_Sμ ×
+     buckets times and K2 steps × buckets times;
+  7. each of K1–K4 at the main path's full bucket size: held against its
+     plain version once more, then timed with CUDA events (the calls
+     queued behind a sleep kernel, so the device's time is measured and
+     not the host's launch overhead) beside its bound, its plain version
+     and the PyTorch call that computes the same function, where there is
+     one (K4's, ``torch._fused_adamw_``, first checked against K4's plain
+     version on copies of the same inputs, within 1e-6 + 1e-5 (|old| +
+     |new − old|): the same update with its roundings in another order);
+  8. K1 at the main path's gradient leaves (one tensor a leaf, one fp32
+     bucket), bit for bit, timed beside its bound, its plain version,
+     ``torch._foreach_add_`` over the same pairs and ``add_`` on a flat
+     pair; step ❹ as the copy-then-add design ran it (``FlatSpec.flatten``
+     and K1 on the flat pair) against ``accumulate_flat``, and the bytes
+     each allocates above its inputs;
+  9. the kernel-API path (``repro_torch.kernels.flash_attention`` and
      ``.cross_entropy``, forward and backward) at full width: qwen2-1.5b
      attention and LM-head loss, a gemma2-9b layer (softcap 50, window
      4096) and a gemma3-12b local layer (window 1024), with the launch
@@ -87,18 +99,20 @@ MAIN_ARGV = ["--arch", "qwen2-1.5b", "--executor", "flat",
 # result cancels: on the card the two were 3.8e-6 apart at the bucket)
 ADAMW_ATOL, ADAMW_RTOL = 1e-6, 1e-5
 
-# per kernel: source, the Pallas kernel it replaces, bytes and flops moved
-# per fp32 element (each input read once, each output written once)
+# per kernel: route, source, the Pallas kernel it replaces, bytes and flops
+# moved per fp32 element (each input read once, each output written once)
 KERNELS = {
-    "grad_accum": ("src/repro_torch/kernels/grad_accum.py",
+    "grad_accum": ("cuda", "src/repro_torch/kernels/csrc/grad_accum.cu",
                    "src/repro/kernels/grad_accum.py:110", 12, 2),
-    "fused_sgd_mom": ("src/repro_torch/kernels/fused_update.py",
+    "fused_sgd_mom": ("triton", "src/repro_torch/kernels/fused_update.py",
                       "src/repro/kernels/fused_update.py:53", 20, 7),
-    "fused_sgd": ("src/repro_torch/kernels/fused_update.py",
+    "fused_sgd": ("triton", "src/repro_torch/kernels/fused_update.py",
                   "src/repro/kernels/fused_update.py:67", 12, 5),
-    "fused_adam": ("src/repro_torch/kernels/fused_update.py",
+    "fused_adam": ("triton", "src/repro_torch/kernels/fused_update.py",
                    "src/repro/kernels/fused_update.py:121", 28, 17),
 }
+# the port's CUDA C++ sources (kernels/csrc/<name>.cu), built side by side
+CUDA_LIBRARIES = ("grad_accum", "flash_attention")
 
 
 class SmokeFailure(RuntimeError):
@@ -157,6 +171,16 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns_ms(fns: dict, reps: int) -> dict:
+    """:func:`event_ms` of each of ``fns`` (name → callable), taken in
+    turns A B … B A, so that a drift of the card's clock or memory during
+    the phase falls on all alike; name → [first turn, second turn]."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        times[name].append(event_ms(fns[name], reps))
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +253,76 @@ def _kernel_cases(n, dev, gen):
     return cases
 
 
+def _k1_list_cases(dev, gen):
+    """K1's lists of pairs: (label, accumulator dtype, accumulator offsets
+    into one buffer, sizes, gradient dtype, gradient offsets into one
+    buffer or None for separate gradient tensors)."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    odd = [1, 8192 + 3, 2 * 8192 + 5]  # 4, 12 and 20 bytes past 16 in fp32
+    aligned = [0, 8192, 2 * 8192]
+    ragged = [1000, 4097, 8000]
+    many = torch.randint(1, 5001, (300,), generator=gen,
+                         device=dev).tolist()
+    packed = [sum(many[:i]) for i in range(len(many))]  # a bucket's slots
+    cases = []
+    for gdt in (f32, bf16):
+        cases += [
+            (f"acc views at offsets 1, 3, 5, grad {gdt}", f32, odd, ragged,
+             gdt, None),
+            (f"grad {gdt} views at offsets 1, 3, 5", f32, aligned, ragged,
+             gdt, odd),
+            (f"acc bf16, grad {gdt}", bf16, aligned, ragged, gdt, None),
+            (f"acc bf16 views at offsets 1, 3, 5, grad {gdt}", bf16, odd,
+             ragged, gdt, None),
+            (f"an empty leaf, grad {gdt}", f32, [0, 4096, 4096],
+             [4096, 0, (1 << 20) + 3], gdt, None),
+            (f"{len(many)} leaves of 1-5000 elements packed as a bucket, "
+             f"grad {gdt}", f32, packed, many, gdt, None),
+        ]
+    return cases
+
+
+def k1_list_phase(dev, errs) -> int:
+    """K1 over lists of pairs (unaligned views, bf16, an empty leaf, more
+    pairs than a launch takes), each bit-identical to the plain version
+    pair by pair, the rest of the buffer untouched, and one launch per
+    group. Returns the number of cases."""
+    import torch
+    from repro_torch import kernels
+    ga, ref = kernels.grad_accum_kernels, kernels.ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    s = torch.full((1,), 1.0 / 3.0, device=dev)
+    cases = _k1_list_cases(dev, gen)
+    for label, adt, aoffs, sizes, gdt, goffs in cases:
+        abuf = torch.randn(max(o + n for o, n in zip(aoffs, sizes)) + 3,
+                           generator=gen, device=dev).to(adt)
+        accs = [abuf[o:o + n] for o, n in zip(aoffs, sizes)]
+        if goffs is None:
+            grads = [torch.randn(n, generator=gen, device=dev).to(gdt)
+                     for n in sizes]
+        else:
+            gbuf = torch.randn(max(o + n for o, n in zip(goffs, sizes)),
+                               generator=gen, device=dev).to(gdt)
+            grads = [gbuf[o:o + n] for o, n in zip(goffs, sizes)]
+        want = abuf.clone()
+        for o, n, g in zip(aoffs, sizes, grads):
+            want[o:o + n] = ref.grad_accum_ref(want[o:o + n], g, s)
+        before = kernels.launch_counts()["grad_accum"]
+        ga.grad_accum_many(accs, grads, s)
+        torch.cuda.synchronize()  # a fault shows here, where it happened
+        took = kernels.launch_counts()["grad_accum"] - before
+        groups = len(ga.launch_groups(list(zip(accs, grads))))
+        err, _ = max_violation(abuf, want)
+        errs["grad_accum"] = max(errs["grad_accum"], err)
+        check(torch.equal(abuf, want),
+              f"K1 [{label}] is not bit-identical to its plain version: max "
+              f"abs err {err:.3e}")
+        check(took == groups, f"K1 [{label}] took {took} launches, expected "
+                              f"{groups}")
+    return len(cases)
+
+
 def kernel_phase(dev, errs) -> None:
     import torch
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -240,19 +334,25 @@ def kernel_phase(dev, errs) -> None:
                 errs[name] = max(errs[name], err)
                 check(ok, f"{name} [{label}, n={n}] disagrees with its "
                           f"plain version: max abs err {err:.3e}")
+                if name == "grad_accum":
+                    check(torch.equal(got, want),
+                          f"K1 [{label}, n={n}] is not bit-identical to its "
+                          f"plain version")
+    n_lists = k1_list_phase(dev, errs)
     torch.cuda.synchronize()
     print(f"kernels: K1-K4 match their plain versions at n={RAGGED_SIZES} "
-          f"in fp32 and bf16 ({time.perf_counter() - t0:.1f}s incl. build)",
+          f"in fp32 and bf16, K1 bit for bit, and in {n_lists} lists of "
+          f"pairs ({time.perf_counter() - t0:.1f}s incl. Triton builds)",
           flush=True)
 
 
 # ---------------------------------------------------------------------------
-# cross-check: flat against compiled at full width, 2 layers
+# cross-check: flat and fused against compiled at full width, 2 layers
 # ---------------------------------------------------------------------------
 
 def cross_check_phase(dev) -> None:
     import torch
-    from repro_torch import configs, engine, optim, tree
+    from repro_torch import configs, engine, kernels, optim, tree
     from repro_torch.data import LMDataset
     from repro_torch.launch import steps
     from repro_torch.models import transformer
@@ -265,30 +365,39 @@ def cross_check_phase(dev) -> None:
                                  remat_policy="none")
     batch = LMDataset(cfg.vocab_size, seq, seed=0).batch(mini, 0)
     outs = {}
-    for name in ("compiled", "flat"):
+    for name in ("compiled", "flat", "fused"):
         opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
         ex = engine.get_executor(name)(loss_fn, opt, plan)
         params = transformer.init_params(cfg, seed=0, device=dev)
         state = opt.init(params)
         if name == "flat":
             params, state = ex.prepare(params, state)
+        before = kernels.launch_counts()["grad_accum"]
         params, state, m = ex.step_split(params, state,
                                          plan.device_split(batch, dev))
+        # fused: one K1 launch per micro-batch and gradient dtype (all
+        # fp32 here); flat: one per micro-batch and bucket (one here)
+        k1 = kernels.launch_counts()["grad_accum"] - before
+        want = 0 if name == "compiled" else plan.num_micro_batches
+        check(k1 == want, f"{name}: K1 launched {k1} times in one step, "
+                          f"expected {want}")
         outs[name] = (params, state["mom"], float(m["loss"]))
         del params, state
-    (cp, cm, closs), (fp, fm, floss) = outs["compiled"], outs["flat"]
-    worst = 0.0
-    for what, a, b in (("params", fp, cp), ("momentum", fm, cm)):
-        for x, y in zip(tree.leaves(a), tree.leaves(b)):
-            err, ok = max_violation(x, y)
-            worst = max(worst, err)
-            check(ok, f"flat vs compiled {what} disagree: max abs err "
-                      f"{err:.3e} (rtol 1e-6, atol 1e-6)")
-    check(math.isfinite(closs) and abs(closs - floss) <= 1e-5 * abs(closs),
-          f"flat loss {floss} vs compiled loss {closs}")
-    print(f"cross-check: flat == compiled after one step at qwen2-1.5b width, "
-          f"2 layers, bf16 (loss {floss:.6f}, max abs err {worst:.3e})",
-          flush=True)
+    cp, cm, closs = outs.pop("compiled")
+    check(math.isfinite(closs), f"compiled loss {closs}")
+    for name, (fp, fm, floss) in outs.items():
+        worst = 0.0
+        for what, a, b in (("params", fp, cp), ("momentum", fm, cm)):
+            for x, y in zip(tree.leaves(a), tree.leaves(b)):
+                err, ok = max_violation(x, y)
+                worst = max(worst, err)
+                check(ok, f"{name} vs compiled {what} disagree: max abs err "
+                          f"{err:.3e} (rtol 1e-6, atol 1e-6)")
+        check(abs(closs - floss) <= 1e-5 * abs(closs),
+              f"{name} loss {floss} vs compiled loss {closs}")
+        print(f"cross-check: {name} == compiled after one step at qwen2-1.5b "
+              f"width, 2 layers, bf16 (loss {floss:.6f}, max abs err "
+              f"{worst:.3e})", flush=True)
     del outs, cp, cm, fp, fm
     torch.cuda.empty_cache()
 
@@ -304,12 +413,15 @@ def main_path_phase(dev) -> dict:
     from repro_torch.engine import FlatSpec
     from repro_torch.launch import train
 
+    copied = kernels.grad_accum_kernels.COPIED_BYTES
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
+    copied["grad_accum"] = 0
     t0 = time.perf_counter()
     res = train.main(MAIN_ARGV)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    grad_copy_bytes = copied["grad_accum"]
     peak = torch.cuda.max_memory_allocated(dev)
 
     plan, cfg, hist = res["plan"], res["config"], res["history"]
@@ -345,12 +457,16 @@ def main_path_phase(dev) -> dict:
     print(f"main path: peak allocated {peak} B "
           f"({peak / 2 ** 30:.2f} GiB) vs memory-model estimate {est} B "
           f"({est / 2 ** 30:.2f} GiB); buckets {spec.bucket_sizes} "
-          f"{[str(d) for d in spec.bucket_dtypes]}; launches {counts}",
-          flush=True)
-    sizes = spec.bucket_sizes
-    del res, spec
+          f"{[str(d) for d in spec.bucket_dtypes]}; launches {counts}; "
+          f"gradient bytes K1's wrapper copied to make leaves contiguous "
+          f"{grad_copy_bytes}", flush=True)
+    check(n_b == 1, f"the main path has {n_b} buckets; the full-size phase "
+                    f"measures one")
+    del res
     torch.cuda.empty_cache()
-    return {"counts": counts, "bucket_size": max(sizes)}
+    return {"counts": counts, "bucket_size": spec.bucket_sizes[0],
+            "spec": spec, "grad_copy_bytes": grad_copy_bytes,
+            "peak_bytes": peak, "steady_step_s": step_s}
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +512,8 @@ def full_size_phase(dev, n: int, errs) -> dict:
     compare("grad_accum", lambda c: [
         (acc[c], ref.grad_accum_ref(acc0[c], g[c], s))])
     del acc0
-    res["grad_accum"] = (
+    # K1 on one flat pair, the layout of the copy-then-add step ❹
+    res["grad_accum_flat"] = (
         event_ms(lambda: kernels.grad_accum(acc, g, s), reps),
         event_ms(lambda: _plain_in_slices(
             lambda c: ref.grad_accum_ref(acc[c], g[c], s), n), reps),
@@ -484,6 +601,91 @@ def full_size_phase(dev, n: int, errs) -> dict:
     return res
 
 
+def _peak_above(dev, fn) -> int:
+    """Bytes ``fn()`` allocated above what was allocated before it, at its
+    peak (its result dropped)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def k1_leaves_phase(dev, spec, errs) -> dict:
+    """K1 at the main path's gradient leaves (``spec``'s slots at full
+    width, each gradient a tensor of its own, one fp32 bucket): bit-identical
+    to the plain version leaf by leaf, then timed beside its bound, the
+    plain version, ``torch._foreach_add_`` over the same pairs and
+    ``add_`` on a flat pair; step ❹ as the copy-then-add design ran it
+    (``FlatSpec.flatten``, then K1 on the flat pair) against
+    ``exec_core.accumulate_flat``; and the bytes each allocates above its
+    inputs."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.engine import exec_core
+    ref = kernels.ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    reps = 10
+    n = spec.bucket_sizes[0]
+    acc = torch.randn(n, generator=gen, device=dev)
+    accs = [acc[sl.offset:sl.offset + sl.size] for sl in spec.slots]
+    grads = [torch.randn(sl.shape, generator=gen, device=dev)
+             for sl in spec.slots]
+    s = torch.full((1,), 0.25, device=dev)
+    acc0 = acc.clone()
+    kernels.grad_accum_many(accs, grads, s)
+    worst = 0.0
+    for sl, a, g in zip(spec.slots, accs, grads):
+        want = ref.grad_accum_ref(acc0[sl.offset:sl.offset + sl.size],
+                                  g.view(-1), s)
+        err, _ = max_violation(a, want)
+        worst = max(worst, err)
+        check(torch.equal(a, want), f"K1 at the leaf {sl.shape} is not "
+                                    f"bit-identical to its plain version: "
+                                    f"max abs err {err:.3e}")
+        del want
+    errs["grad_accum"] = max(errs["grad_accum"], worst)
+    del acc0
+    gt = tree.unflatten(spec.treedef, grads)
+    gviews = [g.view(-1) for g in grads]
+    gflat = torch.randn(n, generator=gen, device=dev)
+    out = {"leaves": len(grads), "max_abs_err": worst}
+    # each time the mean of two turns (A B … B A), both kept in "turns"
+    out["turns"] = turns_ms({
+        "ms": lambda: kernels.grad_accum_many(accs, grads, s),
+        "foreach_add_ms": lambda: torch._foreach_add_(accs, gviews,
+                                                      alpha=0.25),
+        "add_flat_ms": lambda: acc.add_(gflat, alpha=0.25),
+        "copy_then_add_ms": lambda: kernels.grad_accum_buckets(
+            (acc,), spec.flatten(gt, dtype=acc.dtype), 0.25),
+        "accumulate_flat_ms": lambda: exec_core.accumulate_flat(
+            (acc,), spec, gt, scale=0.25)}, reps)
+    out.update({k: sum(v) / len(v) for k, v in out["turns"].items()})
+    out["plain_ms"] = event_ms(lambda: [
+        ref.grad_accum_ref(a, g, s) for a, g in zip(accs, gviews)], reps)
+    out["flatten_bytes"] = _peak_above(
+        dev, lambda: spec.flatten(gt, dtype=acc.dtype))
+    out["accumulate_flat_bytes"] = _peak_above(
+        dev, lambda: exec_core.accumulate_flat((acc,), spec, gt, scale=0.25))
+    print(f"full size: K1 at the main path's {len(grads)} gradient leaves "
+          f"({n} fp32 elements) bit-identical to its plain version; kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"torch._foreach_add_ {out['foreach_add_ms']:.4f} ms, add_ on a "
+          f"flat pair {out['add_flat_ms']:.4f} ms, bound "
+          f"{n * 12 / HBM_BYTES_PER_S * 1e3:.4f} ms (12 B an element); "
+          f"each the mean of two turns {out['turns']}", flush=True)
+    print(f"full size: step 4 a micro-batch: FlatSpec.flatten then K1 on the "
+          f"flat pair {out['copy_then_add_ms']:.4f} ms, accumulate_flat "
+          f"{out['accumulate_flat_ms']:.4f} ms; allocated above the inputs: "
+          f"FlatSpec.flatten {out['flatten_bytes']} B, accumulate_flat "
+          f"{out['accumulate_flat_bytes']} B", flush=True)
+    del acc, accs, grads, gt, gviews, gflat
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K5 and K6: build, edge shapes, the kernel-API path at full width
 # ---------------------------------------------------------------------------
@@ -564,44 +766,94 @@ def _sass_stats(so: str):
     return stats
 
 
-def build_k6() -> dict:
-    """Builds K6's library (``nvcc``) at its first use; prints the build
-    time, ptxas's lines for each instance, the dynamic shared memory each
-    head dim asks for (as the library computes it) and the HGMMA count of
-    the SASS. Fails on a spill or a serialized wgmma in a bf16 instance,
-    and on a bf16 instance without HGMMA."""
-    import torch
-    from repro_torch.kernels import _cuda, flash_attention_kernels as fa
+def build_phase() -> dict:
+    """Builds the port's CUDA C++ libraries, one ``nvcc`` for each source,
+    all started together; returns the seconds each build took."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _cuda
+
+    def build(name):
+        t0 = time.perf_counter()
+        _cuda.load(name)
+        return time.perf_counter() - t0
     t0 = time.perf_counter()
-    _cuda.load("flash_attention")
-    seconds = time.perf_counter() - t0
-    print(f"build: K6 library in {seconds:.1f}s (nvcc, sm_90a)", flush=True)
-    report = {"build_s": seconds, "instances": {}}
-    cur = None
-    for line in _cuda.build_log("flash_attention").splitlines():
+    with ThreadPoolExecutor(len(CUDA_LIBRARIES)) as pool:
+        seconds = dict(zip(CUDA_LIBRARIES, pool.map(build, CUDA_LIBRARIES)))
+    print(f"build: {', '.join(f'{k} {v:.1f}s' for k, v in seconds.items())} "
+          f"(nvcc, sm_90a, in parallel; {time.perf_counter() - t0:.1f}s in "
+          f"all)", flush=True)
+    return seconds
+
+
+def _k1_instance(fn: str) -> str:
+    """'acc fp32 grad bf16' and the like, from a mangled K1 kernel name
+    (a repeated type is a substitution, so anything but 'f' is bf16)."""
+    m = re.search(r"grad_accum_kernelI(.*?)EEv", fn)
+    if not m:
+        return fn
+    args = m.group(1)
+    return (f"acc {'fp32' if args.startswith('f') else 'bf16'} grad "
+            f"{'fp32' if args.endswith('f') else 'bf16'}")
+
+
+def ptxas_report(kernel: str, lib: str, label, strict) -> dict:
+    """ptxas's register and spill lines for each instance of the library
+    built from ``csrc/<lib>.cu``, printed, by instance (``label`` names an
+    instance from its mangled name); fails on a spill or a serialized
+    wgmma in an instance that ``strict`` holds to that."""
+    from repro_torch.kernels import _cuda
+    instances, cur = {}, None
+    for line in _cuda.build_log(lib).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = _k6_instance(m.group(1))
-            report["instances"][cur] = {}
+            cur = label(m.group(1))
+            instances[cur] = {}
         elif "serialized" in line:
             fn = re.search(r"function '(\S+)'", line)
-            name = _k6_instance(fn.group(1)) if fn else cur
-            check(not name.startswith("wgmma"),
-                  f"K6 [{name}]: ptxas serialized its wgmma: {line.strip()}")
+            name = label(fn.group(1)) if fn else cur
+            check(not strict(name), f"{kernel} [{name}]: ptxas serialized "
+                                    f"its wgmma: {line.strip()}")
         elif cur and "spill stores" in line:
             st, ld = (int(x) for x in re.findall(
                 r"(\d+) bytes spill (?:stores|loads)", line))
-            report["instances"][cur].update(spill_stores=st, spill_loads=ld)
-            check(not (cur.startswith("wgmma") and (st or ld)),
-                  f"K6 [{cur}] spills: {line.strip()}")
+            instances[cur].update(spill_stores=st, spill_loads=ld)
+            check(not (strict(cur) and (st or ld)),
+                  f"{kernel} [{cur}] spills: {line.strip()}")
         elif cur and "Used " in line:
-            report["instances"][cur]["registers"] = int(
+            instances[cur]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
         else:
             continue
         print(f"build: ptxas: {line.strip()}", flush=True)
-    for name, info in report["instances"].items():
-        print(f"build: K6 {name}: {info}", flush=True)
+    for name, info in instances.items():
+        print(f"build: {kernel} {name}: {info}", flush=True)
+    return instances
+
+
+def build_k1(seconds: float) -> dict:
+    """K1's build report: ptxas's register and spill line for each
+    instance (accumulator × gradient dtype); fails on a spill, or on an
+    instance missing from the report."""
+    report = {"build_s": seconds, "instances": ptxas_report(
+        "K1", "grad_accum", _k1_instance, lambda name: True)}
+    check(len(report["instances"]) == 4 and all(
+        "registers" in v and "spill_stores" in v
+        for v in report["instances"].values()),
+        f"K1's ptxas report lacks an instance's registers or spills: "
+        f"{report['instances']}")
+    return report
+
+
+def build_k6(seconds: float) -> dict:
+    """K6's build report: ptxas's lines for each instance, the dynamic
+    shared memory each head dim asks for (as the library computes it) and
+    the HGMMA count of the SASS. Fails on a spill or a serialized wgmma in
+    a bf16 instance, and on a bf16 instance without HGMMA."""
+    import torch
+    from repro_torch.kernels import _cuda, flash_attention_kernels as fa
+    report = {"build_s": seconds, "instances": ptxas_report(
+        "K6", "flash_attention", _k6_instance,
+        lambda name: name.startswith("wgmma"))}
     report["smem_bytes"] = {
         f"{kind} hd {hd}": fa.smem_bytes(hd, dt)
         for kind, dt in (("wgmma_bf16", torch.bfloat16),
@@ -645,16 +897,16 @@ def _ce_inputs(gen, dev, T, V, dtype):
     return x, torch.randint(0, V, (T,), generator=gen, device=dev)
 
 
-def edge_phase(dev, errs) -> dict:
+def edge_phase(dev, errs) -> None:
     """K5 and K6 against their plain versions at edge shapes, each dtype
-    through its own K6 kernel. Returns K6's build report."""
+    through its own K6 kernel."""
     import torch
     from repro_torch import kernels
     ref, fa, ce = (kernels.ref, kernels.flash_attention_kernels,
                    kernels.cross_entropy_kernels)
     gen = torch.Generator(device=dev).manual_seed(2)
     t0 = time.perf_counter()
-    n, n_built = 0, None
+    n = 0
     for dt in (torch.float32, torch.bfloat16):
         for T, V, outside in ((1, 1, False), (37, 777, False),
                               (4099, 151936, False), (37, 777, True)):
@@ -687,9 +939,6 @@ def edge_phase(dev, errs) -> dict:
             # S below one tile: boxes past S are zero-filled
             (1, 2, 1, 1, 64, {}), (1, 2, 1, 20, 128, {}),
         ]
-        if n_built is None:  # K6's first use builds its library
-            report = build_k6()
-            n_built = n
         before = kernels.variant_launch_counts()
         for B, H, Hkv, S, hd, kw in attn:
             q, k, v = _attn_inputs(gen, dev, B, H, Hkv, S, hd, dt)
@@ -713,9 +962,8 @@ def edge_phase(dev, errs) -> dict:
         print(f"kernels: K6 {dt} edge shapes launched {took}", flush=True)
     torch.cuda.synchronize()
     print(f"kernels: K5 and K6 match their plain versions at {n} edge shapes "
-          f"in fp32 and bf16 ({time.perf_counter() - t0:.1f}s incl. K5 "
-          f"and K6 builds)", flush=True)
-    return report
+          f"in fp32 and bf16 ({time.perf_counter() - t0:.1f}s incl. K5's "
+          f"build)", flush=True)
 
 
 def _attn_mask(S, window, dev):
@@ -935,27 +1183,48 @@ def run() -> dict:
     dev = torch.device("cuda", 0)
     errs = {k: 0.0 for k in list(KERNELS) + list(API_KERNELS)}
 
+    build_s = build_phase()
+    k1_build = build_k1(build_s["grad_accum"])
+    k6_build = build_k6(build_s["flash_attention"])
     kernel_phase(dev, errs)
-    k6_build = edge_phase(dev, errs)
+    edge_phase(dev, errs)
     cross_check_phase(dev)
     main = main_path_phase(dev)
     n = main["bucket_size"]
     times = full_size_phase(dev, n, errs)
+    k1 = k1_leaves_phase(dev, main["spec"], errs)
+    # K1 on the main path adds the gradient leaves: its line is the
+    # leaves' time, with the library call over the same pairs
+    times["grad_accum"] = (k1["ms"], k1["plain_ms"], k1["foreach_add_ms"])
     api = api_phase(dev, errs)
     # launches of the comparisons above do not count: the counts are the
     # main path's and the kernel-API path's, each read right after it
     records = []
-    for name, (src, replaces, bytes_per, flops_per) in KERNELS.items():
+    for name, (route, src, replaces, bytes_per, flops_per) in \
+            KERNELS.items():
         ms, plain_ms, lib_ms = times[name]
         byte_ms = n * bytes_per / HBM_BYTES_PER_S * 1e3
         op_ms = n * flops_per / FP32_FLOPS_PER_S * 1e3
         records.append({
-            "name": name, "route": "triton", "source": src,
+            "name": name, "route": route, "source": src,
             "replaces": replaces, "launches": main["counts"][name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": lib_ms, "n": n})
+        if name == "grad_accum":
+            flat_ms, flat_plain_ms, _ = times["grad_accum_flat"]
+            records[-1].update(
+                library="torch._foreach_add_ over the same pairs",
+                leaves=k1["leaves"], add_flat_ms=k1["add_flat_ms"],
+                flat_pair_ms=flat_ms, flat_pair_plain_ms=flat_plain_ms,
+                step4_copy_then_add_ms=k1["copy_then_add_ms"],
+                step4_accumulate_flat_ms=k1["accumulate_flat_ms"],
+                turns_ms=k1["turns"],
+                flatten_bytes=k1["flatten_bytes"],
+                accumulate_flat_bytes=k1["accumulate_flat_bytes"],
+                main_path_grad_copy_bytes=main["grad_copy_bytes"],
+                build=k1_build)
     for name, (route, src, replaces) in API_KERNELS.items():
         # the top-level numbers are the first case's (qwen2-1.5b, the
         # main path's model); "cases" holds every full-width case

@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from .. import tree
-from ..kernels import (fused_adam, fused_sgd, grad_accum_buckets,
+from ..kernels import (fused_adam, fused_sgd, grad_accum_many,
                        grad_accum_tree)
 from .flat import FlatSpec
 
@@ -88,8 +88,9 @@ def value_and_grad(lfn: Callable, params) -> Tuple[torch.Tensor, Any, Any]:
 def accumulate(acc, grads, *, scale=None, fused: bool = False):
     """acc ← acc + [scale ·] grads, in the accumulator's dtype.
 
-    ``fused=True`` routes through kernel K1 leaf by leaf (in place on the
-    fp32 accumulator; the scaled gradient is never materialized)."""
+    ``fused=True`` routes the leaves through kernel K1, one launch per
+    gradient dtype (in place on the fp32 accumulator; the scaled gradient
+    is never materialized)."""
     if fused:
         return grad_accum_tree(acc, grads, 1.0 if scale is None else scale)
     if scale is None:
@@ -105,12 +106,17 @@ def apply_update(optimizer, grads, opt_state, params):
 
 
 def accumulate_flat(acc_buffers, spec: FlatSpec, grads, *, scale=None):
-    """Bucketed step ❹: route a micro-batch's gradient tree into the flat
-    layout (one transient copy of the gradient, as ``FlatSpec.flatten``)
-    and add it with one K1 launch per dtype bucket."""
-    gbufs = spec.flatten(grads, dtype=acc_buffers[0].dtype)
-    return grad_accum_buckets(acc_buffers, gbufs,
-                              1.0 if scale is None else scale)
+    """Bucketed step ❹: K1 adds each gradient leaf, where autograd left
+    it, into its slice of the flat accumulator (a view at the leaf's slot)
+    — one launch per dtype bucket, no copy of the gradient. The cast to
+    the accumulator's dtype happens in the kernel."""
+    s = 1.0 if scale is None else scale
+    acc_views = [acc_buffers[sl.bucket][sl.offset:sl.offset + sl.size]
+                 for sl in spec.slots]
+    for accs, gs in zip(spec.by_bucket(acc_views),
+                        spec.by_bucket(tree.leaves(grads))):
+        grad_accum_many(accs, gs, s)
+    return acc_buffers
 
 
 def apply_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,

@@ -7,8 +7,8 @@ only the strategy differs. The names are the JAX package's:
     micro-batch axis with the normalization folded into the loss and a
     plain fp32 add (PyTorch runs eagerly; there is no scan to compile);
   * :class:`FusedAccumExecutor` (``fused``) — accumulation through kernel
-    K1 leaf by leaf, the 1/N_Sμ scale fused into the accumulate (paper
-    Fig. 2 step ❹ + eq. 14);
+    K1 over the tree's leaves, the 1/N_Sμ scale fused into the accumulate
+    (paper Fig. 2 step ❹ + eq. 14);
   * :class:`FlatFusedExecutor` (``flat``) — params, optimizer state and
     the fp32 accumulator live as one flat buffer per dtype bucket
     (``engine/flat.py``); step ❹ is one K1 launch per bucket and step ❺
@@ -93,7 +93,8 @@ class CompiledScanExecutor(_ExecutorBase):
 
 
 class FusedAccumExecutor(_ExecutorBase):
-    """Eager loop with kernel K1's fused scaled accumulate, per leaf."""
+    """Eager loop with kernel K1's fused scaled accumulate over the tree's
+    leaves (one launch per gradient dtype)."""
     name = "fused"
     fused = True
 
@@ -103,11 +104,11 @@ class FlatFusedExecutor(_ExecutorBase):
 
     Params and optimizer state are view trees of flat dtype-bucket buffers
     (:meth:`prepare` makes them so; :meth:`step_split` keeps them so): the
-    model reads the views, K1 accumulates each micro-batch's gradient into
-    the fp32 flat accumulator (normalization deferred into the kernel),
-    and K2/K3/K4 write params and state in place — no ``updates`` tree and
-    no fresh optimizer-state trees. Routing a micro-batch's per-leaf
-    gradients into the flat layout costs one transient gradient copy."""
+    model reads the views, K1 adds each micro-batch's gradient leaves,
+    where autograd left them, into their slices of the fp32 flat
+    accumulator (normalization deferred into the kernel; one launch per
+    bucket, no copy of the gradient), and K2/K3/K4 write params and state
+    in place — no ``updates`` tree and no fresh optimizer-state trees."""
     name = "flat"
     fused = True
 

@@ -76,7 +76,9 @@ class FlatSpec:
         return tuple(torch.zeros((n,), dtype=dtype, device=device)
                      for n in self.bucket_sizes)
 
-    def _bucket_leaves(self, leaves):
+    def by_bucket(self, leaves) -> list:
+        """A list of leaves in tree order → one list per bucket, each in
+        slot order."""
         if len(leaves) != len(self.slots):
             raise ValueError(f"tree has {len(leaves)} leaves, spec expects "
                              f"{len(self.slots)}")
@@ -92,7 +94,7 @@ class FlatSpec:
         leaves = tree.leaves(t)
         return tuple(torch.cat([x.reshape(-1) if dtype is None
                                 else x.reshape(-1).to(dtype) for x in part])
-                     for part in self._bucket_leaves(leaves))
+                     for part in self.by_bucket(leaves))
 
     def unflatten(self, buffers: Sequence[torch.Tensor], *,
                   cast: bool = True):

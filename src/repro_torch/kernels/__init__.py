@@ -1,9 +1,10 @@
 """Hopper kernels of the port — the public API, as the reference's
 (``repro/kernels/__init__.py``):
 
-  * ``grad_accum`` / ``grad_accum_tree`` / ``grad_accum_buckets`` — kernel
-    K1, the fused scaled accumulate (paper step ❹), in place on the fp32
-    accumulator;
+  * ``grad_accum`` / ``grad_accum_many`` / ``grad_accum_tree`` /
+    ``grad_accum_buckets`` — kernel K1 (CUDA C++), the fused scaled
+    accumulate (paper step ❹), in place on the fp32 accumulator, over a
+    list of (accumulator, gradient) pairs in one launch;
   * ``fused_sgd`` (K2 with momentum, K3 without) and ``fused_adam`` (K4) —
     the in-place fused optimizer updates (paper step ❺);
   * ``flash_attention`` — differentiable attention, forward by K6 (CUDA
@@ -22,7 +23,9 @@
 
 A wrapper launches its kernel for CUDA tensors and raises when it cannot
 (no GPU, no Triton, no ``nvcc``); for CPU tensors it runs the plain
-version. Triton is imported, and a kernel compiled, at its first launch.
+version. Triton is imported, and a Triton kernel (K2–K5) compiled, at its
+first launch; a CUDA C++ kernel (K1, K6) is built by ``nvcc`` at its first
+launch (``_cuda``).
 """
 from . import cross_entropy as cross_entropy_kernels  # noqa: F401
 from . import flash_attention as flash_attention_kernels  # noqa: F401
@@ -33,7 +36,7 @@ from ._launch import (launch_counts, lookup_tuned_block,  # noqa: F401
                       set_block_resolver, variant_launch_counts)
 from .fused_update import fused_adam, fused_sgd  # noqa: F401
 from .grad_accum import (grad_accum, grad_accum_buckets,  # noqa: F401
-                         grad_accum_tree)
+                         grad_accum_many, grad_accum_tree)
 from .ops import flash_attention, fused_cross_entropy  # noqa: F401
 
 cross_entropy = fused_cross_entropy

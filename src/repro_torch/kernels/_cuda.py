@@ -3,7 +3,8 @@
 Each source has a plain ``extern "C"`` entry point and includes none of
 PyTorch's headers. At first use it is compiled by ``nvcc`` for ``sm_90a``
 into a shared library under ``build/cuda/`` of the checkout, named by a
-hash of the sources and the flags (so a stale library is never loaded),
+hash of its source, the shared headers and the flags (so a stale library
+is never loaded, and editing one kernel rebuilds no other),
 and loaded with ``ctypes``; the caller passes ``data_ptr()``s and the
 current stream as ``c_void_p``. ``nvcc`` is looked up on ``PATH``, then
 under PyTorch's ``CUDA_HOME``; without it the build raises. No fast-math:
@@ -43,8 +44,13 @@ def find_nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
+    """The library's path, named by a hash of the flags, of
+    ``csrc/<name>.cu`` and of the shared headers (``csrc/*.cuh``), so that
+    editing one kernel's source rebuilds that kernel alone."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(os.listdir(CSRC)):
+    srcs = [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                   if f.endswith(".cuh"))
+    for f in srcs:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")

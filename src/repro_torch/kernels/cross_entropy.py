@@ -16,7 +16,8 @@ masked columns are -1e30 (not -inf, so ``m_prev - m_cur`` never becomes
 the ragged vocab tail (151,936 = 74 × 2048 + 384) and row tail are masked
 in the kernel. A label outside [0, V) hits no column, so its row gives
 ``lse · scale``, as the Pallas kernel does. Launches turn floating-point
-contraction off, as K1–K4 do.
+contraction off, as K2–K4 do (K1 rounds its product and sum apart by
+intrinsics).
 """
 from __future__ import annotations
 
