@@ -30,16 +30,40 @@ Phases (any failure exits non-zero before the last line is printed):
      within 2e-5 in fp32 and 1 ulp + 2e-5 in bf16 (sums are taken in
      another order), each dtype through its own K6 kernel (bf16 the wgmma
      kernel, fp32 the SIMT kernel, by the per-kernel launch counts);
-  5. one ``flat`` and one ``fused`` step against one ``compiled`` step at
-     qwen2-1.5b width, depth cut to 2 layers, bf16 compute, same seed:
-     params and momentum within the same tolerance, K1 launched once a
-     micro-batch by each of the two;
+  5. one ``flat``, one ``fused`` and one ``streaming`` step against one
+     ``compiled`` step at qwen2-1.5b width, depth cut to 2 layers, bf16
+     compute, same seed: params and momentum within the same tolerance,
+     K1 launched once a micro-batch by ``flat`` and ``fused`` (``compiled``
+     and ``streaming`` add with a plain add); then ``streaming.step`` on
+     the host mini-batch against ``streaming.step_split`` on the staged
+     split, bit for bit;
   6. the main path: ``repro_torch.launch.train`` for full qwen2-1.5b
-     (28 layers, d 1536, vocab 151936) through the ``flat`` executor, with
-     the launch counters zeroed just before and read just after: every
-     loss finite, the first near ln(vocab), K1 launched steps × N_Sμ ×
-     buckets times and K2 steps × buckets times;
-  7. each of K1–K4 at the main path's full bucket size: held against its
+     (28 layers, d 1536, vocab 151936) through the ``flat`` executor, the
+     async ``Pipeline`` and the ``Trainer``, with the launch counters
+     zeroed just before and read just after: every loss finite, the first
+     near ln(vocab), K1 launched steps × N_Sμ × buckets times and K2
+     steps × buckets times; the steady step is the mean gap between
+     consecutive metric readbacks but the last (the Trainer reads step i
+     back after step i+1 is queued; the last readback follows no
+     dispatch and times only the card's tail behind the host), beside
+     the Pipeline's input-wait fraction;
+  7. the same launcher with ``--executor streaming`` at full depth (the
+     counters zeroed and read around it), its peak beside the main
+     path's and the memory model's; then a ``torch.profiler`` trace of
+     one ``StreamingExecutor.step`` on a host mini-batch: its pinned
+     host-to-device copies must run on a stream other than the compute
+     kernels'; with the copies by kind and stream, the kernels' summed
+     time beside the step's, the kernels and CUDA runtime calls that take
+     the most time (the trace is written under ``build/`` and removed);
+  8. save/resume through the launcher at full width, 2 layers, ``flat``,
+     checkpoints under ``build/ckpt`` (removed after): 4 steps
+     uninterrupted twice, then 2 steps with ``--ckpt-every 2`` and
+     ``--resume`` to step 4 — params, momentum and losses bit-identical
+     to the uninterrupted run's when the two uninterrupted runs are, else
+     within their own difference; the checkpoint's bytes and the save and
+     restore seconds; the port's checkpoint restored into a plain (not
+     flat) template with every CRC checked;
+  9. each of K1–K4 at the main path's full bucket size: held against its
      plain version once more, then timed with CUDA events (the calls
      queued behind a sleep kernel, so the device's time is measured and
      not the host's launch overhead) beside its bound, its plain version
@@ -47,13 +71,13 @@ Phases (any failure exits non-zero before the last line is printed):
      one (K4's, ``torch._fused_adamw_``, first checked against K4's plain
      version on copies of the same inputs, within 1e-6 + 1e-5 (|old| +
      |new − old|): the same update with its roundings in another order);
-  8. K1 at the main path's gradient leaves (one tensor a leaf, one fp32
+  10. K1 at the main path's gradient leaves (one tensor a leaf, one fp32
      bucket), bit for bit, timed beside its bound, its plain version,
      ``torch._foreach_add_`` over the same pairs and ``add_`` on a flat
      pair; step ❹ as the copy-then-add design ran it (``FlatSpec.flatten``
      and K1 on the flat pair) against ``accumulate_flat``, and the bytes
      each allocates above its inputs;
-  9. the kernel-API path (``repro_torch.kernels.flash_attention`` and
+  11. the kernel-API path (``repro_torch.kernels.flash_attention`` and
      ``.cross_entropy``, forward and backward) at full width: qwen2-1.5b
      attention and LM-head loss, a gemma2-9b layer (softcap 50, window
      4096) and a gemma3-12b local layer (window 1024), with the launch
@@ -67,7 +91,8 @@ Phases (any failure exits non-zero before the last line is printed):
      against the plain version within the reference tests' bf16
      tolerance, 2e-2).
 
-The line before the last is ``{"kernels": [...]}``; the last is
+Before the last lines come ``{"runtime": {...}}`` (phases 6–8's numbers)
+and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -365,7 +390,7 @@ def cross_check_phase(dev) -> None:
                                  remat_policy="none")
     batch = LMDataset(cfg.vocab_size, seq, seed=0).batch(mini, 0)
     outs = {}
-    for name in ("compiled", "flat", "fused"):
+    for name in ("compiled", "flat", "fused", "streaming"):
         opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
         ex = engine.get_executor(name)(loss_fn, opt, plan)
         params = transformer.init_params(cfg, seed=0, device=dev)
@@ -376,9 +401,11 @@ def cross_check_phase(dev) -> None:
         params, state, m = ex.step_split(params, state,
                                          plan.device_split(batch, dev))
         # fused: one K1 launch per micro-batch and gradient dtype (all
-        # fp32 here); flat: one per micro-batch and bucket (one here)
+        # fp32 here); flat: one per micro-batch and bucket (one here);
+        # compiled and streaming add with a plain add
         k1 = kernels.launch_counts()["grad_accum"] - before
-        want = 0 if name == "compiled" else plan.num_micro_batches
+        want = (0 if name in ("compiled", "streaming")
+                else plan.num_micro_batches)
         check(k1 == want, f"{name}: K1 launched {k1} times in one step, "
                           f"expected {want}")
         outs[name] = (params, state["mom"], float(m["loss"]))
@@ -399,6 +426,23 @@ def cross_check_phase(dev) -> None:
               f"width, 2 layers, bf16 (loss {floss:.6f}, max abs err "
               f"{worst:.3e})", flush=True)
     del outs, cp, cm, fp, fm
+    # streaming.step on the host mini-batch (micro-batches copied on the
+    # executor's copy stream) against step_split on the staged split
+    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    ex = engine.StreamingExecutor(loss_fn, opt, plan)
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    state = opt.init(params)
+    got = ex.step(params, state, dict(batch))
+    want = ex.step_split(params, state, plan.device_split(batch, dev))
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(got[:2]), tree.leaves(want[:2])))
+    check(same, "streaming.step on the host mini-batch is not bit-identical "
+                "to streaming.step_split on the staged split")
+    print(f"cross-check: streaming.step(host mini-batch) == "
+          f"streaming.step_split(staged split) bit for bit (params and "
+          f"momentum, {len(tree.leaves(got[:2]))} tensors; loss "
+          f"{float(got[2]['loss']):.6f})", flush=True)
+    del got, want, params, state
     torch.cuda.empty_cache()
 
 
@@ -406,33 +450,86 @@ def cross_check_phase(dev) -> None:
 # the main path
 # ---------------------------------------------------------------------------
 
-def main_path_phase(dev) -> dict:
+def main_argv(*extra, **flags) -> list:
+    """MAIN_ARGV with the values of ``flags`` replaced (``executor=
+    "streaming"`` sets ``--executor streaming``) and ``extra`` appended."""
+    argv = list(MAIN_ARGV)
+    for key, value in flags.items():
+        i = argv.index("--" + key.replace("_", "-"))
+        argv[i + 1] = str(value)
+    return argv + list(extra)
+
+
+def run_launcher(dev, argv) -> dict:
+    """``repro_torch.launch.train.main(argv)`` with the launch counters and
+    the peak-memory statistics reset just before it and read just after:
+    every loss finite, the first near ln(vocab) for a random model.
+
+    The Trainer reads step i back after step i+1 is queued, so readback i
+    (i = 1..n-2) follows one more step's dispatch than readback i-1, and
+    their gap is one step's period whichever of the host and the card is
+    the slower. The last readback follows no dispatch: its gap is only
+    the card's tail behind the host, and is reported apart. The steady
+    step is the mean of the other gaps (one at 3 steps)."""
+    import gc
     import torch
-    from repro_torch import kernels, optim
-    from repro_torch.core import memory_model
-    from repro_torch.engine import FlatSpec
+    from repro_torch import kernels
     from repro_torch.launch import train
 
     copied = kernels.grad_accum_kernels.COPIED_BYTES
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     copied["grad_accum"] = 0
     t0 = time.perf_counter()
-    res = train.main(MAIN_ARGV)
+    res = train.main(argv)
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    grad_copy_bytes = copied["grad_accum"]
-    peak = torch.cuda.max_memory_allocated(dev)
+    res["counts"] = kernels.launch_counts()
+    res["grad_copy_bytes"] = copied["grad_accum"]
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    res["allocated_before_bytes"] = base
+    res["wall_s"] = wall
+    cfg, hist = res["config"], res["history"]
+    losses = [h["loss"] for h in hist]
+    res["losses"] = losses
+    check(bool(hist) and all(math.isfinite(x) for x in losses),
+          f"{argv}: losses not finite: {losses}")
+    if hist[0]["step"] == 0:
+        check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+              f"first loss {losses[0]:.4f} is far from ln(vocab) "
+              f"{math.log(cfg.vocab_size):.4f} for a random model")
+    clocks = [h["readback_s"] for h in hist]
+    gaps = [b - a for a, b in zip(clocks, clocks[1:])]
+    res["readback_gaps_s"] = gaps
+    steady = gaps[:-1]
+    res["steady_step_s"] = (sum(steady) / len(steady) if steady
+                            else float("nan"))
+    return res
 
+
+def _estimate(cfg, plan, fused: bool) -> int:
+    from repro_torch import optim
+    from repro_torch.core import memory_model
+    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    return memory_model.estimate(
+        cfg, 1024, act_bytes=2, remat_policy=plan.remat_policy,
+        **optim.memory_model_kw(opt, fused=fused)).total(
+        plan.micro_batch_size)
+
+
+def main_path_phase(dev) -> dict:
+    import torch
+    from repro_torch.engine import FlatSpec
+
+    res = run_launcher(dev, MAIN_ARGV)
+    counts, peak = res["counts"], res["peak_bytes"]
     plan, cfg, hist = res["plan"], res["config"], res["history"]
     spec = FlatSpec.for_tree(res["params"])
     n_steps, n_b = len(hist), spec.num_buckets
-    losses = [h["loss"] for h in hist]
-    check(n_steps == 3 and all(math.isfinite(x) for x in losses),
-          f"main path losses not finite: {losses}")
-    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
-          f"first loss {losses[0]:.4f} is far from ln(vocab) "
-          f"{math.log(cfg.vocab_size):.4f} for a random model")
+    check(n_steps == 3, f"main path ran {n_steps} steps, expected 3")
     for buf in spec.buffers_of(res["params"]):
         check(bool(torch.isfinite(buf).all()), "params not finite")
     want_k1 = n_steps * plan.num_micro_batches * n_b
@@ -441,32 +538,265 @@ def main_path_phase(dev) -> dict:
     check(counts["fused_sgd_mom"] == n_steps * n_b,
           f"K2 launched {counts['fused_sgd_mom']} times, expected "
           f"{n_steps * n_b}")
-    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
-    est = memory_model.estimate(
-        cfg, 1024, act_bytes=2, remat_policy=plan.remat_policy,
-        **optim.memory_model_kw(opt, fused=True)).total(
-        plan.micro_batch_size)
-    steady = [h["step_seconds"] for h in hist[1:]]
-    step_s = sum(steady) / len(steady)
+    est = _estimate(cfg, plan, fused=True)
+    step_s = res["steady_step_s"]
     tokens = plan.mini_batch_size * 1024
+    iwf = res["pipeline"].input_wait_fraction
     print(f"main path: {plan.describe()}", flush=True)
-    print(f"main path: losses {losses}; step seconds "
-          f"{[h['step_seconds'] for h in hist]}; steady step {step_s:.4f}s, "
-          f"{tokens / step_s:.1f} tokens/s; wall {wall:.1f}s incl. init",
-          flush=True)
+    print(f"main path (Pipeline + Trainer): losses {res['losses']}; gaps "
+          f"between metric readbacks {res['readback_gaps_s']} s (the last "
+          f"follows no dispatch); steady step {step_s:.4f}s, "
+          f"{tokens / step_s:.1f} tokens/s; input-wait fraction {iwf:.4f}; "
+          f"wall {res['wall_s']:.1f}s incl. init", flush=True)
     print(f"main path: peak allocated {peak} B "
-          f"({peak / 2 ** 30:.2f} GiB) vs memory-model estimate {est} B "
+          f"({peak / 2 ** 30:.2f} GiB; {res['allocated_before_bytes']} B "
+          f"allocated before the run) vs memory-model estimate {est} B "
           f"({est / 2 ** 30:.2f} GiB); buckets {spec.bucket_sizes} "
           f"{[str(d) for d in spec.bucket_dtypes]}; launches {counts}; "
           f"gradient bytes K1's wrapper copied to make leaves contiguous "
-          f"{grad_copy_bytes}", flush=True)
+          f"{res['grad_copy_bytes']}", flush=True)
     check(n_b == 1, f"the main path has {n_b} buckets; the full-size phase "
                     f"measures one")
+    out = {"counts": counts, "bucket_size": spec.bucket_sizes[0],
+           "spec": spec, "grad_copy_bytes": res["grad_copy_bytes"],
+           "peak_bytes": peak, "estimate_bytes": est, "steady_step_s": step_s,
+           "allocated_before_bytes": res["allocated_before_bytes"],
+           "readback_gaps_s": res["readback_gaps_s"], "losses": res["losses"],
+           "input_wait_fraction": iwf, "tokens_per_s": tokens / step_s}
     del res
     torch.cuda.empty_cache()
-    return {"counts": counts, "bucket_size": spec.bucket_sizes[0],
-            "spec": spec, "grad_copy_bytes": grad_copy_bytes,
-            "peak_bytes": peak, "steady_step_s": step_s}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the streaming executor at full depth, and save/resume
+# ---------------------------------------------------------------------------
+
+def _trace_streams(path: str) -> dict:
+    """From a ``torch.profiler`` chrome trace of one step: the copies by
+    (name, stream), the kernels by stream, the kernels' summed time (they
+    run one at a time on the compute stream), the span from the first to
+    the last device event, and the CUDA runtime calls with the most host
+    time (where the host waited)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies, kernel_streams, runtime, by_name = {}, {}, {}, {}
+    kernel_us, lo, hi = 0.0, math.inf, -math.inf
+    for e in events:
+        cat, stream = e.get("cat"), e.get("args", {}).get("stream")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            lo, hi = min(lo, e["ts"]), max(hi, e["ts"] + e.get("dur", 0))
+        if cat == "gpu_memcpy":
+            key = f"{e['name']} on stream {stream}"
+            copies[key] = copies.get(key, 0) + 1
+        elif cat == "kernel":
+            kernel_streams[stream] = kernel_streams.get(stream, 0) + 1
+            kernel_us += e.get("dur", 0)
+            n, us = by_name.get(e["name"][:90], (0, 0.0))
+            by_name[e["name"][:90]] = (n + 1, us + e.get("dur", 0))
+        elif cat == "cuda_runtime":
+            n, us = runtime.get(e["name"], (0, 0.0))
+            runtime[e["name"]] = (n + 1, us + e.get("dur", 0))
+    def top(d, k):
+        return {name: [n, us / 1e3] for name, (n, us) in
+                sorted(d.items(), key=lambda kv: -kv[1][1])[:k]}
+    return {"copies": copies, "kernel_streams": kernel_streams,
+            "kernel_ms": kernel_us / 1e3,
+            "device_span_ms": (hi - lo) / 1e3 if hi > lo else 0.0,
+            "runtime_ms": top(runtime, 6), "kernels_ms": top(by_name, 10)}
+
+
+def streaming_phase(dev, flat_peak: int) -> dict:
+    """Full qwen2-1.5b through the launcher with ``--executor streaming``
+    (Pipeline + Trainer; the launch counters zeroed just before and read
+    just after), then a ``torch.profiler`` trace of one
+    ``StreamingExecutor.step`` on a host mini-batch: its pinned
+    host-to-device copies must run on a stream other than the compute
+    kernels'."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import engine, optim
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+
+    res = run_launcher(dev, main_argv(executor="streaming"))
+    plan, cfg = res["plan"], res["config"]
+    check(len(res["history"]) == 3,
+          f"streaming ran {len(res['history'])} steps, expected 3")
+    est = _estimate(cfg, plan, fused=False)
+    tokens = plan.mini_batch_size * 1024
+    iwf = res["pipeline"].input_wait_fraction
+    print(f"streaming (Pipeline + Trainer, full depth): losses "
+          f"{res['losses']}; gaps between metric readbacks "
+          f"{res['readback_gaps_s']} s (the last follows no dispatch); "
+          f"steady step "
+          f"{res['steady_step_s']:.4f}s, "
+          f"{tokens / res['steady_step_s']:.1f} tokens/s; input-wait "
+          f"fraction {iwf:.4f}; launches {res['counts']}", flush=True)
+    print(f"streaming: peak allocated {res['peak_bytes']} B "
+          f"({res['peak_bytes'] / 2 ** 30:.2f} GiB; "
+          f"{res['allocated_before_bytes']} B allocated before the run) vs "
+          f"flat's {flat_peak} B "
+          f"({flat_peak / 2 ** 30:.2f} GiB) and the memory model's "
+          f"fused=False estimate {est} B ({est / 2 ** 30:.2f} GiB)",
+          flush=True)
+    out = {k: res[k] for k in ("losses", "readback_gaps_s", "steady_step_s",
+                               "peak_bytes", "allocated_before_bytes",
+                               "counts")}
+    out.update(estimate_bytes=est, input_wait_fraction=iwf,
+               tokens_per_s=tokens / res["steady_step_s"])
+
+    params, state = res.pop("params"), res.pop("opt_state")
+    del res
+    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    ex = engine.StreamingExecutor(steps.make_loss_fn(
+        cfg, dtype=torch.bfloat16, remat_policy=plan.remat_policy), opt, plan)
+    batch = LMDataset(cfg.vocab_size, 1024, seed=0).batch(
+        plan.mini_batch_size, 3)
+    params, state, _ = ex.step(params, state, dict(batch))  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = ex.step(params, state, dict(batch))
+        host_s = time.perf_counter() - t0  # the host's dispatch
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    check(math.isfinite(float(m["loss"])), f"traced step loss {m['loss']}")
+    trace = os.path.join(ROOT, "build", "streaming_step_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    streams = _trace_streams(trace)
+    os.remove(trace)
+    kernel_streams = streams["kernel_streams"]
+    check(bool(kernel_streams), "the profiler trace holds no kernel")
+    compute = max(kernel_streams, key=kernel_streams.get)
+    pinned = {k: n for k, n in streams["copies"].items()
+              if "HtoD" in k and "Pinned" in k}
+    # the mask once for N_B_valid, then tokens, labels and sample_weight
+    # of each micro-batch
+    want = 1 + (len(batch) + 1) * plan.num_micro_batches
+    check(sum(pinned.values()) == want,
+          f"the traced step made {sum(pinned.values())} pinned host-to-device "
+          f"copies, expected {want}: {streams['copies']}")
+    check(not any(k.endswith(f"on stream {compute}") for k in pinned),
+          f"the staged copies ran on the compute stream {compute}: "
+          f"{streams['copies']}")
+    busy = streams["kernel_ms"] / (step_s * 1e3)
+    print(f"streaming: one traced step(host mini-batch): copies "
+          f"{streams['copies']}; kernels by stream {kernel_streams} "
+          f"(compute stream {compute}); host dispatch {host_s:.4f}s, step "
+          f"{step_s:.4f}s to the last synchronize, kernels "
+          f"{streams['kernel_ms']:.1f} ms (busy {busy:.3f} of the step, "
+          f"device events spanning {streams['device_span_ms']:.1f} ms); "
+          f"CUDA runtime calls with the most host time "
+          f"{streams['runtime_ms']} (count, ms)", flush=True)
+    print(f"streaming: the traced step's kernels with the most time (count, "
+          f"ms): {streams['kernels_ms']}", flush=True)
+    out.update(trace_copies=streams["copies"],
+               trace_kernel_streams=kernel_streams, compute_stream=compute,
+               trace_host_dispatch_s=host_s, trace_step_s=step_s,
+               trace_kernel_ms=streams["kernel_ms"],
+               trace_device_span_ms=streams["device_span_ms"],
+               trace_busy_share=busy, trace_runtime_ms=streams["runtime_ms"],
+               trace_kernels_ms=streams["kernels_ms"])
+    del params, state, m, ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_phase(dev) -> dict:
+    """Save/resume through the launcher at full width, 2 layers, ``flat``:
+    4 steps uninterrupted twice (bit for bit, or else the two runs' own
+    largest difference is the bound), then 2 steps with ``--ckpt-every 2``
+    and ``--resume`` to step 4, whose params, momentum and losses must
+    match the uninterrupted run's under that rule; then the port's
+    checkpoint restored into a plain (not flat) template with every CRC
+    checked."""
+    import shutil
+    import torch
+    from repro_torch import optim, tree
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.models import transformer
+
+    ckdir = os.path.join(ROOT, "build", "ckpt", "qwen2-1.5b-2l")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    four = main_argv("--layers", "2", steps=4)
+
+    def state(res):
+        return tree.leaves((res["params"], res["opt_state"]["mom"]))
+
+    def max_diff(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+
+    runs = [run_launcher(dev, four) for _ in range(2)]
+    for r in runs:
+        check(r["counts"]["grad_accum"] == 16
+              and r["counts"]["fused_sgd_mom"] == 4,
+              f"an uninterrupted run launched {r['counts']}, expected K1 16 "
+              f"and K2 4 times")
+    ref, again = state(runs[0]), state(runs[1])
+    bitwise = all(torch.equal(x, y) for x, y in zip(ref, again))
+    bound = max_diff(ref, again)  # 0 when bit for bit
+    loss_bound = [abs(a - b) for a, b in zip(runs[0]["losses"],
+                                             runs[1]["losses"])]
+    first = run_launcher(dev, main_argv("--layers", "2", "--ckpt-dir",
+                                        ckdir, "--ckpt-every", "2", steps=2))
+    resumed = run_launcher(dev, four + ["--ckpt-dir", ckdir, "--resume"])
+    check(resumed["counts"]["grad_accum"] == 8
+          and resumed["counts"]["fused_sgd_mom"] == 2,
+          f"the resumed run launched {resumed['counts']}, expected K1 8 and "
+          f"K2 2 times")
+    got = state(resumed)
+    err = max_diff(got, ref)
+    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+    check(same if bitwise else err <= bound,
+          f"resume differs from the uninterrupted run by {err:.3e} (the two "
+          f"uninterrupted runs: {'bit for bit' if bitwise else bound})")
+    losses = first["losses"] + resumed["losses"]
+    check(len(losses) == 4 and all(
+        abs(x - a) <= lim for x, a, lim in zip(losses, runs[0]["losses"],
+                                              loss_bound)),
+        f"resumed losses {losses} vs uninterrupted {runs[0]['losses']} and "
+        f"{runs[1]['losses']}")
+    save = [r for r in first["checkpoints"] if r["op"] == "save"][-1]
+    restore = [r for r in resumed["checkpoints"] if r["op"] == "restore"][0]
+    check(save["step"] == 2 and restore["step"] == 2,
+          f"checkpoints {first['checkpoints']} {resumed['checkpoints']}")
+    print(f"resume: uninterrupted 4-step runs at qwen2-1.5b width, 2 layers, "
+          f"flat: {'bit-identical' if bitwise else f'differ by {bound:.3e}'} "
+          f"(losses {runs[0]['losses']} / {runs[1]['losses']}); 2 steps + "
+          f"--resume to 4: {'bit-identical' if same else f'max diff {err:.3e}'}"
+          f" (losses {losses}); checkpoint {save['bytes']} B, saved in "
+          f"{save['seconds']:.3f}s, restored in {restore['seconds']:.3f}s",
+          flush=True)
+    # the port's step-4 checkpoint into a plain template, every CRC checked
+    cfg = resumed["config"]
+    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    template = {"params": params, "opt_state": opt.init(params)}
+    with open(os.path.join(ckdir, "ckpt_00000004.json")) as f:
+        crcs = json.load(f)["crc"]
+    n_leaves = len(tree.leaves(template))
+    check(len(crcs) == n_leaves,
+          f"the manifest has {len(crcs)} CRCs for {n_leaves} leaves")
+    plain = ckpt_lib.restore(ckdir, template, 4, device=dev, verify=True)
+    check(all(torch.equal(x, y) for x, y in zip(
+        tree.leaves((plain["params"], plain["opt_state"]["mom"])), got)),
+        "the step-4 checkpoint restored into the plain template differs "
+        "from the resumed run's state")
+    print(f"resume: the step-4 checkpoint restored into a plain template, "
+          f"{len(crcs)} CRCs checked, equal to the resumed state", flush=True)
+    out = {"uninterrupted_bitwise": bitwise, "uninterrupted_max_diff": bound,
+           "resume_bitwise": same, "resume_max_diff": err,
+           "losses": losses, "ckpt_bytes": save["bytes"],
+           "save_s": save["seconds"], "restore_s": restore["seconds"],
+           "crcs_checked": len(crcs)}
+    del runs, first, resumed, ref, again, got, plain, template, params
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1190,6 +1520,8 @@ def run() -> dict:
     edge_phase(dev, errs)
     cross_check_phase(dev)
     main = main_path_phase(dev)
+    streaming = streaming_phase(dev, main["peak_bytes"])
+    resume = resume_phase(dev)
     n = main["bucket_size"]
     times = full_size_phase(dev, n, errs)
     k1 = k1_leaves_phase(dev, main["spec"], errs)
@@ -1239,6 +1571,10 @@ def run() -> dict:
         if name == "flash_attention":
             records[-1].update(variant_launches=api["variants"],
                                build=k6_build)
+    print(json.dumps({"runtime": {
+        "main_path": {k: v for k, v in main.items()
+                      if k not in ("spec", "counts")},
+        "streaming": streaming, "resume": resume}}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(f"card: {card_line()}", flush=True)
     return {"ok": True, "device": {"platform": "gpu",

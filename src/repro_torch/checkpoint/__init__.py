@@ -1,0 +1,1 @@
+from .checkpoint import latest_step, restore, save  # noqa: F401

@@ -1,1 +1,2 @@
+from .loader import MBSLoader  # noqa: F401
 from .synthetic import LMDataset  # noqa: F401

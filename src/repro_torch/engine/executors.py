@@ -6,6 +6,10 @@ only the strategy differs. The names are the JAX package's:
   * :class:`CompiledScanExecutor` (``compiled``) — an eager loop over the
     micro-batch axis with the normalization folded into the loss and a
     plain fp32 add (PyTorch runs eagerly; there is no scan to compile);
+  * :class:`StreamingExecutor` (``streaming``) — the paper's Fig. 1
+    pipeline: the compiled arithmetic over micro-batches that
+    :meth:`~StreamingExecutor.step` copies host→device on a CUDA stream
+    of its own, micro-batch i+1 while micro-batch i computes;
   * :class:`FusedAccumExecutor` (``fused``) — accumulation through kernel
     K1 over the tree's leaves, the 1/N_Sμ scale fused into the accumulate
     (paper Fig. 2 step ❹ + eq. 14);
@@ -16,19 +20,34 @@ only the strategy differs. The names are the JAX package's:
 
 ``step_split(params, opt_state, micro_batches)`` takes a pre-split batch
 of device tensors ``(N_Sμ, N_μ, ...)`` and returns
-``(params, opt_state, metrics)`` with device-scalar metrics.
+``(params, opt_state, metrics)`` with device-scalar metrics: nothing in a
+step reads a value back to the host. ``guard=True`` (the reference's
+on-device finite check in front of step ❺) comes with the supervisor,
+ROADMAP.md queue 1 item 12.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Type
+from typing import Any, Callable, Dict, Iterable, Tuple, Type
+
+import numpy as np
+import torch
 
 from .. import tree
-from . import exec_core, flat
-from .plan import MBSPlan
+from . import exec_core, faults, flat
+from . import plan as plan_lib
+from .plan import MBSConfig, MBSPlan
 
 
 def _micro(micro_batches, i: int):
     return {k: v[i] for k, v in micro_batches.items()}
+
+
+def _as_plan(plan) -> MBSPlan:
+    if isinstance(plan, MBSConfig):
+        return MBSPlan.from_config(plan)
+    if isinstance(plan, MBSPlan):
+        return plan
+    raise TypeError(f"expected MBSPlan or MBSConfig, got {type(plan)!r}")
 
 
 class _ExecutorBase:
@@ -36,26 +55,37 @@ class _ExecutorBase:
     name = "base"
     fused = False  # raw micro losses, normalization fused into K1
 
-    def __init__(self, loss_fn, optimizer, plan: MBSPlan):
-        if not isinstance(plan, MBSPlan):
-            raise TypeError(f"expected MBSPlan, got {type(plan)!r}")
+    def __init__(self, loss_fn, optimizer, plan, *, guard: bool = False):
+        if guard:
+            # eager PyTorch can only skip the in-place K2-K4 update without
+            # a host sync if those kernels read a device flag
+            raise NotImplementedError(
+                "guard=True (the on-device finite check before step 5) is "
+                "not ported yet (ROADMAP.md queue 1 item 12)")
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self.plan = plan
+        self.plan = _as_plan(plan)
 
     def _accumulated(self, params, micro_batches):
         """(grads tree in accum_dtype, loss, metric_sum) over the split."""
-        plan = self.plan
         n_s, total_valid = exec_core.denominators(micro_batches)
+        return self._accumulate_over(
+            params, (_micro(micro_batches, i) for i in range(n_s)), n_s,
+            total_valid)
+
+    def _accumulate_over(self, params, micros: Iterable, n_s: int,
+                         total_valid):
+        """Steps ❷–❹ over the ``n_s`` micro-batches ``micros`` yields."""
+        plan = self.plan
         scale = (exec_core.deferred_scale(plan.normalization, n_s,
                                           total_valid)
                  if self.fused else None)
         acc = exec_core.init_accum(params, plan.accum_dtype)
         loss_sum, metric_sum = None, None
-        for i in range(n_s):
+        for mb in micros:
             lfn = exec_core.micro_loss_fn(
-                self.loss_fn, plan.normalization, n_s, total_valid,
-                _micro(micro_batches, i), defer_scale=self.fused)
+                self.loss_fn, plan.normalization, n_s, total_valid, mb,
+                defer_scale=self.fused)
             loss, metrics, grads = exec_core.value_and_grad(lfn, params)
             acc = exec_core.accumulate(acc, grads, scale=scale,
                                        fused=self.fused)
@@ -72,7 +102,11 @@ class _ExecutorBase:
         return grads, loss
 
     def step_split(self, params, opt_state, micro_batches):
-        grads, loss, metric_sum = self._accumulated(params, micro_batches)
+        faults.on_dispatch(self.plan)
+        return self._update(params, opt_state,
+                            *self._accumulated(params, micro_batches))
+
+    def _update(self, params, opt_state, grads, loss, metric_sum):
         new_params, new_opt = exec_core.apply_update(
             self.optimizer, grads, opt_state, params)
         return new_params, new_opt, exec_core.finalize_metrics(
@@ -90,6 +124,62 @@ class CompiledScanExecutor(_ExecutorBase):
     """Eager loop + plain fp32 add (the JAX package's ``compiled``)."""
     name = "compiled"
     fused = False
+
+
+class StreamingExecutor(_ExecutorBase):
+    """The paper's Fig. 1 pipeline: the ``compiled`` arithmetic (a plain
+    add into the accumulator, as the reference's streaming step ❹ is jnp)
+    over micro-batches that stream to the device.
+
+    :meth:`step` takes a host mini-batch, splits it on the host into
+    page-locked tensors and double-buffers at micro-batch granularity:
+    micro-batch i+1's copy is issued on a dedicated ``torch.cuda.Stream``
+    before micro-batch i computes on the current stream, and the compute
+    stream waits on each copy's event just before its first use.
+    :meth:`step_split` takes a split batch already on the device (the
+    ``Pipeline``'s) and slices it there. ``device`` is where :meth:`step`
+    stages (default: the params' device). Accumulator, loss and metrics
+    stay on the device for the whole loop."""
+    name = "streaming"
+    fused = False
+
+    def __init__(self, loss_fn, optimizer, plan, device=None, *,
+                 guard: bool = False):
+        super().__init__(loss_fn, optimizer, plan, guard=guard)
+        self.device = None if device is None else torch.device(device)
+        self._copy_stream = None
+
+    def _stream(self, device):
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device)
+        return self._copy_stream
+
+    def step(self, params, opt_state, minibatch: Dict[str, np.ndarray]
+             ) -> Tuple[Any, Any, Dict[str, Any]]:
+        """One mini-batch update via sequential micro-batch streaming."""
+        device = (self.device if self.device is not None
+                  else tree.leaves(params)[0].device)
+        cuda = device.type == "cuda"
+        host = plan_lib.host_tensors(self.plan.split(minibatch), pin=cuda)
+        stream = self._stream(device) if cuda else None
+        n_s = host["sample_weight"].shape[0]
+        # N_B_valid from the whole mask on the device, the reduction
+        # step_split makes, so the two steps agree bit for bit
+        mask = plan_lib.wait_staged(*plan_lib.stage(
+            {"sample_weight": host["sample_weight"]}, device, stream))
+        _, total_valid = exec_core.denominators(mask)
+
+        def put(i):
+            return plan_lib.stage(_micro(host, i), device, stream)
+
+        def micros():  # double buffer: copy i+1 while i computes
+            nxt = put(0)
+            for i in range(n_s):
+                cur, nxt = nxt, (put(i + 1) if i + 1 < n_s else None)
+                yield plan_lib.wait_staged(*cur)
+
+        return self._update(params, opt_state, *self._accumulate_over(
+            params, micros(), n_s, total_valid))
 
 
 class FusedAccumExecutor(_ExecutorBase):
@@ -146,6 +236,7 @@ class FlatFusedExecutor(_ExecutorBase):
         return spec.unflatten(acc, cast=False), loss
 
     def step_split(self, params, opt_state, micro_batches):
+        faults.on_dispatch(self.plan)
         params, opt_state = self.prepare(params, opt_state)
         spec, acc, loss, metric_sum = self._accumulated_flat(
             params, micro_batches)
@@ -157,21 +248,39 @@ class FlatFusedExecutor(_ExecutorBase):
 
 EXECUTORS: Dict[str, Type] = {
     CompiledScanExecutor.name: CompiledScanExecutor,
+    StreamingExecutor.name: StreamingExecutor,
     FusedAccumExecutor.name: FusedAccumExecutor,
     FlatFusedExecutor.name: FlatFusedExecutor,
 }
-
-# the JAX package's eager host pipeline; ROADMAP.md queue 1 item 3 ports it
-_NOT_PORTED = {"streaming": "ROADMAP.md queue 1 item 3"}
 
 
 def get_executor(name: str) -> Type:
     try:
         return EXECUTORS[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"executor {name!r} is not ported yet ({_NOT_PORTED[name]})"
-            ) from None
         raise ValueError(f"unknown executor {name!r}; available: "
                          f"{sorted(EXECUTORS)}") from None
+
+
+def accumulate_gradients(loss_fn, params, micro_batches, plan, *,
+                         fused: bool = False):
+    """Accumulated, normalized MBS gradients and the loss — the quantity
+    eq. (15)–(17) prove equal to the mini-batch gradient — by the
+    ``compiled`` arithmetic, or with ``fused`` through K1."""
+    ex = (FusedAccumExecutor if fused else CompiledScanExecutor)(
+        loss_fn, None, plan)
+    return ex.gradients(params, micro_batches)
+
+
+def make_baseline_train_step(loss_fn, optimizer) -> Callable:
+    """The no-MBS reference: one forward/backward over the whole
+    mini-batch (the paper's "w/o MBS" columns — and what fails beyond the
+    memory limit)."""
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = exec_core.value_and_grad(
+            lambda p: loss_fn(p, batch), params)
+        new_params, new_opt_state = exec_core.apply_update(
+            optimizer, grads, opt_state, params)
+        return new_params, new_opt_state, exec_core.finalize_metrics(
+            metrics, loss, grads)
+    return train_step

@@ -10,15 +10,32 @@
 Plans equal the JAX package's field for field for the same inputs on one
 device (the mesh, calibration and pipeline fields of the JAX plan keep
 their single-device defaults there).
+
+Staging (paper Fig. 1): :func:`host_tensors` turns a split numpy batch
+into page-locked host tensors, :func:`stage` copies them to the card with
+``non_blocking=True`` on a given CUDA stream and records an event after
+the copies, and :func:`wait_staged` orders the consumer's stream after
+that event before the batch is first used.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MBSConfig:
+    """Legacy per-step policy (the JAX package's; new code builds an
+    :class:`MBSPlan` through :func:`plan_mbs`). The reference's
+    ``remat_micro_step`` and ``unroll`` shape its ``lax.scan``; the port
+    runs the micro-batch loop eagerly and has neither."""
+    micro_batch_size: int
+    normalization: str = "paper"  # "paper" | "exact"
+    accum_dtype: Any = torch.float32
 
 
 def num_micro_batches(mini_batch_size: int, micro_batch_size: int) -> int:
@@ -91,6 +108,19 @@ class MBSPlan:
                     'build the plan with normalization="exact"')
         return split_minibatch(batch, self.micro_batch_size)
 
+    @classmethod
+    def from_config(cls, cfg: MBSConfig,
+                    mini_batch_size: Optional[int] = None) -> "MBSPlan":
+        """Adapt a legacy MBSConfig. Without a mini-batch size the geometry
+        fields are degenerate (the executors take N_Sμ from the data; only
+        the policy fields matter)."""
+        mini = (mini_batch_size if mini_batch_size is not None
+                else cfg.micro_batch_size)
+        micro = min(cfg.micro_batch_size, mini)
+        n_s = num_micro_batches(mini, micro)
+        return cls(mini, micro, n_s, n_s * micro - mini, cfg.normalization,
+                   cfg.accum_dtype)
+
     def device_split(self, batch: Dict[str, np.ndarray], device
                      ) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -106,6 +136,52 @@ class MBSPlan:
                 f"{self.num_micro_batches} x micro-batch "
                 f"{self.micro_batch_size} (pad {self.pad}, micro {src}, "
                 f"normalization {norm}, remat {pol}, accum {accum})")
+
+
+def host_tensors(split: Dict[str, np.ndarray], *, pin: bool
+                 ) -> Dict[str, torch.Tensor]:
+    """A split batch as host tensors: page-locked copies when ``pin`` (the
+    source an asynchronous copy to the card needs — from pageable memory
+    ``non_blocking=True`` is a synchronous copy), else the numpy memory
+    itself."""
+    out = {}
+    for k, v in split.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.pin_memory() if pin else t
+    return out
+
+
+def stage(host: Dict[str, torch.Tensor], device, stream
+          ) -> Tuple[Dict[str, torch.Tensor], Optional[Any]]:
+    """Copy host tensors to ``device``: (device tensors, event). On CUDA
+    the copies are issued with ``non_blocking=True`` on the CUDA
+    ``stream`` and the event is recorded there after them; pass both to
+    :func:`wait_staged` before the first use. On the CPU (``stream``
+    None) the tensors are returned as they are and the event is None."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {k: v.to(device) for k, v in host.items()}, None
+    with torch.cuda.stream(stream):
+        out = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+        event = torch.cuda.Event()
+        event.record(stream)
+    return out, event
+
+
+def wait_staged(tensors: Dict[str, torch.Tensor], event
+                ) -> Dict[str, torch.Tensor]:
+    """Order the current stream after a staged batch's copies and mark its
+    tensors as used on that stream: they were allocated on the copy
+    stream, so without ``record_stream`` the caching allocator would hand
+    their blocks to the next copy while this stream still reads them. A
+    no-op on the CPU (``event`` None)."""
+    if event is None:
+        return tensors
+    cur = torch.cuda.current_stream(next(iter(tensors.values())).device)
+    cur.wait_event(event)
+    for t in tensors.values():
+        t.record_stream(cur)
+    return tensors
 
 
 def plan_mbs(mini_batch_size: int, *,

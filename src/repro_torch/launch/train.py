@@ -1,21 +1,33 @@
-"""Training launcher of the port — a single-device subset of the JAX
+"""Training launcher of the port — the single-device part of the JAX
 package's ``launch/train.py``.
 
 Plans the batch geometry (``--microbatches`` pins N_Sμ; without it the
 memory model sizes the micro-batch against the device's memory or
-``--hbm-budget-gb``), builds the executor and runs a plain step loop over
-``LMDataset`` batches (batch ``i`` drawn with seed ``i``), printing the
-plan and the per-step losses. It runs on CUDA unless ``--device cpu``.
+``--hbm-budget-gb``), builds the executor and drives it through the async
+input pipeline: ``LMDataset`` batches are drawn and plan-split in a
+background worker (batch ``i`` with seed ``i``), staged host→device on a
+copy stream (double-buffered at mini-batch granularity), and the
+``Trainer`` owns the step loop — metrics read back one step late,
+periodic checkpointing, ``--resume``. It runs on CUDA unless
+``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
-      --reduced --steps 2 --executor flat --device cpu
+      --reduced --steps 4 --executor compiled|streaming|fused|flat \
+      --device cpu [--ckpt-dir /tmp/ckpt --ckpt-every 2 [--resume]]
+
+The reference's ``--supervise`` (ROADMAP.md queue 1 item 12), ``--mesh``,
+``--fsdp`` and ``--no-donate`` (item 11), and ``--calibrate`` and
+``--tuning-cache`` (item 9) are not ported. Without donation, a
+``compiled``, ``fused`` or ``streaming`` run keeps its initial params and
+momentum alive beside the trained ones (ROADMAP.md queue 3); ``flat``
+trains its initial buffers in place.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
-import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -31,6 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", required=True, choices=configs.ARCHS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model's depth to this many layers "
+                         "(default: the config's)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--mini-batch", type=int, default=16)
     ap.add_argument("--microbatches", type=int, default=None,
@@ -52,6 +67,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
                     default="float32")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint every N steps (0: only at the end)")
+    ap.add_argument("--ckpt-keep", type=int, default=None, metavar="K",
+                    help="keep only the newest K committed checkpoints "
+                         "(default: keep all)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore params+opt state from the latest "
+                         "checkpoint in --ckpt-dir and continue from its "
+                         "step")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="host batches buffered by the input pipeline "
+                         "(0: synchronous)")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -64,6 +92,14 @@ def default_optimizer(args) -> optim.Optimizer:
 
 def host_memory_bytes() -> int:
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def build_config(args):
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get(args.arch))
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    return cfg
 
 
 def build_plan(cfg, args, optimizer, device) -> engine.MBSPlan:
@@ -92,31 +128,42 @@ def build_executor(cfg, plan, args, optimizer):
     return engine.get_executor(args.executor)(loss_fn, optimizer, plan)
 
 
-def _log(step: int, m: Dict[str, float], elapsed: float) -> None:
-    print(f"step {step:4d}  loss {m['loss']:.4f}  |g| {m['grad_norm']:.3f}"
-          f"  ({elapsed:.1f}s)", flush=True)
+def make_build(cfg, args, ds, optimizer, device):
+    """``plan -> (executor, step_fn, pipeline)``: every executor's
+    ``step_split`` over a Pipeline that stages whole split mini-batches to
+    ``device`` (the streaming executor slices micro-batches there)."""
+    def build(plan):
+        executor = build_executor(cfg, plan, args, optimizer)
+        pipeline = engine.Pipeline(ds, plan, prefetch=args.prefetch,
+                                   device=device)
+        return executor, executor.step_split, pipeline
+    return build
 
 
-def train_loop(executor, params, opt_state, dataset, num_steps: int,
-               device, log_every: int = 5):
-    """``num_steps`` mini-batch updates; returns (params, opt_state,
-    history) with each step's metrics as host floats and its wall time
-    (host clock around the step, ended by the metrics' readback)."""
-    plan = executor.plan
-    history: List[Dict[str, float]] = []
-    t_start = time.perf_counter()
-    for step in range(num_steps):
-        split = plan.device_split(
-            dataset.batch(plan.mini_batch_size, step), device)
-        t0 = time.perf_counter()
-        params, opt_state, metrics = executor.step_split(params, opt_state,
-                                                         split)
-        m = {k: float(v) for k, v in metrics.items()}  # syncs the step
-        m["step_seconds"] = time.perf_counter() - t0
-        history.append(m)
-        if log_every and (step % log_every == 0 or step == num_steps - 1):
-            _log(step, m, time.perf_counter() - t_start)
-    return params, opt_state, history
+def run_trainer(trainer, params, opt_state, args):
+    """Resume (when asked) + fit."""
+    start = 0
+    if args.resume:
+        restored = trainer.restore(params, opt_state)
+        if restored is not None:
+            params, opt_state, start = restored
+            rec = trainer.ckpt_log[-1]
+            print(f"resumed from step {start} ({rec['seconds']:.2f}s)",
+                  flush=True)
+        else:
+            print("no checkpoint to resume from; starting fresh", flush=True)
+    params, opt_state, last = trainer.fit(params, opt_state, args.steps,
+                                          start_step=start)
+    if args.ckpt_dir:
+        saves = [r for r in trainer.ckpt_log if r["op"] == "save"]
+        print(f"checkpointed to {args.ckpt_dir}: "
+              + ", ".join(f"step {r['step']} {r['bytes']} B in "
+                          f"{r['seconds']:.2f}s" for r in saves), flush=True)
+    stats = trainer.pipeline.stats
+    print(f"input-wait fraction {stats.input_wait_fraction:.3f} "
+          f"({stats.wait_s:.2f}s of {stats.elapsed_s:.2f}s, "
+          f"{stats.retries} producer retries)", flush=True)
+    return params, opt_state, last
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
@@ -128,21 +175,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                  "--device cpu to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         ap.error(f"--device must be cuda or cpu, got {args.device!r}")
-    cfg = (configs.get_reduced(args.arch) if args.reduced
-           else configs.get(args.arch))
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir")
+    cfg = build_config(args)
     opt = default_optimizer(args)
     plan = build_plan(cfg, args, opt, device)
     print(plan.describe(), flush=True)
-    executor = build_executor(cfg, plan, args, opt)
+    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=args.seq, seed=0)
+    executor, step_fn, pipeline = make_build(cfg, args, ds, opt, device)(plan)
     params = transformer.init_params(cfg, seed=0, device=device)
     opt_state = opt.init(params)
     if isinstance(executor, engine.FlatFusedExecutor):
         params, opt_state = executor.prepare(params, opt_state)
-    ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=args.seq, seed=0)
-    params, opt_state, history = train_loop(executor, params, opt_state, ds,
-                                            args.steps, device, args.log_every)
-    return {"plan": plan, "config": cfg, "history": history,
-            "params": params, "opt_state": opt_state}
+    trainer = engine.Trainer(step_fn, pipeline, ckpt_dir=args.ckpt_dir,
+                             ckpt_every=args.ckpt_every,
+                             ckpt_keep=args.ckpt_keep,
+                             log_every=args.log_every)
+    params, opt_state, _ = run_trainer(trainer, params, opt_state, args)
+    return {"plan": plan, "config": cfg, "history": trainer.history,
+            "params": params, "opt_state": opt_state,
+            "pipeline": pipeline.stats, "checkpoints": trainer.ckpt_log}
 
 
 if __name__ == "__main__":

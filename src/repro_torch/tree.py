@@ -13,37 +13,43 @@ _LEAF = ("leaf",)
 _NONE = ("none",)
 
 
+def _flatten_into(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        return ("dict", tuple((k, _flatten_into(t[k], leaves))
+                              for k in sorted(t)))
+    if isinstance(t, (tuple, list)):
+        return (type(t), tuple(_flatten_into(x, leaves) for x in t))
+    if t is None:
+        return _NONE
+    leaves.append(t)
+    return _LEAF
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
-    """(leaves, treedef) in ``jax.tree.flatten`` order."""
+    """(leaves, treedef) in ``jax.tree.flatten`` order.
+
+    The recursion is a module-level function, not a closure over
+    ``leaves``: a recursive closure is a reference cycle, which would keep
+    every leaf (full-size tensors) alive until the cyclic garbage
+    collector happens to run."""
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def rec(t):
-        if isinstance(t, dict):
-            return ("dict", tuple((k, rec(t[k])) for k in sorted(t)))
-        if isinstance(t, (tuple, list)):
-            return (type(t), tuple(rec(x) for x in t))
-        if t is None:
-            return _NONE
-        leaves.append(t)
-        return _LEAF
 
-    return leaves, rec(tree)
+def _build(d, it):
+    if d == _LEAF:
+        return next(it)
+    if d == _NONE:
+        return None
+    kind, children = d
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in children}
+    return kind(_build(c, it) for c in children)
 
 
 def unflatten(treedef, leaves) -> Any:
     it = iter(leaves)
-
-    def rec(d):
-        if d == _LEAF:
-            return next(it)
-        if d == _NONE:
-            return None
-        kind, children = d
-        if kind == "dict":
-            return {k: rec(c) for k, c in children}
-        return kind(rec(c) for c in children)
-
-    out = rec(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out

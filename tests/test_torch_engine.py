@@ -284,14 +284,15 @@ def test_train_loop_trajectory_matches_reference(ref_params):
         "--remat-policy", "none", "--device", "cpu"])
     cfg = configs.get_reduced(ARCH)
     opt = train.default_optimizer(args)
-    plan = train.build_plan(cfg, args, opt, torch.device("cpu"))
-    ex = train.build_executor(cfg, plan, args, opt)
+    device = torch.device("cpu")
+    plan = train.build_plan(cfg, args, opt, device)
+    ex, step_fn, pipeline = train.make_build(
+        cfg, args, LMDataset(512, SEQ, seed=0), opt, device)(plan)
     params = weights.from_reference(ref_params, "cpu")
     params, state = ex.prepare(params, opt.init(params))
-    _, _, history = train.train_loop(ex, params, state,
-                                     LMDataset(512, SEQ, seed=0), steps_n,
-                                     torch.device("cpu"), log_every=0)
-    np.testing.assert_allclose([h["loss"] for h in history], want,
+    trainer = engine.Trainer(step_fn, pipeline, log_every=0)
+    trainer.fit(params, state, steps_n)
+    np.testing.assert_allclose([h["loss"] for h in trainer.history], want,
                                rtol=1e-5, atol=0)
 
 
