@@ -48,13 +48,41 @@ Phases (any failure exits non-zero before the last line is printed):
      dispatch and times only the card's tail behind the host), beside
      the Pipeline's input-wait fraction;
   7. the same launcher with ``--executor streaming`` at full depth (the
-     counters zeroed and read around it), its peak beside the main
-     path's and the memory model's; then a ``torch.profiler`` trace of
+     counters zeroed and read around it): no initial param or momentum
+     leaf alive once the first step is done (weak references: the
+     launcher hands the initial state to the Trainer and keeps no name
+     for it), and its peak within 0.25 GiB of the main path's plus what
+     the tree update's own peak (measured from the run's final state)
+     adds above it; then a ``torch.profiler`` trace of
      one ``StreamingExecutor.step`` on a host mini-batch: its pinned
      host-to-device copies must run on a stream other than the compute
      kernels'; with the copies by kind and stream, the kernels' summed
      time beside the step's, the kernels and CUDA runtime calls that take
      the most time (the trace is written under ``build/`` and removed);
+  7a. calibrated admission at full qwen2-1.5b (seq 1024, mini-batch 16,
+     no ``--microbatches``) for ``flat`` and ``streaming`` against a
+     60 GiB budget: the analytic plan and its corrected prediction (not
+     run), ``--calibrate force`` probing the real step at micro-batches
+     1, 2 and 4 into ``build/tuning.json`` (the fit and the probes),
+     then the launcher with ``--calibrate auto`` — which must plan what
+     ``force`` planned — for 2 steps whose peak allocated bytes must stay
+     within the budget; and the plans the card's whole memory would get;
+  7b. the paper's workloads through ``flat`` at their published sizes,
+     fp32, BN statistics per micro-batch: ResNet-50 at 224 px (102
+     classes, SGD-m 0.9, lr 0.01, wd 5e-4), mini-batch 1024 = 8 × 128,
+     3 steps; U-Net at 384 px (base 64, depth 4, Adam lr 0.01, wd 5e-4,
+     BCE + Dice), mini-batch 128 = 8 × 16, 3 steps; each through
+     Pipeline + Trainer with the counters zeroed and read around it (K1
+     steps × N_Sμ × launch groups, K2 resp. K4 steps × buckets), params
+     finite, the steady step and images/s beside the fp32 bound from
+     ``torch.utils.flop_counter``'s count; the peak of one step at three
+     micro sizes, their affine fit and its extrapolation to the whole
+     mini-batch without MBS, which must exceed the card's memory (if it
+     does not, the mini-batch is doubled until it does); ``flat``
+     against ``compiled`` after one step, cuDNN deterministic, within
+     atol 1e-5 + rtol 1e-5; U-Net's IoU; K4 bit-identical to its plain
+     version at the U-Net bucket; and which convolution op ``dots``'
+     policy sees on CUDA (it must be one it saves);
   8. save/resume through the launcher at full width, 2 layers, ``flat``,
      checkpoints under ``build/ckpt`` (removed after): 4 steps
      uninterrupted twice, then 2 steps with ``--ckpt-every 2`` and
@@ -89,9 +117,15 @@ Phases (any failure exits non-zero before the last line is printed):
      runs twice), its plain version and the PyTorch call that computes it
      (SDPA; for gemma2's softcap, a compiled ``flex_attention``, checked
      against the plain version within the reference tests' bf16
-     tolerance, 2e-2).
+     tolerance, 2e-2);
+  12. the block tuner over the main path's bucket for K1 and K2
+     (``engine.autotune.tune_for_params`` into
+     ``build/tuning-blocks.json``): every candidate block's median ms,
+     each bit-identical to the default block, then 2 main-path steps
+     under the tuned resolver with the untuned run's losses.
 
-Before the last lines come ``{"runtime": {...}}`` (phases 6–8's numbers)
+Before the last lines come ``{"runtime": {...}}`` (phases 6–8's, 7a's,
+7b's and 12's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -114,6 +148,11 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 RAGGED_SIZES = [1, 1000, 4097, (1 << 20) + 3]
 CHUNK = 1 << 27  # elements per slice when the plain version runs in slices
+GIB = 1024 ** 3
+# streaming's peak against flat's plus the tree update's excess over it
+STREAMING_PEAK_SLACK = 0.25 * GIB
+# the calibrated qwen2-1.5b plans: budget, and the micro sizes probed
+CALIBRATION_BUDGET_GB = 60
 MAIN_ARGV = ["--arch", "qwen2-1.5b", "--executor", "flat",
              "--dtype", "bfloat16", "--seq", "1024", "--mini-batch", "16",
              "--microbatches", "4", "--steps", "3", "--log-every", "1"]
@@ -460,7 +499,7 @@ def main_argv(*extra, **flags) -> list:
     return argv + list(extra)
 
 
-def run_launcher(dev, argv) -> dict:
+def run_launcher(dev, argv, watch_initial: bool = False) -> dict:
     """``repro_torch.launch.train.main(argv)`` with the launch counters and
     the peak-memory statistics reset just before it and read just after:
     every loss finite, the first near ln(vocab) for a random model.
@@ -470,13 +509,33 @@ def run_launcher(dev, argv) -> dict:
     their gap is one step's period whichever of the host and the card is
     the slower. The last readback follows no dispatch: its gap is only
     the card's tail behind the host, and is reported apart. The steady
-    step is the mean of the other gaps (one at 3 steps)."""
+    step is the mean of the other gaps (one at 3 steps).
+
+    ``watch_initial``: weak references to the params and momentum leaves
+    the first step receives; ``res["initial_alive"]`` is how many of them
+    are still alive when the second step starts (the launcher must keep
+    none of them)."""
     import gc
+    import weakref
     import torch
-    from repro_torch import kernels
+    from repro_torch import engine, kernels, tree
     from repro_torch.launch import train
 
     copied = kernels.grad_accum_kernels.COPIED_BYTES
+    watch = {"calls": 0, "refs": [], "alive": None}
+    real_init = engine.Trainer.__init__
+
+    def init(self, step_fn, pipeline, **kw):
+        def step(params, opt_state, batch):
+            if watch["calls"] == 0:
+                watch["refs"] = [weakref.ref(t) for t in tree.leaves(
+                    (params, opt_state["mom"]))]
+            elif watch["calls"] == 1:
+                watch["alive"] = sum(r() is not None for r in watch["refs"])
+            watch["calls"] += 1
+            return step_fn(params, opt_state, batch)
+        real_init(self, step, pipeline, **kw)
+
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -484,9 +543,18 @@ def run_launcher(dev, argv) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     copied["grad_accum"] = 0
+    if watch_initial:
+        engine.Trainer.__init__ = init
     t0 = time.perf_counter()
-    res = train.main(argv)
+    try:
+        res = train.main(argv)
+    finally:
+        engine.Trainer.__init__ = real_init
     wall = time.perf_counter() - t0
+    if watch_initial:
+        res["initial_alive"] = watch["alive"]
+        res["initial_leaves"] = len(watch["refs"])
+    res["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
     res["counts"] = kernels.launch_counts()
     res["grad_copy_bytes"] = copied["grad_accum"]
     res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -606,20 +674,31 @@ def _trace_streams(path: str) -> dict:
             "runtime_ms": top(runtime, 6), "kernels_ms": top(by_name, 10)}
 
 
-def streaming_phase(dev, flat_peak: int) -> dict:
+def streaming_phase(dev, main: dict) -> dict:
     """Full qwen2-1.5b through the launcher with ``--executor streaming``
     (Pipeline + Trainer; the launch counters zeroed just before and read
-    just after), then a ``torch.profiler`` trace of one
-    ``StreamingExecutor.step`` on a host mini-batch: its pinned
-    host-to-device copies must run on a stream other than the compute
-    kernels'."""
+    just after): no initial param or momentum leaf alive once the first
+    step is done (weak references), and the peak within 0.25 GiB of the
+    main path's (``flat``) plus what the tree update's own peak, measured
+    on the run's final state, adds above it. Then a ``torch.profiler``
+    trace of one ``StreamingExecutor.step`` on a host mini-batch: its
+    pinned host-to-device copies must run on a stream other than the
+    compute kernels'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import engine, optim
+    from repro_torch import engine, optim, tree
     from repro_torch.data import LMDataset
+    from repro_torch.engine import exec_core
     from repro_torch.launch import steps
 
-    res = run_launcher(dev, main_argv(executor="streaming"))
+    flat_peak = main["peak_bytes"]
+    flat_rel = flat_peak - main["allocated_before_bytes"]
+    res = run_launcher(dev, main_argv(executor="streaming"),
+                       watch_initial=True)
+    check(res["initial_alive"] == 0,
+          f"streaming: {res['initial_alive']} of {res['initial_leaves']} "
+          f"initial param and momentum leaves are alive after the first "
+          f"step: the launcher still holds the initial state")
     plan, cfg = res["plan"], res["config"]
     check(len(res["history"]) == 3,
           f"streaming ran {len(res['history'])} steps, expected 3")
@@ -642,13 +721,41 @@ def streaming_phase(dev, flat_peak: int) -> dict:
           flush=True)
     out = {k: res[k] for k in ("losses", "readback_gaps_s", "steady_step_s",
                                "peak_bytes", "allocated_before_bytes",
-                               "counts")}
+                               "peak_reserved_bytes", "counts",
+                               "initial_alive", "initial_leaves")}
     out.update(estimate_bytes=est, input_wait_fraction=iwf,
                tokens_per_s=tokens / res["steady_step_s"])
 
     params, state = res.pop("params"), res.pop("opt_state")
+    base = res["allocated_before_bytes"]
+    stream_rel = res["peak_bytes"] - base
     del res
     opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    # step 5's own peak: the tree update from the run's final params and
+    # momentum and an accumulator, what a step holds when it starts it
+    acc = tree.map(torch.zeros_like, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    upd = exec_core.apply_update(opt, acc, state, params)
+    torch.cuda.synchronize()
+    upd_rel = torch.cuda.max_memory_allocated(dev) - base
+    del upd, acc
+    transient = max(0, upd_rel - flat_rel)
+    want = flat_rel + transient
+    print(f"streaming: peak {stream_rel} B above what was allocated before "
+          f"the run ({stream_rel / GIB:.2f} GiB) vs flat's {flat_rel} B "
+          f"({flat_rel / GIB:.2f} GiB); the tree update's own peak from the "
+          f"final state {upd_rel} B ({upd_rel / GIB:.2f} GiB), so its excess "
+          f"over flat's {transient} B; initial leaves alive after the first "
+          f"step: 0 of {out['initial_leaves']}", flush=True)
+    check(abs(stream_rel - want) <= STREAMING_PEAK_SLACK,
+          f"streaming's peak {stream_rel / GIB:.3f} GiB is not within 0.25 "
+          f"GiB of flat's {flat_rel / GIB:.3f} plus the update's excess "
+          f"{transient / GIB:.3f}")
+    out.update(peak_above_base_bytes=stream_rel,
+               flat_peak_above_base_bytes=flat_rel,
+               update_peak_above_base_bytes=upd_rel,
+               update_excess_bytes=transient)
     ex = engine.StreamingExecutor(steps.make_loss_fn(
         cfg, dtype=torch.bfloat16, remat_policy=plan.remat_policy), opt, plan)
     batch = LMDataset(cfg.vocab_size, 1024, seed=0).batch(
@@ -701,6 +808,495 @@ def streaming_phase(dev, flat_peak: int) -> dict:
                trace_busy_share=busy, trace_runtime_ms=streams["runtime_ms"],
                trace_kernels_ms=streams["kernels_ms"])
     del params, state, m, ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def calibration_phase(dev) -> dict:
+    """Calibrated admission at full qwen2-1.5b (seq 1024, mini-batch 16,
+    no ``--microbatches``) for ``flat`` and ``streaming``, against a
+    60 GiB budget (headroom for the caching allocator): the analytic
+    plan's micro size and modeled bytes, and the corrected prediction for
+    that size (not run); ``--calibrate force`` probes the real step at
+    micro-batches 1, 2 and 4 into ``build/tuning.json`` (the fit and the
+    probes printed); the launcher with ``--calibrate auto`` then reads
+    that entry, must plan exactly what ``force`` planned, and trains 2
+    steps, whose peak allocated bytes must stay within the budget. Also
+    the plans the card's whole memory would get, analytic and calibrated
+    (not run)."""
+    import torch
+    from repro_torch import engine, optim
+    from repro_torch.core import memory_model
+    from repro_torch.engine import autotune
+    from repro_torch.launch import train
+
+    cache = os.path.join(ROOT, "build", "tuning.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    autotune._caches.pop(cache, None)
+    budget = CALIBRATION_BUDGET_GB * GIB
+    out = {"budget_bytes": budget}
+    for executor in ("flat", "streaming"):
+        argv = [a for a in main_argv(executor=executor, steps=2)]
+        i = argv.index("--microbatches")
+        del argv[i:i + 2]
+        argv += ["--hbm-budget-gb", str(CALIBRATION_BUDGET_GB),
+                 "--tuning-cache", cache]
+        ap = train.build_parser()
+        cfg = train.build_config(ap.parse_args(argv))
+        seq = ap.parse_args(argv).seq
+        opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+        mm_kw = optim.memory_model_kw(opt, fused=executor == "flat")
+
+        def plan(calibrate, budget_gb=CALIBRATION_BUDGET_GB):
+            args = ap.parse_args(argv + ["--calibrate", calibrate])
+            args.hbm_budget_gb = budget_gb
+            return train.build_plan(cfg, args, opt, dev)
+
+        analytic = plan("off")
+        est = memory_model.estimate(cfg, seq, act_bytes=2,
+                                    remat_policy=analytic.remat_policy,
+                                    **mm_kw)
+        t0 = time.perf_counter()
+        forced = plan("force")
+        probe_s = time.perf_counter() - t0
+        engine.set_cache_path(None)
+        entry = autotune.get_cache(cache).data["memory"][autotune.memory_key(
+            cfg, seq, forced.remat_policy, None, "sgd", executor,
+            autotune.backend_of(dev))]
+        a, b = forced.correction
+        predicted = a * est.total(analytic.micro_batch_size) + b
+        res = run_launcher(dev, argv + ["--calibrate", "auto"])
+        engine.set_cache_path(None)
+        got = res["plan"]
+        check(forced.calibrated, f"{executor}: --calibrate force did not "
+                                 f"calibrate: {forced.describe()}")
+        check(got == forced, f"{executor}: --calibrate auto planned "
+                             f"{got.describe()}, force {forced.describe()}")
+        peak = res["peak_bytes"]
+        check(len(res["history"]) == 2, f"{executor}: calibrated run took "
+                                        f"{len(res['history'])} steps")
+        check(peak <= budget,
+              f"{executor}: the calibrated plan (micro "
+              f"{got.micro_batch_size}) peaked at {peak / GIB:.3f} GiB, over "
+              f"its {CALIBRATION_BUDGET_GB} GiB budget")
+        whole = {c: plan(c, budget_gb=None) for c in ("off", "auto")}
+        engine.set_cache_path(None)
+        rec = {
+            "analytic_micro": analytic.micro_batch_size,
+            "analytic_policy": analytic.remat_policy,
+            "analytic_modeled_bytes": est.total(analytic.micro_batch_size),
+            "corrected_prediction_bytes": predicted,
+            "fit": [a, b], "probes": entry["probes"], "probe_s": probe_s,
+            "calibrated_micro": got.micro_batch_size,
+            "calibrated_prediction_bytes": a * est.total(
+                got.micro_batch_size) + b,
+            "plan": got.describe(), "losses": res["losses"],
+            "peak_bytes": peak,
+            "peak_reserved_bytes": res["peak_reserved_bytes"],
+            "allocated_before_bytes": res["allocated_before_bytes"],
+            "whole_card_analytic_micro": whole["off"].micro_batch_size,
+            "whole_card_calibrated_micro": whole["auto"].micro_batch_size,
+            "whole_card_calibrated": whole["auto"].calibrated,
+            "counts": res["counts"]}
+        out[executor] = rec
+        print(f"calibration ({executor}, budget {CALIBRATION_BUDGET_GB} "
+              f"GiB): analytic plan micro {rec['analytic_micro']} (remat "
+              f"{rec['analytic_policy']}), modeled {rec['analytic_modeled_bytes']}"
+              f" B ({rec['analytic_modeled_bytes'] / GIB:.2f} GiB), corrected "
+              f"prediction for it {predicted:.0f} B ({predicted / GIB:.2f} "
+              f"GiB, not run); fit measured = {a:.6f} x modeled + {b:.0f} B "
+              f"from probes (micro, modeled B, measured B) {entry['probes']} "
+              f"in {probe_s:.1f}s", flush=True)
+        print(f"calibration ({executor}): {got.describe()}; predicted "
+              f"{rec['calibrated_prediction_bytes'] / GIB:.3f} GiB; 2 steps, "
+              f"losses {res['losses']}, peak allocated {peak} B "
+              f"({peak / GIB:.3f} GiB, {res['allocated_before_bytes']} B "
+              f"before), peak reserved {res['peak_reserved_bytes']} B "
+              f"({res['peak_reserved_bytes'] / GIB:.3f} GiB); the card's "
+              f"whole memory would get micro {rec['whole_card_analytic_micro']}"
+              f" analytic, {rec['whole_card_calibrated_micro']} calibrated "
+              f"(not run)", flush=True)
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the paper's own workloads: ResNet-50 (Table 4) and U-Net (Table 5)
+# ---------------------------------------------------------------------------
+
+# name: (mini-batch, micro-batch, steps, micro sizes whose peaks are fit)
+CNN_RUNS = {"resnet50": (1024, 128, 3, (32, 64, 128)),
+            "unet": (128, 16, 3, (4, 8, 16))}
+# flat against compiled after one step, cuDNN deterministic in both: the
+# same gradients (the 1/N_Smu scale is a power of two either way), K2/K4
+# against the tree update, which round alike
+CNN_ATOL = CNN_RTOL = 1e-5
+
+
+class _Batches:
+    """A dataset's batches made ahead (set-up, not step time): the
+    Pipeline asks for batch ``seed``, and gets the dataset's."""
+
+    def __init__(self, ds, batch_size: int, seeds):
+        self.batch_size = batch_size
+        self.batches = {i: ds.batch(batch_size, i) for i in seeds}
+
+    def batch(self, batch_size: int, seed: int):
+        check(batch_size == self.batch_size, f"asked for {batch_size}")
+        return self.batches[seed]
+
+
+def _cnn_setup(which: str):
+    from repro_torch import optim
+    from repro_torch.configs import resnet50, unet
+    from repro_torch.data import ClassificationDataset, SegmentationDataset
+    if which == "resnet50":  # the paper's Table 4 setup (resnet50.py:1-2)
+        cfg = resnet50.config()
+        return cfg, (lambda: optim.sgd(0.01, momentum=0.9,
+                                       weight_decay=5e-4)), \
+            ClassificationDataset(cfg.num_classes, cfg.image_size, seed=0)
+    cfg = unet.config()  # Table 5 (unet.py:1-2): Adam, BCE + Dice
+    return cfg, (lambda: optim.adam(0.01, weight_decay=5e-4)), \
+        SegmentationDataset(cfg.image_size, seed=0)
+
+
+def _cnn_state(cfg, dev, make_opt):
+    """({"params", "opt_state"} from seed 0, BN state, optimizer)."""
+    from repro_torch.models import cnn
+    params, bn_state = cnn.init(cfg, seed=0, device=dev)
+    opt = make_opt()
+    return {"params": params, "opt_state": opt.init(params)}, bn_state, opt
+
+
+def _cnn_step_peak(dev, cfg, make_opt, ds, micro: int) -> int:
+    """Peak bytes of one ``flat`` step over two micro-batches of ``micro``
+    images, above what was allocated before its params were made."""
+    import gc
+    import torch
+    from repro_torch import engine
+    from repro_torch.models import cnn
+    plan = engine.plan_mbs(2 * micro, micro_batch_size=micro, device=dev,
+                           remat_policy="none")
+    batch = ds.batch(2 * micro, 0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    st, bn_state, opt = _cnn_state(cfg, dev, make_opt)
+    ex = engine.FlatFusedExecutor(
+        cnn.make_loss_fn(cfg, bn_state, plan.remat_policy), opt, plan)
+    params, opt_state = ex.prepare(st.pop("params"), st.pop("opt_state"))
+    out = ex.step_split(params, opt_state, plan.device_split(batch, dev))
+    del params, opt_state
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del out
+    return int(peak)
+
+
+def _train_flops(cfg) -> tuple:
+    """(forward, forward + backward) FLOPs of one image, counted by
+    ``torch.utils.flop_counter`` over the port's model on meta tensors."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import tree
+    from repro_torch.models import cnn
+    params, state = cnn.init(cfg, seed=0, device="cpu")
+    params = tree.map(lambda t: t.to("meta").requires_grad_(), params)
+    state = tree.map(lambda t: t.to("meta"), state)
+    x = torch.empty(1, cfg.image_size, cfg.image_size, cfg.in_channels,
+                    device="meta")
+    counts = []
+    for backward in (False, True):
+        with FlopCounterMode(display=False) as fc:
+            out, _ = cnn.forward(cfg, params, state, x)
+            if backward:
+                out.sum().backward()
+        counts.append(fc.get_total_flops())
+    return tuple(counts)
+
+
+def _dots_sees_convolution(dev) -> list:
+    """The ops ``dots``' policy is shown for a CUDA convolution: every
+    convolution overload among them must be one it saves."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils import checkpoint as ckpt
+    from repro_torch.models import remat
+    seen = []
+
+    def record(ctx, op, *args, **kwargs):
+        seen.append(op)
+        return remat._save_dots(ctx, op, *args, **kwargs)
+
+    x = torch.randn(2, 3, 9, 9, device=dev, requires_grad=True)
+    w = torch.randn(4, 3, 3, 3, device=dev, requires_grad=True)
+    ckpt.checkpoint(
+        lambda a, b: F.conv2d(a, b, stride=2, padding=1).relu().sum(), x, w,
+        use_reentrant=False,
+        context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+            record)).backward()
+    convs = sorted({str(op) for op in seen if "conv" in str(op)})
+    check(bool(convs) and all(op in remat._DOT_OPS for op in seen
+                              if "conv" in str(op)),
+          f"dots' policy sees convolution ops {convs} on CUDA that it does "
+          f"not save")
+    return convs
+
+
+def cnn_phase(dev, which: str, errs) -> dict:
+    """The paper's workload ``which`` at its published size through
+    ``flat``: the peak of one step at three micro sizes and their affine
+    fit, extrapolated to the whole mini-batch without MBS (which must
+    exceed the card's memory: if it does not at the configured
+    mini-batch, the mini-batch is doubled until it does); then the
+    mini-batch's steps through Pipeline + Trainer with the launch counters
+    and peaks reset just before and read just after (K1 steps × N_Smu ×
+    launch groups, K2/K4 steps × buckets; params finite); then ``flat``
+    against ``compiled`` after one step from the same init, cuDNN
+    deterministic in both. The BN statistics are the initial state's, as
+    in the reference's drivers (``make_loss_fn``); remat "none"."""
+    import torch
+    from repro_torch import engine, kernels, tree
+    from repro_torch.core import losses
+    from repro_torch.engine import autotune
+    from repro_torch.models import cnn
+
+    mini, micro, n_steps, probe_micros = CNN_RUNS[which]
+    cfg, make_opt, ds = _cnn_setup(which)
+    update = "fused_sgd_mom" if which == "resnet50" else "fused_adam"
+    total = torch.cuda.get_device_properties(dev).total_memory
+    fwd_flops, train_flops = _train_flops(cfg)
+    out = {"config": dataclasses.asdict(cfg), "forward_flops": fwd_flops,
+           "train_flops": train_flops}
+    if which == "resnet50":
+        out["dots_conv_ops_cuda"] = _dots_sees_convolution(dev)
+    # peaks and the no-MBS extrapolation
+    t0 = time.perf_counter()
+    peaks = [(m, _cnn_step_peak(dev, cfg, make_opt, ds, m))
+             for m in probe_micros]
+    a, b = autotune._fit_affine(peaks)
+    configured = mini
+    while a * mini + b <= total:
+        mini *= 2
+    out.update(probe_peaks=peaks, fit=[a, b], configured_mini=configured,
+               mini=mini, no_mbs_peak_bytes=a * mini + b,
+               card_bytes=total, probe_s=time.perf_counter() - t0)
+    print(f"{which}: peak of one flat step (2 micro-batches) by micro size "
+          f"(images, B): {peaks}; fit peak = {a:.1f} B x images + {b:.0f} B;"
+          f" without MBS the mini-batch of {mini} would need "
+          f"{(a * mini + b) / GIB:.2f} GiB, the card has {total / GIB:.2f}"
+          + ("" if mini == configured else
+             f" (the configured mini-batch {configured} would have fit: "
+             f"doubled to {mini})"), flush=True)
+    # the mini-batch's steps through Pipeline + Trainer
+    plan = engine.plan_mbs(mini, micro_batch_size=micro, device=dev,
+                           remat_policy="none")
+    data = _Batches(ds, mini, range(n_steps))
+    st, bn_state, opt = _cnn_state(cfg, dev, make_opt)
+    ex = engine.FlatFusedExecutor(
+        cnn.make_loss_fn(cfg, bn_state, plan.remat_policy), opt, plan)
+    st["params"], st["opt_state"] = ex.prepare(st["params"],
+                                               st["opt_state"])
+    spec = engine.FlatSpec.for_tree(st["params"])
+    groups = len(kernels.grad_accum_kernels.launch_groups(
+        [(x, x) for x in tree.leaves(st["params"])]))
+    pipeline = engine.Pipeline(data, plan, prefetch=2, device=dev)
+    trainer = engine.Trainer(ex.step_split, pipeline, log_every=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    params, opt_state, _ = trainer.fit(st.pop("params"), st.pop("opt_state"),
+                                       n_steps)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = trainer.history
+    losses_seen = [h["loss"] for h in hist]
+    check(len(hist) == n_steps and all(map(math.isfinite, losses_seen)),
+          f"{which}: losses {losses_seen}")
+    check(all(bool(torch.isfinite(x).all()) for x in spec.buffers_of(params)),
+          f"{which}: params not finite")
+    want_k1 = n_steps * plan.num_micro_batches * groups
+    want_upd = n_steps * spec.num_buckets
+    check(counts["grad_accum"] == want_k1,
+          f"{which}: K1 launched {counts['grad_accum']} times, expected "
+          f"{want_k1} ({n_steps} steps x {plan.num_micro_batches} "
+          f"micro-batches x {groups} launch groups)")
+    check(counts[update] == want_upd,
+          f"{which}: {update} launched {counts[update]} times, expected "
+          f"{want_upd}")
+    # as on the main path: the gaps between readbacks but the last (which
+    # follows no dispatch) are one step's period each
+    clocks = [h["readback_s"] for h in hist]
+    gaps = [y - x for x, y in zip(clocks, clocks[1:])]
+    step_s = sum(gaps[:-1]) / len(gaps[:-1])
+    bound_s = train_flops * mini / FP32_FLOPS_PER_S
+    out.update(plan=plan.describe(), steps=n_steps, losses=losses_seen,
+               counts=counts, launch_groups=groups,
+               bucket_sizes=list(spec.bucket_sizes), leaves=len(spec.slots),
+               peak_bytes=peak, allocated_before_bytes=base,
+               peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+               readback_gaps_s=gaps, steady_step_s=step_s,
+               images_per_s=mini / step_s, step_bound_s=bound_s,
+               tflops_per_s=train_flops * mini / step_s / 1e12,
+               input_wait_fraction=pipeline.stats.input_wait_fraction)
+    print(f"{which} ({cfg.image_size}px, {spec.bucket_sizes[0]} params in "
+          f"{len(spec.slots)} leaves): {plan.describe()}; losses "
+          f"{losses_seen}; gaps between metric readbacks {gaps} s; steady "
+          f"step {step_s:.4f}s, {mini / step_s:.1f} images/s "
+          f"({train_flops / 1e9:.2f} GFLOP an image forward and backward, "
+          f"{out['tflops_per_s']:.1f} TFLOP/s; the fp32 bound {bound_s:.4f}s"
+          f" at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s); input-wait "
+          f"fraction {pipeline.stats.input_wait_fraction:.4f}; peak "
+          f"allocated {peak} B ({peak / GIB:.2f} GiB; {base} B before), "
+          f"reserved {out['peak_reserved_bytes']} B; launches {counts}",
+          flush=True)
+    if which == "unet":
+        ev = ds.batch(16, 10 ** 6)
+        x, mask = (torch.from_numpy(ev[k]).to(dev) for k in ("image", "mask"))
+        with torch.no_grad():
+            for mode, train in (("eval", False), ("train", True)):
+                logits, _ = cnn.forward(cfg, params, bn_state, x, train=train)
+                out[f"iou_{mode}"] = float(losses.iou(logits, mask))
+        print(f"unet: IoU after {n_steps} steps on 16 held-out images: "
+              f"{out['iou_eval']:.4f} in eval mode over the initial BN "
+              f"statistics (the reference's driver evaluates so; its loss "
+              f"drops the new ones), {out['iou_train']:.4f} with the "
+              f"batch's statistics", flush=True)
+        out["k4_bucket_bitwise"] = _k4_at(dev, spec.bucket_sizes[0], errs)
+    del params, opt_state, trainer, pipeline, data, ex
+    torch.cuda.empty_cache()
+    # flat against compiled after one step, from the same init
+    split = plan.device_split(ds.batch(mini, 0), dev)
+    got = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("compiled", "flat"):
+            st, bn_state, opt = _cnn_state(cfg, dev, make_opt)
+            exe = engine.get_executor(name)(
+                cnn.make_loss_fn(cfg, bn_state, plan.remat_policy), opt, plan)
+            p, s = st.pop("params"), st.pop("opt_state")
+            if name == "flat":
+                p, s = exe.prepare(p, s)
+            p, s, m = exe.step_split(p, s, split)
+            got[name] = (tree.leaves((p, {k: v for k, v in s.items()
+                                          if k != "step"})), float(m["loss"]))
+            del p, s, m, exe
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = 0.0
+    for x, y in zip(got["flat"][0], got["compiled"][0]):
+        err, ok = max_violation(x, y, atol=CNN_ATOL, rtol=CNN_RTOL)
+        worst = max(worst, err)
+        check(ok, f"{which}: flat and compiled disagree after one step: max "
+                  f"abs err {err:.3e} (atol {CNN_ATOL}, rtol {CNN_RTOL})")
+    out["flat_vs_compiled_max_abs_err"] = worst
+    print(f"{which}: flat == compiled after one step (cuDNN deterministic, "
+          f"mini-batch {mini} in {plan.num_micro_batches}): params and "
+          f"optimizer state within atol {CNN_ATOL} + rtol {CNN_RTOL}, max abs "
+          f"err {worst:.3e}; losses {got['flat'][1]:.6f} / "
+          f"{got['compiled'][1]:.6f}", flush=True)
+    del got, split
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k4_at(dev, n: int, errs) -> bool:
+    """K4 against its plain version at ``n`` elements, bit for bit."""
+    import torch
+    from repro_torch import kernels
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p, g, m = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    v = torch.randn(n, generator=gen, device=dev).abs_()
+    lr, bc1, bc2, clip = (torch.tensor(x, device=dev)
+                          for x in (0.01, 1 - 0.9 ** 2, 1 - 0.999 ** 2, 1.0))
+    want = kernels.ref.fused_adam_ref(p, g, m, v, lr, bc1, bc2, clip,
+                                      weight_decay=5e-4)
+    kernels.fused_adam(p, g, m, v, lr, bc1, bc2, clip, weight_decay=5e-4)
+    for got, w in zip((p, m, v), want):
+        err, _ = max_violation(got, w)
+        errs["fused_adam"] = max(errs["fused_adam"], err)
+        check(torch.equal(got, w), f"K4 at the U-Net bucket ({n}) is not "
+                                   f"bit-identical to its plain version: "
+                                   f"max abs err {err:.3e}")
+    print(f"unet: K4 bit-identical to its plain version at the U-Net "
+          f"bucket ({n} fp32 elements)", flush=True)
+    return True
+
+
+def tuner_phase(dev, main: dict) -> dict:
+    """The block tuner over the main path's bucket (``tune_for_params`` on
+    a tree of its leaves' shapes, into ``build/tuning-blocks.json``): every
+    candidate block's ms, and each candidate's output bit-identical to the
+    default block's; then 2 steps of the main path under the tuned
+    resolver, whose losses must equal the untuned run's."""
+    import torch
+    from repro_torch import engine, tree
+    from repro_torch.engine import autotune
+
+    cache = os.path.join(ROOT, "build", "tuning-blocks.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    autotune._caches.pop(cache, None)
+    spec = main["spec"]
+    shapes = tree.unflatten(spec.treedef, [
+        torch.empty(sl.shape, dtype=sl.dtype, device="meta")
+        for sl in spec.slots])
+    recs = autotune.tune_for_params(shapes, iters=3, device=dev,
+                                    cache_path=cache)
+    out = {"records": recs, "bitwise": {}}
+    n = spec.bucket_sizes[0]
+    for kind in ("grad_accum", "fused_update"):
+        base = autotune.sweep_operands(kind, n, device=dev)
+        autotune.run_with_block(kind, base, None)
+        for block in autotune.CANDIDATE_BLOCKS:
+            ops = autotune.sweep_operands(kind, n, device=dev)
+            autotune.run_with_block(kind, ops, block)
+            same = all(torch.equal(x, y) for x, y in zip(ops, base))
+            del ops
+            check(same, f"tuner: {kind} at block {block} is not "
+                        f"bit-identical to the default block")
+        out["bitwise"][kind] = list(autotune.CANDIDATE_BLOCKS)
+        del base
+        torch.cuda.empty_cache()
+    # the sweep times the candidates one after another, so a drift of the
+    # card over the sweep falls on the later ones; timed again in turns
+    # (A B ... B A, each over 10 launches queued behind a sleep kernel)
+    out["turns_ms"] = {}
+    for kind in ("grad_accum", "fused_update"):
+        ops = autotune.sweep_operands(kind, n, device=dev)
+        out["turns_ms"][kind] = turns_ms({
+            str(b): (lambda b=b: autotune.run_with_block(kind, ops, b))
+            for b in autotune.CANDIDATE_BLOCKS}, 10)
+        del ops
+        torch.cuda.empty_cache()
+    for key, rec in recs.items():
+        kind = key.split("|")[0]
+        turns = out["turns_ms"][kind]
+        print(f"tuner: {key} (n={rec['n']}): winner {rec['block']}; the "
+              f"sweep's median ms by block " + ", ".join(
+                  f"{b}: {t / 1e3:.4f}" for b, t in rec["timings_us"].items())
+              + "; in turns (first, second) " + ", ".join(
+                  f"{b}: {t[0]:.4f} / {t[1]:.4f}" for b, t in turns.items())
+              + "; every block bit-identical to the default", flush=True)
+    engine.set_cache_path(cache)
+    try:
+        res = run_launcher(dev, main_argv(steps=2))
+    finally:
+        engine.set_cache_path(None)
+    check(res["losses"] == main["losses"][:2],
+          f"tuner: the main path under the tuned blocks gave losses "
+          f"{res['losses']}, untuned {main['losses'][:2]}")
+    out.update(tuned_losses=res["losses"], tuned_counts=res["counts"])
+    print(f"tuner: 2 main-path steps under the tuned resolver: losses "
+          f"{res['losses']} == the untuned run's; launches {res['counts']}",
+          flush=True)
+    del res
     torch.cuda.empty_cache()
     return out
 
@@ -1520,7 +2116,9 @@ def run() -> dict:
     edge_phase(dev, errs)
     cross_check_phase(dev)
     main = main_path_phase(dev)
-    streaming = streaming_phase(dev, main["peak_bytes"])
+    streaming = streaming_phase(dev, main)
+    calibration = calibration_phase(dev)
+    cnns = {w: cnn_phase(dev, w, errs) for w in CNN_RUNS}
     resume = resume_phase(dev)
     n = main["bucket_size"]
     times = full_size_phase(dev, n, errs)
@@ -1529,8 +2127,12 @@ def run() -> dict:
     # leaves' time, with the library call over the same pairs
     times["grad_accum"] = (k1["ms"], k1["plain_ms"], k1["foreach_add_ms"])
     api = api_phase(dev, errs)
+    tuner = tuner_phase(dev, main)
     # launches of the comparisons above do not count: the counts are the
-    # main path's and the kernel-API path's, each read right after it
+    # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's and the
+    # kernel-API path's — each read right after it ran
+    paths = {"qwen2-1.5b": main["counts"],
+             **{w: r["counts"] for w, r in cnns.items()}}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
             KERNELS.items():
@@ -1539,7 +2141,9 @@ def run() -> dict:
         op_ms = n * flops_per / FP32_FLOPS_PER_S * 1e3
         records.append({
             "name": name, "route": route, "source": src,
-            "replaces": replaces, "launches": main["counts"][name],
+            "replaces": replaces,
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -1574,7 +2178,9 @@ def run() -> dict:
     print(json.dumps({"runtime": {
         "main_path": {k: v for k, v in main.items()
                       if k not in ("spec", "counts")},
-        "streaming": streaming, "resume": resume}}), flush=True)
+        "streaming": streaming, "resume": resume,
+        "calibration": calibration, "cnn": cnns, "tuner": tuner}}),
+        flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(f"card: {card_line()}", flush=True)
     return {"ok": True, "device": {"platform": "gpu",

@@ -49,5 +49,41 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     return _weighted_mean(per_sample, sample_weight, exact_denom)
 
 
+def bce_with_logits(logits, targets, *, sample_weight=None,
+                    exact_denom=None) -> torch.Tensor:
+    """Binary cross-entropy from logits; logits/targets (B, H, W, 1)."""
+    logits = logits.float()
+    per_px = (torch.clamp(logits, min=0) - logits * targets
+              + torch.log1p(torch.exp(-torch.abs(logits))))
+    per_sample = torch.mean(per_px, dim=tuple(range(1, per_px.dim())))
+    return _weighted_mean(per_sample, sample_weight, exact_denom)
+
+
+def dice_loss(logits, targets, *, sample_weight=None, exact_denom=None,
+              eps: float = 1.0) -> torch.Tensor:
+    """Paper eq. (19): L_dc = 1 - 2|A∩B| / (|A|+|B|), per sample."""
+    probs = torch.sigmoid(logits.float())
+    dims = tuple(range(1, probs.dim()))
+    inter = torch.sum(probs * targets, dim=dims)
+    denom = torch.sum(probs, dim=dims) + torch.sum(targets, dim=dims)
+    per_sample = 1.0 - (2.0 * inter + eps) / (denom + eps)
+    return _weighted_mean(per_sample, sample_weight, exact_denom)
+
+
+def bce_dice_loss(logits, targets, **kw) -> torch.Tensor:
+    """Paper eq. (20): L_total = L_bce + L_dc (the U-Net training loss)."""
+    return bce_with_logits(logits, targets, **kw) + dice_loss(logits,
+                                                              targets, **kw)
+
+
+def iou(logits, targets, thresh: float = 0.5) -> torch.Tensor:
+    """Intersection-over-union metric (paper §4.3.1)."""
+    pred = (torch.sigmoid(logits.float()) > thresh).float()
+    dims = tuple(range(1, pred.dim()))
+    inter = torch.sum(pred * targets, dim=dims)
+    union = torch.sum(torch.maximum(pred, targets), dim=dims)
+    return torch.mean((inter + 1e-6) / (union + 1e-6))
+
+
 def accuracy(logits, labels) -> torch.Tensor:
     return torch.mean((torch.argmax(logits, -1) == labels).float())

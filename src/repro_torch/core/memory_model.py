@@ -89,6 +89,14 @@ class MemoryEstimate:
                 + self.fixed_bytes + self.update_transient_bytes
                 + self.activation_bytes_per_sample * micro_batch)
 
+    def affine_coeffs(self) -> tuple:
+        """(fixed, per_sample) with total(m) == fixed + per_sample·m. The
+        estimate is exactly affine in the micro-batch size, and so is the
+        measured peak to a good approximation, which is what lets
+        ``engine.autotune`` map one onto the other with one affine
+        correction per key, fit from two or three probe steps."""
+        return self.total(0), self.activation_bytes_per_sample
+
 
 def activation_bytes_per_sample(cfg: ModelConfig, seq: int,
                                 act_bytes: int = 2, remat: bool = True,

@@ -1,2 +1,3 @@
 from .loader import MBSLoader  # noqa: F401
-from .synthetic import LMDataset  # noqa: F401
+from .synthetic import (ClassificationDataset, LMDataset,  # noqa: F401
+                        SegmentationDataset, minibatch_stream)

@@ -1,10 +1,15 @@
 """MBS execution engine of the port: the planner (``plan.py``), the
 flat-buffer layout (``flat.py``), the shared Algorithm 1 core
 (``exec_core.py``), the executors (``executors.py``), the async input
-pipeline (``pipeline.py``), the resumable loop (``trainer.py``) and the
-fault-injection harness (``faults.py``)."""
+pipeline (``pipeline.py``), the resumable loop (``trainer.py``), the
+fault-injection harness (``faults.py``) and the autotuner
+(``autotune.py``: the memory oracle behind ``plan_mbs(calibrate=)`` and
+the kernels' block tuner, whose resolver is installed on import)."""
 from .plan import (MBSConfig, MBSPlan, num_micro_batches,  # noqa: F401
                    plan_mbs, split_minibatch)
+from .autotune import (TuningCache, calibrate_memory,  # noqa: F401
+                       get_cache, set_cache_path, tune_block_sizes,
+                       tune_for_params)
 from .flat import FlatSpec, LeafSlot  # noqa: F401
 from .executors import (EXECUTORS, CompiledScanExecutor,  # noqa: F401
                         FlatFusedExecutor, FusedAccumExecutor,

@@ -76,6 +76,19 @@ class FlatSpec:
         return tuple(torch.zeros((n,), dtype=dtype, device=device)
                      for n in self.bucket_sizes)
 
+    def bucket_blocks(self, kind: str = "grad_accum", *,
+                      dtype: Optional[Any] = None,
+                      interpret: Optional[bool] = None) -> Tuple[int, ...]:
+        """Per-bucket 1-D launch blocks through the tuning cache's resolver
+        (``engine.autotune``), else ``launch_config``'s. ``dtype``
+        overrides the bucket dtype for the lookup (accumulator buffers
+        carry ``accum_dtype``)."""
+        from ..kernels import resolve_block
+        return tuple(
+            resolve_block(kind, dtype if dtype is not None else dt, n,
+                          interpret)
+            for n, dt in zip(self.bucket_sizes, self.bucket_dtypes))
+
     def by_bucket(self, leaves) -> list:
         """A list of leaves in tree order → one list per bucket, each in
         slot order."""

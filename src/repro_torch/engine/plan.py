@@ -8,8 +8,10 @@
     upgraded to ``"exact"`` (eq. 15–17 hold for any split there).
 
 Plans equal the JAX package's field for field for the same inputs on one
-device (the mesh, calibration and pipeline fields of the JAX plan keep
-their single-device defaults there).
+device (the mesh and pipeline fields of the JAX plan keep their
+single-device defaults there), calibrated ones included: with
+``calibrate="auto"`` both read the same tuning-cache entry
+(``engine/autotune.py``).
 
 Staging (paper Fig. 1): :func:`host_tensors` turns a split numpy batch
 into page-locked host tensors, :func:`stage` copies them to the card with
@@ -93,6 +95,11 @@ class MBSPlan:
     auto_normalization: bool = False  # "paper" upgraded to "exact" (ragged)
     remat_policy: str = "period"  # none | dots | period | full
     auto_policy: bool = False  # policy chosen by the planner ("auto")
+    # measured-feedback admission: True when the micro size was admitted
+    # against the memory oracle's corrected bytes (engine/autotune.py);
+    # ``correction`` is the (a, b) of ``measured ≈ a·modeled + b`` applied
+    calibrated: bool = False
+    correction: Optional[tuple] = None
 
     def split(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Pad-and-mask split of a host mini-batch. Non-uniform dataset
@@ -127,7 +134,8 @@ class MBSPlan:
                 for k, v in self.split(batch).items()}
 
     def describe(self) -> str:
-        src = "memory model" if self.auto_micro else "pinned"
+        src = ("calibrated memory model" if self.calibrated
+               else "memory model" if self.auto_micro else "pinned")
         norm = self.normalization + (" (auto)" if self.auto_normalization
                                      else "")
         pol = self.remat_policy + (" (auto)" if self.auto_policy else "")
@@ -194,7 +202,9 @@ def plan_mbs(mini_batch_size: int, *,
              opt_slots: Optional[int] = None,
              act_bytes: int = 2, remat: bool = True,
              remat_policy: Optional[str] = None,
-             optimizer: str = "sgd", fused_update: bool = False) -> MBSPlan:
+             optimizer: str = "sgd", fused_update: bool = False,
+             calibrate: str = "off", tuning_cache: Optional[str] = None,
+             executor: str = "compiled") -> MBSPlan:
     """Produce an :class:`MBSPlan` for one training setup.
 
     Micro-batch size, in priority order:
@@ -208,7 +218,25 @@ def plan_mbs(mini_batch_size: int, *,
     ``remat_policy``: an explicit policy is used as given; ``"auto"``
     chooses it jointly with the micro size (cheapest recompute that meets
     the whole mini-batch, or with a pinned size the cheapest that admits
-    it); ``None`` maps the ``remat`` bool (True → "period")."""
+    it); ``None`` maps the ``remat`` bool (True → "period").
+
+    ``calibrate`` closes the loop against the card (only when the planner
+    itself sizes the micro-batch, path 3):
+      * ``"off"``: analytic admission, no cache I/O;
+      * ``"auto"``: when the tuning cache (``tuning_cache`` or the active
+        or default one) holds a correction for this (arch, seq, policy,
+        mesh, optimizer, ``executor``, backend) key, admission searches
+        *corrected* bytes ``a·modeled + b`` over every integer micro
+        size; without one, or when the corrected search admits nothing,
+        the analytic choice stands;
+      * ``"force"``: run the probe steps now (``autotune.calibrate_memory``
+        on CUDA ``device``), persist the fit, then admit against it.
+    A calibrated plan records ``calibrated=True`` and the correction.
+    ``executor`` only keys the cache entry (and names the executor the
+    probes run); it does not change the geometry."""
+    if calibrate not in ("off", "auto", "force"):
+        raise ValueError(
+            f'calibrate must be "off", "auto" or "force", got {calibrate!r}')
     if mini_batch_size < 1:
         raise ValueError(f"mini_batch_size must be >= 1, got {mini_batch_size}")
     from ..core import memory_model  # deferred: core imports this package
@@ -225,6 +253,8 @@ def plan_mbs(mini_batch_size: int, *,
 
     auto = False
     policy_searched = False
+    calibrated = False
+    correction = None
     if micro_batch_size is not None:
         micro = micro_batch_size
     elif num_microbatches is not None:
@@ -244,6 +274,24 @@ def plan_mbs(mini_batch_size: int, *,
             local = memory_model.suggest_micro_batch_size(
                 model_cfg, seq_len, mini_batch_size, budget_bytes=budget(),
                 remat_policy=policy, **mm_kw)
+        if calibrate != "off":
+            # the analytic search picked the policy; calibration refines
+            # the micro size for that policy only
+            from . import autotune
+            corr = autotune.planner_correction(
+                model_cfg, seq_len, remat_policy=policy, mesh=None,
+                optimizer=optimizer, executor=executor, mode=calibrate,
+                cache_path=tuning_cache, device=device,
+                opt_slots=opt_slots, act_bytes=act_bytes,
+                fused_update=fused_update)
+            if corr is not None:
+                cal_local = autotune.corrected_micro_search(
+                    model_cfg, seq_len, mini_batch_size, budget(), corr,
+                    remat_policy=policy, **mm_kw)
+                if cal_local is not None:
+                    local = cal_local
+                    calibrated = True
+                    correction = (float(corr[0]), float(corr[1]))
         micro = local or 1
         auto = True
     else:
@@ -274,4 +322,5 @@ def plan_mbs(mini_batch_size: int, *,
     return MBSPlan(mini_batch_size, micro, n_s, pad, normalization,
                    accum_dtype, auto_micro=auto,
                    auto_normalization=auto_norm, remat_policy=policy,
-                   auto_policy=auto_policy_requested and policy_searched)
+                   auto_policy=auto_policy_requested and policy_searched,
+                   calibrated=calibrated, correction=correction)

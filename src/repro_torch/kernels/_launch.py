@@ -111,11 +111,16 @@ def resolve_block(kind: str, dtype, n: int,
             or launch_config(n)[0])
 
 
-def stream_geometry(kind: str, dtype, n: int) -> Tuple[int, int]:
-    """(BLOCK, num_warps) that a 1-D kernel launches with on the card:
-    :func:`resolve_block`'s block. With no resolver installed this is
-    :func:`launch_config`."""
-    block = resolve_block(kind, dtype, n, interpret=False)
+def stream_geometry(kind: str, dtype, n: int, block: Optional[int] = None
+                    ) -> Tuple[int, int]:
+    """(BLOCK, num_warps) that a 1-D kernel launches with on the card: the
+    caller's ``block`` (a power of two; the block tuner's candidates),
+    else :func:`resolve_block`'s. With neither a block nor a resolver this
+    is :func:`launch_config`."""
+    if block is None:
+        block = resolve_block(kind, dtype, n, interpret=False)
+    else:
+        check_block(kind, block)
     return block, num_warps(block)
 
 

@@ -133,14 +133,15 @@ def _check(name, params, grads, *state) -> torch.device:
 
 def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
               momentum: float = 0.0, weight_decay: float = 0.0,
-              nesterov: bool = False):
+              nesterov: bool = False, block=None):
     """One in-place SGD(-momentum) step over a flat bucket.
 
     params/mom: (N,) in the bucket dtype; grads: (N,) fp32 accumulator;
     lr, clip_scale: numbers or 1-element tensors. Writes params (and mom)
     in place and returns (params, mom) — or params alone when ``mom`` is
-    None. CUDA tensors launch K2 (with ``mom``) or K3 (without); CPU
-    tensors take the plain version."""
+    None. CUDA tensors launch K2 (with ``mom``) or K3 (without), at
+    ``block`` elements a program (a power of two; default: the tuned or
+    default block); CPU tensors take the plain version."""
     if mom is None:
         dev = _check("fused_sgd", params, grads)
     else:
@@ -157,7 +158,7 @@ def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
         return params, mom
     triton, sgd_mom, sgd, _ = _kernels()
     n = params.numel()
-    block, warps = stream_geometry("fused_update", params.dtype, n)
+    block, warps = stream_geometry("fused_update", params.dtype, n, block)
     grid = (triton.cdiv(n, block),)
     wd = ref.weak(weight_decay, torch.float32)
     with torch.cuda.device(dev):
@@ -177,13 +178,14 @@ def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
 def fused_adam(params, grads, m, v, lr, bias_corr1, bias_corr2,
                clip_scale=1.0, *, b1: float = 0.9, b2: float = 0.999,
                eps: float = 1e-8, weight_decay: float = 0.0,
-               decoupled: bool = False):
+               decoupled: bool = False, block=None):
     """One in-place Adam/AdamW step over a flat bucket.
 
     params/m/v: (N,) bucket buffers; grads: (N,) fp32 accumulator;
     ``bias_corr{1,2}`` are the ``1 - beta**step`` scalars, numbers or
     1-element device tensors. Writes params, m and v in place and returns
-    them. CUDA tensors launch K4; CPU tensors take the plain version."""
+    them. CUDA tensors launch K4 (``block`` as for :func:`fused_sgd`);
+    CPU tensors take the plain version."""
     dev = _check("fused_adam", params, grads, m, v)
     s = scalars(dev, lr, clip_scale, bias_corr1, bias_corr2)
     if dev.type == "cpu":
@@ -195,7 +197,7 @@ def fused_adam(params, grads, m, v, lr, bias_corr1, bias_corr2,
         return params, m, v
     triton, _, _, adam = _kernels()
     n = params.numel()
-    block, warps = stream_geometry("fused_update", params.dtype, n)
+    block, warps = stream_geometry("fused_update", params.dtype, n, block)
     with torch.cuda.device(dev):
         adam[(triton.cdiv(n, block),)](
             params, grads, m, v, s, n,

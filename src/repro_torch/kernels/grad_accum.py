@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -64,14 +64,15 @@ def launch_groups(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _launch(accs: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-            s: torch.Tensor) -> None:
+            s: torch.Tensor, block: Optional[int] = None) -> None:
     """One K1 launch over contiguous CUDA pairs of one dtype pair (at most
     ``MAX_ENTRIES``); raises (never falls back) when there is no GPU or no
     ``nvcc``, or when the launch fails."""
     fn, err_str = _entry()
     k = len(accs)
     n_total = sum(a.numel() for a in accs)
-    block, warps = stream_geometry("grad_accum", accs[0].dtype, n_total)
+    block, warps = stream_geometry("grad_accum", accs[0].dtype, n_total,
+                                   block)
     ptrs = ctypes.c_void_p * k
     dev = accs[0].device
     with torch.cuda.device(dev):
@@ -116,13 +117,15 @@ def _check_pairs(accs, grads) -> torch.device:
 
 
 def grad_accum_many(accs: Sequence[torch.Tensor],
-                    grads: Sequence[torch.Tensor], scale
-                    ) -> List[torch.Tensor]:
+                    grads: Sequence[torch.Tensor], scale, *,
+                    block: Optional[int] = None) -> List[torch.Tensor]:
     """acc += scale * grad for each pair, in place on the accumulators
     (returned). Each accumulator is contiguous (it may be a view into a
     flat bucket) and has its gradient's numel; fp32 or bf16 each; scale
     a number or a 1-element tensor. CUDA pairs take one K1 launch per
-    :func:`launch_groups` group; CPU pairs take the plain version."""
+    :func:`launch_groups` group, of ``block`` elements a CUDA block (a
+    power of two; default: the tuned or default block); CPU pairs take
+    the plain version."""
     accs, grads = list(accs), list(grads)
     if not accs:
         return accs
@@ -137,7 +140,7 @@ def grad_accum_many(accs: Sequence[torch.Tensor],
             a.view(-1).copy_(ref.grad_accum_ref(a.view(-1), g.view(-1), s))
         return accs
     for idx in launch_groups(list(zip(accs, grads))):
-        _launch([accs[i] for i in idx], [grads[i] for i in idx], s)
+        _launch([accs[i] for i in idx], [grads[i] for i in idx], s, block)
     return accs
 
 

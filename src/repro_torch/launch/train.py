@@ -3,7 +3,9 @@ package's ``launch/train.py``.
 
 Plans the batch geometry (``--microbatches`` pins N_Sμ; without it the
 memory model sizes the micro-batch against the device's memory or
-``--hbm-budget-gb``), builds the executor and drives it through the async
+``--hbm-budget-gb``, corrected by the tuning cache's measured fit under
+``--calibrate auto`` and measured anew under ``--calibrate force``),
+builds the executor and drives it through the async
 input pipeline: ``LMDataset`` batches are drawn and plan-split in a
 background worker (batch ``i`` with seed ``i``), staged host→device on a
 copy stream (double-buffered at mini-batch granularity), and the
@@ -15,12 +17,14 @@ periodic checkpointing, ``--resume``. It runs on CUDA unless
       --reduced --steps 4 --executor compiled|streaming|fused|flat \
       --device cpu [--ckpt-dir /tmp/ckpt --ckpt-every 2 [--resume]]
 
-The reference's ``--supervise`` (ROADMAP.md queue 1 item 12), ``--mesh``,
-``--fsdp`` and ``--no-donate`` (item 11), and ``--calibrate`` and
-``--tuning-cache`` (item 9) are not ported. Without donation, a
-``compiled``, ``fused`` or ``streaming`` run keeps its initial params and
-momentum alive beside the trained ones (ROADMAP.md queue 3); ``flat``
-trains its initial buffers in place.
+On the card, ``--calibrate force --tuning-cache PATH`` (no
+``--microbatches``) measures the step's peak at micro-batches 1, 2 and 4
+before it plans. The reference's ``--supervise`` (ROADMAP.md queue 1
+item 12), ``--mesh``, ``--fsdp`` and ``--no-donate`` (item 11) are not
+ported. The launcher keeps no reference to the initial params and
+optimizer state once the Trainer has them, so an executor whose update
+makes new trees (``compiled``, ``fused``, ``streaming``) frees them after
+the first step; ``flat`` trains its initial buffers in place.
 """
 from __future__ import annotations
 
@@ -63,6 +67,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hbm-budget-gb", type=float, default=None,
                     help="memory budget for auto micro-batch sizing "
                          "(default: the device's total memory)")
+    ap.add_argument("--calibrate", choices=["off", "auto", "force"],
+                    default="auto",
+                    help="measured admission (engine.autotune): auto = "
+                         "use a cached memory correction when one exists "
+                         "(analytic otherwise); force = run the probe "
+                         "steps now on the card and persist the fit; off "
+                         "= analytic only")
+    ap.add_argument("--tuning-cache", default=None, metavar="PATH",
+                    help="tuning-cache JSON path (default: "
+                         "$REPRO_TORCH_TUNING_CACHE or "
+                         "~/.cache/repro-torch-tuning/tuning.json); also "
+                         "feeds the kernels' tuned launch blocks")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--dtype", choices=["float32", "bfloat16"],
@@ -118,6 +134,8 @@ def build_plan(cfg, args, optimizer, device) -> engine.MBSPlan:
         normalization=args.normalization,
         act_bytes=4 if args.dtype == "float32" else 2,
         remat=not args.reduced, remat_policy=args.remat_policy,
+        calibrate=args.calibrate, tuning_cache=args.tuning_cache,
+        executor=args.executor,
         **optim.memory_model_kw(optimizer, fused=args.executor == "flat"))
 
 
@@ -140,19 +158,24 @@ def make_build(cfg, args, ds, optimizer, device):
     return build
 
 
-def run_trainer(trainer, params, opt_state, args):
-    """Resume (when asked) + fit."""
+def run_trainer(trainer, state: Dict[str, object], args):
+    """Resume (when asked) + fit. ``state`` holds the initial
+    ``"params"`` and ``"opt_state"``; both are popped from it and handed
+    to ``Trainer.fit`` without a local name, so once the first step has
+    made new trees no frame keeps the initial ones alive."""
     start = 0
     if args.resume:
-        restored = trainer.restore(params, opt_state)
+        restored = trainer.restore(state["params"], state["opt_state"])
         if restored is not None:
-            params, opt_state, start = restored
+            state["params"], state["opt_state"], start = restored
             rec = trainer.ckpt_log[-1]
             print(f"resumed from step {start} ({rec['seconds']:.2f}s)",
                   flush=True)
         else:
             print("no checkpoint to resume from; starting fresh", flush=True)
-    params, opt_state, last = trainer.fit(params, opt_state, args.steps,
+        del restored
+    params, opt_state, last = trainer.fit(state.pop("params"),
+                                          state.pop("opt_state"), args.steps,
                                           start_step=start)
     if args.ckpt_dir:
         saves = [r for r in trainer.ckpt_log if r["op"] == "save"]
@@ -177,21 +200,32 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         ap.error(f"--device must be cuda or cpu, got {args.device!r}")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
+    if args.calibrate == "force" and device.type != "cuda":
+        ap.error("--calibrate force measures the step's peak on the card; "
+                 "on the CPU use --calibrate auto or off")
+    if args.tuning_cache:
+        # one cache serves both halves: the planner's memory correction
+        # and the kernels' tuned launch blocks (the active cache)
+        engine.set_cache_path(args.tuning_cache)
     cfg = build_config(args)
     opt = default_optimizer(args)
     plan = build_plan(cfg, args, opt, device)
     print(plan.describe(), flush=True)
     ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=args.seq, seed=0)
     executor, step_fn, pipeline = make_build(cfg, args, ds, opt, device)(plan)
-    params = transformer.init_params(cfg, seed=0, device=device)
-    opt_state = opt.init(params)
+    # the initial state lives only in ``state`` until run_trainer hands
+    # it to the Trainer: an executor whose update makes new trees then
+    # frees it after the first step
+    state = {"params": transformer.init_params(cfg, seed=0, device=device)}
+    state["opt_state"] = opt.init(state["params"])
     if isinstance(executor, engine.FlatFusedExecutor):
-        params, opt_state = executor.prepare(params, opt_state)
+        state["params"], state["opt_state"] = executor.prepare(
+            state["params"], state["opt_state"])
     trainer = engine.Trainer(step_fn, pipeline, ckpt_dir=args.ckpt_dir,
                              ckpt_every=args.ckpt_every,
                              ckpt_keep=args.ckpt_keep,
                              log_every=args.log_every)
-    params, opt_state, _ = run_trainer(trainer, params, opt_state, args)
+    params, opt_state, _ = run_trainer(trainer, state, args)
     return {"plan": plan, "config": cfg, "history": trainer.history,
             "params": params, "opt_state": opt_state,
             "pipeline": pipeline.stats, "checkpoints": trainer.ckpt_log}

@@ -4,9 +4,11 @@ compute↔memory axis the planner trades against the micro-batch size.
 The lattice, in order of increasing memory savings / recompute:
 
   ``none``    no checkpointing: every intermediate stays live for backward.
-  ``dots``    selective checkpointing per period: matmul outputs are saved
-              (the expensive part to recompute), everything else is
-              recomputed — the counterpart of JAX's ``checkpoint_dots``.
+  ``dots``    selective checkpointing per period: matmul and convolution
+              outputs are saved (the expensive part to recompute),
+              everything else is recomputed — the counterpart of JAX's
+              ``checkpoint_dots``, which is ``dots_saveable`` and saves
+              ``dot_general`` and ``conv_general_dilated``.
   ``period``  plain checkpointing per period: only the residual stream at
               each period boundary survives the forward.
   ``full``    ``period`` plus a nested checkpoint around every block inside
@@ -27,10 +29,13 @@ from torch.utils import checkpoint as ckpt
 # (cheapest-recompute) policy whose admitted micro-batch meets the target.
 POLICIES = ("none", "dots", "period", "full")
 
-# the ATen matmuls that ``dots`` saves (``x @ w`` lowers to mm/addmm after a
-# view; the attention einsums lower to bmm)
+# the ATen ops that ``dots`` saves: the matmuls (``x @ w`` lowers to
+# mm/addmm after a view; the attention einsums lower to bmm) and the
+# convolution (``F.conv2d`` reaches the policy as ``aten.convolution``,
+# tests/test_torch_cnn.py)
 _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+            torch.ops.aten.convolution.default)
 
 
 def validate(policy: str) -> str:
