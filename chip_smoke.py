@@ -23,7 +23,10 @@ Phases (any failure exits non-zero before the last line is printed):
      round, so this only allows for the last place), K1 bit for bit; and
      K1 over lists of (accumulator, gradient) pairs — views at unaligned
      offsets, bf16 gradients and accumulators, an empty leaf, more pairs
-     than one launch takes — bit for bit, one launch per group;
+     than one launch takes — bit for bit, one launch per group; K2–K4's
+     ``GUARD`` variants (the supervisor's finite flag) at the same sizes:
+     flag 1 bit-identical to the unguarded kernel, flag 0 writes nothing
+     (a NaN in the accumulator included);
   4. kernels K5 (fused cross-entropy, Triton) and K6 (flash attention)
      against their plain versions at edge shapes in fp32 and bf16, labels
      outside [0, V) among them — the per-token NLL within 1e-4, attention
@@ -99,6 +102,8 @@ Phases (any failure exits non-zero before the last line is printed):
      one (K4's, ``torch._fused_adamw_``, first checked against K4's plain
      version on copies of the same inputs, within 1e-6 + 1e-5 (|old| +
      |new − old|): the same update with its roundings in another order);
+     and K2–K4's ``GUARD`` variants at that size, flag 1 bit-identical and
+     flag 0 writing nothing, timed in turns beside the unguarded kernel;
   10. K1 at the main path's gradient leaves (one tensor a leaf, one fp32
      bucket), bit for bit, timed beside its bound, its plain version,
      ``torch._foreach_add_`` over the same pairs and ``add_`` on a flat
@@ -122,10 +127,33 @@ Phases (any failure exits non-zero before the last line is printed):
      (``engine.autotune.tune_for_params`` into
      ``build/tuning-blocks.json``): every candidate block's median ms,
      each bit-identical to the default block, then 2 main-path steps
-     under the tuned resolver with the untuned run's losses.
+     under the tuned resolver with the untuned run's losses;
+  13c. the supervisor's guard (``guard_phase``): at full qwen2-1.5b
+     through the main path's ``flat`` executor, guarded and unguarded
+     steps timed in turns, their peaks within 0.1 GiB, the guarded step's
+     synchronizing calls (``torch.cuda.set_sync_debug_mode``) none beyond
+     the unguarded step's, and a step poisoned by ``faults.nan_at``
+     leaving every buffer and the step counter ``torch.equal``; the
+     supervised launcher with that NaN retried against the unfaulted
+     run (phase 8's rule); then the four executors at 2 layers;
+  13a. a real OOM at full width (``oom_ladder_phase``): the supervised
+     launcher, ``flat``, mini-batch 16 in one micro-batch, remat
+     ``none``, climbs the ladder on real ``torch.OutOfMemoryError``s;
+     every fault record, the allocator's peaks at each failure and the
+     bytes allocated after each rebuild (no more than the state and one
+     batch); the final plan unsupervised against it; ``--max-restarts
+     0`` exits 41;
+  13b. the calibrated planner's miss (``calibration_miss_phase``):
+     ``streaming`` under ``--calibrate auto`` with 7a's cache, at a
+     budget where 7a's fit admits a micro-batch whose real peak (the line
+     through the backward-bound probes) exceeds it, the allocator capped
+     there: one OOM, the negative bound in the cache file, the recovered
+     plan under the cap, and a second plan that no longer admits what
+     failed (injected with ``faults.oom_at`` if no budget provokes it).
 
-Before the last lines come ``{"runtime": {...}}`` (phases 6–8's, 7a's,
-7b's and 12's numbers)
+Each phase's seconds are printed as it ends, and all of them with the
+total before the last lines. Before the last lines come
+``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's and 13's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2087,6 +2115,629 @@ def api_phase(dev, errs) -> dict:
     return {"counts": counts, "variants": variants, "records": records}
 
 
+# ---------------------------------------------------------------------------
+# the numeric guard's kernels: K2-K4 with GUARD
+# ---------------------------------------------------------------------------
+
+GUARD_KINDS = ("fused_sgd_mom", "fused_sgd", "fused_adam")
+# the buffers each kernel writes, by index into its operands (p, g, m, v)
+GUARD_WRITES = {"fused_sgd_mom": (0, 2), "fused_sgd": (0,),
+                "fused_adam": (0, 2, 3)}
+
+
+def _guard_operands(kind, n, dtype, dev, gen) -> list:
+    import torch
+
+    def rnd(dt=dtype):
+        return torch.randn(n, generator=gen, device=dev).to(dt)
+    ops = [rnd(), rnd(torch.float32)]
+    if kind != "fused_sgd":
+        ops.append(rnd())
+    if kind == "fused_adam":
+        ops.append(rnd().abs())
+    return ops
+
+
+def _guard_call(kind, ops, ok) -> None:
+    """One launch of ``kind`` over ``ops``: the unguarded kernel when ``ok``
+    is None, else the GUARD variant with that device flag."""
+    from repro_torch import kernels
+    if kind == "fused_adam":
+        kernels.fused_adam(*ops, 1e-3, 0.1, 0.001, 0.7, weight_decay=1e-2,
+                           decoupled=True, ok=ok)
+    elif kind == "fused_sgd_mom":
+        kernels.fused_sgd(*ops, 0.05, 0.7, momentum=0.9, weight_decay=5e-4,
+                          nesterov=True, ok=ok)
+    else:
+        kernels.fused_sgd(ops[0], ops[1], None, 0.05, 0.7,
+                          weight_decay=5e-4, ok=ok)
+
+
+def guard_kernel_phase(dev) -> int:
+    """K2-K4's GUARD variants at the ragged sizes in fp32 and bf16: with the
+    flag at 1 bit-identical to the unguarded kernel; at 0 every buffer
+    unchanged, a NaN in the accumulator included. Returns the case count."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = 0
+    for n in RAGGED_SIZES:
+        for dt in (torch.float32, torch.bfloat16):
+            for kind in GUARD_KINDS:
+                ops = _guard_operands(kind, n, dt, dev, gen)
+                for flag in (True, False):
+                    got = [x.clone() for x in ops]
+                    want = [x.clone() for x in ops]
+                    if flag:
+                        _guard_call(kind, want, None)
+                    else:
+                        got[1][n // 2] = float("nan")
+                    _guard_call(kind, got, torch.tensor(flag, device=dev))
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for i, (a, b) in
+                               enumerate(zip(got, want)) if i != 1)
+                    check(same, f"{kind} GUARD [flag {int(flag)}, {dt}, "
+                                f"n={n}]: " + ("not bit-identical to the "
+                                               "unguarded kernel" if flag
+                                               else "wrote a buffer"))
+                    cases += 1
+    print(f"kernels: K2-K4 GUARD variants at n={RAGGED_SIZES} in fp32 and "
+          f"bf16: flag 1 bit-identical to the unguarded kernels, flag 0 "
+          f"writes nothing ({cases} cases)", flush=True)
+    return cases
+
+
+def guard_full_size_phase(dev, n: int) -> dict:
+    """K2-K4 at the main path's bucket (``n`` fp32 elements): the GUARD
+    variant with flag 1 bit-identical to the unguarded kernel and with
+    flag 0 writing nothing; then unguarded, flag 1 and flag 0 timed in
+    turns (A B C C B A), each over 10 launches behind a sleep kernel."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.bool, device=dev)
+    res = {}
+    for kind in GUARD_KINDS:
+        ops = _guard_operands(kind, n, torch.float32, dev, gen)
+        guarded = [x.clone() if i in GUARD_WRITES[kind] else x
+                   for i, x in enumerate(ops)]
+        _guard_call(kind, ops, None)
+        _guard_call(kind, guarded, one)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(guarded, ops)),
+              f"{kind} GUARD flag 1 at n={n} is not bit-identical to the "
+              f"unguarded kernel")
+        _guard_call(kind, guarded, zero)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(guarded, ops)),
+              f"{kind} GUARD flag 0 at n={n} wrote a buffer")
+        del guarded
+        turns = turns_ms({
+            "unguarded": lambda: _guard_call(kind, ops, None),
+            "flag1": lambda: _guard_call(kind, ops, one),
+            "flag0": lambda: _guard_call(kind, ops, zero)}, 10)
+        res[kind] = {k: sum(v) / len(v) for k, v in turns.items()}
+        res[kind]["turns_ms"] = turns
+        print(f"full size: {kind} at n={n}: unguarded "
+              f"{res[kind]['unguarded']:.4f} ms, GUARD flag 1 "
+              f"{res[kind]['flag1']:.4f} ms, flag 0 {res[kind]['flag0']:.4f}"
+              f" ms (mean of two turns; turns {turns}); flag 1 "
+              f"bit-identical, flag 0 writes nothing", flush=True)
+        del ops
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 13. the supervisor: the guard (13c), the OOM ladder (13a) and the
+# calibration miss (13b)
+# ---------------------------------------------------------------------------
+
+def _stage(split, dev) -> dict:
+    import numpy as np
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in split.items()}
+
+
+def _state_leaves(params, opt_state) -> list:
+    from repro_torch import tree
+    return tree.leaves((params, opt_state))
+
+
+def _host(leaves) -> list:
+    return [t.detach().to("cpu", copy=True) for t in leaves]
+
+
+def _max_diff(host_leaves, leaves) -> float:
+    """Largest |a - b| between host leaves and the leaves of another run
+    (on the card or the host), one leaf moved at a time; 0 when bit for
+    bit."""
+    import torch
+    worst = 0.0
+    for h, d in zip(host_leaves, leaves):
+        x = h.to(d.device)
+        if not torch.equal(x, d):
+            worst = max(worst, float((x.double() - d.double()).abs().max()))
+        del x
+    return worst
+
+
+def _same_run(what, ref_host, ref_losses, got_leaves, got_losses, redo):
+    """Phase 8's rule: bit for bit where two uninterrupted runs agree;
+    where they do not (``redo()`` runs the reference again and returns its
+    host leaves and losses), within their own difference."""
+    diff = _max_diff(ref_host, got_leaves)
+    if diff == 0.0 and got_losses == ref_losses:
+        return {"bitwise": True, "max_diff": 0.0}
+    again_host, again_losses = redo()
+    bound = _max_diff(ref_host, again_host)
+    loss_bound = max(abs(a - b) for a, b in zip(ref_losses, again_losses))
+    loss_diff = max(abs(a - b) for a, b in zip(ref_losses, got_losses))
+    check(diff <= bound and loss_diff <= loss_bound,
+          f"{what}: differs from the reference run by {diff:.3e} (losses "
+          f"{loss_diff:.3e}); two reference runs differ by {bound:.3e} "
+          f"({loss_bound:.3e})")
+    return {"bitwise": False, "max_diff": diff, "bound": bound}
+
+
+def guard_phase(dev) -> dict:
+    """13c. The guard on the card. At full qwen2-1.5b through the main
+    path's ``flat`` executor: guarded and unguarded steps timed in turns
+    on a clean batch, their peaks (within 0.1 GiB), their synchronizing
+    calls under ``torch.cuda.set_sync_debug_mode`` (the guarded step may
+    make none that the unguarded does not), and one guarded step on a
+    batch poisoned by ``faults.nan_at``: every param and momentum buffer
+    and the step counter ``torch.equal`` to copies taken before it. Then
+    the supervised launcher with the NaN injected (``nan_retries`` 1)
+    against the unfaulted supervised run. Then ``compiled``, ``fused``,
+    ``streaming`` and ``flat`` at 2 layers (phase 5's size): guarded equal
+    to unguarded on a clean batch (phase 8's rule), state untouched on a
+    poisoned one, and the guarded peak within the largest leaf + 0.1 GiB
+    of the unguarded (``flat``: within 0.1 GiB)."""
+    import warnings
+    import torch
+    from repro_torch import configs, engine, optim, tree
+    from repro_torch.data import LMDataset
+    from repro_torch.engine import faults
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer
+
+    out = {}
+    args = train.build_parser().parse_args(MAIN_ARGV)
+    cfg = train.build_config(args)
+    opt = train.default_optimizer(args)
+    plan = train.build_plan(cfg, args, opt, dev)
+    exs = {g: train.build_executor(cfg, plan, args, opt, guard=g)
+           for g in (False, True)}
+    split = plan.split(LMDataset(cfg.vocab_size, args.seq, seed=0).batch(
+        args.mini_batch, 0))
+    with faults.inject(faults.FaultPlan(faults.nan_at(0, micro=1))):
+        bad = _stage(faults.corrupt_batch(split, 0), dev)
+    clean = _stage(split, dev)
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    state = opt.init(params)
+    params, state = exs[False].prepare(params, state)
+
+    def step(guard, batch=clean):
+        return exs[guard].step_split(params, state, batch)
+
+    for g in (False, True):  # warm-up
+        params, state, _ = step(g)
+    secs = {False: [], True: []}
+    for g in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, _ = step(g)
+        torch.cuda.synchronize()
+        secs[g].append(time.perf_counter() - t0)
+    peaks = {g: _peak_above(dev, lambda g=g: step(g)) for g in (False, True)}
+
+    def syncs(fn):
+        """The synchronizing calls ``fn()`` makes, as the sync debug mode
+        reports them."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sorted(str(w.message) for w in seen
+                      if "called a synchronizing" in str(w.message))
+    # the mode must see a readback at all, or a count of 0 says nothing
+    control = syncs(lambda: float(clean["sample_weight"].sum()))
+    check(len(control) >= 1, "guard: the sync debug mode did not report a "
+                             "host readback")
+    sync = {g: syncs(lambda g=g: step(g)) for g in (False, True)}
+    check(len(sync[True]) <= len(sync[False])
+          and set(sync[True]) <= set(sync[False]),
+          f"guard: the guarded flat step makes synchronizing calls the "
+          f"unguarded does not: {sync[True]} vs {sync[False]}")
+    check(abs(peaks[True] - peaks[False]) <= 0.1 * GIB,
+          f"guard: guarded flat step peaks {peaks[True]} B above its base, "
+          f"unguarded {peaks[False]} B (more than 0.1 GiB apart)")
+    before = [t.clone() for t in _state_leaves(params, state)]
+    params, state, m = step(True, bad)
+    nonfinite = float(m["nonfinite"])
+    untouched = all(torch.equal(a, b) for a, b in
+                    zip(before, _state_leaves(params, state)))
+    check(nonfinite == 1.0 and untouched,
+          f"guard: the poisoned flat step (nonfinite {nonfinite}) left the "
+          f"state {'untouched' if untouched else 'CHANGED'}")
+    del before, m
+    mean = {g: sum(v) / len(v) for g, v in secs.items()}
+    out["flat_full_width"] = {
+        "step_s": {"unguarded": secs[False], "guarded": secs[True]},
+        "peak_above_state_bytes": {"unguarded": peaks[False],
+                                   "guarded": peaks[True]},
+        "sync_calls": {"unguarded": len(sync[False]),
+                       "guarded": len(sync[True]),
+                       "readback_control": len(control)},
+        "poisoned_step_untouched": True, "plan": plan.describe()}
+    print(f"guard (flat, full qwen2-1.5b, {plan.describe()}): step "
+          f"unguarded {mean[False]:.4f} s, guarded {mean[True]:.4f} s (turns "
+          f"{secs[False]} / {secs[True]}); peak above the state "
+          f"{peaks[False]} / {peaks[True]} B; synchronizing calls "
+          f"{len(sync[False])} / {len(sync[True])} "
+          f"({sorted(set(sync[False]))}; a readback reports "
+          f"{len(control)}); a step poisoned by faults.nan_at: nonfinite 1, every param and "
+          f"momentum buffer and the step counter torch.equal to before",
+          flush=True)
+    del params, state, exs, clean, bad
+    gc_collect()
+
+    # the supervised launcher: a NaN at step 1, retried, against no fault
+    argv = main_argv("--supervise")
+    ref = run_launcher(dev, argv)
+    ref_host = _host(_state_leaves(ref["params"], ref["opt_state"]))
+    ref_losses = ref["losses"]
+    ref_anchor = ref["supervisor"]["anchors"]
+    del ref
+    gc_collect()
+    with faults.inject(faults.FaultPlan(faults.nan_at(1))) as fp:
+        got = run_launcher(dev, argv)
+    recs = got["supervisor"]["faults"]
+    check(fp.fired_kinds() == ["nan"] and len(recs) == 1
+          and recs[0]["action"] == "retried ok (attempt 1)",
+          f"guard: the supervised NaN run recorded {recs}")
+
+    def redo():
+        again = run_launcher(dev, argv)
+        h = _host(_state_leaves(again["params"], again["opt_state"]))
+        return h, again["losses"]
+    same = _same_run("guard: the supervised run with a NaN retried",
+                     ref_host, ref_losses,
+                     _state_leaves(got["params"], got["opt_state"]),
+                     got["losses"], redo)
+    out["supervised_nan_retry"] = {
+        "records": recs, "losses": got["losses"], "ref_losses": ref_losses,
+        "anchors": ref_anchor, **same}
+    print(f"guard: supervised launcher, NaN injected at step 1: {recs[0]}; "
+          f"losses {got['losses']} vs unfaulted {ref_losses}; state "
+          f"{'bit-identical' if same['bitwise'] else same}; anchors (host "
+          f"copies) {ref_anchor}", flush=True)
+    del got, ref_host
+    gc_collect()
+
+    # the four executors at 2 layers
+    cfg2 = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=2)
+    plan2 = engine.plan_mbs(8, num_microbatches=4, remat_policy="none",
+                            device=dev)
+    loss_fn = steps.make_loss_fn(cfg2, dtype=torch.bfloat16,
+                                 remat_policy="none")
+    split2 = plan2.split(LMDataset(cfg2.vocab_size, 256, seed=0).batch(8, 0))
+    with faults.inject(faults.FaultPlan(faults.nan_at(0, micro=2))):
+        bad2 = _stage(faults.corrupt_batch(split2, 0), dev)
+    clean2 = _stage(split2, dev)
+    out["two_layers"] = {}
+    largest = max(t.numel() * t.element_size() for t in tree.leaves(
+        transformer.init_params(cfg2, seed=0, device=dev)))
+    for name in ("compiled", "fused", "streaming", "flat"):
+        def fresh(guard):
+            o = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+            ex = engine.get_executor(name)(loss_fn, o, plan2, guard=guard)
+            p = transformer.init_params(cfg2, seed=0, device=dev)
+            s = o.init(p)
+            if name == "flat":
+                p, s = ex.prepare(p, s)
+            return ex, p, s
+
+        def run(guard, batch):
+            ex, p, s = fresh(guard)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            p2, s2, m = ex.step_split(p, s, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            return _host(_state_leaves(p2, s2)), m, peak
+
+        u_host, _, u_peak = run(False, clean2)
+        g_host, gm, g_peak = run(True, clean2)
+        same = all(torch.equal(a, b) for a, b in zip(u_host, g_host))
+        if not same:
+            again, _, _ = run(False, clean2)
+            bound = max(float((a.double() - b.double()).abs().max())
+                        for a, b in zip(u_host, again))
+            diff = max(float((a.double() - b.double()).abs().max())
+                       for a, b in zip(u_host, g_host))
+            check(diff <= bound, f"guard ({name}, 2 layers): guarded differs "
+                                 f"from unguarded by {diff:.3e}, two "
+                                 f"unguarded steps by {bound:.3e}")
+        check(float(gm["nonfinite"]) == 0.0,
+              f"guard ({name}): a clean batch read as non-finite")
+        ex, p, s = fresh(True)
+        before = _host(_state_leaves(p, s))
+        p2, s2, bm = ex.step_split(p, s, bad2)
+        after = _host(_state_leaves(p2, s2))
+        untouched = all(torch.equal(a, b) for a, b in zip(before, after))
+        check(float(bm["nonfinite"]) == 1.0 and untouched,
+              f"guard ({name}, 2 layers): the poisoned step left the state "
+              f"{'untouched' if untouched else 'CHANGED'}")
+        allowed = (0.1 * GIB if name == "flat" else largest + 0.1 * GIB)
+        check(g_peak - u_peak <= allowed,
+              f"guard ({name}, 2 layers): guarded peak {g_peak} B above the "
+              f"state, unguarded {u_peak} B: more than {allowed:.0f} B apart")
+        out["two_layers"][name] = {"bitwise": same, "peak_unguarded": u_peak,
+                                   "peak_guarded": g_peak,
+                                   "largest_leaf_bytes": largest}
+        print(f"guard ({name}, qwen2-1.5b width, 2 layers): guarded == "
+              f"unguarded on a clean batch "
+              f"{'bit for bit' if same else '(within two runs)'}; poisoned "
+              f"batch: nonfinite 1, state untouched; peak above the state "
+              f"{u_peak} / {g_peak} B unguarded / guarded (allowed "
+              f"+{allowed:.0f} B; largest leaf {largest} B)", flush=True)
+        del ex, p, s, p2, s2, before, after
+        gc_collect()
+    return out
+
+
+def gc_collect() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _exit_code(argv) -> int:
+    """``train.main(argv)``'s exit status (0 when it returns)."""
+    from repro_torch.launch import train
+    try:
+        train.main(argv)
+    except SystemExit as e:
+        return e.code
+    finally:
+        gc_collect()
+    return 0
+
+
+def oom_ladder_phase(dev, state_bytes: int) -> dict:
+    """13a. A real OOM climbs the ladder: the supervised launcher at full
+    qwen2-1.5b, ``flat``, mini-batch 16 in one micro-batch, remat
+    ``none``, the card's whole memory, 3 steps: every fault record (each a
+    real ``torch.OutOfMemoryError``), the allocator's peaks at each
+    failure, and what was allocated once the rebuilt runtime held the
+    restored state, which must be no more than that state
+    (``state_bytes``) and one staged batch above what was allocated before
+    the run. The final plan run unsupervised gives the same losses and
+    state (phase 8's rule); the same command with ``--max-restarts 0``
+    exits 41."""
+    from repro_torch.launch import train
+
+    flags = ["--supervise", "--remat-policy", "none", "--max-restarts", "6"]
+    argv = main_argv(*flags, microbatches=1)
+    res = run_launcher(dev, argv)
+    rep = res["supervisor"]
+    recs = rep["faults"]
+    base = res["allocated_before_bytes"]
+    batch_bytes = 16 * 1024 * 4 * 3  # tokens, labels, sample weights
+    check(rep["restarts"] >= 1 and all(
+        r["kind"] == "oom" and r["detail"].startswith("OutOfMemoryError")
+        and "injected" not in r["detail"] for r in recs),
+        f"oom ladder: expected real OutOfMemoryErrors, got {recs}")
+    for r in recs:
+        excess = r["allocated_bytes"] - base - state_bytes
+        check(excess <= batch_bytes + 64 * 2 ** 20,
+              f"oom ladder: after the rebuild at '{r['action']}' "
+              f"{r['allocated_bytes']} B allocated, {excess} B above the "
+              f"base ({base} B) and the state ({state_bytes} B): a failed "
+              f"step's tensors are left")
+        r["excess_over_state_bytes"] = excess
+    check(len(res["history"]) == 3, f"oom ladder: {len(res['history'])} "
+                                    f"steps completed")
+    final = res["plan"]
+    sup_host = _host(_state_leaves(res["params"], res["opt_state"]))
+    sup_losses = res["losses"]
+    out = {"records": recs, "restarts": rep["restarts"],
+           "steps_lost": rep["steps_lost"], "anchors": rep["anchors"],
+           "final_plan": final.describe(), "losses": sup_losses,
+           "peak_bytes": res["peak_bytes"],
+           "peak_reserved_bytes": res["peak_reserved_bytes"],
+           "wall_s": res["wall_s"]}
+    for r in recs:
+        print(f"oom ladder: OOM at step {r['step']}: {r['detail']!r}; "
+              f"{r['action']}; {r['steps_lost']} steps replayed; recovery "
+              f"{r['recovery_s']:.2f}s; peak allocated "
+              f"{r['peak_allocated_bytes']} B, reserved "
+              f"{r['peak_reserved_bytes']} B at the failure; after the "
+              f"rebuild allocated {r['allocated_bytes']} B ("
+              f"{r['excess_over_state_bytes']} B above base + state), "
+              f"reserved {r['reserved_bytes']} B", flush=True)
+    print(f"oom ladder: done after {rep['restarts']} restarts, "
+          f"{rep['steps_lost']} steps lost: {final.describe()}; losses "
+          f"{sup_losses}; the recovered plan's peak allocated "
+          f"{res['peak_bytes']} B, reserved {res['peak_reserved_bytes']} B; "
+          f"anchors {rep['anchors']}; wall {res['wall_s']:.1f}s", flush=True)
+    del res
+    gc_collect()
+    n_s = final.num_micro_batches
+    plain = main_argv("--remat-policy", final.remat_policy, microbatches=n_s)
+
+    def run_plain():
+        r = run_launcher(dev, plain)
+        check(r["plan"].micro_batch_size == final.micro_batch_size,
+              f"oom ladder: the unsupervised rerun planned "
+              f"{r['plan'].describe()}")
+        h = _host(_state_leaves(r["params"], r["opt_state"]))
+        return h, r["losses"], r
+
+    plain_host, plain_losses, r = run_plain()
+    del r
+    gc_collect()
+
+    def redo():
+        h, losses, r = run_plain()
+        del r
+        return h, losses
+    same = _same_run("oom ladder: the supervised run against the final "
+                     "plan run unsupervised", plain_host, plain_losses,
+                     sup_host, sup_losses, redo)
+    del sup_host, plain_host
+    gc_collect()
+    out["unsupervised_losses"] = plain_losses
+    out.update(same)
+    code = _exit_code(main_argv("--supervise", "--remat-policy", "none",
+                                "--max-restarts", "0", microbatches=1))
+    check(code == 41, f"oom ladder: --max-restarts 0 exited {code}, not 41 "
+                      f"(RestartBudgetExceeded)")
+    out["max_restarts_0_exit"] = code
+    print(f"oom ladder: the final plan unsupervised: losses {plain_losses}; "
+          f"state {'bit-identical' if same['bitwise'] else same}; "
+          f"--max-restarts 0 exits {code}", flush=True)
+    return out
+
+
+def calibration_miss_phase(dev, calibration: dict) -> dict:
+    """13b. The calibration miss (ROADMAP queue 3 fault 1) recovered:
+    ``streaming`` under ``--calibrate auto`` with phase 7a's cache, the
+    allocator capped at a budget worked out from 7a's probes (the fit
+    admits micro m, while the line through the two backward-bound probes
+    puts m's real peak clear above the budget), 2 supervised steps. One
+    OOM record, the negative bound in the cache file, the recovered
+    plan's peak under the cap, and a second ``--calibrate auto`` plan
+    under the same key that no longer admits the (remat, micro) that
+    failed. If no budget provokes the miss, the OOM is injected with
+    ``faults.oom_at`` instead, and the line says so."""
+    import torch
+    from repro_torch import engine, optim
+    from repro_torch.core import memory_model
+    from repro_torch.engine import autotune, faults
+    from repro_torch.launch import train
+
+    cache = os.path.join(ROOT, "build", "tuning.json")
+    rec7a = calibration["streaming"]
+    a, b = rec7a["fit"]
+    probes = sorted(rec7a["probes"])  # (micro, modeled, measured)
+    (m_lo, _, y_lo), (m_hi, _, y_hi) = probes[-2], probes[-1]
+    slope = (y_hi - y_lo) / (m_hi - m_lo)
+    argv = main_argv("--supervise", "--tuning-cache", cache, steps=2,
+                     executor="streaming")
+    i = argv.index("--microbatches")
+    del argv[i:i + 2]
+    ap = train.build_parser()
+    args = ap.parse_args(argv)
+    cfg = train.build_config(args)
+    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    est = memory_model.estimate(cfg, args.seq, act_bytes=2,
+                                remat_policy=rec7a["analytic_policy"],
+                                **optim.memory_model_kw(opt))
+
+    def pred(m):
+        return a * est.total(m) + b
+
+    def real(m):
+        return y_lo + (m - m_lo) * slope
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    budget = micro = None
+    for m in range(2, 16):
+        top = min(pred(m + 1), real(m))
+        if real(m) - pred(m) >= 3 * GIB and pred(m) + 0.25 * (
+                top - pred(m)) < total - 4 * GIB:
+            micro, budget = m, int(pred(m) + 0.25 * (top - pred(m)))
+            break
+    check(budget is not None, f"calibration miss: no micro size where the "
+                              f"fit under-predicts the backward line by 3 GiB"
+                              f" (fit {a}, {b}; probes {probes})")
+    budget_gb = budget / GIB
+    argv += ["--hbm-budget-gb", repr(budget_gb)]
+    plan0 = train.build_plan(cfg, ap.parse_args(argv), opt, dev)
+    engine.set_cache_path(None)
+    check(plan0.calibrated and plan0.micro_batch_size == micro,
+          f"calibration miss: at {budget_gb:.3f} GiB the planner admits "
+          f"{plan0.describe()}, expected calibrated micro {micro}")
+    key = autotune.memory_key(cfg, args.seq, plan0.remat_policy, None, "sgd",
+                              "streaming", autotune.backend_of(dev))
+    print(f"calibration miss: 7a's streaming fit measured = {a:.6f} x "
+          f"modeled + {b:.0f} B predicts micro {micro} at {pred(micro)} B, "
+          f"the line through probes {m_lo} and {m_hi} puts it at "
+          f"{real(micro):.0f} B; budget and allocator cap {budget} B "
+          f"({budget_gb:.3f} GiB): {plan0.describe()}", flush=True)
+    torch.cuda.set_per_process_memory_fraction(budget / total, dev)
+    injected = False
+    try:
+        res = run_launcher(dev, argv)
+        recs = res["supervisor"]["faults"]
+        if not recs:
+            injected = True
+            print(f"calibration miss: the budget did not provoke the miss "
+                  f"(no OOM at micro {micro}); injecting it with "
+                  f"faults.oom_at instead", flush=True)
+            del res
+            gc_collect()
+            with faults.inject(faults.FaultPlan(faults.oom_at(
+                    0, times=99, min_micro=micro))):
+                res = run_launcher(dev, argv)
+            recs = res["supervisor"]["faults"]
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        engine.set_cache_path(None)
+    ooms = [r for r in recs if r["kind"] == "oom"]
+    with open(cache) as f:
+        entry = json.load(f)["memory"][key]
+    bound = entry["a"] * est.total(micro) + entry["b"]
+    check(len(ooms) == 1, f"calibration miss: {len(ooms)} OOM records, "
+                          f"expected one: {ooms}")
+    check(bound > budget, f"calibration miss: the cache's corrected bytes "
+                          f"at micro {micro} ({bound}) still fit the budget")
+    peak = res["peak_bytes"]
+    check(peak <= budget and len(res["history"]) == 2,
+          f"calibration miss: the recovered plan peaked at {peak} B over "
+          f"the {budget} B cap, or ran {len(res['history'])} steps")
+    again = train.build_plan(cfg, ap.parse_args(argv), opt, dev)
+    engine.set_cache_path(None)
+    check((again.remat_policy, again.micro_batch_size)
+          != (plan0.remat_policy, micro),
+          f"calibration miss: a second --calibrate auto launch still admits "
+          f"{again.describe()}")
+    out = {"budget_bytes": budget, "micro": micro,
+           "predicted_bytes": pred(micro), "backward_line_bytes": real(micro),
+           "injected": injected, "records": recs,
+           "bound": [entry["a"], entry["b"]], "corrected_bytes": bound,
+           "final_plan": res["plan"].describe(), "losses": res["losses"],
+           "peak_bytes": peak,
+           "peak_reserved_bytes": res["peak_reserved_bytes"],
+           "second_plan": again.describe()}
+    for r in ooms:
+        print(f"calibration miss: OOM at step {r['step']}: {r['detail']!r}; "
+              f"{r['action']}; peak allocated {r['peak_allocated_bytes']} B, "
+              f"reserved {r['peak_reserved_bytes']} B at the failure; after "
+              f"the rebuild {r['allocated_bytes']} / {r['reserved_bytes']} B",
+              flush=True)
+    print(f"calibration miss: recovered to {res['plan'].describe()}; 2 "
+          f"steps, losses {res['losses']}; peak allocated {peak} B, reserved "
+          f"{res['peak_reserved_bytes']} B under the {budget} B cap; the "
+          f"cache's bound (a, b) = ({entry['a']}, {entry['b']}) corrects "
+          f"micro {micro} to {bound:.0f} B; a second --calibrate auto plan: "
+          f"{again.describe()}", flush=True)
+    del res
+    gc_collect()
+    return out
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -2109,25 +2760,43 @@ def run() -> dict:
     dev = torch.device("cuda", 0)
     errs = {k: 0.0 for k in list(KERNELS) + list(API_KERNELS)}
 
-    build_s = build_phase()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+            print(f"phase {name}: {phase_s[name]:.1f}s", flush=True)
+
+    build_s = timed("2 build", build_phase)
     k1_build = build_k1(build_s["grad_accum"])
     k6_build = build_k6(build_s["flash_attention"])
-    kernel_phase(dev, errs)
-    edge_phase(dev, errs)
-    cross_check_phase(dev)
-    main = main_path_phase(dev)
-    streaming = streaming_phase(dev, main)
-    calibration = calibration_phase(dev)
-    cnns = {w: cnn_phase(dev, w, errs) for w in CNN_RUNS}
-    resume = resume_phase(dev)
+    timed("3 kernels", kernel_phase, dev, errs)
+    guard_cases = timed("3 GUARD kernels", guard_kernel_phase, dev)
+    timed("4 edges", edge_phase, dev, errs)
+    timed("5 cross-check", cross_check_phase, dev)
+    main = timed("6 main path", main_path_phase, dev)
+    streaming = timed("7 streaming", streaming_phase, dev, main)
+    calibration = timed("7a calibration", calibration_phase, dev)
+    cnns = {w: timed(f"7b {w}", cnn_phase, dev, w, errs) for w in CNN_RUNS}
+    resume = timed("8 resume", resume_phase, dev)
     n = main["bucket_size"]
-    times = full_size_phase(dev, n, errs)
-    k1 = k1_leaves_phase(dev, main["spec"], errs)
+    times = timed("9 full size", full_size_phase, dev, n, errs)
+    guard_times = timed("9 GUARD full size", guard_full_size_phase, dev, n)
+    k1 = timed("10 K1 leaves", k1_leaves_phase, dev, main["spec"], errs)
     # K1 on the main path adds the gradient leaves: its line is the
     # leaves' time, with the library call over the same pairs
     times["grad_accum"] = (k1["ms"], k1["plain_ms"], k1["foreach_add_ms"])
-    api = api_phase(dev, errs)
-    tuner = tuner_phase(dev, main)
+    api = timed("11 kernel API", api_phase, dev, errs)
+    tuner = timed("12 tuner", tuner_phase, dev, main)
+    guard = timed("13c guard", guard_phase, dev)
+    # the main path's flat state: fp32 params and momentum, and the step
+    state_bytes = 2 * 4 * sum(main["spec"].bucket_sizes) + 4
+    ladder = timed("13a OOM ladder", oom_ladder_phase, dev, state_bytes)
+    miss = timed("13b calibration miss", calibration_miss_phase, dev,
+                 calibration)
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's and the
     # kernel-API path's — each read right after it ran
@@ -2148,6 +2817,13 @@ def run() -> dict:
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": lib_ms, "n": n})
+        if name in guard_times:
+            g = guard_times[name]
+            records[-1].update(
+                guard_ms=g["flag1"], guard_skip_ms=g["flag0"],
+                guard_unguarded_ms=g["unguarded"],
+                guard_turns_ms=g["turns_ms"], guard_bitwise=True,
+                guard_ragged_cases=guard_cases)
         if name == "grad_accum":
             flat_ms, flat_plain_ms, _ = times["grad_accum_flat"]
             records[-1].update(
@@ -2179,8 +2855,12 @@ def run() -> dict:
         "main_path": {k: v for k, v in main.items()
                       if k not in ("spec", "counts")},
         "streaming": streaming, "resume": resume,
-        "calibration": calibration, "cnn": cnns, "tuner": tuner}}),
+        "calibration": calibration, "cnn": cnns, "tuner": tuner,
+        "guard": guard, "oom_ladder": ladder, "calibration_miss": miss,
+        "phase_s": phase_s, "total_s": sum(phase_s.values())}}),
         flush=True)
+    print(f"phases: {sum(phase_s.values()):.1f}s in all: " + ", ".join(
+        f"{k} {v:.1f}s" for k, v in phase_s.items()), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(f"card: {card_line()}", flush=True)
     return {"ok": True, "device": {"platform": "gpu",

@@ -32,24 +32,42 @@ def prefetch_iterator(it: Iterator, size: int = 2) -> Iterator:
     Exceptions raised by the producer are re-raised in the consumer (with
     the worker's traceback attached) rather than silently ending the
     stream — a failed data pipeline must never truncate an epoch.
+
+    Closing the iterator (``close()``, or dropping it) stops the worker:
+    it drains the queue, so a worker blocked on a full queue wakes, sees
+    the stop and returns, and the batches it held are freed.
     """
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = object()
+    closed = threading.Event()
 
     def worker():
         try:
             for item in it:
                 q.put(item)
+                del item
+                if closed.is_set():
+                    return
         except BaseException as exc:  # noqa: BLE001 — relayed to consumer
             q.put(_WorkerError(exc))
         else:
             q.put(stop)
 
-    threading.Thread(target=worker, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is stop:
-            return
-        if isinstance(item, _WorkerError):
-            raise item.exc
-        yield item
+    threading.Thread(target=worker, daemon=True,
+                     name="repro-torch-prefetch").start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                return
+            if isinstance(item, _WorkerError):
+                raise item.exc
+            yield item
+            del item
+    finally:
+        closed.set()
+        while True:  # wake a worker blocked on a full queue
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break

@@ -2,9 +2,12 @@
 flat-buffer layout (``flat.py``), the shared Algorithm 1 core
 (``exec_core.py``), the executors (``executors.py``), the async input
 pipeline (``pipeline.py``), the resumable loop (``trainer.py``), the
-fault-injection harness (``faults.py``) and the autotuner
-(``autotune.py``: the memory oracle behind ``plan_mbs(calibrate=)`` and
-the kernels' block tuner, whose resolver is installed on import)."""
+fault-injection harness (``faults.py``), the fault-tolerant
+``Supervisor`` (``supervisor.py``: OOM degrade-and-resume, the NaN
+guard's retry and skip, bounded I/O retries, give-ups as exit codes
+40–44) and the autotuner (``autotune.py``: the memory oracle behind
+``plan_mbs(calibrate=)`` and the kernels' block tuner, whose resolver is
+installed on import)."""
 from .plan import (MBSConfig, MBSPlan, num_micro_batches,  # noqa: F401
                    plan_mbs, split_minibatch)
 from .autotune import (TuningCache, calibrate_memory,  # noqa: F401
@@ -17,4 +20,7 @@ from .executors import (EXECUTORS, CompiledScanExecutor,  # noqa: F401
                         get_executor, make_baseline_train_step)
 from .pipeline import Pipeline, PipelineStats  # noqa: F401
 from .trainer import Trainer  # noqa: F401
+from .supervisor import (FaultRecord, NaNCircuitBreaker, NaNHalt,  # noqa: F401
+                         PlanExhausted, RestartBudgetExceeded, Supervisor,
+                         SupervisorConfig, SupervisorError, degrade_plan)
 from . import faults  # noqa: F401

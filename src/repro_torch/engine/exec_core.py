@@ -9,10 +9,13 @@ numerics live in one place:
     the unscaled micro loss's gradient is accumulated with the scale fused
     in, paper Fig. 2 step ❹, which is what kernel K1 does);
   * gradient accumulation in ``accum_dtype`` (fp32 by default);
-  * the single optimizer update per mini-batch (step ❺) + shared metrics.
+  * the single optimizer update per mini-batch (step ❺) + shared metrics;
+  * the numeric guard (the supervisor's): step ❺ behind an on-device
+    finite check of the accumulator (:func:`guarded_update`,
+    :func:`guarded_update_flat`).
 
-Scales, learning rates and norms stay device tensors: nothing here syncs
-with the host.
+Scales, learning rates, norms and the guard's flag stay device tensors:
+nothing here syncs with the host.
 """
 from __future__ import annotations
 
@@ -120,14 +123,17 @@ def accumulate_flat(acc_buffers, spec: FlatSpec, grads, *, scale=None):
 
 
 def apply_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,
-                      params):
+                      params, *, ok=None):
     """Step ❺ over flat buffers: one in-place kernel launch per bucket.
 
     ``params`` (and the optimizer state trees) must be view trees of flat
     buffers (``FlatSpec.as_flat``); K2/K3/K4 write those buffers in place
     and the same view trees come back. The global-norm clip scale is
     computed from the flat accumulator and carried into the kernel.
-    Optimizers without a ``fused`` hook take the reference tree update."""
+    Optimizers without a ``fused`` hook take the reference tree update.
+
+    ``ok`` (the guard's device flag) goes into the kernels, which write
+    nothing where it is 0, and the step counter advances by it."""
     fs = getattr(optimizer, "fused", None)
     if fs is None:
         return apply_update(optimizer, spec.unflatten(acc_buffers, cast=False),
@@ -145,11 +151,14 @@ def apply_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,
             flat_m = _buffers(spec, opt_state["mom"])
             for p, g, m in zip(flat_p, acc_buffers, flat_m):
                 fused_sgd(p, g, m, lr_t, gscale, momentum=fs.momentum,
-                          weight_decay=fs.weight_decay, nesterov=fs.nesterov)
-            return params, {"mom": opt_state["mom"], "step": step + 1}
+                          weight_decay=fs.weight_decay, nesterov=fs.nesterov,
+                          ok=ok)
+            return params, {"mom": opt_state["mom"],
+                            "step": _advance(step, ok)}
         for p, g in zip(flat_p, acc_buffers):
-            fused_sgd(p, g, None, lr_t, gscale, weight_decay=fs.weight_decay)
-        return params, {"mom": None, "step": step + 1}
+            fused_sgd(p, g, None, lr_t, gscale, weight_decay=fs.weight_decay,
+                      ok=ok)
+        return params, {"mom": None, "step": _advance(step, ok)}
 
     if fs.kind == "adam":
         step1 = step + 1
@@ -160,11 +169,17 @@ def apply_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,
         for p, g, m, v in zip(flat_p, acc_buffers, flat_m, flat_v):
             fused_adam(p, g, m, v, lr_t, bc1, bc2, gscale, b1=fs.b1,
                        b2=fs.b2, eps=fs.eps, weight_decay=fs.weight_decay,
-                       decoupled=fs.decoupled)
+                       decoupled=fs.decoupled, ok=ok)
         return params, {"m": opt_state["m"], "v": opt_state["v"],
-                        "step": step1}
+                        "step": step1 if ok is None else _advance(step, ok)}
 
     raise ValueError(f"unknown fused update kind {fs.kind!r}")
+
+
+def _advance(step, ok):
+    """The step counter after an update: +1, or +ok under the guard (a
+    skipped step leaves it, and Adam's bias corrections, where they were)."""
+    return step + 1 if ok is None else step + ok.to(step.dtype)
 
 
 def _buffers(spec: FlatSpec, t):
@@ -182,9 +197,77 @@ def global_grad_norm(grads) -> torch.Tensor:
         g, dtype=torch.float32)) for g in tree.leaves(grads)))
 
 
-def finalize_metrics(metric_sum: Dict[str, Any], loss, grads
+# ---------------------------------------------------------------------------
+# numeric guard
+# ---------------------------------------------------------------------------
+
+FINITE_CHUNK = 1 << 26  # elements a reduction reads at a time
+
+
+def finite_all(grads) -> torch.Tensor:
+    """Device scalar (bool): True iff every element of the accumulator is
+    finite — a tree, or the flat executor's list of bucket buffers.
+
+    Each leaf is read in slices of at most ``FINITE_CHUNK`` elements by
+    ``torch.aminmax``, which propagates a NaN and shows an infinity at an
+    end, so no temporary the size of a leaf (a bool mask of a 1.5 G
+    element bucket is 1.44 GiB) is made; the flags are ANDed on the
+    device and nothing is read back."""
+    ok = None
+    for g in tree.leaves(grads):
+        flat = g.reshape(-1)
+        for lo in range(0, flat.numel(), FINITE_CHUNK):
+            lo_hi = torch.aminmax(flat[lo:lo + FINITE_CHUNK])
+            part = torch.isfinite(lo_hi.min) & torch.isfinite(lo_hi.max)
+            ok = part if ok is None else ok & part
+    return torch.ones((), dtype=torch.bool) if ok is None else ok
+
+
+def guarded_update(optimizer, grads, opt_state, params):
+    """Step ❺ behind the finite check: where the accumulated gradient has
+    a non-finite element the update is skipped — params and optimizer
+    state, the step counter included, come back as they were.
+
+    The reference's ``lax.cond`` becomes a selection on the device: the
+    update runs, and leaf by leaf ``torch.where(ok, new, old)`` keeps one
+    of the two, the new leaf dropped at once, so the guard adds at most
+    one leaf (the largest) to the update's memory and reads nothing back.
+    Returns ``(new_params, new_opt_state, ok)``."""
+    ok = finite_all(grads)
+    new, treedef = tree.flatten(apply_update(optimizer, grads, opt_state,
+                                             params))
+    old = tree.leaves((params, opt_state))
+    if len(old) != len(new):
+        raise ValueError(f"the update returned {len(new)} leaves for "
+                         f"{len(old)}")
+    for i, o in enumerate(old):
+        new[i] = torch.where(ok, new[i], o)
+    new_params, new_opt_state = tree.unflatten(treedef, new)
+    return new_params, new_opt_state, ok
+
+
+def guarded_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,
+                        params):
+    """Flat variant of :func:`guarded_update`: the check runs on the
+    bucket buffers and the flag goes into K2–K4, which write nothing when
+    it is 0 — the in-place update is skipped on the device."""
+    if getattr(optimizer, "fused", None) is None:
+        return guarded_update(optimizer, spec.unflatten(acc_buffers,
+                                                        cast=False),
+                              opt_state, params)
+    ok = finite_all(acc_buffers)
+    new_params, new_opt_state = apply_update_flat(
+        optimizer, spec, acc_buffers, opt_state, params, ok=ok)
+    return new_params, new_opt_state, ok
+
+
+def finalize_metrics(metric_sum: Dict[str, Any], loss, grads, ok=None
                      ) -> Dict[str, Any]:
+    """The step's device-scalar metrics; under the guard also
+    ``nonfinite`` (1.0 when the update was skipped)."""
     out = dict(metric_sum)
     out["loss"] = loss  # Σ normalized micro losses == mini-batch mean loss
     out["grad_norm"] = global_grad_norm(grads)
+    if ok is not None:
+        out["nonfinite"] = 1.0 - ok.to(torch.float32)
     return out

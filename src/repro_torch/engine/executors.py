@@ -21,9 +21,16 @@ only the strategy differs. The names are the JAX package's:
 ``step_split(params, opt_state, micro_batches)`` takes a pre-split batch
 of device tensors ``(N_Sμ, N_μ, ...)`` and returns
 ``(params, opt_state, metrics)`` with device-scalar metrics: nothing in a
-step reads a value back to the host. ``guard=True`` (the reference's
-on-device finite check in front of step ❺) comes with the supervisor,
-ROADMAP.md queue 1 item 12.
+step reads a value back to the host.
+
+``guard=True`` (the supervisor's, the reference's ``guard``) puts step ❺
+behind an on-device finite check of the accumulated gradient: a
+non-finite accumulator skips the update — params and optimizer state,
+the step counter included, pass through unchanged — and the metrics
+carry ``nonfinite``, a device scalar. ``flat`` hands the flag to K2–K4,
+which write nothing when it is 0; the tree executors select leaf by leaf
+on the device (``exec_core.guarded_update``). A guarded step reads
+nothing back either. Guard off runs exactly the unguarded step.
 """
 from __future__ import annotations
 
@@ -56,15 +63,10 @@ class _ExecutorBase:
     fused = False  # raw micro losses, normalization fused into K1
 
     def __init__(self, loss_fn, optimizer, plan, *, guard: bool = False):
-        if guard:
-            # eager PyTorch can only skip the in-place K2-K4 update without
-            # a host sync if those kernels read a device flag
-            raise NotImplementedError(
-                "guard=True (the on-device finite check before step 5) is "
-                "not ported yet (ROADMAP.md queue 1 item 12)")
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.plan = _as_plan(plan)
+        self.guard = guard
 
     def _accumulated(self, params, micro_batches):
         """(grads tree in accum_dtype, loss, metric_sum) over the split."""
@@ -107,10 +109,15 @@ class _ExecutorBase:
                             *self._accumulated(params, micro_batches))
 
     def _update(self, params, opt_state, grads, loss, metric_sum):
-        new_params, new_opt = exec_core.apply_update(
-            self.optimizer, grads, opt_state, params)
+        ok = None
+        if self.guard:
+            new_params, new_opt, ok = exec_core.guarded_update(
+                self.optimizer, grads, opt_state, params)
+        else:
+            new_params, new_opt = exec_core.apply_update(
+                self.optimizer, grads, opt_state, params)
         return new_params, new_opt, exec_core.finalize_metrics(
-            metric_sum, loss, grads)
+            metric_sum, loss, grads, ok)
 
 
 def _add_metrics(loss_sum, metric_sum, loss, metrics, n_s):
@@ -202,14 +209,25 @@ class FlatFusedExecutor(_ExecutorBase):
     name = "flat"
     fused = True
 
-    def prepare(self, params, opt_state) -> Tuple[Any, Any]:
+    def prepare(self, params, opt_state, device=None) -> Tuple[Any, Any]:
         """Flat view trees of ``params`` and ``opt_state`` (one copy unless
-        they already are); callers drop the originals to free them."""
+        they already are); callers drop the originals to free them. With
+        ``device``, new buffers there, each leaf copied into its slot (a
+        host state goes to the card without a staging copy of the tree)."""
         spec = flat.FlatSpec.for_tree(params)
-        _, params = spec.as_flat(params)
-        opt_state = {k: (spec.as_flat(v)[1] if k != "step" and v is not None
-                         else v) for k, v in opt_state.items()}
-        return params, opt_state
+
+        def as_flat(t):
+            if device is None:
+                return spec.as_flat(t)[1]
+            return spec.place(t, device)[1]
+
+        def state_leaf(k, v):
+            if v is None or (k == "step" and device is None):
+                return v
+            return v.to(device, copy=True) if k == "step" else as_flat(v)
+
+        return as_flat(params), {k: state_leaf(k, v)
+                                 for k, v in opt_state.items()}
 
     def _accumulated_flat(self, params, micro_batches):
         plan = self.plan
@@ -240,10 +258,15 @@ class FlatFusedExecutor(_ExecutorBase):
         params, opt_state = self.prepare(params, opt_state)
         spec, acc, loss, metric_sum = self._accumulated_flat(
             params, micro_batches)
-        new_params, new_opt = exec_core.apply_update_flat(
-            self.optimizer, spec, acc, opt_state, params)
+        ok = None
+        if self.guard:
+            new_params, new_opt, ok = exec_core.guarded_update_flat(
+                self.optimizer, spec, acc, opt_state, params)
+        else:
+            new_params, new_opt = exec_core.apply_update_flat(
+                self.optimizer, spec, acc, opt_state, params)
         return new_params, new_opt, exec_core.finalize_metrics(
-            metric_sum, loss, acc)
+            metric_sum, loss, acc, ok)
 
 
 EXECUTORS: Dict[str, Type] = {

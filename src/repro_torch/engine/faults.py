@@ -10,8 +10,8 @@ mid-write. This module makes each fault class a seeded, replayable event:
   * production code carries cheap **hook points** (``on_dispatch`` in the
     executors' ``step_split``, ``on_host_batch``/``corrupt_batch`` in the
     ``Pipeline`` worker, ``on_checkpoint_io``/``on_checkpoint_commit`` in
-    ``checkpoint.save``) that are a single ``is None`` check when no plan
-    is active;
+    ``checkpoint.save``, ``on_replan`` in the supervisor) that are a
+    single ``is None`` check when no plan is active;
   * the same plan replays the same faults at the same indices every run
     (the only state is per-spec fire counters).
 
@@ -30,10 +30,10 @@ Fault classes (``FaultSpec.kind``):
                     and the manifest write in ``checkpoint.save``.
   ``ckpt_io``       :class:`InjectedIOError` (an ``OSError``) raised
                     before the checkpoint write.
-
-The reference's ``corrupt_cache`` kind and its ``on_replan`` hook belong
-to the supervisor and the tuning cache, which ROADMAP.md queue 1 items 12
-and 9 port.
+  ``corrupt_cache`` the reference's garbage written over the tuning-cache
+                    file at the supervisor's re-plan hook: the tolerant
+                    load must degrade to analytic instead of sinking the
+                    recovery.
 
 ``step`` is the hook's own index space: the global *training step* for
 ``nan``/``worker``, the *save step* for the checkpoint kinds, and the
@@ -80,17 +80,29 @@ class InjectedCrash(FaultError):
 # the JAX package's pattern; PyTorch's allocator says "CUDA out of memory"
 _OOM_RE = re.compile(
     r"RESOURCE_EXHAUSTED|OUT_OF_MEMORY|[Oo]ut of memory|[Rr]esource exhausted")
+# an error the CUDA runtime or a library returned: an out-of-memory among
+# them ("CUDA error: out of memory" from a launch, CUBLAS_STATUS_ALLOC_
+# FAILED) may leave the context unusable, so it is not recovered from
+_CUDA_ERROR_RE = re.compile(r"CUDA error|CUBLAS_STATUS_|CUDNN_STATUS_")
 
-KINDS = ("oom", "nan", "worker", "torn_write", "ckpt_io")
+KINDS = ("oom", "nan", "worker", "torn_write", "ckpt_io", "corrupt_cache")
 
 #: classification labels (the supervisor's recovery state machine keys)
 OOM, TRANSIENT, CRASH, FATAL = "oom", "transient", "crash", "fatal"
 
 
 def is_oom(exc: BaseException) -> bool:
-    """True for a device out-of-memory failure (real or injected)."""
-    return isinstance(exc, RuntimeError) and \
-        _OOM_RE.search(str(exc)) is not None
+    """True for a device out-of-memory failure the supervisor can recover
+    from: the caching allocator's ``torch.OutOfMemoryError`` (real or
+    injected), or a ``RuntimeError`` that says so in the reference's
+    words. An out-of-memory that the CUDA runtime or a library reports as
+    an error (``CUDA error: out of memory``, ``CUBLAS_STATUS_ALLOC_FAILED``)
+    is not: it may leave the context unusable, so it is fatal."""
+    if isinstance(exc, torch.OutOfMemoryError):
+        return True
+    msg = str(exc)
+    return (isinstance(exc, RuntimeError) and not _CUDA_ERROR_RE.search(msg)
+            and _OOM_RE.search(msg) is not None)
 
 
 def is_transient(exc: BaseException) -> bool:
@@ -162,6 +174,10 @@ def ckpt_io_at(step: int, *, times: int = 1) -> FaultSpec:
     return FaultSpec("ckpt_io", step, times=times)
 
 
+def corrupt_cache() -> FaultSpec:
+    return FaultSpec("corrupt_cache", None)
+
+
 class FaultPlan:
     """A seeded, replayable schedule of injected faults: per-spec
     remaining-charge counters, a dispatch counter for the ``oom`` index
@@ -174,11 +190,13 @@ class FaultPlan:
         self.dispatches = 0
         self.fired: List[Tuple[str, int]] = []
 
-    def _take(self, kind: str, index: int) -> Optional[FaultSpec]:
+    def _take(self, kind: str, index: int, *,
+              at_least: bool = False) -> Optional[FaultSpec]:
         for i, s in enumerate(self.specs):
             if s.kind != kind or self._remaining[i] <= 0:
                 continue
-            if s.step is not None and index != s.step:
+            if s.step is not None and (index < s.step if at_least
+                                       else index != s.step):
                 continue
             self._remaining[i] -= 1
             self.fired.append((kind, index))
@@ -284,3 +302,18 @@ def on_checkpoint_commit(step: int) -> None:
     if _ACTIVE._take("torn_write", step) is not None:
         raise InjectedCrash(
             f"injected crash before manifest commit at step {step}")
+
+
+def on_replan(cache_path: Optional[str]) -> None:
+    """Supervisor hook, fired when an OOM recovery is about to consult and
+    update the tuning cache: a ``corrupt_cache`` spec overwrites the cache
+    file with the reference's garbage — the tolerant load must degrade to
+    analytic."""
+    if _ACTIVE is None or cache_path is None:
+        return
+    if _ACTIVE._take("corrupt_cache", 0, at_least=True) is not None:
+        try:
+            with open(cache_path, "w") as f:
+                f.write('{"version": "garbage", "memory": [corrupt')
+        except OSError:
+            pass  # nothing to corrupt: the lookup already degrades

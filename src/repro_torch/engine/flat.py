@@ -140,6 +140,19 @@ class FlatSpec:
                 return None
         return tuple(bases)
 
+    def place(self, t, device) -> Tuple[Tuple[torch.Tensor, ...], Any]:
+        """(new buffers on ``device``, tree of views into them), each leaf
+        of ``t`` copied into its slot: no staging copy of the whole tree
+        (a restore of a host state onto the card)."""
+        bufs = tuple(torch.empty((n,), dtype=dt, device=device)
+                     for n, dt in zip(self.bucket_sizes, self.bucket_dtypes))
+        leaves = tree.leaves(t)
+        self.by_bucket(leaves)  # the leaf count must be the spec's
+        for leaf, slot in zip(leaves, self.slots):
+            bufs[slot.bucket][slot.offset:slot.offset + slot.size].copy_(
+                leaf.reshape(-1))
+        return bufs, self.unflatten(bufs)
+
     def as_flat(self, t) -> Tuple[Tuple[torch.Tensor, ...], Any]:
         """(buffers, tree of views into them): the tree's own buffers when
         it already is a flat view tree, else new buffers (one copy)."""

@@ -157,6 +157,7 @@ class Pipeline:
                     yield _ready(cur)
             finally:
                 stats.elapsed_s = time.perf_counter() - t_begin
+                it.close()  # a stream closed early stops its producer
 
         return run()
 

@@ -100,6 +100,16 @@ class MBSPlan:
     # ``correction`` is the (a, b) of ``measured ≈ a·modeled + b`` applied
     calibrated: bool = False
     correction: Optional[tuple] = None
+    # data-parallel geometry (the reference's; one device until ROADMAP.md
+    # queue 1 item 11): each of ``data_parallel`` workers takes
+    # ``local_micro`` samples of every micro-batch
+    data_parallel: int = 1
+    local_micro: Optional[int] = None  # = micro_batch_size when dp == 1
+
+    def __post_init__(self):
+        if self.local_micro is None:
+            object.__setattr__(self, "local_micro",
+                               self.micro_batch_size // self.data_parallel)
 
     def split(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Pad-and-mask split of a host mini-batch. Non-uniform dataset

@@ -18,6 +18,13 @@ corrections) arrive through one small fp32 device tensor, the Pallas
 ``s_ref``; the static hyperparameters (momentum, weight decay, nesterov,
 betas, eps, decoupled) are ``tl.constexpr``.
 
+With ``GUARD`` (the supervisor's finite check in front of step ❺, the
+reference's ``lax.cond``) the scalar operand carries one more slot, the
+finite flag, after the others; each program ANDs it into its load and
+store mask, so a flag of 0 makes the launch read and write nothing.
+Without ``GUARD`` the branch is compiled away and the kernel is the
+unguarded one.
+
 The arithmetic copies the Pallas kernels cast for cast, in the promotion
 rules that ``ref.py`` spells out: each product with a constant is rounded
 to the state's dtype before it is added, so a bf16 bucket rounds where
@@ -45,9 +52,11 @@ def _kernels():
     def _sgd_mom_kernel(p_ptr, g_ptr, m_ptr, s_ptr, n,
                         MU: tl.constexpr, WD: tl.constexpr,
                         HAS_WD: tl.constexpr, NESTEROV: tl.constexpr,
-                        BLOCK: tl.constexpr):
+                        GUARD: tl.constexpr, BLOCK: tl.constexpr):
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n
+        if GUARD:  # the finite flag: 0 masks every load and store
+            mask = mask & (tl.load(s_ptr + 2) != 0.0)
         lr = tl.load(s_ptr)
         gscale = tl.load(s_ptr + 1)
         p = tl.load(p_ptr + offs, mask=mask)
@@ -69,9 +78,12 @@ def _kernels():
 
     @triton.jit
     def _sgd_kernel(p_ptr, g_ptr, s_ptr, n, WD: tl.constexpr,
-                    HAS_WD: tl.constexpr, BLOCK: tl.constexpr):
+                    HAS_WD: tl.constexpr, GUARD: tl.constexpr,
+                    BLOCK: tl.constexpr):
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n
+        if GUARD:
+            mask = mask & (tl.load(s_ptr + 2) != 0.0)
         lr = tl.load(s_ptr)
         gscale = tl.load(s_ptr + 1)
         p = tl.load(p_ptr + offs, mask=mask)
@@ -88,9 +100,11 @@ def _kernels():
                      B2: tl.constexpr, OMB2: tl.constexpr,
                      EPS: tl.constexpr, WD: tl.constexpr,
                      COUPLED_WD: tl.constexpr, DECOUPLED_WD: tl.constexpr,
-                     BLOCK: tl.constexpr):
+                     GUARD: tl.constexpr, BLOCK: tl.constexpr):
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n
+        if GUARD:
+            mask = mask & (tl.load(s_ptr + 4) != 0.0)
         lr = tl.load(s_ptr)
         gscale = tl.load(s_ptr + 1)
         bc1 = tl.load(s_ptr + 2)
@@ -133,7 +147,7 @@ def _check(name, params, grads, *state) -> torch.device:
 
 def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
               momentum: float = 0.0, weight_decay: float = 0.0,
-              nesterov: bool = False, block=None):
+              nesterov: bool = False, block=None, ok=None):
     """One in-place SGD(-momentum) step over a flat bucket.
 
     params/mom: (N,) in the bucket dtype; grads: (N,) fp32 accumulator;
@@ -141,16 +155,24 @@ def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
     in place and returns (params, mom) — or params alone when ``mom`` is
     None. CUDA tensors launch K2 (with ``mom``) or K3 (without), at
     ``block`` elements a program (a power of two; default: the tuned or
-    default block); CPU tensors take the plain version."""
+    default block); CPU tensors take the plain version.
+
+    ``ok`` (a device scalar, the guard's finite flag) launches the
+    guarded variant: each program reads the flag and, where it is 0,
+    loads and stores nothing, so a skipped step leaves every buffer as
+    it was without a host sync. Without ``ok`` the kernel is the
+    unguarded one."""
     if mom is None:
         dev = _check("fused_sgd", params, grads)
     else:
         dev = _check("fused_sgd", params, grads, mom)
-    s = scalars(dev, lr, clip_scale)
+    guard = ok is not None
+    s = scalars(dev, lr, clip_scale, *((ok,) if guard else ()))
     if dev.type == "cpu":
         new_p, new_m = ref.fused_sgd_ref(
             params, grads, mom, s[0], s[1], momentum=momentum,
-            weight_decay=weight_decay, nesterov=nesterov)
+            weight_decay=weight_decay, nesterov=nesterov,
+            ok=s[2] if guard else None)
         params.copy_(new_p)
         if mom is None:
             return params
@@ -164,13 +186,15 @@ def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
     with torch.cuda.device(dev):
         if mom is None:
             sgd[grid](params, grads, s, n, WD=wd, HAS_WD=bool(weight_decay),
-                      BLOCK=block, num_warps=warps, enable_fp_fusion=False)
+                      GUARD=guard, BLOCK=block, num_warps=warps,
+                      enable_fp_fusion=False)
             LAUNCHES["fused_sgd"] += 1
             return params
         sgd_mom[grid](params, grads, mom, s, n,
                       MU=ref.weak(momentum, mom.dtype), WD=wd,
                       HAS_WD=bool(weight_decay), NESTEROV=bool(nesterov),
-                      BLOCK=block, num_warps=warps, enable_fp_fusion=False)
+                      GUARD=guard, BLOCK=block, num_warps=warps,
+                      enable_fp_fusion=False)
     LAUNCHES["fused_sgd_mom"] += 1
     return params, mom
 
@@ -178,20 +202,23 @@ def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
 def fused_adam(params, grads, m, v, lr, bias_corr1, bias_corr2,
                clip_scale=1.0, *, b1: float = 0.9, b2: float = 0.999,
                eps: float = 1e-8, weight_decay: float = 0.0,
-               decoupled: bool = False, block=None):
+               decoupled: bool = False, block=None, ok=None):
     """One in-place Adam/AdamW step over a flat bucket.
 
     params/m/v: (N,) bucket buffers; grads: (N,) fp32 accumulator;
     ``bias_corr{1,2}`` are the ``1 - beta**step`` scalars, numbers or
     1-element device tensors. Writes params, m and v in place and returns
-    them. CUDA tensors launch K4 (``block`` as for :func:`fused_sgd`);
-    CPU tensors take the plain version."""
+    them. CUDA tensors launch K4 (``block`` and ``ok`` as for
+    :func:`fused_sgd`); CPU tensors take the plain version."""
     dev = _check("fused_adam", params, grads, m, v)
-    s = scalars(dev, lr, clip_scale, bias_corr1, bias_corr2)
+    guard = ok is not None
+    s = scalars(dev, lr, clip_scale, bias_corr1, bias_corr2,
+                *((ok,) if guard else ()))
     if dev.type == "cpu":
         outs = ref.fused_adam_ref(
             params, grads, m, v, s[0], s[2], s[3], s[1], b1=b1, b2=b2,
-            eps=eps, weight_decay=weight_decay, decoupled=decoupled)
+            eps=eps, weight_decay=weight_decay, decoupled=decoupled,
+            ok=s[4] if guard else None)
         for buf, new in zip((params, m, v), outs):
             buf.copy_(new)
         return params, m, v
@@ -205,7 +232,7 @@ def fused_adam(params, grads, m, v, lr, bias_corr1, bias_corr2,
             B2=ref.weak(b2, v.dtype), OMB2=ref.weak(1 - b2, v.dtype),
             EPS=float(eps), WD=float(weight_decay),
             COUPLED_WD=bool(weight_decay) and not decoupled,
-            DECOUPLED_WD=bool(weight_decay) and decoupled,
+            DECOUPLED_WD=bool(weight_decay) and decoupled, GUARD=guard,
             BLOCK=block, num_warps=warps, enable_fp_fusion=False)
     LAUNCHES["fused_adam"] += 1
     return params, m, v

@@ -72,12 +72,31 @@ def grad_accum_ref(acc, grad, scale) -> torch.Tensor:
     return acc + grad.to(acc.dtype) * scale.to(acc.dtype)
 
 
+def _guarded(ok, new, old):
+    """``new`` where the device flag ``ok`` is set (or absent), else
+    ``old`` bit for bit: a skipped step writes nothing."""
+    if ok is None or old is None:
+        return new
+    return torch.where(ok.reshape(()) != 0, new, old)
+
+
+def finite_all_ref(bufs) -> torch.Tensor:
+    """True iff every element of every buffer is finite: a 0-d bool on
+    the buffers' device (the reference's ``exec_core.finite_all``)."""
+    oks = [torch.isfinite(b).all() for b in bufs]
+    return torch.stack(oks).all() if oks else torch.ones((), dtype=torch.bool)
+
+
 def fused_sgd_ref(p, g, m, lr, clip_scale, *, momentum: float = 0.0,
-                  weight_decay: float = 0.0, nesterov: bool = False):
+                  weight_decay: float = 0.0, nesterov: bool = False,
+                  ok=None):
     """Oracle for ``fused_update.fused_sgd`` (kernels K2 and K3): the
     arithmetic of ``optim.sgd``'s update plus ``exec_core.apply_update`` as
     one pass over flat buffers. ``lr`` and ``clip_scale`` are fp32 tensors.
-    Returns (new_p, new_m) — new_m is None when ``m`` is None."""
+    Returns (new_p, new_m) — new_m is None when ``m`` is None. With the
+    guard flag ``ok`` (a 1-element tensor, the guarded kernels' operand)
+    at 0 both come back unchanged; at 1 they are the update's."""
+    p0, m0 = p, m
     g = g * clip_scale.to(g.dtype)
     if weight_decay:
         g = g + weak(weight_decay, g.dtype) * p.to(g.dtype)
@@ -87,15 +106,18 @@ def fused_sgd_ref(p, g, m, lr, clip_scale, *, momentum: float = 0.0,
     else:
         eff = g
     u = -lr * eff.float()
-    return p + u.to(p.dtype), m
+    return _guarded(ok, p + u.to(p.dtype), p0), _guarded(ok, m, m0)
 
 
 def fused_adam_ref(p, g, m, v, lr, bias_corr1, bias_corr2, clip_scale, *,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                   weight_decay: float = 0.0, decoupled: bool = False):
+                   weight_decay: float = 0.0, decoupled: bool = False,
+                   ok=None):
     """Oracle for ``fused_update.fused_adam`` (kernel K4): ``optim.adam``'s
     arithmetic as one flat pass. ``lr``, ``bias_corr{1,2}`` and
-    ``clip_scale`` are fp32 tensors. Returns (new_p, new_m, new_v)."""
+    ``clip_scale`` are fp32 tensors. Returns (new_p, new_m, new_v); with
+    the guard flag ``ok`` at 0, the old ones (see :func:`fused_sgd_ref`)."""
+    old = (p, m, v)
     g = g * clip_scale.to(g.dtype)
     if weight_decay and not decoupled:
         g = g + weak(weight_decay, g.dtype) * p.to(g.dtype)
@@ -107,5 +129,6 @@ def fused_adam_ref(p, g, m, v, lr, bias_corr1, bias_corr2, clip_scale, *,
     if weight_decay and decoupled:
         u = u + weight_decay * p.float()
     u = -lr * u
-    return p + u.to(p.dtype), m, v
+    return tuple(_guarded(ok, new, o)
+                 for new, o in zip((p + u.to(p.dtype), m, v), old))
 

@@ -444,7 +444,7 @@ def test_fault_taxonomy_classification():
     assert faults.classify(ValueError("bug")) == "fatal"
     assert isinstance(faults.InjectedIOError("x"), OSError)
     with pytest.raises(ValueError, match="unknown fault kind"):
-        faults.FaultSpec("corrupt_cache")
+        faults.FaultSpec("bit_flip")
 
 
 # ---------------------------------------------------------------------------
@@ -646,18 +646,25 @@ def test_fit_leaves_no_tensor_in_cyclic_garbage(tmp_path):
 # ownership: the launcher keeps no reference to the initial state
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("executor", ["compiled", "fused", "streaming"])
+@pytest.mark.parametrize(
+    "executor,extra",
+    [("compiled", []), ("fused", []), ("streaming", []),
+     ("compiled", ["--supervise"]), ("fused", ["--supervise"]),
+     ("streaming", ["--supervise"])],
+    ids=["compiled", "fused", "streaming", "compiled-supervise",
+         "fused-supervise", "streaming-supervise"])
 def test_launcher_frees_the_initial_state_after_the_first_step(
-        monkeypatch, executor):
+        monkeypatch, executor, extra):
     """Under the executors whose update makes new trees, every initial
     param and momentum leaf is dead once the first step has returned: the
-    launcher hands the initial state to the Trainer and keeps no name for
-    it (at full qwen2-1.5b width those trees are 11.5 GiB)."""
+    launcher hands the initial state to the Trainer (or the Supervisor,
+    whose anchor is a host copy) and keeps no name for it (at full
+    qwen2-1.5b width those trees are 11.5 GiB)."""
     import weakref
     seen = {"calls": 0, "refs": [], "alive_at_step_1": None}
-    real_init = engine.Trainer.__init__
+    real_make_build = train.make_build
 
-    def init(self, step_fn, pipeline, **kw):
+    def watch(step_fn):
         def step(params, opt_state, batch):
             if seen["calls"] == 0:  # the initial state, as fit got it
                 seen["refs"] = [weakref.ref(t) for t in tree.leaves(
@@ -667,11 +674,44 @@ def test_launcher_frees_the_initial_state_after_the_first_step(
                     r() is not None for r in seen["refs"])
             seen["calls"] += 1
             return step_fn(params, opt_state, batch)
-        real_init(self, step, pipeline, **kw)
+        return step
 
-    monkeypatch.setattr(engine.Trainer, "__init__", init)
-    train.main(LAUNCH + ["--executor", executor, "--steps", "2"])
+    def make_build(*args, **kw):
+        build = real_make_build(*args, **kw)
+
+        def watched(plan):
+            executor, step_fn, pipeline = build(plan)
+            return executor, watch(step_fn), pipeline
+        return watched
+
+    monkeypatch.setattr(train, "make_build", make_build)
+    train.main(LAUNCH + ["--executor", executor, "--steps", "2"] + extra)
     assert seen["calls"] == 2 and len(seen["refs"]) > 0
     assert seen["alive_at_step_1"] == 0, (
         f"{seen['alive_at_step_1']} of {len(seen['refs'])} initial param "
         f"and momentum leaves are still alive after the first step")
+
+
+@pytest.mark.parametrize("executor", ["flat", "streaming"])
+def test_supervised_launcher_gives_up_with_the_exit_codes(executor):
+    """``--supervise`` on the CPU: a NaN under ``--on-nan halt`` exits 44
+    (NaNHalt); an OOM with ``--max-restarts 0`` exits 41
+    (RestartBudgetExceeded); a NaN under the default policy is retried
+    and the run equals the unfaulted one."""
+    argv = LAUNCH + ["--executor", executor, "--steps", "3", "--supervise"]
+    for spec, extra, code in ((faults.nan_at(1), ["--on-nan", "halt"], 44),
+                              (faults.oom_at(1), ["--max-restarts", "0"],
+                               41)):
+        with faults.inject(faults.FaultPlan(spec)):
+            with pytest.raises(SystemExit) as info:
+                train.main(argv + extra)
+        assert info.value.code == code
+    clean = train.main(argv)
+    with faults.inject(faults.FaultPlan(faults.nan_at(1))):
+        retried = train.main(argv)
+    [rec] = retried["supervisor"]["faults"]
+    assert rec["kind"] == "nonfinite" and rec["action"].startswith("retried")
+    assert [h["loss"] for h in retried["history"]] == \
+        [h["loss"] for h in clean["history"]]
+    assert _equal((retried["params"], retried["opt_state"]),
+                  (clean["params"], clean["opt_state"]))

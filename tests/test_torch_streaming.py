@@ -149,10 +149,22 @@ def test_step_equals_step_split(n_b):
 
 @pytest.mark.parametrize("name", sorted(engine.EXECUTORS))
 def test_guard_waits_for_the_supervisor(name):
+    """``guard=True`` (the supervisor's finite check) is accepted by every
+    executor; on a clean batch the guarded step is the unguarded one,
+    with ``nonfinite`` 0 as a tensor beside the metrics."""
     plan = engine.plan_mbs(8, micro_batch_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        engine.get_executor(name)(t_loss_fn, optim.sgd(0.1), plan,
-                                  guard=True)
+    split = plan.device_split(_make_batch(8), "cpu")
+    outs = []
+    for guard in (False, True):
+        opt = optim.sgd(0.1, momentum=0.9)
+        ex = engine.get_executor(name)(t_loss_fn, opt, plan, guard=guard)
+        p = _params()[1]
+        outs.append(ex.step_split(p, opt.init(p), split))
+    (p1, s1, m1), (p2, s2, m2) = outs
+    assert isinstance(m2["nonfinite"], torch.Tensor)
+    assert float(m2["nonfinite"]) == 0.0 and "nonfinite" not in m1
+    for a, b in zip(tree.leaves((p1, s1)), tree.leaves((p2, s2))):
+        assert torch.equal(a, b)
 
 
 def test_get_executor_resolves_streaming():
