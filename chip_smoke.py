@@ -151,9 +151,33 @@ Phases (any failure exits non-zero before the last line is printed):
      plan under the cap, and a second plan that no longer admits what
      failed (injected with ``faults.oom_at`` if no budget provokes it).
 
+  14a. serving full qwen2-1.5b (28 layers; fp32 weights, bf16 compute
+     and cache) through ``repro_torch.launch.serve.main`` at a 10 GiB
+     budget, max_len 2048, 96 Poisson requests at 32/s, prompts
+     128/512/1024, 64 or 256 new tokens, greedy (``serve_phase``): the
+     plan the reference's arithmetic gives (51 slots, prefill micro 8)
+     and the memory model's largest fit, every request finished with its
+     clamped token count, the pool all free; prefill latency, decode
+     tokens/s, ITL, TTFT, peak concurrency, the allocator's peak beside
+     the modeled peak and the budget, K1–K6 launched 0 times (as in the
+     reference, serving reaches no kernel); one decode step's kernel
+     launches and device span (``torch.profiler``) and its synchronizing
+     calls (1: the next tokens' readback);
+  14b. the same for full gemma2-9b (42 layers, window 4096, soft-caps
+     50 / 30) at 64 GiB, max_len 8192, 8 requests at 4/s, prompts 1024
+     and 4608 (the 4608-token prompts wrap the local rings in prefill and
+     in decode): 8 slots, prefill micro 4;
+  14c. at 2 layers of each width, fp32, TF32 off
+     (``serve_correctness_phase``): prefill + teacher-forced decode
+     against ``forward`` (past gemma2's window), ragged against exact
+     prefill row by row, and the engine's continuous batching against one
+     request at a time, each within ``SERVE_ATOL`` on the logits, with the
+     count of agreeing tokens.
+
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
-``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's and 13's numbers)
+``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's and 14's
+numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2294,7 +2318,6 @@ def guard_phase(dev) -> dict:
     to unguarded on a clean batch (phase 8's rule), state untouched on a
     poisoned one, and the guarded peak within the largest leaf + 0.1 GiB
     of the unguarded (``flat``: within 0.1 GiB)."""
-    import warnings
     import torch
     from repro_torch import configs, engine, optim, tree
     from repro_torch.data import LMDataset
@@ -2332,25 +2355,11 @@ def guard_phase(dev) -> dict:
         secs[g].append(time.perf_counter() - t0)
     peaks = {g: _peak_above(dev, lambda g=g: step(g)) for g in (False, True)}
 
-    def syncs(fn):
-        """The synchronizing calls ``fn()`` makes, as the sync debug mode
-        reports them."""
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        return sorted(str(w.message) for w in seen
-                      if "called a synchronizing" in str(w.message))
     # the mode must see a readback at all, or a count of 0 says nothing
-    control = syncs(lambda: float(clean["sample_weight"].sum()))
+    control = sync_calls(lambda: float(clean["sample_weight"].sum()))
     check(len(control) >= 1, "guard: the sync debug mode did not report a "
                              "host readback")
-    sync = {g: syncs(lambda g=g: step(g)) for g in (False, True)}
+    sync = {g: sync_calls(lambda g=g: step(g)) for g in (False, True)}
     check(len(sync[True]) <= len(sync[False])
           and set(sync[True]) <= set(sync[False]),
           f"guard: the guarded flat step makes synchronizing calls the "
@@ -2492,6 +2501,24 @@ def guard_phase(dev) -> dict:
         del ex, p, s, p2, s2, before, after
         gc_collect()
     return out
+
+
+def sync_calls(fn) -> list:
+    """The synchronizing calls ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sorted(str(w.message) for w in seen
+                  if "called a synchronizing" in str(w.message))
 
 
 def gc_collect() -> None:
@@ -2738,6 +2765,347 @@ def calibration_miss_phase(dev, calibration: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. serving: KV-slot admission, prefill and decode, continuous batching
+# ---------------------------------------------------------------------------
+
+# the serve launcher's arguments per model, and what the JAX package's
+# arithmetic admits for them: (slots, prefill micro, slot bytes, prefill
+# bytes per sample)
+SERVE_ARGV = {
+    "qwen2-1.5b": ["--arch", "qwen2-1.5b", "--dtype", "bfloat16",
+                   "--budget", "10", "--max-len", "2048", "--requests", "96",
+                   "--rate", "32", "--prompt-lens", "128,512,1024",
+                   "--new-tokens", "64,256", "--temperature", "0"],
+    "gemma2-9b": ["--arch", "gemma2-9b", "--dtype", "bfloat16",
+                  "--budget", "64", "--max-len", "8192", "--requests", "8",
+                  "--rate", "4", "--prompt-lens", "1024,4608",
+                  "--new-tokens", "32,128", "--temperature", "0"],
+}
+SERVE_PLANS = {"qwen2-1.5b": (51, 8, 58_949_632, 182_240_768),
+               "gemma2-9b": (8, 4, 2_114_961_408, 3_642_712_064)}
+# 14c: fp32 logits of two computations of the same function in another
+# summation order (cuBLAS picks other algorithms for other shapes)
+SERVE_ATOL = 1e-3
+
+
+def serve_phase(dev, arch: str) -> dict:
+    """14a / 14b. ``repro_torch.launch.serve.main`` at full width with the
+    launch counters and the allocator's peak reset just before it and
+    read just after: the plan equal to SERVE_PLANS and to the serving
+    memory model evaluated on its own (the largest slot count whose
+    modeled peak fits), every request finished with exactly its clamped
+    ``max_new_tokens`` (the stream regenerated from its seed), every
+    token inside the vocabulary, the pool all free at the end; prefill
+    latency, decode tokens/s, ITL and TTFT, the peak concurrency, the
+    allocator's peak beside the modeled peak and the budget (a peak over
+    the budget is reported, not hidden). Then, on the same engine with
+    requests admitted, one decode step traced by ``torch.profiler`` (its
+    kernels and the device's busy span) and one under the sync debug
+    mode (one synchronizing call expected: the readback of the next
+    tokens)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import memory_model
+    from repro_torch.engine import serving
+    from repro_torch.launch import serve
+
+    argv = SERVE_ARGV[arch]
+    args = serve.build_parser().parse_args(argv)
+    gc_collect()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve.main(argv)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    peak_reserved = torch.cuda.max_memory_reserved(dev)
+    plan, cfg, rep, eng = (res["plan"], res["config"], res["report"],
+                           res["engine"])
+    reqs = res["requests"]
+    want = SERVE_PLANS[arch]
+    got = (plan.max_decode_slots, plan.prefill_micro, plan.kv_slot_bytes,
+           plan.prefill_bytes_per_sample)
+    check(got == want, f"serve {arch}: plan {got}, the reference's "
+                       f"arithmetic gives {want}")
+    est = memory_model.serve_estimate(cfg, args.max_len, cache_bytes=2)
+    budget = int(args.budget * GIB)
+    s, m = plan.max_decode_slots, plan.prefill_micro
+    check(est.total(s, m) == plan.modeled_peak_bytes() <= budget
+          and (s == 256 or budget < est.total(s + 1, m)),  # slot_cap 256
+          f"serve {arch}: {s} slots at micro {m} is not the largest count "
+          f"the memory model fits in {budget} B")
+    stream = list(serving.synthetic_traffic(
+        args.requests, rate_rps=args.rate, prompt_lens=args.prompt_lens,
+        new_tokens=args.new_tokens, vocab_size=cfg.vocab_size,
+        seed=args.seed + 1))
+    check(len(reqs) == args.requests and all(
+        r.state == serving.FINISHED
+        and len(r.tokens) == min(o.max_new_tokens, args.max_len
+                                 - o.prompt_len)
+        and all(0 <= t < cfg.vocab_size for t in r.tokens)
+        for r, o in zip(reqs, stream)),
+        f"serve {arch}: a request did not finish with exactly its clamped "
+        f"max_new_tokens in-vocabulary tokens")
+    check(rep["requests"]["finished"] == args.requests
+          and eng.pool.free_count == s and not eng._by_slot,
+          f"serve {arch}: pool not all free at the end "
+          f"({eng.pool.free_count} of {s})")
+    check(rep["decode"]["tokens"] == sum(len(r.tokens) - 1 for r in reqs),
+          f"serve {arch}: decode tokens miscounted")
+    pf, dec = rep["prefill"], rep["decode"]
+    card = card_line()
+    print(f"serve {arch} [{card}]: {plan.describe()}", flush=True)
+    print(f"serve {arch}: {args.requests} requests finished in {wall:.1f}s "
+          f"(warmup {rep['warmup_s']:.2f}s excluded from the rates); "
+          f"prefill {pf['batches']} micro-batches, {pf['prompt_tokens']} "
+          f"prompt tokens, latency p50 {pf['latency_s']['p50'] * 1e3:.2f} "
+          f"ms max {pf['latency_s']['max'] * 1e3:.2f} ms; decode "
+          f"{dec['tokens']} tokens in {dec['time_s']:.3f}s over "
+          f"{dec['steps']} steps = {dec['tokens_per_s']:.1f} tokens/s; ITL "
+          f"p50 {dec['itl_s']['p50'] * 1e3:.2f} ms p99 "
+          f"{dec['itl_s']['p99'] * 1e3:.2f} ms; TTFT p50 "
+          f"{rep['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+          f"{rep['ttft_s']['p99'] * 1e3:.1f} ms; peak concurrency "
+          f"{rep['slots']['max_concurrent']} of {s} (mean active "
+          f"{rep['slots']['mean_active_per_step']:.2f}); K1-K6 launches "
+          f"{counts}", flush=True)
+    over = peak - budget
+    modeled = plan.modeled_peak_bytes()
+    print(f"serve {arch}: max_memory_allocated {peak} B ({peak / GIB:.3f} "
+          f"GiB; {base} B allocated before) vs modeled peak {modeled} B "
+          f"({modeled / GIB:.3f} GiB) and budget {budget} B ({args.budget} "
+          f"GiB): "
+          + (f"OVER the budget by {over} B" if over > 0
+             else f"{-over} B under the budget")
+          + f"; reserved {peak_reserved} B; pool {eng.pool.bytes()} B",
+          flush=True)
+
+    # one decode step, traced and under the sync debug mode, with the
+    # first prefill micro-batch of the stream admitted
+    for r in stream[:plan.prefill_micro]:
+        eng.submit(r)
+    eng._prefill_group(eng._next_group(), 0.0)
+    eng._decode_once(0.0)  # warm
+    trace = os.path.join(ROOT, "build", f"serve-{arch}-trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step_s = eng._decode_once(0.0)
+    prof.export_chrome_trace(trace)
+    tr = _trace_streams(trace)
+    os.remove(trace)
+    launches = sum(tr["kernel_streams"].values())
+    syncs = sync_calls(lambda: eng._decode_once(0.0))
+    check(len(syncs) == 1,
+          f"serve {arch}: a decode step made {len(syncs)} synchronizing "
+          f"calls, expected 1 (the next tokens' readback): {syncs}")
+    step_untraced = eng._decode_once(0.0)
+    print(f"serve {arch}: one decode step over the {s}-slot pool: "
+          f"{launches} kernel launches, kernels {tr['kernel_ms']:.3f} ms of a "
+          f"{tr['device_span_ms']:.3f} ms device span (step {step_s * 1e3:.3f}"
+          f" ms traced, {step_untraced * 1e3:.3f} ms untraced); "
+          f"synchronizing calls {len(syncs)} ({syncs}); kernels by time "
+          f"{tr['kernels_ms']}; runtime calls {tr['runtime_ms']}",
+          flush=True)
+    out = {
+        "card": card, "plan": plan.describe(), "plan_fields": list(got),
+        "budget_bytes": budget, "modeled_peak_bytes":
+            plan.modeled_peak_bytes(), "peak_bytes": peak,
+        "peak_reserved_bytes": peak_reserved, "allocated_before_bytes": base,
+        "over_budget_bytes": max(over, 0), "pool_bytes": eng.pool.bytes(),
+        "wall_s": wall, "report": rep, "counts": counts,
+        "decode_step_launches": launches,
+        "decode_step_kernel_ms": tr["kernel_ms"],
+        "decode_step_device_span_ms": tr["device_span_ms"],
+        "decode_step_traced_s": step_s, "decode_step_s": step_untraced,
+        "decode_step_sync_calls": len(syncs)}
+    del res, eng, reqs, prof
+    gc_collect()
+    return out
+
+
+def _record_logits(eng) -> dict:
+    """Wrap an engine's prefill and decode calls to keep, per request id,
+    the logits row each of its tokens was sampled from (on the host)."""
+    rows, group = {}, []
+    real_group, real_prefill, real_decode = (
+        eng._prefill_group, eng._prefill, eng._decode_logits)
+
+    def prefill_group(g, now):
+        group[:] = g
+        return real_group(g, now)
+
+    def prefill(toks, lengths):
+        logits, cache = real_prefill(toks, lengths)
+        for i, r in enumerate(group):
+            rows.setdefault(r.rid, []).append(logits[i].cpu())
+        return logits, cache
+
+    def decode_logits():
+        logits = real_decode()
+        for slot, r in eng._by_slot.items():
+            rows[r.rid].append(logits[slot].cpu())
+        return logits
+
+    eng._prefill_group, eng._prefill = prefill_group, prefill
+    eng._decode_logits = decode_logits
+    return rows
+
+
+def serve_correctness_phase(dev, arch: str) -> dict:
+    """14c. At 2 layers of ``arch``'s full width, fp32, TF32 off, random
+    weights from seed 0, within SERVE_ATOL on the logits:
+    prefill followed by teacher-forced decode against ``forward``'s logits
+    at every position (for gemma2-9b two prompts: one whose decode crosses
+    the 4096-token window, one longer than the window); ragged
+    right-padded prefill against exact prefill row by row, and one decode
+    step after; the engine's continuous batching (4 slots, prefill micro
+    2, prompts around the window) against a one-request-at-a-time
+    teacher-forced decode of each request's own tokens, with how many
+    tokens agree (a token must agree wherever the single decode's top-2
+    margin exceeds twice the tolerance)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.engine import serving
+    from repro_torch.models import nn, transformer
+
+    f32 = torch.float32
+    cfg = dataclasses.replace(configs.get(arch), num_layers=2)
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    gen = np.random.default_rng(0)
+    out = {"atol": SERVE_ATOL}
+
+    def head(x):
+        return nn.softcap(nn.unembed(params["embed"], x, f32),
+                          cfg.final_softcap)
+
+    # prefill + teacher-forced decode against forward
+    cases = ([(4040, 4160), (4400, 4408)] if arch == "gemma2-9b"
+             else [(1000, 1100)])
+    errs = []
+    for prompt, total in cases:
+        toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (2, total))
+                                ).to(dev)
+        with torch.inference_mode():
+            hid, _ = transformer.forward(params, cfg, toks, dtype=f32,
+                                         remat=False, return_hidden=True)
+            want = head(hid[:, prompt - 1:])
+            del hid
+        last, cache = transformer.prefill(params, cfg, toks[:, :prompt],
+                                          total, dtype=f32)
+        err = float((last - want[:, 0]).abs().max())
+        for t in range(prompt, total):
+            pos = torch.full((2,), t, dtype=torch.int32, device=dev)
+            lg, cache = transformer.decode_step(params, cfg,
+                                                toks[:, t:t + 1], cache, pos,
+                                                dtype=f32)
+            err = max(err, float((lg[:, 0] - want[:, t - prompt + 1]
+                                  ).abs().max()))
+        errs.append(err)
+        check(err <= SERVE_ATOL,
+              f"serve {arch} (2 layers): prefill {prompt} + decode to "
+              f"{total} differs from forward by {err:.3e}")
+        del cache, want
+    out["decode_vs_forward_max_err"] = errs
+
+    # ragged prefill against exact prefill, row by row
+    lengths = ([700, 4500, 2000] if arch == "gemma2-9b" else [100, 1000, 517])
+    pad = 16 * math.ceil(max(lengths) / 16)
+    rows = [torch.from_numpy(gen.integers(0, cfg.vocab_size, (L,))).to(dev)
+            for L in lengths]
+    padded = torch.zeros((3, pad), dtype=torch.long, device=dev)
+    for i, r in enumerate(rows):
+        padded[i, :len(r)] = r
+    L = torch.tensor(lengths, device=dev)
+    nxt = torch.from_numpy(gen.integers(0, cfg.vocab_size, (3, 1))).to(dev)
+    last_r, cache_r = transformer.prefill(params, cfg, padded, pad + 8,
+                                          dtype=f32, lengths=L)
+    lg_r, _ = transformer.decode_step(params, cfg, nxt, cache_r,
+                                      L.to(torch.int32), dtype=f32)
+    rag = 0.0
+    for i, r in enumerate(rows):
+        last_e, cache_e = transformer.prefill(params, cfg, r[None], pad + 8,
+                                              dtype=f32)
+        lg_e, _ = transformer.decode_step(
+            params, cfg, nxt[i:i + 1], cache_e, L[i:i + 1].to(torch.int32),
+            dtype=f32)
+        rag = max(rag, float((last_r[i] - last_e[0]).abs().max()),
+                  float((lg_r[i] - lg_e[0]).abs().max()))
+        del cache_e
+    check(rag <= SERVE_ATOL, f"serve {arch} (2 layers): ragged prefill "
+                             f"differs from exact by {rag:.3e}")
+    out["ragged_vs_exact_max_err"] = rag
+    del cache_r
+
+    # the engine against one request at a time
+    prompt_lens = (300, 4090, 4200) if arch == "gemma2-9b" else (40, 700,
+                                                                 1000)
+    max_len = max(prompt_lens) + 24
+    plan = serving.plan_serve(cfg, budget_bytes=60 * GIB, max_len=max_len,
+                              max_slots=4, prefill_micro=2, cache_bytes=4)
+    eng = serving.ServingEngine(params, cfg, plan, dtype=f32,
+                                cache_dtype=f32)
+    rows = _record_logits(eng)
+    reqs = list(serving.synthetic_traffic(
+        10, rate_rps=1e4, prompt_lens=prompt_lens, new_tokens=(8, 16),
+        vocab_size=cfg.vocab_size, seed=3))
+    rep = eng.run(reqs, warmup_prompt_lens=prompt_lens)
+    check(rep["requests"]["finished"] == len(reqs)
+          and eng.pool.free_count == 4,
+          f"serve {arch} (2 layers): the engine left requests or slots")
+    err, agree, decided, total = 0.0, 0, 0, 0
+    for r in reqs:
+        last, cache = transformer.prefill(
+            params, cfg, torch.from_numpy(r.prompt[None]).to(dev), max_len,
+            dtype=f32)
+        single = [last[0]]
+        for i, tok in enumerate(r.tokens[:-1]):
+            lg, cache = transformer.decode_step(
+                params, cfg, torch.tensor([[tok]], device=dev), cache,
+                torch.tensor([r.prompt_len + i], dtype=torch.int32,
+                             device=dev), dtype=f32)
+            single.append(lg[0, 0])
+        single = torch.stack(single).cpu()
+        batched = torch.stack(rows[r.rid])
+        check(batched.shape == single.shape,
+              f"serve {arch}: request {r.rid} has {batched.shape[0]} engine "
+              f"logits rows for {single.shape[0]} tokens")
+        err = max(err, float((batched - single).abs().max()))
+        top2 = single.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * SERVE_ATOL
+        same = single.argmax(-1) == torch.tensor(r.tokens)
+        agree += int(same.sum())
+        decided += int(sure.sum())
+        check(bool(same[sure].all()),
+              f"serve {arch}: request {r.rid}'s engine tokens differ from "
+              f"the single decode where its margin is clear")
+        total += len(r.tokens)
+        del cache
+    check(err <= SERVE_ATOL, f"serve {arch} (2 layers): the engine's logits "
+                             f"differ from one request at a time by "
+                             f"{err:.3e}")
+    out.update(engine_vs_single_max_err=err, tokens=total,
+               tokens_agree=agree, tokens_clear_margin=decided,
+               engine_decode_steps=rep["decode"]["steps"],
+               engine_prefill_batches=rep["prefill"]["batches"])
+    print(f"serve {arch} (2 layers, fp32, TF32 off, atol {SERVE_ATOL}): "
+          f"prefill + teacher-forced decode vs forward max err {errs} over "
+          f"prompts/ends {cases}; ragged vs exact prefill (lengths "
+          f"{lengths}) {rag:.3e}; engine (4 slots, micro 2, {len(reqs)} "
+          f"requests, {rep['decode']['steps']} steps) vs one request at a "
+          f"time {err:.3e}, tokens agreeing {agree} of {total} ({decided} "
+          f"with a clear margin)", flush=True)
+    del eng, params, rows
+    gc_collect()
+    return out
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -2797,11 +3165,19 @@ def run() -> dict:
     ladder = timed("13a OOM ladder", oom_ladder_phase, dev, state_bytes)
     miss = timed("13b calibration miss", calibration_miss_phase, dev,
                  calibration)
+    serve = {"qwen2-1.5b": timed("14a serve qwen2-1.5b", serve_phase, dev,
+                                 "qwen2-1.5b"),
+             "gemma2-9b": timed("14b serve gemma2-9b", serve_phase, dev,
+                                "gemma2-9b")}
+    serve_check = {a: timed(f"14c serve check {a}", serve_correctness_phase,
+                            dev, a) for a in ("qwen2-1.5b", "gemma2-9b")}
     # launches of the comparisons above do not count: the counts are the
-    # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's and the
-    # kernel-API path's — each read right after it ran
+    # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
+    # kernel-API path's and the two serving paths' — each read right
+    # after it ran
+    serve_paths = {f"serve {a}": r["counts"] for a, r in serve.items()}
     paths = {"qwen2-1.5b": main["counts"],
-             **{w: r["counts"] for w, r in cnns.items()}}
+             **{w: r["counts"] for w, r in cnns.items()}, **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
             KERNELS.items():
@@ -2844,6 +3220,9 @@ def run() -> dict:
         records.append({
             "name": name, "route": route, "source": src,
             "replaces": replaces, "launches": api["counts"][name],
+            "launches_by_path": {"kernel API": api["counts"][name],
+                                 **{p: c[name]
+                                    for p, c in serve_paths.items()}},
             "max_abs_err": errs[name],
             **{k: cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
@@ -2857,7 +3236,8 @@ def run() -> dict:
         "streaming": streaming, "resume": resume,
         "calibration": calibration, "cnn": cnns, "tuner": tuner,
         "guard": guard, "oom_ladder": ladder, "calibration_miss": miss,
-        "phase_s": phase_s, "total_s": sum(phase_s.values())}}),
+        "serve": serve, "serve_check": serve_check, "phase_s": phase_s,
+        "total_s": sum(phase_s.values())}}),
         flush=True)
     print(f"phases: {sum(phase_s.values()):.1f}s in all: " + ", ".join(
         f"{k} {v:.1f}s" for k, v in phase_s.items()), flush=True)

@@ -2,8 +2,10 @@
 
 ``get(arch_id)`` / ``get_reduced(arch_id)`` return a ``ModelConfig``.
 ``ARCHS`` lists every architecture the JAX package supports; this port
-builds qwen2-1.5b (dense, GQA, QKV bias) so far, and the others raise an
-error that names the ROADMAP item porting their model family.
+builds the dense family — qwen2-1.5b (GQA, QKV bias), gemma2-9b and
+gemma3-12b (local/global windows, soft-caps, post-norms, embedding
+scale, QK-norm, dual RoPE theta) — and the others raise an error that
+names the ROADMAP item porting their model family.
 """
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ from typing import Dict, List
 
 from ..models.config import ModelConfig
 
-_MODULES: Dict[str, str] = {"qwen2-1.5b": "qwen2_1_5b"}
+_MODULES: Dict[str, str] = {"qwen2-1.5b": "qwen2_1_5b",
+                            "gemma2-9b": "gemma2_9b",
+                            "gemma3-12b": "gemma3_12b"}
 
 ARCHS: List[str] = [
     "gemma2-9b", "grok-1-314b", "recurrentgemma-2b", "gemma3-12b",
@@ -21,11 +25,12 @@ ARCHS: List[str] = [
 ]
 
 # ROADMAP queue 1 item 10 ports the other model families (MoE, SSM,
-# RG-LRU, enc-dec); the local/softcap/post-norm attention variants of the
-# gemma configs come with item 8's remaining attention features.
+# RG-LRU, enc-dec); the VLM frontend / M-RoPE and the untied LM head are
+# the rest of item 8.
 _NOT_PORTED = ("{arch} is not ported yet: ROADMAP.md queue 1 item 10 "
-               "('Other model families') and the rest of item 8 bring its "
-               "layers to repro_torch; ported: {ported}")
+               "('Other model families') and the rest of item 8 (the VLM "
+               "frontend, an untied LM head) bring its layers to "
+               "repro_torch; ported: {ported}")
 
 
 def _module(arch_id: str):

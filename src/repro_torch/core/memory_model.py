@@ -17,6 +17,10 @@ package's, term for term, so both packages admit the same plans.
                    remat policy leaves, proportional to micro_batch * seq.
 
 The default budget is the card's own memory (``device_memory_bytes``).
+
+Serving has its own terms (``serve_estimate``): fp32 weights, the KV-cache
+bytes of one request slot and one prefill sample's working set, which
+``engine.serving.plan_serve`` admits against a budget the same way.
 """
 from __future__ import annotations
 
@@ -188,3 +192,128 @@ def suggest_remat_policy_and_micro(
             best_policy, best_micro = policy, micro
     return best_policy, best_micro
 
+
+
+# ---------------------------------------------------------------------------
+# Serving: KV-cache admission terms (``engine.serving.plan_serve``)
+# ---------------------------------------------------------------------------
+
+# bytes of the per-slot ring-position bookkeeping (``pos`` int32 per entry)
+CACHE_POS_BYTES = 4
+
+
+def kv_bytes_per_token(cfg: ModelConfig, cache_bytes: int = 2) -> int:
+    """Decode-cache bytes one cached context token costs, summed over every
+    attention layer: a K and a V row (``num_kv_heads * head_dim``) plus the
+    ring slot's int32 position. State-carrying layers (ssm / recurrent)
+    add nothing here: their decode state does not grow with the context
+    (:func:`slot_state_bytes`)."""
+    per_layer = 2 * cfg.num_kv_heads * cfg.head_dim * cache_bytes \
+        + CACHE_POS_BYTES
+    n_attn = sum(1 for k in cfg.layer_pattern if k in ("global", "local"))
+    return cfg.num_periods * n_attn * per_layer
+
+
+def slot_state_bytes(cfg: ModelConfig, cache_bytes: int = 2) -> int:
+    """Context-independent decode state per request slot: the SSD state
+    and conv tail of ``ssm`` slots, the RG-LRU hidden state and conv tail
+    of ``recurrent`` slots."""
+    total = 0
+    for kind in cfg.layer_pattern:
+        if kind == "ssm" and cfg.ssm_state:
+            conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
+            total += (cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+                      + (cfg.conv_width - 1) * conv_dim * cache_bytes)
+        elif kind == "recurrent" and cfg.lru_width:
+            total += (cfg.lru_width * 4
+                      + (cfg.conv_width - 1) * cfg.lru_width * cache_bytes)
+    return cfg.num_periods * total
+
+
+def kv_slot_bytes(cfg: ModelConfig, max_len: int, cache_bytes: int = 2,
+                  global_window: Optional[int] = None) -> int:
+    """Decode-cache bytes one request slot holds at context capacity
+    ``max_len``: a ``local`` ring holds ``min(sliding_window, max_len)``
+    entries, a ``global`` ring ``min(global_window, max_len)`` (``max_len``
+    without a global window)."""
+    per_entry = 2 * cfg.num_kv_heads * cfg.head_dim * cache_bytes \
+        + CACHE_POS_BYTES
+    total = 0
+    for kind in cfg.layer_pattern:
+        if kind in ("global", "local"):
+            w = cfg.sliding_window if kind == "local" else global_window
+            entries = max_len if w is None else min(w, max_len)
+            total += entries * per_entry
+    return cfg.num_periods * total + slot_state_bytes(cfg, cache_bytes)
+
+
+def prefill_activation_bytes_per_sample(cfg: ModelConfig, seq: int,
+                                        act_bytes: int = 2) -> int:
+    """Forward-only live bytes for one prefill sample of length ``seq``:
+    the residual stream (x and one block output in flight), one period's
+    working set (the prefill frees a period's intermediates before the
+    next runs) and the last-token logits row. The cache the prefill builds
+    is charged by the caller through :func:`kv_slot_bytes`."""
+    d = cfg.d_model
+    stream = 2 * seq * d * act_bytes
+    widths = [d * 6]
+    if cfg.is_moe:
+        widths.append(cfg.experts_per_token * cfg.moe_d_ff * 3
+                      * cfg.capacity_factor)
+    elif cfg.d_ff:
+        widths.append(cfg.d_ff * 3)
+    if cfg.ssm_state:
+        widths.append(cfg.ssm_d_inner * 4)
+    if cfg.lru_width:
+        widths.append(cfg.lru_width * 6)
+    period_live = seq * int(max(widths)) * act_bytes * cfg.pattern_len
+    logits_live = cfg.vocab_size * 4
+    return stream + period_live + logits_live
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeMemoryEstimate:
+    """Serving twin of :class:`MemoryEstimate`: affine in the number of
+    admitted decode slots at a fixed prefill micro-batch size."""
+    params_bytes: int
+    kv_slot_bytes: int  # decode-cache bytes per admitted request slot
+    prefill_bytes_per_sample: int  # activations + the cache being built
+    fixed_bytes: int
+
+    def total(self, slots: int, prefill_micro: int = 0) -> int:
+        """Peak bytes with ``slots`` decode slots and a prefill micro-batch
+        of ``prefill_micro`` in flight; the prefill term is charged in full
+        although prefill and decode alternate (over-counting never
+        over-admits)."""
+        return (self.params_bytes + self.fixed_bytes
+                + self.kv_slot_bytes * slots
+                + self.prefill_bytes_per_sample * prefill_micro)
+
+    def affine_coeffs(self, prefill_micro: int = 0) -> tuple:
+        """(fixed, per_slot) with total(s) == fixed + per_slot * s."""
+        return self.total(0, prefill_micro), self.kv_slot_bytes
+
+
+def serve_estimate(cfg: ModelConfig, max_len: int, *,
+                   prefill_len: Optional[int] = None,
+                   cache_bytes: int = 2, act_bytes: int = 2,
+                   global_window: Optional[int] = None, mesh=None
+                   ) -> ServeMemoryEstimate:
+    """Analytic serving memory on one device: fp32 inference weights (no
+    gradients, optimizer state or update transient), the per-slot KV bytes
+    at ``max_len`` and the per-sample prefill cost at ``prefill_len``
+    (default ``max_len``)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "serve_estimate(mesh=...) is not ported yet (ROADMAP.md queue 1 "
+            "item 11, data parallelism)")
+    p_bytes = cfg.param_count() * 4
+    pf = max_len if prefill_len is None else prefill_len
+    slot = kv_slot_bytes(cfg, max_len, cache_bytes, global_window)
+    return ServeMemoryEstimate(
+        params_bytes=p_bytes,
+        kv_slot_bytes=slot,
+        prefill_bytes_per_sample=(
+            prefill_activation_bytes_per_sample(cfg, pf, act_bytes) + slot),
+        fixed_bytes=FIXED_BYTES,
+    )

@@ -7,7 +7,8 @@ fault-injection harness (``faults.py``), the fault-tolerant
 guard's retry and skip, bounded I/O retries, give-ups as exit codes
 40–44) and the autotuner (``autotune.py``: the memory oracle behind
 ``plan_mbs(calibrate=)`` and the kernels' block tuner, whose resolver is
-installed on import)."""
+installed on import), and serving (``serving.py``, ``kv.py``: KV-slot
+admission by ``plan_serve`` and the continuous-batching engine)."""
 from .plan import (MBSConfig, MBSPlan, num_micro_batches,  # noqa: F401
                    plan_mbs, split_minibatch)
 from .autotune import (TuningCache, calibrate_memory,  # noqa: F401
@@ -24,3 +25,6 @@ from .supervisor import (FaultRecord, NaNCircuitBreaker, NaNHalt,  # noqa: F401
                          PlanExhausted, RestartBudgetExceeded, Supervisor,
                          SupervisorConfig, SupervisorError, degrade_plan)
 from . import faults  # noqa: F401
+from .kv import KVPool, PoolExhausted  # noqa: F401
+from .serving import (Request, ServePlan, ServingEngine,  # noqa: F401
+                      check_servable, plan_serve, synthetic_traffic)

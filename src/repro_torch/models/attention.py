@@ -1,9 +1,11 @@
-"""Attention for training and prefill: GQA with causal / sliding-window
-masks, optional logit soft-capping and QK-norm, RoPE.
+"""Attention: GQA with causal / sliding-window masks, optional logit
+soft-capping and QK-norm, RoPE — and the ring-buffer KV cache of decode.
 
 GQA runs through a ``(B, S, K, G, hd)`` view of the queries, softmax in
 fp32, masking by an additive ``-1e30`` bias — the JAX package's
-arithmetic. Decode and the ring KV cache come with the serving slice.
+arithmetic. A decode cache holds ``W`` ring slots per row (``W`` the
+layer's window, or ``max_len``): position ``p`` lives in slot ``p % W``,
+and ``pos`` records each slot's absolute position (-1 empty).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import nn
 from .config import ModelConfig
@@ -49,8 +52,9 @@ def _mask_bias(q_pos, k_pos, window: Optional[int], causal: bool = True):
 
 
 def multihead_attention(q, k, v, *, q_pos, k_pos, window=None, causal=True,
-                        softcap=None):
-    """q: (B,S,H,hd); k,v: (B,T,K,hd) with H % K == 0 (GQA).
+                        softcap=None, k_valid=None):
+    """q: (B,S,H,hd); k,v: (B,T,K,hd) with H % K == 0 (GQA); k_valid: an
+    optional bool (B, T) marking the keys that may be attended.
     Returns (B, S, H, hd) in q's dtype."""
     B, S, H, hd = q.shape
     K = k.shape[2]
@@ -61,7 +65,10 @@ def multihead_attention(q, k, v, *, q_pos, k_pos, window=None, causal=True,
     bias = _mask_bias(q_pos, k_pos, window, causal)  # (B, S, T)
     while bias.dim() < logits.dim():
         bias = bias[:, None]
-    probs = torch.softmax(logits + bias, dim=-1)
+    logits = logits + bias
+    if k_valid is not None:
+        logits = logits.masked_fill(~k_valid[:, None, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
 
@@ -112,3 +119,108 @@ def attn_block(p, cfg: ModelConfig, x, positions, *, window=None,
                             window=window, softcap=cfg.attn_softcap)
     out = nn.dense(p["wo"], out.reshape(B, S, H * hd), compute_dtype)
     return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Decode: ring-buffer KV cache (bounded by the window for local layers)
+# ---------------------------------------------------------------------------
+
+def ring_len(max_len: int, window: Optional[int]) -> int:
+    return max_len if window is None else min(window, max_len)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  window: Optional[int], dtype, lead=(), device=None):
+    """An empty ring cache; ``lead`` prepends stacking dims (periods)."""
+    W = ring_len(max_len, window)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = tuple(lead) + (batch, W, K, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full(tuple(lead) + (batch, W), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def ring_cache_from_full(k, v, positions, window, max_len: int,
+                         lengths=None):
+    """Full-sequence prefill (k, v) → the ring layout ``attn_decode_step``
+    reads. ``positions`` (B, S) follow the standard arange (slot = position
+    % W); the dense layout is one static permutation along the sequence.
+
+    ``lengths`` (B,) is the ragged layout of a right-padded batch: row
+    ``b``'s ring holds its last ``min(lengths[b], W)`` real tokens and
+    every other slot is empty, so padding never evicts a real key from a
+    window. That is a per-row gather. ``%`` is Python's (floor) modulo,
+    as ``jnp``'s: ``torch.remainder``, not ``fmod``."""
+    B, S, K, hd = k.shape
+    W = ring_len(max_len, window)
+    if lengths is not None:
+        L = lengths.to(device=k.device, dtype=torch.int64)[:, None]
+        j = torch.arange(W, device=k.device)[None]
+        # the largest real position p <= L-1 with p = j (mod W); rows
+        # shorter than W leave slots j >= L empty
+        p = L - 1 - torch.remainder(L - 1 - j, W)
+        src = p.clamp(0, S - 1)[..., None, None].expand(B, W, K, hd)
+        return {"k": torch.gather(k, 1, src), "v": torch.gather(v, 1, src),
+                "pos": p.masked_fill(p < 0, -1).to(torch.int32)}
+    if S < W:  # short prefill: slots [0, S) filled, the rest empty
+        pad = (0, 0, 0, 0, 0, W - S)
+        return {"k": F.pad(k, pad), "v": F.pad(v, pad),
+                "pos": F.pad(positions.to(torch.int32), (0, W - S),
+                             value=-1)}
+    # slot j holds source index S - W + ((j - S) mod W)
+    src = S - W + torch.remainder(torch.arange(W, device=k.device) - S, W)
+    return {"k": k.index_select(1, src), "v": v.index_select(1, src),
+            "pos": positions.index_select(1, src).to(torch.int32)}
+
+
+def attn_decode_step(p, cfg: ModelConfig, x, cache, cur_pos, *, window=None,
+                     rope_theta=None, compute_dtype=None):
+    """One-token decode. x: (B, 1, D); cur_pos: (B,) absolute positions;
+    ``cache`` one layer's ring (views into the pool are written in place).
+
+    The new (k, v) goes to ring slot ``cur_pos % W``. As in the JAX
+    package, attention sees the current token's k/v in the compute dtype
+    and the older entries converted to it; the cache stores the current
+    token rounded to the cache dtype. When the two dtypes differ the
+    attention reads a compute-dtype copy of this layer's ring, so the
+    current token is not rounded before it is attended. Returns
+    (out (B, 1, D), cache)."""
+    B = x.shape[0]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = cache["k"].shape[1]
+    q = nn.dense(p["wq"], x, compute_dtype).reshape(B, 1, H, hd)
+    k = nn.dense(p["wk"], x, compute_dtype).reshape(B, 1, K, hd)
+    v = nn.dense(p["wv"], x, compute_dtype).reshape(B, 1, K, hd)
+    if cfg.use_qk_norm:
+        q = nn.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = nn.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    pos2d = cur_pos[:, None]
+    q = nn.apply_rope(q, pos2d, theta)
+    k = nn.apply_rope(k, pos2d, theta)
+
+    slot = torch.remainder(cur_pos, W).long()
+    bidx = torch.arange(B, device=x.device)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    cpos[bidx, slot] = cur_pos.to(torch.int32)
+    if ck.dtype == k.dtype:
+        ck[bidx, slot] = k[:, 0]
+        cv[bidx, slot] = v[:, 0]
+        keys, values = ck, cv
+    else:
+        keys, values = ck.to(k.dtype), cv.to(v.dtype)
+        keys[bidx, slot] = k[:, 0]
+        values[bidx, slot] = v[:, 0]
+        ck[bidx, slot] = k[:, 0].to(ck.dtype)
+        cv[bidx, slot] = v[:, 0].to(cv.dtype)
+    k_valid = cpos >= 0
+    if window is not None:
+        k_valid &= cpos > (cur_pos[:, None] - window)
+    out = multihead_attention(q, keys, values, q_pos=pos2d, k_pos=cpos,
+                              window=None, causal=True,
+                              softcap=cfg.attn_softcap, k_valid=k_valid)
+    out = nn.dense(p["wo"], out.reshape(B, 1, H * hd), compute_dtype)
+    return out, cache

@@ -87,18 +87,24 @@ def ffn_init(gen, d_model: int, d_ff: int, kind: str,
              lead: Tuple[int, ...] = (), device=None):
     p = {"w_up": dense_init(gen, d_model, d_ff, lead=lead, device=device),
          "w_down": dense_init(gen, d_ff, d_model, lead=lead, device=device)}
-    if kind == "swiglu":
+    if kind in ("swiglu", "geglu"):
         p["w_gate"] = dense_init(gen, d_model, d_ff, lead=lead,
                                  device=device)
     return p
 
 
 def ffn(p, x, kind: str, compute_dtype=None):
-    up = dense(p["w_up"], x, compute_dtype)
-    if kind != "swiglu":
+    """Gated FFN. ``geglu``'s GELU is the tanh approximation, the default
+    of ``jax.nn.gelu``."""
+    if kind not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"ffn kind {kind!r} is not ported yet (ROADMAP.md queue 1 item 10)")
-    h = F.silu(dense(p["w_gate"], x, compute_dtype)) * up
+    up = dense(p["w_up"], x, compute_dtype)
+    gate = dense(p["w_gate"], x, compute_dtype)
+    if kind == "swiglu":
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(gate, approximate="tanh") * up
     return dense(p["w_down"], h, compute_dtype)
 
 
@@ -111,12 +117,16 @@ def embed_init(gen, vocab: int, d_model: int, device=None):
                                  device=device) * 0.02}
 
 
-def embed(p, tokens, compute_dtype=None):
+def embed(p, tokens, compute_dtype=None, scale: bool = False):
+    """``scale`` multiplies by sqrt(d_model) rounded to the compute dtype
+    first, as the JAX package does (in bf16, sqrt(3584) is 59.75)."""
     # gather first, then cast: the same values as the JAX package's
     # cast-then-gather without a compute-dtype copy of the whole table
     x = F.embedding(tokens, p["table"])
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    if scale:
+        x = x * torch.tensor(math.sqrt(p["table"].shape[-1]), dtype=x.dtype)
     return x
 
 

@@ -35,13 +35,15 @@ DTYPES = ["float32", "bfloat16"]
 
 @pytest.fixture(autouse=True)
 def _no_resolver():
-    """Every test starts and ends with no resolver in the port; the JAX
-    package's resolver (``engine.autotune`` installs one at import) is
-    put back as it was."""
+    """Every test starts with no resolver in the port; both packages'
+    resolvers (``engine.autotune`` installs one at import in each) are
+    put back as they were, so a later test file in the same process sees
+    the port's tuner again."""
     jax_resolver = jkernels.grad_accum_kernels._BLOCK_RESOLVER
+    port_resolver = kernels._launch._BLOCK_RESOLVER
     kernels.set_block_resolver(None)
     yield
-    kernels.set_block_resolver(None)
+    kernels.set_block_resolver(port_resolver)
     jkernels.set_block_resolver(jax_resolver)
 
 

@@ -13,6 +13,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "qwen2-1.5b", "--reduced", "--steps", "2", "--executor", "flat"]
+SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2-1.5b", "--reduced", "--requests", "4", "--new-tokens", "3"]
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -57,6 +59,21 @@ def test_launcher_without_gpu_fails_clearly():
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
     assert "step" not in out.stdout
+
+
+def test_serve_launcher_runs_on_cpu_when_asked():
+    out = _run(SERVE + ["--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    assert "ServePlan: 256 decode slots @ max_len 128" in out.stdout
+    assert "4/4 requests finished" in out.stdout
+
+
+def test_serve_launcher_without_gpu_fails_clearly():
+    _no_gpu()
+    out = _run(SERVE)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    assert "ServePlan" not in out.stdout
 
 
 def test_chip_smoke_without_gpu_fails_and_prints_no_result(tmp_path):
