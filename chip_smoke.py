@@ -172,12 +172,39 @@ Phases (any failure exits non-zero before the last line is printed):
      against ``forward`` (past gemma2's window), ragged against exact
      prefill row by row, and the engine's continuous batching against one
      request at a time, each within ``SERVE_ATOL`` on the logits, with the
-     count of agreeing tokens.
+     count of agreeing tokens;
+  15a–15c. the ssm, hybrid and MoE families trained at full width
+     through ``repro_torch.launch.train.main`` (``family_train_phase``:
+     ``flat``, SGD-m, bf16 over fp32 weights, seed 0, 4 steps):
+     mamba2-780m (48 layers, d 1536, state 128, chunk 256) at seq 4096,
+     mini-batch 16; recurrentgemma-2b (26 layers, d 2560, vocab 256,000,
+     window 2048) at seq 2048, mini-batch 8; moonshot-v1-16b-a3b (d 2048,
+     64 experts top-6, 2 shared, vocab 163,840; depth cut to 4 of its 48
+     layers) at seq 2048, mini-batch 8 — each: the analytic plan at 60
+     GiB (not run), ``--calibrate force`` under its remat policy (a probe
+     that does not fit the card moves to the next policy, printed), the
+     least budget up to 72 GiB when the fit admits nothing at 60, then
+     ``--calibrate auto`` with the counters zeroed around it: K1 steps ×
+     N_Sμ × launch groups, K2 steps × buckets, the steady step and
+     tokens/s, the allocator's peak beside the budget and the calibrated prediction;
+     moonshot's step-0 aux loss and the share of routed choices the
+     capacity dropped;
+  15d. serving the three through ``launch.serve.main`` (``serve_phase``,
+     as 14a): mamba2-780m at 10 GiB and recurrentgemma-2b at 24 GiB (max
+     len 2048 / 4096; 14a's traffic), moonshot-v1-16b-a3b at 4 layers and
+     32 GiB (16 requests at 8/s, prompts 128/512, 32 or 64 new tokens),
+     all in exact-length prefill groups;
+  15e. at 2 layers of each of the three widths (the hybrid at 3, one
+     (recurrent, recurrent, local) period), fp32, TF32 off: 14c's checks
+     (recurrentgemma's decode crossing its 2048 window; moonshot with a
+     capacity factor of E, so no token drops and per-call routing cannot
+     differ) and one ``flat`` step (K1, K2) against ``compiled``
+     (``family_step_check``).
 
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
-``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's and 14's
-numbers)
+``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's and
+15's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -466,57 +493,91 @@ def kernel_phase(dev, errs) -> None:
 # cross-check: flat and fused against compiled at full width, 2 layers
 # ---------------------------------------------------------------------------
 
-def cross_check_phase(dev) -> None:
+def executor_steps(dev, cfg, dtype, names) -> dict:
+    """One step of each named executor from seed 0's params on one batch
+    (seq 256, mini-batch 8 in 4 micro-batches, remat ``none``): name →
+    (params, momentum, loss, launch counts of the step)."""
     import torch
-    from repro_torch import configs, engine, kernels, optim, tree
+    from repro_torch import engine, kernels, optim
     from repro_torch.data import LMDataset
     from repro_torch.launch import steps
     from repro_torch.models import transformer
 
-    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=2)
-    seq, mini = 256, 8
-    plan = engine.plan_mbs(mini, num_microbatches=4, remat_policy="none",
+    plan = engine.plan_mbs(8, num_microbatches=4, remat_policy="none",
                            device=dev)
-    loss_fn = steps.make_loss_fn(cfg, dtype=torch.bfloat16,
-                                 remat_policy="none")
-    batch = LMDataset(cfg.vocab_size, seq, seed=0).batch(mini, 0)
+    loss_fn = steps.make_loss_fn(cfg, dtype=dtype, remat_policy="none")
+    batch = LMDataset(cfg.vocab_size, 256, seed=0).batch(8, 0)
     outs = {}
-    for name in ("compiled", "flat", "fused", "streaming"):
+    for name in names:
         opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
         ex = engine.get_executor(name)(loss_fn, opt, plan)
         params = transformer.init_params(cfg, seed=0, device=dev)
         state = opt.init(params)
         if name == "flat":
             params, state = ex.prepare(params, state)
-        before = kernels.launch_counts()["grad_accum"]
+        kernels.reset_launch_counts()
         params, state, m = ex.step_split(params, state,
                                          plan.device_split(batch, dev))
-        # fused: one K1 launch per micro-batch and gradient dtype (all
-        # fp32 here); flat: one per micro-batch and bucket (one here);
-        # compiled and streaming add with a plain add
-        k1 = kernels.launch_counts()["grad_accum"] - before
-        want = (0 if name in ("compiled", "streaming")
-                else plan.num_micro_batches)
-        check(k1 == want, f"{name}: K1 launched {k1} times in one step, "
-                          f"expected {want}")
-        outs[name] = (params, state["mom"], float(m["loss"]))
+        outs[name] = (params, state["mom"], float(m["loss"]),
+                      kernels.launch_counts())
         del params, state
-    cp, cm, closs = outs.pop("compiled")
-    check(math.isfinite(closs), f"compiled loss {closs}")
-    for name, (fp, fm, floss) in outs.items():
-        worst = 0.0
+    torch.cuda.empty_cache()
+    return outs
+
+
+def against_compiled(outs, label: str) -> dict:
+    """Each executor's params and momentum against ``compiled``'s within
+    rtol 1e-6 / atol 1e-6, its loss within 1e-5 relative: name → the
+    largest absolute difference."""
+    from repro_torch import tree
+
+    cp, cm, closs, _ = outs["compiled"]
+    check(math.isfinite(closs), f"{label}: compiled loss {closs}")
+    worst = {}
+    for name, (fp, fm, floss, _) in outs.items():
+        if name == "compiled":
+            continue
+        worst[name] = 0.0
         for what, a, b in (("params", fp, cp), ("momentum", fm, cm)):
             for x, y in zip(tree.leaves(a), tree.leaves(b)):
                 err, ok = max_violation(x, y)
-                worst = max(worst, err)
-                check(ok, f"{name} vs compiled {what} disagree: max abs err "
-                          f"{err:.3e} (rtol 1e-6, atol 1e-6)")
+                worst[name] = max(worst[name], err)
+                check(ok, f"{label}: {name} vs compiled {what} disagree: "
+                          f"max abs err {err:.3e} (rtol 1e-6, atol 1e-6)")
         check(abs(closs - floss) <= 1e-5 * abs(closs),
-              f"{name} loss {floss} vs compiled loss {closs}")
+              f"{label}: {name} loss {floss} vs compiled loss {closs}")
+    return worst
+
+
+def cross_check_phase(dev) -> None:
+    import torch
+    from repro_torch import configs, engine, optim, tree
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=2)
+    names = ("compiled", "flat", "fused", "streaming")
+    outs = executor_steps(dev, cfg, torch.bfloat16, names)
+    for name in names:
+        # fused: one K1 launch per micro-batch and gradient dtype (all
+        # fp32 here); flat: one per micro-batch and bucket (one here);
+        # compiled and streaming add with a plain add
+        k1 = outs[name][3]["grad_accum"]
+        want = 0 if name in ("compiled", "streaming") else 4
+        check(k1 == want, f"{name}: K1 launched {k1} times in one step, "
+                          f"expected {want}")
+    worst = against_compiled(outs, "cross-check")
+    for name, err in worst.items():
         print(f"cross-check: {name} == compiled after one step at qwen2-1.5b "
-              f"width, 2 layers, bf16 (loss {floss:.6f}, max abs err "
-              f"{worst:.3e})", flush=True)
-    del outs, cp, cm, fp, fm
+              f"width, 2 layers, bf16 (loss {outs[name][2]:.6f}, max abs "
+              f"err {err:.3e})", flush=True)
+    del outs
+    plan = engine.plan_mbs(8, num_microbatches=4, remat_policy="none",
+                           device=dev)
+    loss_fn = steps.make_loss_fn(cfg, dtype=torch.bfloat16,
+                                 remat_policy="none")
+    batch = LMDataset(cfg.vocab_size, 256, seed=0).batch(8, 0)
     # streaming.step on the host mini-batch (micro-batches copied on the
     # executor's copy stream) against step_split on the staged split
     opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
@@ -2781,9 +2842,30 @@ SERVE_ARGV = {
                   "--budget", "64", "--max-len", "8192", "--requests", "8",
                   "--rate", "4", "--prompt-lens", "1024,4608",
                   "--new-tokens", "32,128", "--temperature", "0"],
+    # 15d: the state and MoE families, exact-length prefill groups
+    "mamba2-780m": ["--arch", "mamba2-780m", "--dtype", "bfloat16",
+                    "--budget", "10", "--max-len", "2048", "--requests",
+                    "96", "--rate", "32", "--prompt-lens", "128,512,1024",
+                    "--new-tokens", "64,256", "--temperature", "0"],
+    "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", "--dtype",
+                          "bfloat16", "--budget", "24", "--max-len", "4096",
+                          "--requests", "96", "--rate", "32",
+                          "--prompt-lens", "128,512,1024", "--new-tokens",
+                          "64,256", "--temperature", "0"],
+    "moonshot-v1-16b-a3b": ["--arch", "moonshot-v1-16b-a3b", "--layers", "4",
+                            "--dtype", "bfloat16", "--budget", "32",
+                            "--max-len", "2048", "--requests", "16",
+                            "--rate", "8", "--prompt-lens", "128,512",
+                            "--new-tokens", "32,64", "--temperature", "0"],
 }
+# slots, prefill micro, kv_slot_bytes, prefill bytes a sample: the plan the
+# reference's arithmetic gives (tests/test_torch_serving.py pins the
+# families' too)
 SERVE_PLANS = {"qwen2-1.5b": (51, 8, 58_949_632, 182_240_768),
-               "gemma2-9b": (8, 4, 2_114_961_408, 3_642_712_064)}
+               "gemma2-9b": (8, 4, 2_114_961_408, 3_642_712_064),
+               "mamba2-780m": (84, 8, 76_455_936, 139_571_616),
+               "recurrentgemma-2b": (256, 4, 17_303_552, 2_513_938_432),
+               "moonshot-v1-16b-a3b": (256, 8, 67_141_632, 214_335_488)}
 # 14c: fp32 logits of two computations of the same function in another
 # summation order (cuBLAS picks other algorithms for other shapes)
 SERVE_ATOL = 1e-3
@@ -2957,15 +3039,70 @@ def _record_logits(eng) -> dict:
     return rows
 
 
+def _ragged_vs_exact(params, cfg, lengths, gen, dev) -> float:
+    """Largest logits difference of a right-padded ragged prefill (and one
+    decode step after it) from each row's exact-length prefill."""
+    import torch
+    from repro_torch.models import transformer
+
+    f32 = torch.float32
+    pad = 16 * math.ceil(max(lengths) / 16)
+    rows = [torch.from_numpy(gen.integers(0, cfg.vocab_size, (L,))).to(dev)
+            for L in lengths]
+    padded = torch.zeros((len(rows), pad), dtype=torch.long, device=dev)
+    for i, r in enumerate(rows):
+        padded[i, :len(r)] = r
+    L = torch.tensor(lengths, device=dev)
+    nxt = torch.from_numpy(gen.integers(0, cfg.vocab_size,
+                                        (len(rows), 1))).to(dev)
+    last_r, cache_r = transformer.prefill(params, cfg, padded, pad + 8,
+                                          dtype=f32, lengths=L)
+    lg_r, _ = transformer.decode_step(params, cfg, nxt, cache_r,
+                                      L.to(torch.int32), dtype=f32)
+    rag = 0.0
+    for i, r in enumerate(rows):
+        last_e, cache_e = transformer.prefill(params, cfg, r[None], pad + 8,
+                                              dtype=f32)
+        lg_e, _ = transformer.decode_step(
+            params, cfg, nxt[i:i + 1], cache_e, L[i:i + 1].to(torch.int32),
+            dtype=f32)
+        rag = max(rag, float((last_r[i] - last_e[0]).abs().max()),
+                  float((lg_r[i] - lg_e[0]).abs().max()))
+        del cache_e
+    return rag
+
+
+# 14c / 15e: correctness at 2 layers of each width (the hybrid at 3, its
+# (recurrent, recurrent, local) period), fp32: config changes, the
+# (prompt, end) of each prefill + decode case, the ragged rows (None: the
+# family prefills exact-length groups only), the engine's prompt lengths.
+# moonshot's capacity factor is E, so that no token drops: capacity is
+# per call, and a prefill routes another batch than forward does.
+SERVE_CHECKS = {
+    "qwen2-1.5b": (dict(num_layers=2), [(1000, 1100)], [100, 1000, 517],
+                   (40, 700, 1000)),
+    "gemma2-9b": (dict(num_layers=2), [(4040, 4160), (4400, 4408)],
+                  [700, 4500, 2000], (300, 4090, 4200)),
+    "mamba2-780m": (dict(num_layers=2), [(1000, 1100)], None,
+                    (40, 700, 1000)),
+    "recurrentgemma-2b": (dict(num_layers=3, layer_pattern=(
+        "recurrent", "recurrent", "local")), [(2000, 2100), (2400, 2408)],
+        None, (300, 2040, 2200)),
+    "moonshot-v1-16b-a3b": (dict(num_layers=2, capacity_factor=64.0),
+                            [(1000, 1100)], None, (40, 700, 1000)),
+}
+
+
 def serve_correctness_phase(dev, arch: str) -> dict:
-    """14c. At 2 layers of ``arch``'s full width, fp32, TF32 off, random
-    weights from seed 0, within SERVE_ATOL on the logits:
-    prefill followed by teacher-forced decode against ``forward``'s logits
-    at every position (for gemma2-9b two prompts: one whose decode crosses
-    the 4096-token window, one longer than the window); ragged
-    right-padded prefill against exact prefill row by row, and one decode
-    step after; the engine's continuous batching (4 slots, prefill micro
-    2, prompts around the window) against a one-request-at-a-time
+    """14c / 15e. At ``SERVE_CHECKS``' depth of ``arch``'s full width,
+    fp32, TF32 off, random weights from seed 0, within SERVE_ATOL on the
+    logits: prefill followed by teacher-forced decode against
+    ``forward``'s logits at every position (gemma2-9b and
+    recurrentgemma-2b: one prompt whose decode crosses the window, one
+    longer than it); for the ragged families, right-padded prefill
+    against exact prefill row by row, and one decode step after; the
+    engine's continuous batching (4 slots, prefill micro 2; the state and
+    MoE families in exact-length groups) against a one-request-at-a-time
     teacher-forced decode of each request's own tokens, with how many
     tokens agree (a token must agree wherever the single decode's top-2
     margin exceeds twice the tolerance)."""
@@ -2973,21 +3110,19 @@ def serve_correctness_phase(dev, arch: str) -> dict:
     import torch
     from repro_torch import configs
     from repro_torch.engine import serving
-    from repro_torch.models import nn, transformer
+    from repro_torch.models import transformer
 
     f32 = torch.float32
-    cfg = dataclasses.replace(configs.get(arch), num_layers=2)
+    changes, cases, lengths, prompt_lens = SERVE_CHECKS[arch]
+    cfg = dataclasses.replace(configs.get(arch), **changes)
     params = transformer.init_params(cfg, seed=0, device=dev)
     gen = np.random.default_rng(0)
-    out = {"atol": SERVE_ATOL}
+    out = {"atol": SERVE_ATOL, "layers": cfg.num_layers}
 
     def head(x):
-        return nn.softcap(nn.unembed(params["embed"], x, f32),
-                          cfg.final_softcap)
+        return transformer._lm_head(params, cfg, x)
 
     # prefill + teacher-forced decode against forward
-    cases = ([(4040, 4160), (4400, 4408)] if arch == "gemma2-9b"
-             else [(1000, 1100)])
     errs = []
     for prompt, total in cases:
         toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (2, total))
@@ -3009,43 +3144,21 @@ def serve_correctness_phase(dev, arch: str) -> dict:
                                   ).abs().max()))
         errs.append(err)
         check(err <= SERVE_ATOL,
-              f"serve {arch} (2 layers): prefill {prompt} + decode to "
+              f"serve {arch} ({cfg.num_layers} layers): prefill {prompt} + "
+              f"decode to "
               f"{total} differs from forward by {err:.3e}")
         del cache, want
     out["decode_vs_forward_max_err"] = errs
 
     # ragged prefill against exact prefill, row by row
-    lengths = ([700, 4500, 2000] if arch == "gemma2-9b" else [100, 1000, 517])
-    pad = 16 * math.ceil(max(lengths) / 16)
-    rows = [torch.from_numpy(gen.integers(0, cfg.vocab_size, (L,))).to(dev)
-            for L in lengths]
-    padded = torch.zeros((3, pad), dtype=torch.long, device=dev)
-    for i, r in enumerate(rows):
-        padded[i, :len(r)] = r
-    L = torch.tensor(lengths, device=dev)
-    nxt = torch.from_numpy(gen.integers(0, cfg.vocab_size, (3, 1))).to(dev)
-    last_r, cache_r = transformer.prefill(params, cfg, padded, pad + 8,
-                                          dtype=f32, lengths=L)
-    lg_r, _ = transformer.decode_step(params, cfg, nxt, cache_r,
-                                      L.to(torch.int32), dtype=f32)
-    rag = 0.0
-    for i, r in enumerate(rows):
-        last_e, cache_e = transformer.prefill(params, cfg, r[None], pad + 8,
-                                              dtype=f32)
-        lg_e, _ = transformer.decode_step(
-            params, cfg, nxt[i:i + 1], cache_e, L[i:i + 1].to(torch.int32),
-            dtype=f32)
-        rag = max(rag, float((last_r[i] - last_e[0]).abs().max()),
-                  float((lg_r[i] - lg_e[0]).abs().max()))
-        del cache_e
-    check(rag <= SERVE_ATOL, f"serve {arch} (2 layers): ragged prefill "
-                             f"differs from exact by {rag:.3e}")
+    rag = None
+    if lengths is not None:
+        rag = _ragged_vs_exact(params, cfg, lengths, gen, dev)
+        check(rag <= SERVE_ATOL, f"serve {arch}: ragged prefill differs "
+                                 f"from exact by {rag:.3e}")
     out["ragged_vs_exact_max_err"] = rag
-    del cache_r
 
     # the engine against one request at a time
-    prompt_lens = (300, 4090, 4200) if arch == "gemma2-9b" else (40, 700,
-                                                                 1000)
     max_len = max(prompt_lens) + 24
     plan = serving.plan_serve(cfg, budget_bytes=60 * GIB, max_len=max_len,
                               max_slots=4, prefill_micro=2, cache_bytes=4)
@@ -3058,7 +3171,7 @@ def serve_correctness_phase(dev, arch: str) -> dict:
     rep = eng.run(reqs, warmup_prompt_lens=prompt_lens)
     check(rep["requests"]["finished"] == len(reqs)
           and eng.pool.free_count == 4,
-          f"serve {arch} (2 layers): the engine left requests or slots")
+          f"serve {arch}: the engine left requests or slots")
     err, agree, decided, total = 0.0, 0, 0, 0
     for r in reqs:
         last, cache = transformer.prefill(
@@ -3087,22 +3200,336 @@ def serve_correctness_phase(dev, arch: str) -> dict:
               f"the single decode where its margin is clear")
         total += len(r.tokens)
         del cache
-    check(err <= SERVE_ATOL, f"serve {arch} (2 layers): the engine's logits "
-                             f"differ from one request at a time by "
-                             f"{err:.3e}")
+    check(err <= SERVE_ATOL, f"serve {arch}: the engine's logits differ "
+                             f"from one request at a time by {err:.3e}")
     out.update(engine_vs_single_max_err=err, tokens=total,
                tokens_agree=agree, tokens_clear_margin=decided,
                engine_decode_steps=rep["decode"]["steps"],
                engine_prefill_batches=rep["prefill"]["batches"])
-    print(f"serve {arch} (2 layers, fp32, TF32 off, atol {SERVE_ATOL}): "
-          f"prefill + teacher-forced decode vs forward max err {errs} over "
-          f"prompts/ends {cases}; ragged vs exact prefill (lengths "
-          f"{lengths}) {rag:.3e}; engine (4 slots, micro 2, {len(reqs)} "
+    ragged = ("exact-length groups only" if rag is None else
+              f"ragged vs exact prefill (lengths {lengths}) {rag:.3e}")
+    print(f"serve {arch} ({cfg.num_layers} layers, fp32, TF32 off, atol "
+          f"{SERVE_ATOL}): prefill + teacher-forced decode vs forward max "
+          f"err {errs} over prompts/ends {cases}; {ragged}; engine (4 slots, "
+          f"micro 2, {'ragged' if plan.ragged_prefill else 'exact-length'}, "
+          f"{len(reqs)} "
           f"requests, {rep['decode']['steps']} steps) vs one request at a "
           f"time {err:.3e}, tokens agreeing {agree} of {total} ({decided} "
           f"with a clear margin)", flush=True)
     del eng, params, rows
     gc_collect()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 15a-15c, 15e: the ssm, hybrid and MoE families on the training path
+# ---------------------------------------------------------------------------
+
+# arch: the launcher's flags beyond FAMILY_ARGV (full width; moonshot's
+# depth cut to 4 of its 48 layers: 48 would be ~64 GB of fp32 params)
+FAMILY_TRAIN = {
+    "mamba2-780m": ["--seq", "4096", "--mini-batch", "16"],
+    "recurrentgemma-2b": ["--seq", "2048", "--mini-batch", "8"],
+    "moonshot-v1-16b-a3b": ["--seq", "2048", "--mini-batch", "8",
+                            "--layers", "4"],
+}
+FAMILY_ARGV = ["--executor", "flat", "--dtype", "bfloat16", "--steps", "4",
+               "--log-every", "1"]
+# a calibrated plan that admits no micro-batch at the 60 GiB budget gets
+# the least budget, in quarter GiB, up to this one that admits one
+FAMILY_MAX_BUDGET_GB = 72
+
+
+def _route_recorder():
+    """Wrap ``moe.route`` to keep each call's (dropped, routed) counts on
+    the card; returns (records, undo)."""
+    from repro_torch.models import moe
+    real, records = moe.route, []
+
+    def route(p, cfg, xt):
+        out = real(p, cfg, xt)
+        keep = out[2].detach()
+        records.append(((~keep).sum(), keep.numel()))
+        return out
+
+    moe.route = route
+
+    def undo():
+        moe.route = real
+    return records, undo
+
+
+def _k1_groups(params) -> int:
+    """K1 launches a micro-batch: one per group of at most MAX_ENTRIES
+    (accumulator, gradient) pairs of one dtype pair."""
+    from repro_torch import kernels, tree
+    return len(kernels.grad_accum_kernels.launch_groups(
+        [(x, x) for x in tree.leaves(params)]))
+
+
+def _trace_micro(dev, cfg, params, plan, seq: int) -> dict:
+    """One micro-batch's forward and backward (the plan's micro size and
+    remat policy, bf16) traced by ``torch.profiler`` after one untraced
+    warm-up: the kernels' summed time against the device span and the
+    host's time, the launches, the kernels and runtime calls that take
+    the most time (the trace is written under ``build/`` and removed)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+
+    loss_fn = steps.make_loss_fn(cfg, dtype=torch.bfloat16,
+                                 remat_policy=plan.remat_policy)
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in LMDataset(
+        cfg.vocab_size, seq, seed=0).batch(plan.micro_batch_size, 0).items()}
+    leaves, td = tree.flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+
+    def once():
+        loss, _ = loss_fn(tree.unflatten(td, leaves), mb)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        del grads
+
+    once()
+    path = os.path.join(ROOT, "build", f"micro-{cfg.name}-trace.json")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        once()
+    host_s = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    tr = _trace_streams(path)
+    os.remove(path)
+    del prof, leaves, mb
+    gc_collect()
+    out = {"micro": plan.micro_batch_size, "remat": plan.remat_policy,
+           "launches": sum(tr["kernel_streams"].values()),
+           "kernel_ms": tr["kernel_ms"],
+           "device_span_ms": tr["device_span_ms"], "host_s": host_s,
+           "kernels_ms": tr["kernels_ms"], "runtime_ms": tr["runtime_ms"]}
+    print(f"train {cfg.name}: one micro-batch of {out['micro']} (remat "
+          f"{out['remat']}) forward + backward, traced: {out['launches']} "
+          f"launches, kernels {out['kernel_ms']:.1f} ms of a "
+          f"{out['device_span_ms']:.1f} ms device span ({host_s:.2f}s on the "
+          f"host, traced); kernels by time {out['kernels_ms']}; runtime "
+          f"calls {out['runtime_ms']}", flush=True)
+    return out
+
+
+def family_train_phase(dev, arch: str) -> dict:
+    """15a-15c. ``launch.train.main`` for ``arch`` at full width
+    (FAMILY_TRAIN), ``flat``, SGD-m, bf16 over fp32 weights, seed 0,
+    against CALIBRATION_BUDGET_GB: the analytic plan (``--calibrate off``,
+    not run); ``--calibrate force`` under the analytic plan's remat
+    policy, probing the real step at micro 1, 2 and 4 — a probe that does
+    not fit the card (``torch.OutOfMemoryError``) is printed and the next
+    policy of the lattice is probed, as the supervisor's ladder climbs;
+    when the fit admits no micro-batch at the budget, the least budget up
+    to FAMILY_MAX_BUDGET_GB that does; then ``--calibrate auto`` at that
+    budget (which must plan what ``force`` planned) for 4 steps with the
+    counters zeroed around it: every loss finite, K1 launched steps × N_Sμ
+    × launch groups times and K2 steps × buckets; the steady step and
+    tokens/s;
+    the allocator's peak beside the budget and the calibrated prediction
+    (a peak over the budget is reported, not hidden); one micro-batch's
+    forward and backward traced (``_trace_micro``). MoE: the aux loss of
+    step 0 and the share of routed (token, expert) choices that the
+    capacity dropped in step 0."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import memory_model
+    from repro_torch.engine import FlatSpec, autotune
+    from repro_torch.launch import train
+    from repro_torch.models import remat
+
+    cache = os.path.join(ROOT, "build", f"tuning-{arch}.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    autotune._caches.pop(cache, None)
+    base = ["--arch", arch, *FAMILY_ARGV, *FAMILY_TRAIN[arch],
+            "--tuning-cache", cache]
+    ap = train.build_parser()
+    args0 = ap.parse_args(base)
+    cfg, seq, mini = train.build_config(args0), args0.seq, args0.mini_batch
+    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    mm_kw = optim.memory_model_kw(opt, fused=True)
+
+    def flags(calibrate, policy, budget_gb):
+        return base + ["--calibrate", calibrate, "--remat-policy", policy,
+                       "--hbm-budget-gb", str(budget_gb)]
+
+    def plan(calibrate, policy="auto", budget_gb=CALIBRATION_BUDGET_GB):
+        return train.build_plan(cfg, ap.parse_args(
+            flags(calibrate, policy, budget_gb)), opt, dev)
+
+    def modeled(p, micro=None):
+        return memory_model.estimate(
+            cfg, seq, act_bytes=2, remat_policy=p.remat_policy,
+            **mm_kw).total(p.micro_batch_size if micro is None else micro)
+
+    card = card_line()
+    analytic = plan("off")
+    print(f"train {arch} [{card}]: analytic plan at "
+          f"{CALIBRATION_BUDGET_GB} GiB: {analytic.describe()}; modeled "
+          f"{modeled(analytic) / GIB:.3f} GiB (not run)", flush=True)
+    out = {"card": card, "analytic_plan": analytic.describe(),
+           "analytic_micro": analytic.micro_batch_size,
+           "analytic_policy": analytic.remat_policy,
+           "analytic_modeled_bytes": modeled(analytic), "probe_ooms": []}
+    policy, forced = "auto", None
+    ladder = remat.POLICIES[remat.POLICIES.index(analytic.remat_policy):]
+    for i, pol in enumerate(ladder):
+        policy = "auto" if i == 0 else pol
+        t0 = time.perf_counter()
+        try:
+            forced = plan("force", policy)
+        except torch.OutOfMemoryError as e:
+            out["probe_ooms"].append({"policy": pol, "seconds":
+                                      time.perf_counter() - t0,
+                                      "error": str(e).splitlines()[0]})
+            print(f"train {arch}: a calibration probe under remat {pol} "
+                  f"does not fit the card: {str(e).splitlines()[0]}",
+                  flush=True)
+            forced = None
+        gc_collect()
+        if forced is not None:
+            out["probe_s"] = time.perf_counter() - t0
+            break
+    check(forced is not None, f"train {arch}: no remat policy's calibration "
+                              f"probes fit the card")
+    key = autotune.memory_key(cfg, seq, forced.remat_policy, None, "sgd",
+                              "flat", autotune.backend_of(dev))
+    entry = autotune.get_cache(cache).data["memory"][key]
+    a, b = autotune.get_cache(cache).memory_correction(key)
+    budget_gb = CALIBRATION_BUDGET_GB
+    if not forced.calibrated:  # the fit admits no micro-batch at 60 GiB
+        least = a * modeled(forced, 1) + b
+        budget_gb = math.ceil(least / GIB * 4) / 4
+        check(budget_gb <= FAMILY_MAX_BUDGET_GB,
+              f"train {arch}: micro 1 is predicted at {least / GIB:.2f} GiB, "
+              f"over {FAMILY_MAX_BUDGET_GB} GiB")
+        print(f"train {arch}: the calibrated fit admits no micro-batch at "
+              f"{CALIBRATION_BUDGET_GB} GiB; the least budget that admits "
+              f"one is {budget_gb} GiB", flush=True)
+        forced = plan("auto", policy, budget_gb)
+        check(forced.calibrated, f"train {arch}: no calibrated plan at "
+                                 f"{budget_gb} GiB")
+    predicted = a * modeled(forced) + b
+    print(f"train {arch}: calibrated plan at {budget_gb} GiB: "
+          f"{forced.describe()}; fit measured = {a:.6f} x modeled + {b:.0f} "
+          f"B from probes (micro, modeled B, measured B) {entry['probes']}; "
+          f"predicted {predicted / GIB:.3f} GiB", flush=True)
+    records, undo = (_route_recorder() if cfg.is_moe else (None, None))
+    try:
+        res = run_launcher(dev, flags("auto", policy, budget_gb))
+    finally:
+        if undo is not None:
+            undo()
+    got, hist, counts = res["plan"], res["history"], res["counts"]
+    check(got == forced, f"train {arch}: --calibrate auto planned "
+                         f"{got.describe()}, force {forced.describe()}")
+    check(len(hist) == 4, f"train {arch}: ran {len(hist)} steps")
+    spec = FlatSpec.for_tree(res["params"])
+    n_b = spec.num_buckets
+    for buf in spec.buffers_of(res["params"]):
+        check(bool(torch.isfinite(buf).all()), f"train {arch}: params not "
+                                               f"finite")
+    groups = _k1_groups(res["params"])
+    want_k1 = len(hist) * got.num_micro_batches * groups
+    check(counts["grad_accum"] == want_k1 and
+          counts["fused_sgd_mom"] == len(hist) * n_b,
+          f"train {arch}: launches {counts}, expected K1 {want_k1} (steps x "
+          f"micro-batches x {groups} launch groups) and K2 {len(hist) * n_b}")
+    step_s, peak = res["steady_step_s"], res["peak_bytes"]
+    budget = int(budget_gb * GIB)
+    tokens = mini * seq
+    out.update(
+        plan=got.describe(), micro=got.micro_batch_size,
+        num_micro_batches=got.num_micro_batches, remat=got.remat_policy,
+        budget_bytes=budget, fit=[a, b], probes=entry["probes"],
+        calibrated_prediction_bytes=predicted, losses=res["losses"],
+        steady_step_s=step_s, tokens_per_s=tokens / step_s,
+        readback_gaps_s=res["readback_gaps_s"], peak_bytes=peak,
+        peak_reserved_bytes=res["peak_reserved_bytes"],
+        allocated_before_bytes=res["allocated_before_bytes"],
+        over_budget_bytes=max(peak - budget, 0), counts=counts,
+        buckets=n_b, launch_groups=groups, params=sum(spec.bucket_sizes),
+        wall_s=res["wall_s"])
+    extra = ""
+    if cfg.is_moe:
+        # one route call a MoE layer and micro-batch forward (and again
+        # in a recompute); step 0's are the first layers × N_Smu × (1, 2)
+        n0 = len(records) // len(hist)
+        dropped = sum(int(d) for d, _ in records[:n0])
+        routed = sum(n for _, n in records[:n0])
+        out.update(aux_loss_step0=float(hist[0]["aux_loss"]),
+                   dropped_share_step0=dropped / routed,
+                   route_calls=len(records))
+        extra = (f"; step 0: aux loss {out['aux_loss_step0']:.6f}, "
+                 f"{dropped} of {routed} routed (token, expert) choices "
+                 f"dropped by capacity ({100 * dropped / routed:.3f} %)")
+    res["opt_state"] = None  # momentum: room for one traced micro-batch
+    out["micro_trace"] = _trace_micro(dev, cfg, res["params"], got, seq)
+    over = peak - budget
+    print(f"train {arch}: {got.describe()}; losses {res['losses']}; steady "
+          f"step {step_s:.4f}s, {tokens / step_s:.1f} tokens/s (gaps "
+          f"{res['readback_gaps_s']}); peak allocated {peak} B "
+          f"({peak / GIB:.3f} GiB) vs budget {budget_gb} GiB ("
+          + (f"OVER by {over} B" if over > 0 else f"{-over} B under")
+          + f") and calibrated prediction {predicted / GIB:.3f} GiB; K1/K2 "
+          f"launches {counts['grad_accum']}/{counts['fused_sgd_mom']} over "
+          f"{n_b} bucket(s) of {sum(spec.bucket_sizes)} params{extra}",
+          flush=True)
+    del res
+    gc_collect()
+    return out
+
+
+def family_step_check(dev, arch: str) -> dict:
+    """15e. One ``flat`` step (K1, K2) against one ``compiled`` step at
+    SERVE_CHECKS' depth of ``arch``'s full width, fp32, TF32 off
+    (``executor_steps``, ``against_compiled``), K1 launched once a
+    micro-batch and launch group, K2 once (one bucket)."""
+    import torch
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get(arch), **SERVE_CHECKS[arch][0])
+    outs = executor_steps(dev, cfg, torch.float32, ("compiled", "flat"))
+    params, _, loss, counts = outs["flat"]
+    want = 4 * _k1_groups(params)
+    check(counts["grad_accum"] == want and counts["fused_sgd_mom"] == 1,
+          f"{arch}: flat launched {counts}, expected K1 {want} and K2 1")
+    worst = against_compiled(outs, f"{arch} ({cfg.num_layers} layers)")
+    print(f"train {arch} ({cfg.num_layers} layers, fp32): flat == compiled "
+          f"after one step (loss {loss:.6f}, max abs err {worst['flat']:.3e};"
+          f" K1/K2 {counts['grad_accum']}/{counts['fused_sgd_mom']})",
+          flush=True)
+    del outs, params
+    gc_collect()
+    return {"loss": loss, "max_abs_err": worst["flat"], "counts": counts}
+
+
+FAMILIES = tuple(FAMILY_TRAIN)
+
+
+def family_phases(timed, dev) -> dict:
+    """15a-15e, in order: each family's training cell, its serving cell,
+    and its correctness checks."""
+    out = {"train": {}, "serve": {}, "check": {}}
+    for tag, arch in zip("abc", FAMILIES):
+        out["train"][arch] = timed(f"15{tag} train {arch}",
+                                   family_train_phase, dev, arch)
+    for arch in FAMILIES:
+        out["serve"][arch] = timed(f"15d serve {arch}", serve_phase, dev,
+                                   arch)
+    for arch in FAMILIES:
+        out["check"][arch] = {
+            "serve": timed(f"15e serve check {arch}",
+                           serve_correctness_phase, dev, arch),
+            "step": timed(f"15e step check {arch}", family_step_check, dev,
+                          arch)}
     return out
 
 
@@ -3171,13 +3598,17 @@ def run() -> dict:
                                 "gemma2-9b")}
     serve_check = {a: timed(f"14c serve check {a}", serve_correctness_phase,
                             dev, a) for a in ("qwen2-1.5b", "gemma2-9b")}
+    fam = family_phases(timed, dev)
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
-    # kernel-API path's and the two serving paths' — each read right
-    # after it ran
-    serve_paths = {f"serve {a}": r["counts"] for a, r in serve.items()}
+    # families' training paths, the kernel-API path's and the five
+    # serving paths' — each read right after it ran
+    serve_paths = {f"serve {a}": r["counts"]
+                   for a, r in [*serve.items(), *fam["serve"].items()]}
     paths = {"qwen2-1.5b": main["counts"],
-             **{w: r["counts"] for w, r in cnns.items()}, **serve_paths}
+             **{w: r["counts"] for w, r in cnns.items()},
+             **{f"train {a}": r["counts"] for a, r in fam["train"].items()},
+             **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
             KERNELS.items():
@@ -3236,7 +3667,8 @@ def run() -> dict:
         "streaming": streaming, "resume": resume,
         "calibration": calibration, "cnn": cnns, "tuner": tuner,
         "guard": guard, "oom_ladder": ladder, "calibration_miss": miss,
-        "serve": serve, "serve_check": serve_check, "phase_s": phase_s,
+        "serve": serve, "serve_check": serve_check, "families": fam,
+        "phase_s": phase_s,
         "total_s": sum(phase_s.values())}}),
         flush=True)
     print(f"phases: {sum(phase_s.values()):.1f}s in all: " + ", ".join(

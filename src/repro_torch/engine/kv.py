@@ -5,9 +5,10 @@ A :class:`KVPool` owns one device-resident decode cache sized for the
 plan's admitted slot count (``plan_serve`` → ``ServePlan.max_decode_slots``)
 and treats its batch dimension as a pool of request *slots*: a request is
 admitted by allocating a free slot and copying its prefill cache row in,
-decodes in place against the ring layout (``attention.attn_decode_step``
-writes slot ``pos % W``), and on finish returns the slot to the free list
-— no zeroing, since admission overwrites the whole row.
+decodes in place — an attention layer writes ring slot ``pos % W``
+(``attention.attn_decode_step``), an ssm or recurrent layer overwrites its
+fp32 state and conv tail — and on finish returns the slot to the free
+list — no zeroing, since admission overwrites the whole row.
 
 Memory contract: the pool is allocated once (``slots *
 memory_model.kv_slot_bytes``) and written in place by ``insert`` and by
@@ -33,8 +34,9 @@ class PoolExhausted(RuntimeError):
 class KVPool:
     """Fixed-capacity pool of decode-cache slots.
 
-    ``cache`` is ``transformer.init_cache``'s tree: one ring per pattern
-    slot, leaves stacked over periods with the request slot at dim 1."""
+    ``cache`` is ``transformer.init_cache``'s tree: one entry per pattern
+    slot (a ring, or a state and conv tail), leaves stacked over periods
+    with the request slot at dim 1."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int, *,
                  dtype=torch.bfloat16, global_window: Optional[int] = None,

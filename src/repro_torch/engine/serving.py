@@ -21,10 +21,11 @@ compute garbage that the host drops. The step's tokens and positions live
 on the device and the step reads one thing back, the next tokens. Prefill
 is micro-batched: pure-attention stacks take right-padded ragged groups
 (``transformer.prefill(lengths=...)``, exact because causal attention
-never lets a real query see the padding). The JAX package's engine
-groups exact-length prompts for the state-carrying and MoE families; their
-layers are not ported (ROADMAP.md queue 1 item 10), so
-:func:`check_servable` refuses them and every servable plan is ragged.
+never lets a real query see the padding), while the state-carrying (ssm,
+recurrent) and MoE families group prompts of one exact length, since
+padding would run through their scans or compete for expert capacity
+(``transformer.supports_ragged_prefill``). Encoder-decoder configs are
+refused up front.
 """
 from __future__ import annotations
 
@@ -50,11 +51,25 @@ DECODE = "decode"
 FINISHED = "finished"
 
 
+_ENCDEC_NOTE = ("encoder-decoder configs are not servable by the "
+                "decoder-only serving engine (no cross-attention cache in "
+                "init_cache/decode_step); serve a decoder-only arch instead")
+
+
 def check_servable(cfg: ModelConfig) -> None:
-    """Fail fast, before any tensor is allocated: a config whose layers
-    the port lacks raises ``NotImplementedError`` naming their ROADMAP
-    item. (The JAX package serves every decoder-only family and refuses
-    encoder-decoder configs, which have no decode cache.)"""
+    """Fail fast, before any tensor is allocated: enc-dec configs with
+    the JAX package's message (the port has no enc-dec layers either,
+    ROADMAP.md queue 1 item 10), a layer kind without a decode-cache
+    slot, and a config whose layers the port lacks
+    (``transformer.check_supported``'s ``NotImplementedError``)."""
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: {_ENCDEC_NOTE} (nor are its layers "
+                         "ported: ROADMAP.md queue 1 item 10)")
+    for kind in cfg.layer_pattern:
+        if kind not in ("global", "local", "ssm", "recurrent"):
+            raise ValueError(
+                f"{cfg.name}: layer kind {kind!r} has no decode-cache slot "
+                "in transformer.init_cache — cannot serve this pattern")
     transformer.check_supported(cfg)
 
 
@@ -99,7 +114,7 @@ class ServePlan:
     prefill_bytes_per_sample: int
     cache_bytes: int = 2
     global_window: Optional[int] = None
-    ragged_prefill: bool = True  # False: exact-length groups (item 10)
+    ragged_prefill: bool = True  # False: exact-length prompt groups
     auto_slots: bool = True  # slot count chosen by the memory model
     data_parallel: int = 1
     local_slots: Optional[int] = None
@@ -285,12 +300,17 @@ class ServingEngine:
     # -- model calls --------------------------------------------------------
 
     def _prefill(self, toks: np.ndarray, lengths: np.ndarray):
-        """(logits (m, V), cache) of one right-padded prefill micro-batch."""
+        """(logits (m, V), cache) of one prefill micro-batch: right-padded
+        to its rows' ``lengths``, or (exact-length groups) of one length,
+        when ``lengths`` goes unused."""
+        if self.plan.ragged_prefill:
+            lengths = torch.from_numpy(lengths).to(self.device)
+        else:
+            lengths = None
         return transformer.prefill(
             self.params, self.cfg, torch.from_numpy(toks).to(self.device),
             self.plan.max_len, dtype=self.dtype,
-            global_window=self.plan.global_window,
-            lengths=torch.from_numpy(lengths).to(self.device))
+            global_window=self.plan.global_window, lengths=lengths)
 
     def _decode_logits(self):
         """Logits (S, V) of one decode step over the whole pool at the
@@ -325,12 +345,28 @@ class ServingEngine:
 
     def _next_group(self) -> List[Request]:
         """The next prefill micro-batch: FIFO, up to min(prefill_micro,
-        free slots)."""
+        free slots); exact-length families take only requests of the head
+        request's prompt length (the head always qualifies, so none
+        starves)."""
         k = min(self.plan.prefill_micro, self.pool.free_count,
                 len(self._queue))
-        return [self._queue.popleft() for _ in range(k)]
+        if k < 1:
+            return []
+        if self.plan.ragged_prefill:
+            return [self._queue.popleft() for _ in range(k)]
+        head_len = self._queue[0].prompt_len
+        group, keep = [], []
+        for r in self._queue:
+            if len(group) < k and r.prompt_len == head_len:
+                group.append(r)
+            else:
+                keep.append(r)
+        self._queue = collections.deque(keep)
+        return group
 
     def _bucket_len(self, prompt_len: int) -> int:
+        if not self.plan.ragged_prefill:
+            return prompt_len  # an exact-length group has no padding
         b = self.pad_multiple * math.ceil(prompt_len / self.pad_multiple)
         return min(b, self.plan.max_len - 1)
 

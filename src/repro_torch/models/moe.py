@@ -1,0 +1,112 @@
+"""Mixture-of-Experts FFN: top-k routing with capacity-bounded dispatch.
+
+Tokens are scattered into an ``(E·C + 1, D)`` buffer (``index_add``), the
+experts run as one batched product over ``(E, C, D)``, and the outputs are
+gathered back and combined with the renormalized router weights. A
+token's slot in its expert's queue is its rank in token-major order, so
+the same tokens overflow the capacity ``C`` as in the JAX package; an
+overflowing token lands on the buffer's last (trash) row and contributes
+nothing. Includes the load-balance auxiliary loss (Switch / GShard).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import nn
+from . import remat as remat_lib
+from .config import ModelConfig
+
+
+def moe_init(gen, cfg: ModelConfig, lead=(), device=None):
+    d, E, Fd = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    lead = tuple(lead)
+    kw = dict(lead=lead, device=device)
+
+    def experts(a, b):
+        return torch.randn(lead + (E, a, b), generator=gen,
+                           device=device) / math.sqrt(a)
+
+    p = {"router": nn.dense_init(gen, d, E, scale=0.02, **kw),
+         "w_up": experts(d, Fd), "w_down": experts(Fd, d)}
+    if cfg.ffn_kind in ("swiglu", "geglu"):
+        p["w_gate"] = experts(d, Fd)
+    if cfg.num_shared_experts:
+        p["shared"] = nn.ffn_init(
+            gen, d, cfg.num_shared_experts * (cfg.shared_d_ff or cfg.moe_d_ff),
+            cfg.ffn_kind, **kw)
+    return p
+
+
+def _expert_ffn(p, x, kind: str):
+    """x: (E, C, D) -> (E, C, D), one batched product per weight."""
+    if kind not in ("swiglu", "geglu"):
+        raise NotImplementedError(f"ffn kind {kind!r} is not ported yet "
+                                  "(ROADMAP.md queue 1 item 10)")
+    up = torch.bmm(x, p["w_up"].to(x.dtype))
+    gate = torch.bmm(x, p["w_gate"].to(x.dtype))
+    if kind == "swiglu":
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(gate, approximate="tanh") * up
+    return torch.bmm(h, p["w_down"].to(x.dtype))
+
+
+def top_k(probs, k: int):
+    """(values, indices) of the k largest along the last dim, largest
+    first, ties to the lower index — ``lax.top_k``'s order, which
+    ``torch.topk`` does not promise."""
+    v, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def route(p, cfg: ModelConfig, xt):
+    """Router and dispatch plan of tokens xt (T, D): (top-k expert ids
+    (T, k), renormalized weights (T, k) fp32, keep mask (T·k,), buffer
+    row per (token, choice) (T·k,), capacity C, aux loss fp32)."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = xt.shape[0]
+    probs = torch.softmax(nn.dense(p["router"], xt, torch.float32), dim=-1)
+    topv, topi = top_k(probs, k)
+    topv = topv / topv.sum(-1, keepdim=True)
+    # load-balance aux loss: E · sum_e (mean prob_e) · (fraction routed_e)
+    ce = F.one_hot(topi, E).float().sum(1).mean(0) / k
+    aux = E * torch.sum(probs.mean(0) * ce)
+    C = min(max(1, int(math.ceil(T * k / E * cfg.capacity_factor))), T)
+    flat_e = topi.reshape(-1)  # token-major
+    in_e = F.one_hot(flat_e, E)  # (T·k, E)
+    pos = (torch.cumsum(in_e, dim=0) * in_e - 1).amax(-1)  # queue position
+    keep = pos < C
+    idx = torch.where(keep, flat_e * C + pos,
+                      torch.full_like(flat_e, E * C))  # dropped: trash row
+    return topi, topv, keep, idx, C, aux
+
+
+def moe_block(p, cfg: ModelConfig, x, compute_dtype=None,
+              remat_policy: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D). Returns (out (B, S, D), aux loss fp32 scalar).
+    ``full`` checkpoints the block on its own."""
+    fn = remat_lib.checkpoint_block(
+        lambda bp, bx: _moe_block(bp, cfg, bx, compute_dtype), remat_policy)
+    return fn(p, x)
+
+
+def _moe_block(p, cfg: ModelConfig, x, compute_dtype=None):
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    xt = x.reshape(B * S, D)
+    if compute_dtype is not None:
+        xt = xt.to(compute_dtype)
+    _, topv, keep, idx, C, aux = route(p, cfg, xt)
+    xs = xt.repeat_interleave(k, dim=0)  # (T·k, D)
+    buf = xt.new_zeros((E * C + 1, D)).index_add(0, idx, xs)
+    eout = _expert_ffn(p, buf[:E * C].reshape(E, C, D), cfg.ffn_kind)
+    back = torch.cat([eout.reshape(E * C, D), eout.new_zeros((1, D))])[idx]
+    w = torch.where(keep, topv.reshape(-1), 0.0).to(xt.dtype)
+    out = (back * w[:, None]).reshape(-1, k, D).sum(1)  # (T, D)
+    if cfg.num_shared_experts:
+        out = out + nn.ffn(p["shared"], xt, cfg.ffn_kind, compute_dtype)
+    return out.reshape(B, S, D).to(x.dtype), aux.float()

@@ -1,6 +1,7 @@
-"""Decoder-only transformer of the dense family: parameter init, the
-full-sequence forward, and serving — ``prefill`` into the ring KV cache
-and one-token ``decode_step`` against it.
+"""Decoder-only transformer: the dense, MoE, SSM (Mamba2) and hybrid
+(RG-LRU + local attention) families — parameter init, the full-sequence
+forward, and serving: ``prefill`` into the decode cache and one-token
+``decode_step`` against it.
 
 Layers are grouped into *periods* (one cycle of ``cfg.layer_pattern``);
 every slot's parameters are stacked over periods, as in the JAX package's
@@ -8,10 +9,13 @@ tree, so the parameter trees — and the flat-buffer offsets built from
 them — match leaf for leaf. The depth loop is a Python loop over periods,
 with the remat lattice (``models/remat.py``) at the period boundary.
 
-``global`` and ``local`` slots carry gemma's dense features too:
-post-norms after attention and FFN, the sqrt(d_model) embedding scale,
-attention and final logit soft-caps, QK-norm and a separate RoPE theta
-for the global layers.
+A ``global`` or ``local`` slot is attention plus an FFN, or an MoE FFN
+when ``cfg.is_moe``; a ``recurrent`` slot is an RG-LRU block plus an FFN;
+an ``ssm`` slot is one Mamba2 block. The dense slots carry gemma's
+features too: post-norms after attention and FFN, the sqrt(d_model)
+embedding scale, attention and final logit soft-caps, QK-norm and a
+separate RoPE theta for the global layers. A config with
+``tie_embeddings=False`` has its own LM head, ``params["unembed"]``.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import tree
-from . import attention, nn
+from . import attention, moe, nn, recurrent, ssm
 from . import remat as remat_lib
 from .config import ModelConfig
 
@@ -29,34 +33,39 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for features whose layers are not ported yet, naming the
     ROADMAP.md queue-1 item that ports each."""
     missing = []
-    if cfg.is_moe:
-        missing.append("MoE blocks (item 10)")
     if cfg.is_encdec:
         missing.append("encoder-decoder stacks (item 10)")
-    bad = sorted(set(cfg.layer_pattern) - {"global", "local"})
+    bad = sorted(set(cfg.layer_pattern)
+                 - {"global", "local", "recurrent", "ssm"})
     if bad:
         missing.append(f"{bad} slots (item 10)")
     if cfg.is_vlm or cfg.mrope_sections is not None:
         missing.append("the VLM frontend / M-RoPE (item 8)")
-    if not cfg.tie_embeddings:
-        missing.append("an untied LM head (item 8)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md "
             "queue 1)")
 
 
-def _slot_init(gen, cfg: ModelConfig, lead, device) -> Dict[str, Any]:
+def _slot_init(gen, cfg: ModelConfig, kind: str, lead, device
+               ) -> Dict[str, Any]:
     kw = dict(lead=lead, device=device)
-    p = {
-        "pre_norm": nn.rmsnorm_init(cfg.d_model, **kw),
-        "attn": attention.attn_init(gen, cfg, **kw),
-        "pre_ffn_norm": nn.rmsnorm_init(cfg.d_model, **kw),
-        "ffn": nn.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, **kw),
-    }
-    if cfg.use_post_norm:
-        p["post_norm"] = nn.rmsnorm_init(cfg.d_model, **kw)
-        p["post_ffn_norm"] = nn.rmsnorm_init(cfg.d_model, **kw)
+    p = {"pre_norm": nn.rmsnorm_init(cfg.d_model, **kw)}
+    if kind == "ssm":
+        p["ssm"] = ssm.ssm_init(gen, cfg, **kw)
+        return p
+    if kind == "recurrent":
+        p["rec"] = recurrent.recurrent_init(gen, cfg, **kw)
+    else:
+        p["attn"] = attention.attn_init(gen, cfg, **kw)
+        if cfg.use_post_norm:
+            p["post_norm"] = nn.rmsnorm_init(cfg.d_model, **kw)
+            p["post_ffn_norm"] = nn.rmsnorm_init(cfg.d_model, **kw)
+    p["pre_ffn_norm"] = nn.rmsnorm_init(cfg.d_model, **kw)
+    if cfg.is_moe and kind != "recurrent":
+        p["moe"] = moe.moe_init(gen, cfg, **kw)
+    else:
+        p["ffn"] = nn.ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind, **kw)
     return p
 
 
@@ -70,12 +79,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     lead = (cfg.num_periods,)
-    return {
+    params = {
         "embed": nn.embed_init(gen, cfg.vocab_size, cfg.d_model, device),
         "final_norm": nn.rmsnorm_init(cfg.d_model, device=device),
-        "blocks": tuple(_slot_init(gen, cfg, lead, device)
-                        for _ in cfg.layer_pattern),
+        "blocks": tuple(_slot_init(gen, cfg, kind, lead, device)
+                        for kind in cfg.layer_pattern),
     }
+    if not cfg.tie_embeddings:
+        params["unembed"] = nn.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                          device=device)
+    return params
 
 
 def _window_for(cfg: ModelConfig, kind: str, global_window: Optional[int]):
@@ -94,35 +107,56 @@ def _apply_slot(p, cfg: ModelConfig, kind: str, x, positions, *, dtype,
                 global_window=None, remat_policy: str = "none",
                 want_cache: bool = False, max_len: Optional[int] = None,
                 lengths=None):
-    """Returns (x, ring cache entry or None)."""
-    window = _window_for(cfg, kind, global_window)
-
-    def attn_part(sp, x):
-        h = nn.rmsnorm(sp["pre_norm"], x, cfg.norm_eps)
-        h, kv = attention.attn_block(sp["attn"], cfg, h, positions,
-                                     window=window,
-                                     rope_theta=_theta_for(cfg, kind),
-                                     compute_dtype=dtype)
-        if cfg.use_post_norm:
-            h = nn.rmsnorm(sp["post_norm"], h, cfg.norm_eps)
-        return h, kv
-
-    if want_cache:  # serving: no autograd, so no checkpoint either
-        h, kv = attn_part(p, x)
-        kv = attention.ring_cache_from_full(kv[0], kv[1], positions, window,
-                                            max_len, lengths=lengths)
+    """Returns (x, aux loss, decode cache entry or None). Serving
+    (``want_cache``) runs without autograd, so without checkpoints."""
+    policy = "none" if want_cache else remat_policy
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "ssm":  # the state blocks checkpoint themselves
+        h = nn.rmsnorm(p["pre_norm"], x, cfg.norm_eps)
+        h, entry = ssm.ssm_block(p["ssm"], cfg, h, compute_dtype=dtype,
+                                 return_cache=want_cache,
+                                 remat_policy=policy)
+        return x + h, aux, (entry if want_cache else None)
+    if kind == "recurrent":
+        h = nn.rmsnorm(p["pre_norm"], x, cfg.norm_eps)
+        h, entry = recurrent.recurrent_block(p["rec"], cfg, h,
+                                             compute_dtype=dtype,
+                                             return_cache=want_cache,
+                                             remat_policy=policy)
+        entry = entry if want_cache else None
     else:
-        h = remat_lib.checkpoint_block(lambda sp, x: attn_part(sp, x)[0],
-                                       remat_policy)(p, x)
-        kv = None
+        window = _window_for(cfg, kind, global_window)
+
+        def attn_part(sp, x):
+            h = nn.rmsnorm(sp["pre_norm"], x, cfg.norm_eps)
+            h, kv = attention.attn_block(sp["attn"], cfg, h, positions,
+                                         window=window,
+                                         rope_theta=_theta_for(cfg, kind),
+                                         compute_dtype=dtype)
+            if cfg.use_post_norm:
+                h = nn.rmsnorm(sp["post_norm"], h, cfg.norm_eps)
+            return h, kv
+
+        if want_cache:
+            h, kv = attn_part(p, x)
+            entry = attention.ring_cache_from_full(
+                kv[0], kv[1], positions, window, max_len, lengths=lengths)
+        else:
+            h = remat_lib.checkpoint_block(lambda sp, x: attn_part(sp, x)[0],
+                                           policy)(p, x)
+            entry = None
     x = x + h
     h = nn.rmsnorm(p["pre_ffn_norm"], x, cfg.norm_eps)
-    h = remat_lib.checkpoint_block(
-        lambda fp, hh: nn.ffn(fp, hh, cfg.ffn_kind, compute_dtype=dtype),
-        remat_policy)(p["ffn"], h)
-    if cfg.use_post_norm:
+    if "moe" in p:
+        h, aux = moe.moe_block(p["moe"], cfg, h, compute_dtype=dtype,
+                               remat_policy=policy)
+    else:
+        h = remat_lib.checkpoint_block(
+            lambda fp, hh: nn.ffn(fp, hh, cfg.ffn_kind, compute_dtype=dtype),
+            policy)(p["ffn"], h)
+    if cfg.use_post_norm and kind != "recurrent":
         h = nn.rmsnorm(p["post_ffn_norm"], h, cfg.norm_eps)
-    return x + h, kv
+    return x + h, aux, entry
 
 
 def _embed(params, cfg: ModelConfig, tokens, dtype):
@@ -130,7 +164,11 @@ def _embed(params, cfg: ModelConfig, tokens, dtype):
 
 
 def _lm_head(params, cfg: ModelConfig, x):
-    logits = nn.unembed(params["embed"], x, torch.float32)  # tied fp32 head
+    """fp32 logits: the tied embedding, or the untied ``unembed``."""
+    if cfg.tie_embeddings:
+        logits = nn.unembed(params["embed"], x, torch.float32)
+    else:
+        logits = nn.dense(params["unembed"], x, torch.float32)
     return nn.softcap(logits, cfg.final_softcap)
 
 
@@ -147,8 +185,9 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
             remat_policy: Optional[str] = None, return_hidden=False):
     """Full-sequence forward. tokens: (B, S) int.
 
-    Returns (logits (B, S, V) fp32, aux_loss scalar) — the dense family
-    has no auxiliary loss, so aux is 0 as in the JAX package."""
+    Returns (logits (B, S, V) fp32, aux loss scalar): the MoE router's
+    load-balance losses summed over every layer (0 without MoE), as in
+    the JAX package."""
     check_supported(cfg)
     policy = remat_lib.resolve(remat, remat_policy)
     B, S = tokens.shape[:2]
@@ -157,26 +196,30 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     x = _embed(params, cfg, tokens, dtype)
 
     def period_fn(x, slot_params):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(cfg.layer_pattern, slot_params):
-            x, _ = _apply_slot(p, cfg, kind, x, positions, dtype=dtype,
-                               global_window=global_window,
-                               remat_policy=policy)
-        return x
+            x, aux, _ = _apply_slot(p, cfg, kind, x, positions, dtype=dtype,
+                                    global_window=global_window,
+                                    remat_policy=policy)
+            aux_total = aux_total + aux
+        return x, aux_total
 
     period_fn = remat_lib.checkpoint_period(period_fn, policy)
     # unbind once: one stacked gradient per leaf in the backward, instead
     # of a zero-filled full-depth buffer per period from per-period indexing
+    auxes = []
     for slot_params in _periods(params["blocks"]):
-        x = period_fn(x, slot_params)
+        x, aux = period_fn(x, slot_params)
+        auxes.append(aux)
+    aux = torch.stack(auxes).sum()
     x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return _lm_head(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
-# serving: prefill → ring cache, decode steps
+# serving: prefill → decode cache, decode steps
 # ---------------------------------------------------------------------------
 
 def supports_ragged_prefill(cfg: ModelConfig) -> bool:
@@ -192,13 +235,24 @@ def supports_ragged_prefill(cfg: ModelConfig) -> bool:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, global_window: Optional[int] = None,
                device="cuda"):
-    """Decode cache: a tuple with one ring per pattern slot, each leaf
-    stacked over periods (leading dim P)."""
+    """Decode cache: a tuple with one entry per pattern slot, each leaf
+    stacked over periods (leading dim P) — a ring for attention slots,
+    the state and conv tail for ``ssm`` and ``recurrent`` slots (their
+    states fp32, as in the JAX package)."""
     check_supported(cfg)
-    return tuple(attention.init_kv_cache(
-        cfg, batch, max_len, _window_for(cfg, kind, global_window), dtype,
-        lead=(cfg.num_periods,), device=device)
-        for kind in cfg.layer_pattern)
+    kw = dict(lead=(cfg.num_periods,), device=device)
+    caches = []
+    for kind in cfg.layer_pattern:
+        if kind == "ssm":
+            caches.append(ssm.init_ssm_cache(cfg, batch, dtype, **kw))
+        elif kind == "recurrent":
+            caches.append(recurrent.init_recurrent_cache(cfg, batch, dtype,
+                                                         **kw))
+        else:
+            caches.append(attention.init_kv_cache(
+                cfg, batch, max_len, _window_for(cfg, kind, global_window),
+                dtype, **kw))
+    return tuple(caches)
 
 
 @torch.inference_mode()
@@ -206,12 +260,12 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
             positions=None, dtype=torch.bfloat16, global_window=None,
             lengths=None):
     """Serving prefill: the full-sequence forward that also builds the
-    decode cache (``init_cache``'s layout, in the compute dtype). Returns
-    (last-token logits (B, V) fp32, cache).
+    decode cache (``init_cache``'s layout, the rings and conv tails in the
+    compute dtype). Returns (last-token logits (B, V) fp32, cache).
 
-    The cache is allocated once and each period's rings are written into
-    it as the period ends, so a period's intermediates are freed before
-    the next runs (what the memory model charges).
+    The cache is allocated once and each period's entries are written
+    into it as the period ends, so a period's intermediates are freed
+    before the next runs (what the memory model charges).
 
     ``lengths`` (B,) serves a right-padded ragged batch: the logits are
     each row's at ``lengths[b] - 1`` and the rings hold real tokens only.
@@ -221,7 +275,8 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
     if lengths is not None and not supports_ragged_prefill(cfg):
         raise ValueError(
             f"{cfg.name}: ragged (right-padded) prefill is only exact for "
-            "pure-attention stacks; prefill exact-length groups instead "
+            "pure-attention stacks; this config has state-carrying or MoE "
+            "blocks — prefill exact-length groups instead "
             "(see transformer.supports_ragged_prefill)")
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -231,13 +286,13 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
     cache = init_cache(cfg, B, max_len, x.dtype, global_window, x.device)
     for i, slot_params in enumerate(_periods(params["blocks"])):
         for kind, p, c in zip(cfg.layer_pattern, slot_params, cache):
-            x, kv = _apply_slot(p, cfg, kind, x, positions, dtype=dtype,
-                                global_window=global_window,
-                                want_cache=True, max_len=max_len,
-                                lengths=lengths)
+            x, _, entry = _apply_slot(p, cfg, kind, x, positions, dtype=dtype,
+                                      global_window=global_window,
+                                      want_cache=True, max_len=max_len,
+                                      lengths=lengths)
             for name, leaf in c.items():
-                leaf[i].copy_(kv[name])
-            del kv
+                leaf[i].copy_(entry[name])
+            del entry
     if lengths is None:
         x_last = x[:, -1:]
     else:
@@ -256,21 +311,38 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_pos, *,
     Returns (logits (B, 1, V) fp32, cache). ``cache`` is updated in
     place, period by period (the JAX package carries it through a
     ``fori_loop`` for the same reason): no second copy of the pool is
-    ever made."""
+    ever made. Attention writes its ring slot; a state slot's new state
+    and conv tail are copied over the old."""
     x = _embed(params, cfg, token, dtype)
     for i, slot_params in enumerate(_periods(params["blocks"])):
         for kind, p, c in zip(cfg.layer_pattern, slot_params, cache):
+            view = {k: leaf[i] for k, leaf in c.items()}
             h = nn.rmsnorm(p["pre_norm"], x, cfg.norm_eps)
-            h, _ = attention.attn_decode_step(
-                p["attn"], cfg, h, {k: leaf[i] for k, leaf in c.items()},
-                cur_pos, window=_window_for(cfg, kind, global_window),
-                rope_theta=_theta_for(cfg, kind), compute_dtype=dtype)
-            if cfg.use_post_norm:
-                h = nn.rmsnorm(p["post_norm"], h, cfg.norm_eps)
+            if kind == "ssm":
+                h, new = ssm.ssm_decode_step(p["ssm"], cfg, h, view,
+                                             compute_dtype=dtype)
+            elif kind == "recurrent":
+                h, new = recurrent.recurrent_decode_step(
+                    p["rec"], cfg, h, view, compute_dtype=dtype)
+            else:  # writes its ring slot in place
+                h, new = attention.attn_decode_step(
+                    p["attn"], cfg, h, view, cur_pos,
+                    window=_window_for(cfg, kind, global_window),
+                    rope_theta=_theta_for(cfg, kind), compute_dtype=dtype)
+                if cfg.use_post_norm:
+                    h = nn.rmsnorm(p["post_norm"], h, cfg.norm_eps)
+            if new is not view:
+                for k, leaf in view.items():
+                    leaf.copy_(new[k])
             x = x + h
+            if kind == "ssm":
+                continue
             h = nn.rmsnorm(p["pre_ffn_norm"], x, cfg.norm_eps)
-            h = nn.ffn(p["ffn"], h, cfg.ffn_kind, compute_dtype=dtype)
-            if cfg.use_post_norm:
+            if "moe" in p:
+                h, _ = moe.moe_block(p["moe"], cfg, h, compute_dtype=dtype)
+            else:
+                h = nn.ffn(p["ffn"], h, cfg.ffn_kind, compute_dtype=dtype)
+            if cfg.use_post_norm and kind != "recurrent":
                 h = nn.rmsnorm(p["post_ffn_norm"], h, cfg.norm_eps)
             x = x + h
     x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)

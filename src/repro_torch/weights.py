@@ -6,16 +6,17 @@ are the same structure of tensors, so conversion is leaf by leaf and
 needs no JAX here.
 
 Conv kernels are the one layout that differs: the reference keeps them
-HWIO (its NHWC convolutions), the port OIHW (PyTorch's). Every 4-D leaf
-is a conv kernel — no other model of either package has one — and is
-transposed on the way in and out.
+HWIO (its NHWC convolutions), the port OIHW (PyTorch's). A conv kernel is
+a 4-D leaf named ``w`` (``cnn.conv_init``'s ``{"w": ...}``) and is
+transposed on the way in and out; the MoE experts' stacked weights
+(``w_up``, ``w_gate``, ``w_down``: periods × experts × in × out) are 4-D
+too, and keep their layout.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import tree
 
 
 def _to_tensor(x, device) -> torch.Tensor:
@@ -37,21 +38,33 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
-    return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+def _map_named(fn, t, name=None):
+    """``fn(leaf, key)`` over a tree's leaves, the key being the dict key
+    the leaf sits under (None in a tuple); structure kept."""
+    if isinstance(t, dict):
+        return {k: _map_named(fn, v, k) for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_map_named(fn, v) for v in t)
+    return None if t is None else fn(t, name)
 
 
-def _oihw_to_hwio(a: np.ndarray) -> np.ndarray:
-    return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+def _is_conv(a, name) -> bool:
+    return name == "w" and a.ndim == 4
 
 
 def from_reference(params, device="cuda"):
     """The JAX package's parameter tree (numpy leaves) → the port's."""
-    return tree.map(lambda x: _to_tensor(_hwio_to_oihw(np.asarray(x)),
-                                         device), params)
+    def conv(x, name):
+        a = np.asarray(x)
+        return _to_tensor(a.transpose(3, 2, 0, 1) if _is_conv(a, name)
+                          else a, device)
+    return _map_named(conv, params)
 
 
 def to_reference(params):
     """The port's params → nested dicts/tuples of numpy arrays."""
-    return tree.map(lambda t: np.ascontiguousarray(
-        _oihw_to_hwio(_to_numpy(t))), params)
+    def conv(t, name):
+        a = _to_numpy(t)
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0)
+                                    if _is_conv(a, name) else a)
+    return _map_named(conv, params)

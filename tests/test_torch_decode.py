@@ -1,8 +1,10 @@
 """Prefill and decode of the port against its own full forward and against
-the JAX package (``tests/test_decode_consistency.py``'s dense cases): the
-ring cache with sliding windows, wraparound during decode, ragged
-right-padded prefill and the windowed-global variant, on the reference's
-parameters (``weights.from_reference``) and the same numpy tokens.
+the JAX package (``tests/test_decode_consistency.py``'s decoder-only
+cases: dense, MoE, ssm and hybrid): the ring cache with sliding windows,
+the SSD and RG-LRU states with their conv tails, wraparound during
+decode, ragged right-padded prefill and the windowed-global variant, on
+the reference's parameters (``weights.from_reference``) and the same
+numpy tokens.
 
 Tolerance: 1e-4 absolute on fp32 logits, the reference test's own (XLA
 and torch sum in different orders). The ring layouts are integer
@@ -32,6 +34,16 @@ CASES = {
     "dense-gemma3-pattern": dict(
         layer_pattern=("local",) * 5 + ("global",), num_layers=6,
         sliding_window=8, use_qk_norm=True, rope_theta_global=1e6),
+    # ample capacity: capacity-bounded dropping depends on the batch's
+    # shape, so prefill equals forward only when no token drops
+    "moe": dict(layer_pattern=("global",), num_layers=2, num_experts=4,
+                experts_per_token=2, moe_d_ff=96, d_ff=0,
+                capacity_factor=8.0),
+    "ssm": dict(layer_pattern=("ssm",), num_layers=2, ssm_state=16,
+                ssm_head_dim=32, ssm_chunk=4, num_heads=0, num_kv_heads=0,
+                head_dim=0, d_ff=0),
+    "hybrid": dict(layer_pattern=("recurrent", "recurrent", "local"),
+                   num_layers=3, sliding_window=8, lru_width=64),
 }
 
 
@@ -87,17 +99,26 @@ def test_prefill_decode_matches_forward_and_reference(name):
             jnp.asarray(pos), dtype=jnp.float32)
         assert _err(lg[:, 0], full[:, t]) < ATOL, (name, t)
         assert _err(lg, jlg) < ATOL, (name, t)
-    # the rings hold the same positions, and keys within the tolerance
+    # the rings hold the same positions; keys, states and conv tails
+    # agree within the tolerance
     for c, jc in zip(cache, jcache):
-        np.testing.assert_array_equal(c["pos"].numpy(), np.asarray(jc["pos"]))
-        assert _err(c["k"], jc["k"]) < ATOL
+        assert sorted(c) == sorted(jc)
+        for k in c:
+            if k == "pos":
+                np.testing.assert_array_equal(c[k].numpy(),
+                                              np.asarray(jc[k]))
+            else:
+                assert c[k].dtype == torch.float32, k
+                assert _err(c[k], jc[k]) < ATOL, (name, k)
 
 
-def test_ring_wraparound_matches_full_recompute():
+@pytest.mark.parametrize("name", ["dense-local-global", "ssm", "hybrid"])
+def test_ring_wraparound_matches_full_recompute(name):
     """Prompt shorter than the window, 20 decode steps: the local ring
-    wraps during decode. Each step equals a fresh full forward over the
-    prefix (which never uses the ring) and the reference's decode."""
-    jcfg, cfg = _cfgs("dense-local-global")
+    wraps during decode (the states carry on past it). Each step equals a
+    fresh full forward over the prefix (which never uses the cache) and
+    the reference's decode."""
+    jcfg, cfg = _cfgs(name)
     p = _params(jcfg)
     tp, jp = weights.from_reference(p, "cpu"), jax.tree.map(jnp.asarray, p)
     S, prompt = 26, 6
@@ -106,17 +127,18 @@ def test_ring_wraparound_matches_full_recompute():
                                    dtype=F32)
     _, jcache = jtransformer.prefill(jp, jcfg, jnp.asarray(toks[:, :prompt]),
                                      max_len=S, dtype=jnp.float32)
+    jdecode = jax.jit(lambda q, tok, c, ps: jtransformer.decode_step(
+        q, jcfg, tok, c, ps, dtype=jnp.float32))
     for t in range(prompt, S):
         pos = np.full((2,), t, np.int32)
         lg, cache = transformer.decode_step(tp, cfg, _t(toks[:, t:t + 1]),
                                             cache, _t(pos), dtype=F32)
-        jlg, jcache = jtransformer.decode_step(
-            jp, jcfg, jnp.asarray(toks[:, t:t + 1]), jcache,
-            jnp.asarray(pos), dtype=jnp.float32)
+        jlg, jcache = jdecode(jp, jnp.asarray(toks[:, t:t + 1]), jcache,
+                              jnp.asarray(pos))
         ref, _ = transformer.forward(tp, cfg, _t(toks[:, :t + 1]), dtype=F32,
                                      remat=False)
-        assert _err(lg[:, 0], ref.detach()[:, t]) < ATOL, t
-        assert _err(lg, jlg) < ATOL, t
+        assert _err(lg[:, 0], ref.detach()[:, t]) < ATOL, (name, t)
+        assert _err(lg, jlg) < ATOL, (name, t)
 
 
 def test_ragged_prefill_matches_exact_per_row():

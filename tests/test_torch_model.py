@@ -107,7 +107,7 @@ def test_bf16_leaves_round_trip():
 
 def test_unported_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        configs.get("mixtral-8x22b")
+        configs.get("qwen2-vl-72b")
     with pytest.raises(ValueError, match="unknown arch"):
         configs.get("gpt-17")
 

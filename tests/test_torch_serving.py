@@ -3,8 +3,9 @@
 one-request-at-a-time decode and of the reference engine, the slot pool
 admits, evicts and reuses, ``plan_serve`` and the memory model's serving
 terms equal the reference's field by field, ``synthetic_traffic`` gives
-the same requests, and the families whose layers are not ported fail
-fast naming their ROADMAP item.
+the same requests; the ssm, hybrid and MoE families prefill exact-length
+groups and serve as the reference does, and enc-dec configs are refused
+naming their ROADMAP item.
 
 Tolerance: fp32 logits within 1e-4 (``tests/test_decode_consistency.py``'s);
 a token must equal the reference's wherever the reference's top-2 margin
@@ -364,6 +365,47 @@ def test_plan_serve_equals_reference_for_configs(arch, reduced):
         assert got["kv_slot_bytes"] == 2_114_961_408
 
 
+# the state and MoE families' serving cells: (budget GiB, max_len, depth)
+# and the plan the reference's arithmetic gives — slots, prefill micro,
+# kv_slot_bytes, prefill bytes a sample, modeled peak
+FAMILY_CELLS = {
+    "mamba2-780m": ((10, 2048, None),
+                    (84, 8, 76_455_936, 139_571_616, 10_725_633_280)),
+    "recurrentgemma-2b": ((24, 4096, None),
+                          (256, 4, 17_303_552, 2_513_938_432,
+                           25_281_685_504)),
+    "moonshot-v1-16b-a3b": ((32, 2048, 4),
+                            (256, 8, 67_141_632, 214_335_488,
+                             29_718_093_824)),
+}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CELLS))
+@pytest.mark.parametrize("reduced", [True, False])
+def test_plan_serve_equals_reference_for_family_configs(arch, reduced):
+    """The ssm, hybrid and MoE configs: reduced at a small budget, and at
+    full width at the serving cells' budgets (moonshot cut to 4 layers),
+    where the plan is pinned integer for integer."""
+    (budget_gb, max_len, layers), pinned = FAMILY_CELLS[arch]
+    if reduced:
+        cfg, jcfg = configs.get_reduced(arch), jconfigs.get_reduced(arch)
+        budget, max_len = 1 << 28, 128
+    else:
+        cfg, jcfg = configs.get(arch), jconfigs.get(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+            jcfg = dataclasses.replace(jcfg, num_layers=layers)
+        budget = budget_gb << 30
+    got, want = _plan_both(jcfg, cfg, budget_bytes=budget, max_len=max_len)
+    assert got == want and got is not ValueError
+    assert not got["ragged_prefill"]
+    if not reduced:
+        plan = serving.ServePlan(**got)
+        assert (plan.max_decode_slots, plan.prefill_micro,
+                plan.kv_slot_bytes, plan.prefill_bytes_per_sample,
+                plan.modeled_peak_bytes()) == pinned
+
+
 _ESTIMATE_CASES = {
     "global-local": dict(pattern=("global", "local")),
     "ssm": dict(pattern=("ssm", "global"), ssm_state=16, ssm_head_dim=24),
@@ -452,7 +494,7 @@ def test_synthetic_traffic_equals_reference():
 # family guards
 # ---------------------------------------------------------------------------
 
-_UNPORTED = {
+_FAMILIES = {
     "ssm": dict(pattern=("ssm",), ssm_state=16, ssm_head_dim=24,
                 num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0),
     "recurrent": dict(pattern=("recurrent", "recurrent", "local"),
@@ -463,31 +505,98 @@ _UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("case", list(_UNPORTED))
+@pytest.mark.parametrize("case", list(_FAMILIES))
 def test_unported_families_name_item_10(case):
-    """The reference serves ssm / recurrent / MoE stacks (exact-length
-    prefill groups) and refuses enc-dec; their layers are not in the port,
-    which says so before allocating anything — in check_servable,
-    plan_serve, init_cache, prefill and the pool."""
-    kw = dict(_UNPORTED[case])
+    """The reference serves ssm / recurrent / MoE stacks in exact-length
+    prefill groups and refuses enc-dec. The port plans the three families
+    as the reference does (plan field for field, not ragged), its pool
+    holds exactly slots × ``kv_slot_bytes``, and its engine gives the
+    reference engine's tokens; enc-dec is refused before anything is
+    allocated — in check_servable and plan_serve with the reference's
+    message, in init_cache, prefill and the pool — naming item 10."""
+    kw = dict(_FAMILIES[case])
     jcfg, cfg = _cfgs(kw.pop("pattern"), **kw)
     if case == "encdec":
         with pytest.raises(ValueError, match="encoder-decoder"):
             jserving.check_servable(jcfg)
-    else:
-        assert not jserving.plan_serve(jcfg, budget_bytes=1 << 28,
-                                       max_len=24).ragged_prefill
-    for call in (lambda: serving.check_servable(cfg),
-                 lambda: serving.plan_serve(cfg, budget_bytes=1 << 28,
-                                            max_len=24),
-                 lambda: transformer.init_cache(cfg, 2, 24, F32,
-                                                device="cpu"),
-                 lambda: transformer.prefill(
-                     {}, cfg, torch.zeros((2, 8), dtype=torch.long), 24),
-                 lambda: KVPool(cfg, 2, 24, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
-    assert not transformer.supports_ragged_prefill(cfg) or case == "encdec"
+        for call in (lambda: serving.check_servable(cfg),
+                     lambda: serving.plan_serve(cfg, budget_bytes=1 << 28,
+                                                max_len=24)):
+            with pytest.raises(ValueError, match="encoder-decoder.*item 10"):
+                call()
+        for call in (lambda: transformer.init_cache(cfg, 2, 24, F32,
+                                                    device="cpu"),
+                     lambda: transformer.prefill(
+                         {}, cfg, torch.zeros((2, 8), dtype=torch.long), 24),
+                     lambda: KVPool(cfg, 2, 24, device="cpu")):
+            with pytest.raises(NotImplementedError, match="item 10"):
+                call()
+        return
+    got, want = _plan_both(jcfg, cfg, budget_bytes=1 << 28, max_len=24)
+    assert got == want and got is not ValueError
+    assert not got["ragged_prefill"] and not \
+        transformer.supports_ragged_prefill(cfg)
+    pool = KVPool(cfg, 3, 24, dtype=torch.bfloat16, device="cpu")
+    assert pool.bytes() == 3 * memory_model.kv_slot_bytes(cfg, 24)
+    p = jax.tree.map(np.asarray, jtransformer.init_params(
+        jcfg, jax.random.PRNGKey(0)))
+    tp, jp = weights.from_reference(p, "cpu"), jax.tree.map(jnp.asarray, p)
+    reqs, jreqs = _traffic(serving, 6, 5), _traffic(jserving, 6, 5)
+    plan, eng, rep = _run_engine(cfg, tp, reqs, 24)
+    jplan = jserving.plan_serve(jcfg, budget_bytes=1 << 28, max_len=24)
+    jeng = jserving.ServingEngine(jp, jcfg, jplan, dtype=jnp.float32,
+                                  cache_dtype=jnp.float32)
+    jeng.run(jreqs, warmup_prompt_lens=[r.prompt_len for r in jreqs])
+    assert rep["requests"]["finished"] == 6 and eng.pool.free_count == \
+        plan.max_decode_slots
+    for r, jr in zip(reqs, jreqs):
+        want = _jax_teacher_forced(jp, jcfg, r, plan.max_len)
+        got = _teacher_forced(tp, cfg, r, plan.max_len)
+        assert float(np.max(np.abs(got - want))) < ATOL, (case, r.rid)
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        for i, (a, b) in enumerate(zip(r.tokens, jr.tokens)):
+            if top2[i, 1] - top2[i, 0] <= 2 * ATOL:
+                break
+            assert a == b, (case, r.rid, i)
+
+
+def test_moe_and_state_families_group_exact_length():
+    """``tests/test_serving.py``'s case: the plan groups exact lengths and
+    the model refuses a ragged ``lengths=`` prefill."""
+    moe = _cfg(("global",), num_experts=4, experts_per_token=2, moe_d_ff=64,
+               d_ff=0, capacity_factor=8.0)
+    for cfg in (moe, _cfg(("ssm",), ssm_state=16, ssm_head_dim=24,
+                          num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0)):
+        plan = serving.plan_serve(cfg, budget_bytes=1 << 28, max_len=24)
+        assert not plan.ragged_prefill
+        assert "exact-length" in plan.describe()
+        params = transformer.init_params(cfg, seed=0, device="cpu")
+        with pytest.raises(ValueError, match="ragged"):
+            transformer.prefill(params, cfg,
+                                torch.zeros((2, 8), dtype=torch.long), 24,
+                                dtype=F32, lengths=torch.tensor([5, 8]))
+
+
+@pytest.mark.parametrize("pattern", [("ssm", "global"),
+                                     ("recurrent", "recurrent", "local")])
+def test_mixed_patterns_match_one_request_at_a_time(pattern):
+    """``tests/test_serving.py``'s mixed patterns: exact-length groups
+    (one length per prefill micro-batch, whatever the queue holds) and
+    continuous batching give each request the tokens of its own greedy
+    decode."""
+    kw = (dict(ssm_state=16, ssm_head_dim=32, conv_width=4)
+          if "ssm" in pattern else dict(lru_width=48))
+    cfg = _cfg(pattern, **kw)
+    tp = transformer.init_params(cfg, seed=0, device="cpu")
+    reqs = _traffic(serving, 9, 2)
+    plan, eng, rep = _run_engine(cfg, tp, reqs, 32)
+    assert not plan.ragged_prefill
+    assert rep["requests"]["finished"] == len(reqs)
+    assert rep["prefill"]["batches"] >= len({r.prompt_len for r in reqs})
+    for r in reqs:
+        assert r.state == serving.FINISHED
+        assert r.tokens == _reference_tokens(tp, cfg, r, plan.max_len), \
+            (pattern, r.rid)
 
 
 def test_plan_serve_on_a_mesh_names_item_11():
@@ -520,4 +629,6 @@ def test_all_archs_plan_or_fail_cleanly():
             torch.zeros((2,), dtype=torch.int32), dtype=F32)
         assert lg.shape == (2, 1, cfg.vocab_size)
         served.append(arch)
-    assert served == ["gemma2-9b", "gemma3-12b", "qwen2-1.5b"]
+    assert served == ["gemma2-9b", "grok-1-314b", "recurrentgemma-2b",
+                      "gemma3-12b", "qwen2-1.5b", "mixtral-8x22b",
+                      "mamba2-780m", "moonshot-v1-16b-a3b"]
