@@ -201,10 +201,31 @@ Phases (any failure exits non-zero before the last line is printed):
      differ) and one ``flat`` step (K1, K2) against ``compiled``
      (``family_step_check``).
 
+  16a. data parallelism through the launcher (``dp_main_path_phase``):
+     ``torchrun --standalone --nproc_per_node 2 -m
+     repro_torch.launch.train`` for full qwen2-1.5b (``flat``, bf16 over
+     fp32, seq 1024, mini-batch 16 = 8 × micro 2, local micro 1, 3 steps,
+     ``--mesh 2:1``), both ranks on ``cuda:0`` over gloo, each capped at
+     0.48 of the card (``launch.mesh.init_world``); the whole command is
+     killed with its ranks past DP_TIMEOUT_S. Each rank's ``--report``:
+     losses finite, the first near ln(vocab), equal on both ranks;
+     exactly one all-reduce a step on each (the port's census), its
+     seconds with the device synchronized around it and its share of the
+     steady step; K1 steps × N_Sμ and K2 steps launches a rank; the peak
+     beside the per-device estimate; the backend the launcher printed;
+  16b. two ranks sharing the card in a ``launch.world.LocalWorld``, full
+     width at 2 layers, fp32, TF32 off (``dp_check_phase``): 2 steps of
+     ``ShardedExecutor`` over ``flat``, ``fused``, ``compiled`` and
+     ``streaming`` (its host-mini-batch ``step``) against one device's
+     ``compiled`` on the same global mini-batches — params and momentum
+     within phase 5's rtol / atol 1e-6, the ranks bit-identical, one
+     all-reduce a step; ``defer_sync=False`` N_Sμ all-reduces a step; a
+     NaN in rank 0's block alone leaves both ranks' state ``torch.equal``.
+
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
-``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's and
-15's numbers)
+``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's,
+15's and 16's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3533,6 +3554,299 @@ def family_phases(timed, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 16. data parallelism: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# 16a: the launcher under torchrun, full qwen2-1.5b, the main path's
+# settings with 8 micro-batches of 2 (local micro 1 a rank)
+DP_RANKS = 2
+DP_ARGV = ["--arch", "qwen2-1.5b", "--executor", "flat",
+           "--dtype", "bfloat16", "--seq", "1024", "--mini-batch", "16",
+           "--microbatches", "8", "--steps", "3", "--log-every", "1",
+           "--mesh", f"{DP_RANKS}:1"]
+DP_TIMEOUT_S = 600  # the whole torchrun command; the ranks' own process
+# group times out a collective after launch.mesh.DEFAULT_TIMEOUT_S
+# 16b: the four inners at 2 layers of full width, fp32, against one
+# device's compiled step: mini-batch 8 = 4 micro-batches of 2
+DP_CHECK_STEPS = 2
+DP_CHECK_INNERS = ("flat", "fused", "compiled", "streaming")
+
+
+def _run_group(cmd, env, timeout_s: float) -> tuple:
+    """``cmd`` in a session of its own, killed whole (torchrun and its
+    ranks) if it outlives ``timeout_s``: (exit code, output)."""
+    import signal
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise SmokeFailure(f"{cmd[:6]}... did not finish in {timeout_s}s; "
+                           f"killed with its ranks. Output:\n{out[-4000:]}")
+    return proc.returncode, out
+
+
+def dp_main_path_phase(dev) -> dict:
+    """16a. ``torchrun --nproc_per_node 2 -m repro_torch.launch.train``
+    with DP_ARGV: both ranks on ``cuda:0`` over gloo, each capped at its
+    share of the card, ``ShardedExecutor`` over ``flat``. Each rank's
+    ``--report``: every loss finite and the first near ln(vocab), the
+    same on both ranks; exactly one all-reduce a step on each rank
+    (``engine.collective_stats``), its seconds (the device synchronized
+    around it) and share of the steady step; K1 steps × N_Sμ × buckets
+    and K2 steps × buckets launches a rank; the peak beside the per-device
+    estimate; the backend the launcher printed."""
+    out_dir = os.path.join(ROOT, "build", "dp")
+    os.makedirs(out_dir, exist_ok=True)
+    report = os.path.join(out_dir, "run.json")
+    for r in range(DP_RANKS):
+        path = os.path.join(out_dir, f"run.rank{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    gc_collect()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(DP_RANKS), "-m",
+           "repro_torch.launch.train", *DP_ARGV, "--report", report]
+    t0 = time.perf_counter()
+    rc, log = _run_group(cmd, env, DP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "launcher.log"), "w") as f:
+        f.write(log)
+    check(rc == 0, f"16a: torchrun exited {rc}:\n{log[-4000:]}")
+    backend = re.search(r"\[mesh\] .* backend (\w+)", log)
+    check(backend is not None and backend.group(1) == "gloo",
+          f"16a: the launcher did not say it chose gloo:\n{log[-2000:]}")
+    reps = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out_dir, f"run.rank{r}.json")) as f:
+            reps.append(json.load(f))
+    vocab = 151936
+    losses = [[h["loss"] for h in rep["history"]] for rep in reps]
+    steps, n_s = len(losses[0]), reps[0]["num_micro_batches"]
+    check(steps == 3, f"16a: {steps} steps")
+    check(losses[0] == losses[1], f"16a: the ranks' losses differ: {losses}")
+    check(all(math.isfinite(x) for x in losses[0]),
+          f"16a: losses not finite: {losses[0]}")
+    check(abs(losses[0][0] - math.log(vocab)) < 1.0,
+          f"16a: first loss {losses[0][0]} is far from ln(vocab)")
+    out = {"card": card_line(), "backend": backend.group(1),
+           "plan": reps[0]["plan"], "losses": losses[0], "wall_s": wall,
+           "ranks": []}
+    for rep in reps:
+        r = rep["rank"]
+        calls = rep["all_reduce"]["calls"]
+        launches = rep["launches"]
+        check(calls == steps, f"16a rank {r}: {calls} all-reduces in "
+                              f"{steps} steps, expected exactly 1 a step")
+        check(launches["grad_accum"] == steps * n_s and
+              launches["fused_sgd_mom"] == steps,
+              f"16a rank {r}: launches {launches}, expected K1 "
+              f"{steps * n_s} and K2 {steps}")
+        clocks = [h["readback_s"] for h in rep["history"]]
+        gaps = [b - a for a, b in zip(clocks, clocks[1:])]
+        steady = sum(gaps[:-1]) / len(gaps[:-1])
+        ar_s = rep["all_reduce"]["seconds"] / calls
+        out["ranks"].append({
+            "rank": r, "device": rep["device"],
+            "memory_fraction": rep["memory_fraction"],
+            "all_reduce_calls": calls,
+            "all_reduce_calls_per_step": calls / steps,
+            "all_reduce_bytes": rep["all_reduce"]["bytes"],
+            "all_reduce_s": ar_s, "steady_step_s": steady,
+            "readback_gaps_s": gaps,
+            "all_reduce_share": ar_s / steady,
+            "peak_bytes": rep["peak_allocated_bytes"],
+            "peak_reserved_bytes": rep["peak_reserved_bytes"],
+            "estimate_bytes": rep["estimate_bytes"], "launches": launches})
+        print(f"16a rank {r} [{out['card']}]: {rep['device']} "
+              f"(backend {out['backend']}, memory fraction "
+              f"{rep['memory_fraction']:.3f}); losses {losses[0]}; steady "
+              f"step {steady:.4f}s ({16 * 1024 / steady:.1f} tokens/s for "
+              f"the world; gaps {gaps}); all-reduce {calls} calls in "
+              f"{steps} steps ({calls / steps:.2f} a step) of "
+              f"{rep['all_reduce']['bytes'] // calls} B, {ar_s:.4f}s each, "
+              f"{100 * ar_s / steady:.1f} % of the step; peak allocated "
+              f"{rep['peak_allocated_bytes']} B "
+              f"({rep['peak_allocated_bytes'] / GIB:.3f} GiB) vs per-device "
+              f"estimate {rep['estimate_bytes']} B "
+              f"({rep['estimate_bytes'] / GIB:.3f} GiB); K1/K2 launches "
+              f"{launches['grad_accum']}/{launches['fused_sgd_mom']}",
+              flush=True)
+    print(f"16a: {reps[0]['plan']}; torchrun wall {wall:.1f}s incl. start "
+          f"and init", flush=True)
+    out["counts"] = {f"rank{rep['rank']}": rep["launches"] for rep in reps}
+    return out
+
+
+def dp_check_rank(mesh, steps: int) -> dict:
+    """16b on one rank (``launch.world.LocalWorld``): the four inners'
+    sharded steps against one device's ``compiled`` steps on the same
+    global mini-batches (computed on this rank), the ``defer_sync=False``
+    census and the guard's poisoned step. Returns errors, counts and
+    fingerprints; tensors stay on the rank."""
+    import torch
+    from repro_torch import configs, engine, optim, tree
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=2)
+    plan = engine.plan_mbs(8, num_microbatches=4, remat_policy="none",
+                           mesh=mesh, fsdp_params=False, device=dev)
+    loss_fn = steps_lib.make_loss_fn(cfg, dtype=torch.float32,
+                                     remat_policy="none")
+    ds = LMDataset(cfg.vocab_size, 256, seed=0)
+    batches = [ds.batch(8, i) for i in range(steps)]
+
+    def fresh(ex):
+        opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        state = opt.init(params)
+        if getattr(ex, "prepare", None) is not None:
+            params, state = ex.prepare(params, state)
+        return opt, params, state
+
+    def make(name, **kw):
+        opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+        return engine.ShardedExecutor(loss_fn, opt, plan, mesh=mesh,
+                                      inner=name, **kw)
+
+    # one device's compiled steps on the global mini-batches
+    one = engine.CompiledScanExecutor(
+        loss_fn, optim.sgd(0.05, momentum=0.9, weight_decay=5e-4), plan)
+    _, params, state = fresh(one)
+    ref_losses = []
+    for b in batches:
+        params, state, m = one.step_split(params, state,
+                                          plan.device_split(b, dev))
+        ref_losses.append(float(m["loss"]))
+    ref = [t.clone() for t in tree.leaves((params, state["mom"]))]
+    del params, state
+    out = {"plan": plan.describe(), "ref_losses": ref_losses, "inners": {}}
+    for name in DP_CHECK_INNERS:
+        ex = make(name)
+        _, params, state = fresh(ex)
+        losses, calls = [], []
+        for b in batches:
+            engine.reset_collective_stats()
+            if name == "streaming":  # the host mini-batch, streamed
+                params, state, m = ex.step(params, state, dict(b))
+            else:
+                params, state, m = ex.step_split(params, state,
+                                                 ex.stage(plan.split(b)))
+            losses.append(float(m["loss"]))
+            calls.append(engine.collective_stats()["calls"])
+        worst, ok = 0.0, True
+        got = tree.leaves((params, state["mom"]))
+        for x, y in zip(got, ref):
+            err, fine = max_violation(x, y)
+            worst, ok = max(worst, err), ok and fine
+        out["inners"][name] = {
+            "losses": losses, "calls": calls, "max_abs_err": worst,
+            "within": ok, "fingerprint": [float(t.double().sum())
+                                          for t in got]}
+        del ex, params, state, got
+    # the per-micro baseline: N_Smu all-reduces a step
+    ex = make("compiled", defer_sync=False)
+    _, params, state = fresh(ex)
+    engine.reset_collective_stats()
+    params, state, m = ex.step_split(params, state,
+                                     ex.stage(plan.split(batches[0])))
+    out["baseline_calls"] = engine.collective_stats()["calls"]
+    del ex, params, state
+    # the guard: a NaN in rank 0's block only; every rank skips
+    ex = make("flat", guard=True)
+    _, params, state = fresh(ex)
+    before = [t.clone() for t in tree.leaves((params, state))]
+    local = ex.stage(plan.split(batches[0]))
+    if mesh.rank == 0:
+        local["sample_weight"][0, 0] = float("nan")
+    engine.reset_collective_stats()
+    params, state, m = ex.step_split(params, state, local)
+    after = tree.leaves((params, state))
+    out["guard"] = {
+        "nonfinite": float(m["nonfinite"]),
+        "unchanged": all(torch.equal(a, b) for a, b in zip(after, before)),
+        "calls": engine.collective_stats()["calls"]}
+    del ex, params, state, before, after
+    torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def dp_check_phase(dev) -> dict:
+    """16b. Two ranks sharing the card (``launch.world.LocalWorld`` on
+    CUDA: gloo, each capped at its share), full qwen2-1.5b width at 2
+    layers, fp32, TF32 off (phase 5's size, in fp32: the two sides'
+    GEMMs have other shapes): DP_CHECK_STEPS steps of ``ShardedExecutor``
+    with each inner against one device's ``compiled`` steps on the same
+    global mini-batches — params and momentum within phase 5's rtol /
+    atol 1e-6, one all-reduce a step, the ranks bit-identical; the
+    ``defer_sync=False`` baseline's N_Sμ all-reduces; a NaN in rank 0's
+    block only leaves both ranks' state ``torch.equal`` with
+    ``nonfinite`` 1 on both. The world is stopped whatever happens."""
+    from repro_torch.launch.world import LocalWorld
+
+    gc_collect()
+    store = os.path.join(ROOT, "build", "dp")
+    os.makedirs(store, exist_ok=True)
+    with LocalWorld(DP_RANKS, device="cuda", store_dir=store,
+                    timeout_s=300, threads=0) as world:
+        res = world.run(dp_check_rank, DP_CHECK_STEPS)
+    card = card_line()
+    n_s = 4
+    out = {"card": card, "plan": res[0]["plan"], "inners": {},
+           "ref_losses": res[0]["ref_losses"]}
+    for name in DP_CHECK_INNERS:
+        a, b = res[0]["inners"][name], res[1]["inners"][name]
+        check(a["fingerprint"] == b["fingerprint"] and
+              a["losses"] == b["losses"],
+              f"16b {name}: the ranks' states differ")
+        for r in res:
+            got = r["inners"][name]
+            check(got["within"], f"16b {name}: params/momentum differ from "
+                                 f"one device's compiled by "
+                                 f"{got['max_abs_err']:.3e} (rtol 1e-6, "
+                                 f"atol 1e-6)")
+            check(got["calls"] == [1] * DP_CHECK_STEPS,
+                  f"16b {name}: all-reduces a step {got['calls']}")
+        for x, y in zip(a["losses"], res[0]["ref_losses"]):
+            check(abs(x - y) <= 1e-5 * abs(y),
+                  f"16b {name}: loss {x} vs one device's {y}")
+        out["inners"][name] = {"max_abs_err": max(
+            r["inners"][name]["max_abs_err"] for r in res),
+            "losses": a["losses"], "calls": a["calls"]}
+        print(f"16b [{card}]: sharded {name} x {DP_RANKS} ranks == one "
+              f"device's compiled after {DP_CHECK_STEPS} steps at qwen2-1.5b "
+              f"width, 2 layers, fp32 (losses {a['losses']}, max abs err "
+              f"{out['inners'][name]['max_abs_err']:.3e}; all-reduces a "
+              f"step {a['calls']})", flush=True)
+    base = [r["baseline_calls"] for r in res]
+    check(base == [n_s] * DP_RANKS, f"16b: defer_sync=False issued {base} "
+                                    f"all-reduces, expected {n_s} a rank")
+    guard = [r["guard"] for r in res]
+    check(all(g["nonfinite"] == 1.0 and g["unchanged"] and g["calls"] == 1
+              for g in guard),
+          f"16b: a NaN in rank 0's block: {guard}")
+    out.update(baseline_calls=base, guard=guard,
+               peak_bytes=[r["peak_bytes"] for r in res])
+    print(f"16b: defer_sync=False {base[0]} all-reduces a step (N_Smu "
+          f"{n_s}) against 1 deferred; a NaN in rank 0's block: nonfinite "
+          f"{[g['nonfinite'] for g in guard]}, state torch.equal on both "
+          f"ranks, 1 all-reduce; rank peaks {out['peak_bytes']} B",
+          flush=True)
+    return out
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -3599,15 +3913,20 @@ def run() -> dict:
     serve_check = {a: timed(f"14c serve check {a}", serve_correctness_phase,
                             dev, a) for a in ("qwen2-1.5b", "gemma2-9b")}
     fam = family_phases(timed, dev)
+    dp = {"train": timed("16a data parallel", dp_main_path_phase, dev),
+          "check": timed("16b data-parallel check", dp_check_phase, dev)}
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
-    # families' training paths, the kernel-API path's and the five
-    # serving paths' — each read right after it ran
+    # families' training paths, the data-parallel path's ranks, the
+    # kernel-API path's and the five serving paths' — each read right
+    # after it ran (a rank's in its own process)
     serve_paths = {f"serve {a}": r["counts"]
                    for a, r in [*serve.items(), *fam["serve"].items()]}
     paths = {"qwen2-1.5b": main["counts"],
              **{w: r["counts"] for w, r in cnns.items()},
              **{f"train {a}": r["counts"] for a, r in fam["train"].items()},
+             **{f"dp qwen2-1.5b {k}": c
+                for k, c in dp["train"]["counts"].items()},
              **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
@@ -3668,6 +3987,9 @@ def run() -> dict:
         "calibration": calibration, "cnn": cnns, "tuner": tuner,
         "guard": guard, "oom_ladder": ladder, "calibration_miss": miss,
         "serve": serve, "serve_check": serve_check, "families": fam,
+        "data_parallel": {"train": {k: v for k, v in dp["train"].items()
+                                    if k != "counts"},
+                          "check": dp["check"]},
         "phase_s": phase_s,
         "total_s": sum(phase_s.values())}}),
         flush=True)

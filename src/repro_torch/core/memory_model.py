@@ -25,6 +25,7 @@ bytes of one request slot and one prefill sample's working set, which
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -135,21 +136,74 @@ def activation_bytes_per_sample(cfg: ModelConfig, seq: int,
     return boundary + live + logits_live
 
 
+def param_shard_ratio(cfg: ModelConfig, mesh, *, fsdp: bool = True) -> float:
+    """Per-device fraction of the parameter bytes under the reference's
+    sharding policy (``launch/sharding.param_specs``), divisibility
+    included: a leaf whose dims do not divide the mesh stays replicated
+    and costs its full bytes. Gradients and optimizer state shard with the
+    same specs, so one ratio covers all three terms. ``fsdp=False`` models
+    the data-parallel executor that replicates params (the port's
+    ``ShardedExecutor``): only the model axis discounts. Memoized on
+    (config, axis sizes, fsdp)."""
+    return _param_shard_ratio(cfg, tuple(mesh.items()), fsdp)
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree of ``cfg`` as shapes only: ``init_params`` under
+    a fake-tensor mode, which allocates nothing (the reference's
+    ``jax.eval_shape``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ..models import transformer  # deferred: models import this module
+    with FakeTensorMode():
+        return transformer.init_params(cfg, seed=0, device="cpu")
+
+
+@functools.lru_cache(maxsize=256)
+def _param_shard_ratio(cfg: ModelConfig, mesh_dims: tuple,
+                       fsdp: bool) -> float:
+    from .. import tree
+    from ..launch import sharding as sharding_lib  # deferred: no cycle
+    dims = dict(mesh_dims)
+    shapes = param_shapes(cfg)
+    specs = sharding_lib.param_specs(shapes, dims, fsdp=fsdp)
+    total = sharded = 0
+    for leaf, spec in zip(tree.leaves(shapes),
+                          sharding_lib.spec_leaves(specs)):
+        n = leaf.numel()
+        total += n
+        sharded += -(-n // sharding_lib.shard_factor(spec, dims))
+    return sharded / total if total else 1.0
+
+
 def estimate(cfg: ModelConfig, seq: int, *,
              opt_slots: Optional[int] = None, act_bytes: int = 2,
              remat: bool = True, remat_policy: Optional[str] = None,
-             optimizer: str = "sgd", fused_update: bool = False
-             ) -> MemoryEstimate:
-    """Single-device estimate. ``fused_update=True`` models the flat
-    in-place update (``--executor flat``), whose step-❺ transient is zero."""
-    p_bytes = cfg.param_count() * 4
+             optimizer: str = "sgd", fused_update: bool = False,
+             mesh=None, fsdp_params: bool = True) -> MemoryEstimate:
+    """``fused_update=True`` models the flat in-place update (``--executor
+    flat``), whose step-❺ transient is zero.
+
+    ``mesh`` switches to the PER-DEVICE estimate: the params, gradients,
+    optimizer-state and update-transient terms are discounted by
+    :func:`param_shard_ratio` (``fsdp_params=False``: the replicating
+    data-parallel executor) and the activation term is divided by the
+    model axis only — the data axis enters through the *local*
+    micro-batch the caller budgets with."""
+    tp = 1
+    if mesh is not None:
+        from ..launch import mesh as mesh_lib  # deferred: no cycle
+        tp = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
+        p_bytes = int(cfg.param_count() * 4
+                      * param_shard_ratio(cfg, mesh, fsdp=fsdp_params))
+    else:
+        p_bytes = cfg.param_count() * 4
     slots = _resolve_slots(optimizer, opt_slots)
     return MemoryEstimate(
         params_bytes=p_bytes,
         grads_bytes=p_bytes,
         opt_bytes=slots * p_bytes,
         activation_bytes_per_sample=activation_bytes_per_sample(
-            cfg, seq, act_bytes, remat, remat_policy),
+            cfg, seq, act_bytes, remat, remat_policy) // tp,
         fixed_bytes=FIXED_BYTES,
         update_transient_bytes=update_transient_bytes(
             p_bytes, optimizer, fused_update, opt_slots=slots),
@@ -297,17 +351,20 @@ class ServeMemoryEstimate:
 def serve_estimate(cfg: ModelConfig, max_len: int, *,
                    prefill_len: Optional[int] = None,
                    cache_bytes: int = 2, act_bytes: int = 2,
-                   global_window: Optional[int] = None, mesh=None
-                   ) -> ServeMemoryEstimate:
-    """Analytic serving memory on one device: fp32 inference weights (no
-    gradients, optimizer state or update transient), the per-slot KV bytes
-    at ``max_len`` and the per-sample prefill cost at ``prefill_len``
-    (default ``max_len``)."""
+                   global_window: Optional[int] = None, mesh=None,
+                   fsdp_params: bool = False) -> ServeMemoryEstimate:
+    """Analytic serving memory: fp32 inference weights (no gradients,
+    optimizer state or update transient), the per-slot KV bytes at
+    ``max_len`` and the per-sample prefill cost at ``prefill_len``
+    (default ``max_len``). ``mesh`` makes it the PER-DEVICE estimate as
+    :func:`estimate` does — params discounted by the sharding ratio
+    (``fsdp_params=False``: the replicating data-parallel replica), the
+    cache and activation terms for the *local* slot and prefill counts."""
     if mesh is not None:
-        raise NotImplementedError(
-            "serve_estimate(mesh=...) is not ported yet (ROADMAP.md queue 1 "
-            "item 11, data parallelism)")
-    p_bytes = cfg.param_count() * 4
+        p_bytes = int(cfg.param_count() * 4
+                      * param_shard_ratio(cfg, mesh, fsdp=fsdp_params))
+    else:
+        p_bytes = cfg.param_count() * 4
     pf = max_len if prefill_len is None else prefill_len
     slot = kv_slot_bytes(cfg, max_len, cache_bytes, global_window)
     return ServeMemoryEstimate(

@@ -7,8 +7,10 @@ fault-injection harness (``faults.py``), the fault-tolerant
 guard's retry and skip, bounded I/O retries, give-ups as exit codes
 40–44) and the autotuner (``autotune.py``: the memory oracle behind
 ``plan_mbs(calibrate=)`` and the kernels' block tuner, whose resolver is
-installed on import), and serving (``serving.py``, ``kv.py``: KV-slot
-admission by ``plan_serve`` and the continuous-batching engine)."""
+installed on import), serving (``serving.py``, ``kv.py``: KV-slot
+admission by ``plan_serve`` and the continuous-batching engine), and
+data parallelism (``sharded.py``: the ``ShardedExecutor``, one flat
+all-reduce per mini-batch over ``torch.distributed``)."""
 from .plan import (MBSConfig, MBSPlan, num_micro_batches,  # noqa: F401
                    plan_mbs, split_minibatch)
 from .autotune import (TuningCache, calibrate_memory,  # noqa: F401
@@ -19,6 +21,8 @@ from .executors import (EXECUTORS, CompiledScanExecutor,  # noqa: F401
                         FlatFusedExecutor, FusedAccumExecutor,
                         StreamingExecutor, accumulate_gradients,
                         get_executor, make_baseline_train_step)
+from .sharded import (ShardedExecutor, collective_stats,  # noqa: F401
+                      psum_flat, reset_collective_stats, time_collectives)
 from .pipeline import Pipeline, PipelineStats  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from .supervisor import (FaultRecord, NaNCircuitBreaker, NaNHalt,  # noqa: F401

@@ -362,17 +362,22 @@ def calibrate_memory(cfg, seq: int, *, remat_policy: str = "period",
                      optimizer: str = "sgd", executor: str = "compiled",
                      mesh=None, probe_micros: Sequence[int] = (1, 2, 4),
                      act_bytes: int = 4, opt_slots: Optional[int] = None,
-                     fused_update: bool = False,
+                     fused_update: bool = False, fsdp_params: bool = True,
                      cache: Optional[TuningCache] = None,
                      cache_path: Optional[str] = None,
                      device="cuda") -> MemoryCorrection:
-    """Run the probes for one key, fit, and persist the correction."""
+    """Run the probes for one key, fit, and persist the correction.
+
+    A probe is the single-worker step at micro ``m``; for a mesh plan
+    that is the per-device view the planner budgets (exact for the
+    replicating data-parallel executor), and the entry is keyed by the
+    mesh so it never serves another topology."""
     from ..core import memory_model
     cache = cache or get_cache(cache_path)
     est = memory_model.estimate(
         cfg, seq, opt_slots=opt_slots, act_bytes=act_bytes,
         remat_policy=remat_policy, optimizer=optimizer,
-        fused_update=fused_update)
+        fused_update=fused_update, mesh=mesh, fsdp_params=fsdp_params)
     probes = []
     for m in dict.fromkeys(int(m) for m in probe_micros if m >= 1):
         measured = measured_step_bytes(

@@ -23,6 +23,14 @@ of device tensors ``(N_Sμ, N_μ, ...)`` and returns
 ``(params, opt_state, metrics)`` with device-scalar metrics: nothing in a
 step reads a value back to the host.
 
+``raw_accumulate(params, micro_batches)`` is the per-rank half of the
+data-parallel step (``engine.ShardedExecutor``): the executor's own
+accumulation strategy over a (local) split with no normalization at all
+— each micro loss the raw sum of its valid per-sample losses ("exact"
+with the denominator 1), K1 with scale 1 — returning the gradient sums,
+the loss sum and the metric sums; the caller divides by the global valid
+count after the one all-reduce.
+
 ``guard=True`` (the supervisor's, the reference's ``guard``) puts step ❺
 behind an on-device finite check of the accumulated gradient: a
 non-finite accumulator skips the update — params and optimizer state,
@@ -68,33 +76,44 @@ class _ExecutorBase:
         self.plan = _as_plan(plan)
         self.guard = guard
 
-    def _accumulated(self, params, micro_batches):
+    def _accumulated(self, params, micro_batches, raw: bool = False):
         """(grads tree in accum_dtype, loss, metric_sum) over the split."""
         n_s, total_valid = exec_core.denominators(micro_batches)
         return self._accumulate_over(
             params, (_micro(micro_batches, i) for i in range(n_s)), n_s,
-            total_valid)
+            total_valid, raw=raw)
+
+    def raw_accumulate(self, params, micro_batches):
+        """Un-normalized sums over a (local) split batch — (grad sums,
+        loss sum, metric sums) — by this executor's strategy (see the
+        module doc)."""
+        return self._accumulated(params, micro_batches, raw=True)
 
     def _accumulate_over(self, params, micros: Iterable, n_s: int,
-                         total_valid):
-        """Steps ❷–❹ over the ``n_s`` micro-batches ``micros`` yields."""
+                         total_valid, raw: bool = False):
+        """Steps ❷–❹ over the ``n_s`` micro-batches ``micros`` yields;
+        ``raw=True`` defers all normalization to the caller."""
         plan = self.plan
-        scale = (exec_core.deferred_scale(plan.normalization, n_s,
-                                          total_valid)
-                 if self.fused else None)
+        norm = "exact" if raw else plan.normalization
+        if raw:
+            scale = 1.0 if self.fused else None  # plain unscaled sums
+        else:
+            scale = (exec_core.deferred_scale(plan.normalization, n_s,
+                                              total_valid)
+                     if self.fused else None)
         acc = exec_core.init_accum(params, plan.accum_dtype)
         loss_sum, metric_sum = None, None
         for mb in micros:
             lfn = exec_core.micro_loss_fn(
-                self.loss_fn, plan.normalization, n_s, total_valid, mb,
-                defer_scale=self.fused)
+                self.loss_fn, norm, n_s, total_valid, mb,
+                defer_scale=self.fused or raw)
             loss, metrics, grads = exec_core.value_and_grad(lfn, params)
             acc = exec_core.accumulate(acc, grads, scale=scale,
                                        fused=self.fused)
             del grads
             loss_sum, metric_sum = _add_metrics(loss_sum, metric_sum, loss,
-                                                metrics, n_s)
-        if self.fused:
+                                                metrics, 1 if raw else n_s)
+        if self.fused and not raw:
             loss_sum = loss_sum * scale
         return acc, loss_sum, metric_sum
 
@@ -164,10 +183,19 @@ class StreamingExecutor(_ExecutorBase):
     def step(self, params, opt_state, minibatch: Dict[str, np.ndarray]
              ) -> Tuple[Any, Any, Dict[str, Any]]:
         """One mini-batch update via sequential micro-batch streaming."""
+        return self._update(params, opt_state, *self.stream_accumulate(
+            params, self.plan.split(minibatch)))
+
+    def stream_accumulate(self, params, split: Dict[str, np.ndarray], *,
+                          raw: bool = False):
+        """Steps ❷–❹ over a split host batch, each micro-batch copied to
+        the device on the copy stream while the one before it computes:
+        (grads, loss, metric_sum); ``raw`` as in :meth:`raw_accumulate`
+        (the data-parallel step streams its local block this way)."""
         device = (self.device if self.device is not None
                   else tree.leaves(params)[0].device)
         cuda = device.type == "cuda"
-        host = plan_lib.host_tensors(self.plan.split(minibatch), pin=cuda)
+        host = plan_lib.host_tensors(split, pin=cuda)
         stream = self._stream(device) if cuda else None
         n_s = host["sample_weight"].shape[0]
         # N_B_valid from the whole mask on the device, the reduction
@@ -185,8 +213,8 @@ class StreamingExecutor(_ExecutorBase):
                 cur, nxt = nxt, (put(i + 1) if i + 1 < n_s else None)
                 yield plan_lib.wait_staged(*cur)
 
-        return self._update(params, opt_state, *self._accumulate_over(
-            params, micros(), n_s, total_valid))
+        return self._accumulate_over(params, micros(), n_s, total_valid,
+                                     raw=raw)
 
 
 class FusedAccumExecutor(_ExecutorBase):
@@ -229,34 +257,57 @@ class FlatFusedExecutor(_ExecutorBase):
         return as_flat(params), {k: state_leaf(k, v)
                                  for k, v in opt_state.items()}
 
-    def _accumulated_flat(self, params, micro_batches):
+    def _accumulated_flat(self, params, micro_batches, raw: bool = False,
+                          tail=None):
+        """(spec, accumulator buckets, loss, metric_sum, store). ``raw``
+        defers all normalization (scale 1, raw sums). ``tail(metrics)``
+        (a count of slots) packs the buckets into one store of
+        ``accum_dtype`` with that many more elements after them
+        (``FlatSpec.packed_zeros``), made once the first micro-batch has
+        shown its metrics; ``store`` is None without it."""
         plan = self.plan
         spec = flat.FlatSpec.for_tree(params)
         n_s, total_valid = exec_core.denominators(micro_batches)
-        scale = exec_core.deferred_scale(plan.normalization, n_s,
-                                         total_valid)
+        norm = "exact" if raw else plan.normalization
+        scale = (1.0 if raw else exec_core.deferred_scale(
+            plan.normalization, n_s, total_valid))
         device = tree.leaves(params)[0].device
-        acc = spec.zeros(plan.accum_dtype, device)
+        store = None
+        acc = None if tail else spec.zeros(plan.accum_dtype, device)
         loss_sum, metric_sum = None, None
         for i in range(n_s):
             lfn = exec_core.micro_loss_fn(
-                self.loss_fn, plan.normalization, n_s, total_valid,
+                self.loss_fn, norm, n_s, total_valid,
                 _micro(micro_batches, i), defer_scale=True)
             loss, metrics, grads = exec_core.value_and_grad(lfn, params)
+            if acc is None:
+                store, acc = spec.packed_zeros(plan.accum_dtype, device,
+                                               tail(metrics))
             exec_core.accumulate_flat(acc, spec, grads, scale=scale)
             del grads
             loss_sum, metric_sum = _add_metrics(loss_sum, metric_sum, loss,
-                                                metrics, n_s)
-        return spec, acc, loss_sum * scale, metric_sum
+                                                metrics, 1 if raw else n_s)
+        loss = loss_sum if raw else loss_sum * scale
+        return spec, acc, loss, metric_sum, store
+
+    def raw_accumulate(self, params, micro_batches, tail=None):
+        """Un-normalized flat-bucket sums over a (local) split batch:
+        (spec, accumulator buckets, loss sum, metric sums, store). The
+        buckets stay flat (``spec.unflatten(acc, cast=False)`` is the
+        tree); with ``tail`` they are views of one store that the
+        data-parallel step reduces in place."""
+        return self._accumulated_flat(params, micro_batches, raw=True,
+                                      tail=tail)
 
     def gradients(self, params, micro_batches):
-        spec, acc, loss, _ = self._accumulated_flat(params, micro_batches)
+        spec, acc, loss, _, _ = self._accumulated_flat(params,
+                                                       micro_batches)
         return spec.unflatten(acc, cast=False), loss
 
     def step_split(self, params, opt_state, micro_batches):
         faults.on_dispatch(self.plan)
         params, opt_state = self.prepare(params, opt_state)
-        spec, acc, loss, metric_sum = self._accumulated_flat(
+        spec, acc, loss, metric_sum, _ = self._accumulated_flat(
             params, micro_batches)
         ok = None
         if self.guard:

@@ -76,6 +76,20 @@ class FlatSpec:
         return tuple(torch.zeros((n,), dtype=dtype, device=device)
                      for n in self.bucket_sizes)
 
+    def packed_zeros(self, dtype, device, tail: int = 0
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """(store, buckets): one zero 1-D buffer of every bucket's elements
+        plus ``tail`` more, and the buckets as views into it, in order —
+        an accumulator that one collective can reduce in place, with room
+        after it for ``tail`` scalars."""
+        store = torch.zeros((sum(self.bucket_sizes) + tail,), dtype=dtype,
+                            device=device)
+        views, off = [], 0
+        for n in self.bucket_sizes:
+            views.append(store[off:off + n])
+            off += n
+        return store, tuple(views)
+
     def bucket_blocks(self, kind: str = "grad_accum", *,
                       dtype: Optional[Any] = None,
                       interpret: Optional[bool] = None) -> Tuple[int, ...]:

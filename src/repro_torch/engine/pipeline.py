@@ -22,6 +22,7 @@ up here, not as mysteriously slow device time.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import random as _random
 import time
 from typing import Any, Dict, Iterator, Optional
@@ -66,8 +67,12 @@ class Pipeline:
     absorbed retries are counted in ``stats.retries``. A retry re-draws
     the SAME seeded batch, so an absorbed fault never perturbs the data.
 
-    ``mesh=`` and ``sharding=`` (the reference's batch shardings) come
-    with data parallelism, ROADMAP.md queue 1 item 11.
+    With a data-parallel ``mesh`` (``launch.mesh.Mesh``) every rank
+    draws the same global mini-batch from the seed and stages only its
+    own block of the sample dim, ``[r·local, (r+1)·local)`` for rank r
+    (``engine.sharded.local_block``). ``sharding`` is a function from a split
+    host batch to the part of it this rank stages (an
+    ``engine.ShardedExecutor``'s ``shard``); give one or the other.
     """
 
     def __init__(self, dataset, plan: MBSPlan, *, prefetch: int = 2,
@@ -75,10 +80,16 @@ class Pipeline:
                  batch_kw: Optional[Dict[str, Any]] = None,
                  retries: int = 2, retry_backoff_s: float = 0.01,
                  mesh: Any = None, sharding: Any = None):
-        if mesh is not None or sharding is not None:
-            raise NotImplementedError(
-                "Pipeline(mesh=..., sharding=...) is not ported yet "
-                "(ROADMAP.md queue 1 item 11, data parallelism)")
+        if mesh is not None:
+            if sharding is not None:
+                raise ValueError("pass either mesh= or sharding=, not both")
+            from .sharded import local_block  # deferred: no cycle
+            sharding = functools.partial(
+                local_block, micro=plan.micro_batch_size, mesh=mesh)
+        if sharding is not None and not callable(sharding):
+            raise TypeError("sharding= is a function from a split host batch "
+                            "to the part this rank stages")
+        self._shard = sharding
         self.dataset = dataset
         self.plan = plan
         self.prefetch = prefetch
@@ -96,7 +107,10 @@ class Pipeline:
     # -- staging ------------------------------------------------------------
 
     def _host(self, split):
-        """Producer side: page-locked host tensors when staging to CUDA."""
+        """Producer side: this rank's part of the split (with a mesh or a
+        sharding), as page-locked host tensors when staging to CUDA."""
+        if self._shard is not None:
+            split = self._shard(split)
         return plan_lib.host_tensors(split, pin=True) if self._cuda else split
 
     def _put(self, host):

@@ -7,11 +7,11 @@
     and carry a ``sample_weight`` mask; a ragged ``"paper"`` plan is
     upgraded to ``"exact"`` (eq. 15–17 hold for any split there).
 
-Plans equal the JAX package's field for field for the same inputs on one
-device (the mesh and pipeline fields of the JAX plan keep their
-single-device defaults there), calibrated ones included: with
-``calibrate="auto"`` both read the same tuning-cache entry
-(``engine/autotune.py``).
+Plans equal the JAX package's field for field for the same inputs, on
+one device and on a data-parallel mesh (the JAX plan's pipeline fields
+keep their defaults: pipeline parallelism is not ported), calibrated
+ones included: with ``calibrate="auto"`` both read the same tuning-cache
+entry (``engine/autotune.py``).
 
 Staging (paper Fig. 1): :func:`host_tensors` turns a split numpy batch
 into page-locked host tensors, :func:`stage` copies them to the card with
@@ -100,9 +100,10 @@ class MBSPlan:
     # ``correction`` is the (a, b) of ``measured ≈ a·modeled + b`` applied
     calibrated: bool = False
     correction: Optional[tuple] = None
-    # data-parallel geometry (the reference's; one device until ROADMAP.md
-    # queue 1 item 11): each of ``data_parallel`` workers takes
-    # ``local_micro`` samples of every micro-batch
+    # data-parallel geometry: each of ``data_parallel`` workers takes
+    # ``local_micro`` samples of every micro-batch (micro_batch_size =
+    # local_micro * data_parallel); the gradients are summed across them
+    # once per mini-batch (``engine.ShardedExecutor``)
     data_parallel: int = 1
     local_micro: Optional[int] = None  # = micro_batch_size when dp == 1
 
@@ -150,10 +151,12 @@ class MBSPlan:
                                      else "")
         pol = self.remat_policy + (" (auto)" if self.auto_policy else "")
         accum = str(self.accum_dtype).replace("torch.", "")
+        mesh = (f", data-parallel {self.data_parallel} x local "
+                f"{self.local_micro}" if self.data_parallel > 1 else "")
         return (f"MBSPlan: mini-batch {self.mini_batch_size} -> "
                 f"{self.num_micro_batches} x micro-batch "
                 f"{self.micro_batch_size} (pad {self.pad}, micro {src}, "
-                f"normalization {norm}, remat {pol}, accum {accum})")
+                f"normalization {norm}, remat {pol}, accum {accum}{mesh})")
 
 
 def host_tensors(split: Dict[str, np.ndarray], *, pin: bool
@@ -213,6 +216,7 @@ def plan_mbs(mini_batch_size: int, *,
              act_bytes: int = 2, remat: bool = True,
              remat_policy: Optional[str] = None,
              optimizer: str = "sgd", fused_update: bool = False,
+             mesh=None, fsdp_params: bool = True,
              calibrate: str = "off", tuning_cache: Optional[str] = None,
              executor: str = "compiled") -> MBSPlan:
     """Produce an :class:`MBSPlan` for one training setup.
@@ -229,6 +233,18 @@ def plan_mbs(mini_batch_size: int, *,
     chooses it jointly with the micro size (cheapest recompute that meets
     the whole mini-batch, or with a pinned size the cheapest that admits
     it); ``None`` maps the ``remat`` bool (True → "period").
+
+    ``mesh`` (a mapping of axis name to size, e.g. a
+    ``launch.mesh.Mesh``) makes the plan data-parallel: the budget is
+    PER-DEVICE bytes (params and optimizer state discounted by
+    ``memory_model.param_shard_ratio``; ``fsdp_params=False`` models the
+    replicating ``ShardedExecutor``), the memory model sizes the local
+    micro-batch, and the global micro-batch stays divisible by the data
+    extent: a pinned size is rounded UP to the next multiple, but never
+    past the largest multiple that fits in the mini-batch. The plan is
+    arithmetic plus, under ``calibrate="auto"``, one cache read — a
+    launcher with several ranks plans on rank 0 and broadcasts the plan
+    (``launch.mesh.broadcast_object``), so every rank holds the same one.
 
     ``calibrate`` closes the loop against the card (only when the planner
     itself sizes the micro-batch, path 3):
@@ -251,12 +267,24 @@ def plan_mbs(mini_batch_size: int, *,
         raise ValueError(f"mini_batch_size must be >= 1, got {mini_batch_size}")
     from ..core import memory_model  # deferred: core imports this package
     from ..models import remat as remat_lib
+    dp = 1
+    if mesh is not None:
+        from ..launch import mesh as mesh_lib  # deferred: no cycle
+        dp = mesh_lib.data_parallel_size(mesh)
+    if mini_batch_size < dp:
+        raise ValueError(
+            f"mini-batch {mini_batch_size} is smaller than the mesh's "
+            f"data-parallel size {dp}; every worker needs at least one "
+            "sample per micro-batch — shrink the data axis or grow the batch")
     auto_policy_requested = remat_policy == "auto"
     policy = (None if auto_policy_requested
               else remat_lib.resolve(remat, remat_policy))
     can_search = model_cfg is not None and seq_len is not None
     mm_kw = dict(opt_slots=opt_slots, act_bytes=act_bytes,
-                 optimizer=optimizer, fused_update=fused_update)
+                 optimizer=optimizer, fused_update=fused_update,
+                 mesh=mesh, fsdp_params=fsdp_params)
+    # the memory model budgets what ONE device holds: local samples
+    local_mini = mini_batch_size // dp
 
     def budget() -> int:
         return budget_bytes or memory_model.device_memory_bytes(device)
@@ -277,44 +305,49 @@ def plan_mbs(mini_batch_size: int, *,
             raise ValueError("auto micro-batch sizing needs seq_len")
         if auto_policy_requested:
             policy, local = memory_model.suggest_remat_policy_and_micro(
-                model_cfg, seq_len, mini_batch_size, budget_bytes=budget(),
+                model_cfg, seq_len, local_mini, budget_bytes=budget(),
                 **mm_kw)
             policy_searched = True
         else:
             local = memory_model.suggest_micro_batch_size(
-                model_cfg, seq_len, mini_batch_size, budget_bytes=budget(),
+                model_cfg, seq_len, local_mini, budget_bytes=budget(),
                 remat_policy=policy, **mm_kw)
         if calibrate != "off":
             # the analytic search picked the policy; calibration refines
             # the micro size for that policy only
             from . import autotune
             corr = autotune.planner_correction(
-                model_cfg, seq_len, remat_policy=policy, mesh=None,
+                model_cfg, seq_len, remat_policy=policy, mesh=mesh,
                 optimizer=optimizer, executor=executor, mode=calibrate,
                 cache_path=tuning_cache, device=device,
                 opt_slots=opt_slots, act_bytes=act_bytes,
-                fused_update=fused_update)
+                fused_update=fused_update, fsdp_params=fsdp_params)
             if corr is not None:
                 cal_local = autotune.corrected_micro_search(
-                    model_cfg, seq_len, mini_batch_size, budget(), corr,
+                    model_cfg, seq_len, local_mini, budget(), corr,
                     remat_policy=policy, **mm_kw)
                 if cal_local is not None:
                     local = cal_local
                     calibrated = True
                     correction = (float(corr[0]), float(corr[1]))
-        micro = local or 1
+        micro = (local or 1) * dp
         auto = True
     else:
         micro = mini_batch_size
 
     micro = max(1, min(micro, mini_batch_size))  # Algorithm 1 lines 2–4
+    if dp > 1:
+        # divisible by the data extent: round UP to the next multiple (a
+        # worker's load ceil(micro/dp) never exceeds the pinned intent),
+        # capped at the largest multiple within the mini-batch
+        micro = min(dp * -(-micro // dp), dp * local_mini)
     if policy is None:  # "auto" with a pinned micro size (or no model cfg)
         if can_search:
             policy = memory_model.POLICY_ORDER[-1]
             for p in memory_model.POLICY_ORDER:
                 est = memory_model.estimate(model_cfg, seq_len,
                                             remat_policy=p, **mm_kw)
-                if est.total(micro) <= budget():
+                if est.total(micro // dp) <= budget():
                     policy = p
                     break
             policy_searched = True
@@ -333,4 +366,5 @@ def plan_mbs(mini_batch_size: int, *,
                    accum_dtype, auto_micro=auto,
                    auto_normalization=auto_norm, remat_policy=policy,
                    auto_policy=auto_policy_requested and policy_searched,
-                   calibrated=calibrated, correction=correction)
+                   calibrated=calibrated, correction=correction,
+                   data_parallel=dp, local_micro=micro // dp)

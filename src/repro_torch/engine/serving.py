@@ -104,7 +104,9 @@ class ServePlan:
     together. Both were admitted against ``budget_bytes`` through
     ``memory_model.serve_estimate``: ``base_bytes + kv_slot_bytes * slots
     + prefill_bytes_per_sample * micro`` never exceeds the budget. The
-    fields are the JAX package's; ``data_parallel`` is 1 until item 11."""
+    fields are the JAX package's: on a data-parallel mesh the budget is
+    per device and the pool is ``local_slots`` per worker
+    (``max_decode_slots = local_slots * data_parallel``)."""
     max_decode_slots: int
     prefill_micro: int
     max_len: int  # context capacity per slot (prompt + generated)
@@ -127,7 +129,8 @@ class ServePlan:
     def modeled_peak_bytes(self, slots: Optional[int] = None,
                            prefill_micro: Optional[int] = None) -> int:
         """Memory-model peak with ``slots`` decode slots and a
-        ``prefill_micro`` prefill in flight (defaults: the plan's bounds)."""
+        ``prefill_micro`` prefill in flight (defaults: the plan's bounds),
+        per data-parallel worker."""
         s = self.local_slots if slots is None else slots
         m = self.prefill_micro if prefill_micro is None else prefill_micro
         return (self.base_bytes + self.kv_slot_bytes * s
@@ -136,11 +139,13 @@ class ServePlan:
     def describe(self) -> str:
         src = "memory model" if self.auto_slots else "pinned"
         group = "ragged-pad" if self.ragged_prefill else "exact-length"
+        mesh = (f", data-parallel {self.data_parallel} x local "
+                f"{self.local_slots}" if self.data_parallel > 1 else "")
         return (f"ServePlan: {self.max_decode_slots} decode slots @ max_len "
                 f"{self.max_len} ({self.kv_slot_bytes / 2**20:.1f} MiB/slot, "
                 f"{src}), prefill micro {self.prefill_micro} ({group}), "
                 f"modeled peak {self.modeled_peak_bytes() / 2**30:.2f} GiB of "
-                f"budget {self.budget_bytes / 2**30:.2f} GiB")
+                f"budget {self.budget_bytes / 2**30:.2f} GiB{mesh}")
 
 
 def plan_serve(cfg: ModelConfig, *, budget_bytes: int, max_len: int,
@@ -148,6 +153,7 @@ def plan_serve(cfg: ModelConfig, *, budget_bytes: int, max_len: int,
                prefill_micro: Optional[int] = None,
                mesh=None, cache_bytes: int = 2, act_bytes: int = 2,
                global_window: Optional[int] = None,
+               fsdp_params: bool = False,
                slot_cap: int = 256) -> ServePlan:
     """Admission planning for serving — ``plan_mbs`` with KV-slot costs.
 
@@ -155,19 +161,25 @@ def plan_serve(cfg: ModelConfig, *, budget_bytes: int, max_len: int,
     budget; otherwise the largest slot count whose modeled peak fits is
     admitted, halving the prefill micro-batch (from 8, floor 1) while its
     activations would leave fewer slots than the micro-batch itself.
+    ``mesh`` reads ``budget_bytes`` as PER-DEVICE bytes (params discounted
+    by the sharding ratio; ``fsdp_params=False`` models the replicating
+    data-parallel replica) and plans ``local_slots`` per worker — the
+    arithmetic only: the port's ``ServingEngine`` runs on one device
+    (serving across ranks is ROADMAP.md queue 1 item 11's open half).
     ``slot_cap`` bounds the pool so a huge budget on a tiny config cannot
     plan an absurd batch dimension."""
     check_servable(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "plan_serve(mesh=...) is not ported yet (ROADMAP.md queue 1 item "
-            "11, data parallelism)")
     if max_len < 2:
         raise ValueError(f"max_len must be >= 2 (prompt + one token), "
                          f"got {max_len}")
+    dp = 1
+    if mesh is not None:
+        from ..launch import mesh as mesh_lib  # deferred: no cycle
+        dp = mesh_lib.data_parallel_size(mesh)
     est = memory_model.serve_estimate(
         cfg, max_len, prefill_len=max_len, cache_bytes=cache_bytes,
-        act_bytes=act_bytes, global_window=global_window)
+        act_bytes=act_bytes, global_window=global_window, mesh=mesh,
+        fsdp_params=fsdp_params)
     base = est.total(0, 0)
 
     def slots_at(pm: int) -> int:
@@ -206,7 +218,7 @@ def plan_serve(cfg: ModelConfig, *, budget_bytes: int, max_len: int,
     else:
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
-        local = max_slots
+        local = -(-max_slots // dp)
         peak = est.total(local, min(pm, local))
         if peak > budget_bytes:
             raise ValueError(
@@ -217,12 +229,12 @@ def plan_serve(cfg: ModelConfig, *, budget_bytes: int, max_len: int,
                 f"fits at most {slots_at(min(pm, local))} local slots")
     pm = max(1, min(pm, local))
     return ServePlan(
-        max_decode_slots=local, prefill_micro=pm, max_len=max_len,
+        max_decode_slots=local * dp, prefill_micro=pm, max_len=max_len,
         budget_bytes=int(budget_bytes), kv_slot_bytes=est.kv_slot_bytes,
         base_bytes=base, prefill_bytes_per_sample=est.prefill_bytes_per_sample,
         cache_bytes=cache_bytes, global_window=global_window,
         ragged_prefill=transformer.supports_ragged_prefill(cfg),
-        auto_slots=auto_slots, data_parallel=1, local_slots=local)
+        auto_slots=auto_slots, data_parallel=dp, local_slots=local)
 
 
 def _sample(logits, generator: Optional[torch.Generator],

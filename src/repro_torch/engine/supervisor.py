@@ -52,6 +52,15 @@ trees), timed and counted in ``anchor_log``.
 Supervision cost: with the guard on, the supervisor reads the
 ``nonfinite`` flag back every step (the retry must know before the next
 step is dispatched). The guarded step itself reads nothing back.
+
+On a data-parallel mesh every rank runs its own supervisor over an
+``engine.ShardedExecutor``: the guard's flag comes from the globally
+reduced gradient, so every rank retries or skips alike; an injected
+fault is plan-driven and fires on every rank, so every rank degrades
+alike (the re-plan keeps the micro-batch divisible by the data extent).
+Only a ``writer`` (rank 0) saves checkpoints; every rank restores the
+same files. A real fault on one rank alone is not agreed: its peers
+wait in the next collective until the process group's timeout raises.
 """
 from __future__ import annotations
 
@@ -166,8 +175,8 @@ def degrade_plan(plan: MBSPlan, ctx: Optional[Dict[str, Any]] = None
     if plan.micro_batch_size <= max(1, dp):
         raise PlanExhausted(
             f"OOM at remat=full, micro={plan.micro_batch_size}, dp={dp}: "
-            "nothing left to degrade (the model itself does not fit; MBS "
-            "cannot shrink it)")
+            "nothing left to degrade (the model itself does not fit — MBS "
+            "cannot shrink it; add model parallelism)")
     if ctx and ctx.get("model_cfg") is not None \
             and ctx.get("budget_bytes") is not None:
         new = plan_mbs(plan.mini_batch_size,
@@ -204,10 +213,10 @@ def degrade_plan(plan: MBSPlan, ctx: Optional[Dict[str, Any]] = None
 
 def _ctx_kw(plan: MBSPlan, ctx: Dict[str, Any]) -> Dict[str, Any]:
     """The ``plan_mbs`` kwargs a launcher-style plan context carries (the
-    reference's, with the device the plan is for and without a mesh)."""
+    reference's, with the device the plan is for)."""
     kw = dict(model_cfg=ctx.get("model_cfg"), seq_len=ctx.get("seq_len"),
               normalization=plan.normalization,
-              accum_dtype=plan.accum_dtype,
+              accum_dtype=plan.accum_dtype, mesh=ctx.get("mesh"),
               optimizer=ctx.get("optimizer", "sgd"),
               executor=ctx.get("executor", "compiled"),
               tuning_cache=ctx.get("tuning_cache"),
@@ -244,10 +253,12 @@ class Supervisor:
     buffers through its ``prepare``) on the pipeline's device.
 
     ``plan_ctx`` (optional) is the launcher's planning context
-    (``model_cfg``, ``seq_len``, ``budget_bytes``, ``device``,
+    (``model_cfg``, ``seq_len``, ``budget_bytes``, ``device``, ``mesh``,
     ``optimizer``, ``executor``, ``tuning_cache``, ``mm_kw``): with it an
     OOM re-plans through ``plan_mbs`` and records the negative bound;
     without it the ladder is geometric (remat escalation, then halving).
+    ``writer=False`` (the ranks of a data-parallel world but rank 0)
+    restores from ``ckpt_dir`` but never writes a checkpoint.
     """
 
     def __init__(self, build: Callable[[MBSPlan], Tuple[Any, Callable, Any]],
@@ -256,8 +267,10 @@ class Supervisor:
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  ckpt_keep: Optional[int] = None, log_every: int = 5,
                  log_fn: Optional[Callable] = _default_log,
-                 plan_ctx: Optional[Dict[str, Any]] = None):
+                 plan_ctx: Optional[Dict[str, Any]] = None,
+                 writer: bool = True):
         self.build = build
+        self.writer = writer
         self.plan = plan
         self.config = config or SupervisorConfig()
         self.ckpt_dir = ckpt_dir
@@ -299,7 +312,7 @@ class Supervisor:
         next cadence). ``InjectedCrash`` propagates: it models process
         death."""
         self._anchor(params, opt_state, step)
-        if not self.ckpt_dir:
+        if not self.ckpt_dir or not self.writer:
             return
         for attempt in range(self.config.io_retries + 1):
             try:
@@ -397,7 +410,7 @@ class Supervisor:
             autotune.record_oom_bound(
                 ctx["model_cfg"], ctx["seq_len"], self.plan.micro_batch_size,
                 ctx["budget_bytes"], remat_policy=self.plan.remat_policy,
-                optimizer=ctx.get("optimizer", "sgd"),
+                mesh=ctx.get("mesh"), optimizer=ctx.get("optimizer", "sgd"),
                 executor=ctx.get("executor", "compiled"),
                 cache_path=cache_path, device=ctx.get("device", "cuda"),
                 **(ctx.get("mm_kw") or {}))

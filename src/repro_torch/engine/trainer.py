@@ -44,13 +44,17 @@ class Trainer:
     ``history`` as ``{"step", metrics..., "readback_s"}``
     (``time.perf_counter()`` at the readback); the steps that ``log_every``
     selects, and the last, also go through ``log_fn``. :meth:`restore`
-    places the state on the pipeline's device."""
+    places the state on the pipeline's device. ``writer=False`` (the
+    ranks of a data-parallel world but rank 0, which all hold the same
+    state) restores from ``ckpt_dir`` but never saves."""
 
     def __init__(self, step_fn: Callable, pipeline: Pipeline, *,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  ckpt_keep: Optional[int] = None, log_every: int = 5,
-                 log_fn: Optional[Callable] = _default_log):
+                 log_fn: Optional[Callable] = _default_log,
+                 writer: bool = True):
         self.step_fn = step_fn
+        self.writer = writer
         self.pipeline = pipeline
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -64,7 +68,7 @@ class Trainer:
     # -- checkpointing ------------------------------------------------------
 
     def save(self, step: int, params, opt_state) -> Optional[str]:
-        if not self.ckpt_dir:
+        if not self.ckpt_dir or not self.writer:
             return None
         t0 = time.perf_counter()
         path = checkpoint.save(self.ckpt_dir, step,

@@ -1,0 +1,238 @@
+"""Meshes of the port: the ``torch.distributed`` world as named axes.
+
+The JAX package's mesh is one controller over many devices. The port's is
+SPMD: one process per rank, and a :class:`Mesh` is what one rank knows of
+the world — a mapping of axis name to size (``{"data": 2, "model": 1}``,
+the form ``engine.autotune.mesh_tag`` takes), the process group its
+collectives run on, its rank and its device.
+
+Axes, ``batch_axes``, ``axis_size`` and ``data_parallel_size`` are the
+reference's (``pod`` and ``data`` are batch axes, ``model`` splits the
+model). The port runs pure data parallelism: every rank of the world sits
+on the data axis and holds the whole model (``engine.ShardedExecutor``).
+The reference's production GSPMD meshes (16×16 and 2×16×16 TPU slices,
+tensor and FSDP sharding) are not ported (:func:`make_production_mesh`).
+
+:func:`init_world` starts or joins the process group from torchrun's
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``) with a finite
+timeout. A rank uses ``cuda:LOCAL_RANK`` when the host has a card for
+every local rank and ``cuda:0`` when the ranks share one card (each then
+capped at an equal share of its memory); the CPU only when asked. The
+backend is NCCL when every rank has its own card, and gloo when ranks
+share a card (NCCL refuses two ranks on one device) or run on the CPU.
+There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+from collections.abc import Mapping
+from typing import Dict, Iterator, Optional
+
+import torch
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+POD_AXIS = "pod"
+
+# seconds a collective may wait for a peer before the process group
+# raises (a rank that died leaves the others an error, not a hang)
+DEFAULT_TIMEOUT_S = 600.0
+# share of one card's memory that the ranks sharing it may hold in all
+# (the rest is their CUDA contexts')
+SHARED_CARD_FRACTION = 0.96
+
+
+class Mesh(Mapping):
+    """Axis name → size (insertion order is the reference's axis order),
+    plus this rank's view of the world: ``rank``, ``group`` (the process
+    group the collectives run on; None is the default group) and
+    ``device``. ``memory_fraction`` is the share of the device's memory
+    this rank may hold (below 1 when ranks share a card)."""
+
+    def __init__(self, dims: Dict[str, int], *, rank: int = 0, group=None,
+                 device="cpu", backend: Optional[str] = None,
+                 memory_fraction: float = 1.0):
+        self._dims = {str(k): int(v) for k, v in dict(dims).items()}
+        self.rank = int(rank)
+        self.group = group
+        self.device = torch.device(device)
+        self.backend = backend
+        self.memory_fraction = float(memory_fraction)
+
+    def __getitem__(self, name: str) -> int:
+        return self._dims[name]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._dims)
+
+    def __len__(self) -> int:
+        return len(self._dims)
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self._dims}, rank={self.rank}, device={self.device}"
+                f", backend={self.backend})")
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    raise NotImplementedError(
+        "the production meshes (16x16 data x model, 2x16x16 with --multi-pod"
+        ") shard params by tensor and FSDP parallelism under GSPMD; the "
+        "port runs pure data parallelism only (ROADMAP.md queue 1 item 11, "
+        "its production-mesh half)")
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
+                   rank: int = 0, group=None, device="cpu",
+                   backend: Optional[str] = None,
+                   memory_fraction: float = 1.0) -> Mesh:
+    """The reference's small mesh: ``(data, model)`` or ``(pod, data,
+    model)`` axes, as this rank sees them."""
+    dims = ({POD_AXIS: pod, DATA_AXIS: data, MODEL_AXIS: model} if pod
+            else {DATA_AXIS: data, MODEL_AXIS: model})
+    return Mesh(dims, rank=rank, group=group, device=device,
+                backend=backend, memory_fraction=memory_fraction)
+
+
+def parse_mesh_spec(spec: str, device_count: Optional[int] = None):
+    """Parse a launcher ``--mesh`` axis spec ``"DATA:MODEL"`` (e.g.
+    ``"2:1"``) into ``(data, model)``, validated against the number of
+    ranks (the reference's "devices"): ``device_count=None`` reads the
+    world size (1 without a process group)."""
+    parts = spec.split(":")
+    if len(parts) != 2:
+        raise ValueError(
+            f"mesh spec {spec!r} is not of the form DATA:MODEL (two "
+            "integers, e.g. '2:4' for a 2-way data x 4-stage pipeline "
+            "mesh)")
+    try:
+        data, model = (int(p) for p in parts)
+    except ValueError:
+        raise ValueError(
+            f"mesh spec {spec!r} is not of the form DATA:MODEL (two "
+            "integers, e.g. '2:4')") from None
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh spec {spec!r}: axis sizes must be >= 1")
+    n = world_size() if device_count is None else device_count
+    if data * model > n:
+        raise ValueError(
+            f"mesh spec {spec!r} needs {data * model} devices but only "
+            f"{n} are visible")
+    return data, model
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes the batch dimension is sharded over."""
+    return tuple(a for a in (POD_AXIS, DATA_AXIS) if a in mesh)
+
+
+def axis_size(mesh, name: str) -> int:
+    return mesh[name] if name in mesh else 1
+
+
+def data_parallel_size(mesh) -> int:
+    """Number of data-parallel workers: the product of the batch axes
+    ((pod, data) when the pod axis exists, else data) — the factor the
+    planner divides the global micro-batch by to get ``local_micro``."""
+    dp = 1
+    for a in batch_axes(mesh):
+        dp *= axis_size(mesh, a)
+    return dp
+
+
+# ---------------------------------------------------------------------------
+# the process group
+# ---------------------------------------------------------------------------
+
+def world_size() -> int:
+    """Ranks in the world: the process group's size once it is up, else
+    torchrun's ``WORLD_SIZE`` (1 outside torchrun)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def rank_device(device_type: str, local_rank: int, local_world: int):
+    """``(device, backend, memory_fraction)`` for one rank: its own card
+    (NCCL) when the host has one for every local rank, ``cuda:0`` shared
+    (gloo, an equal share of the memory each) when it has one card, the
+    CPU (gloo) when asked."""
+    if device_type == "cpu":
+        return torch.device("cpu"), "gloo", 1.0
+    if device_type != "cuda":
+        raise ValueError(f"device must be cuda or cpu, got {device_type!r}")
+    cards = torch.cuda.device_count()
+    if cards >= local_world:
+        return torch.device("cuda", local_rank), "nccl", 1.0
+    if cards == 1:
+        return (torch.device("cuda", 0), "gloo",
+                SHARED_CARD_FRACTION / local_world)
+    raise ValueError(
+        f"{local_world} ranks on a host with {cards} cards: give every rank "
+        "its own card, or run them all on one")
+
+
+def init_world(device_type: str = "cuda", *,
+               timeout_s: float = DEFAULT_TIMEOUT_S,
+               init_method: Optional[str] = None, rank: Optional[int] = None,
+               world: Optional[int] = None, local_rank: Optional[int] = None,
+               local_world: Optional[int] = None) -> Mesh:
+    """Start or join the process group and return this rank's data-parallel
+    mesh ``{"data": world, "model": 1}``.
+
+    Rank, world size and local rank come from the arguments, else from a
+    process group already started in this process, else from torchrun's
+    environment; a world of 1 starts no process group. The
+    rendezvous is ``init_method`` (default ``env://``: torchrun's
+    ``MASTER_ADDR``/``MASTER_PORT``); collectives raise after
+    ``timeout_s`` seconds without their peers. On CUDA the rank's device
+    becomes the current device, and ranks that share a card are each
+    capped at ``SHARED_CARD_FRACTION / ranks`` of its memory."""
+    import torch.distributed as dist
+    env = os.environ
+    if dist.is_available() and dist.is_initialized():  # joined already
+        rank = dist.get_rank() if rank is None else rank
+        world = dist.get_world_size() if world is None else world
+    rank = int(env.get("RANK", "0")) if rank is None else rank
+    world = int(env.get("WORLD_SIZE", "1")) if world is None else world
+    local_rank = (int(env.get("LOCAL_RANK", str(rank))) if local_rank is None
+                  else local_rank)
+    if local_world is None:
+        local_world = int(env.get("LOCAL_WORLD_SIZE", str(world)))
+    device, backend, fraction = rank_device(device_type, local_rank,
+                                            local_world)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        if fraction < 1.0:
+            torch.cuda.set_per_process_memory_fraction(fraction, device)
+    if world > 1 and not dist.is_initialized():
+        dist.init_process_group(
+            backend, init_method=init_method or "env://", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=timeout_s))
+    return make_host_mesh(data=world, model=1, rank=rank, device=device,
+                          backend=backend if world > 1 else None,
+                          memory_fraction=fraction)
+
+
+def broadcast_object(obj, mesh: Optional[Mesh], src: int = 0):
+    """``obj`` as rank ``src`` holds it, on every rank of ``mesh`` (what
+    one rank decides — a plan — every rank then holds). Identity on a
+    mesh of one rank."""
+    if mesh is None or data_parallel_size(mesh) < 2:
+        return obj
+    import torch.distributed as dist
+    box = [obj if mesh.rank == src else None]
+    dist.broadcast_object_list(box, src=src, group=mesh.group,
+                               device=(mesh.device if mesh.backend == "nccl"
+                                       else None))
+    return box[0]
+
+
+def shutdown() -> None:
+    """Leave the process group (if one was started)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

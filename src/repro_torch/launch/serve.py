@@ -12,8 +12,11 @@ decode slots and the prefill micro-batch come from
 Prefill latency and steady decode throughput are reported apart, after a
 warmup pass (one decode step and one prefill per prompt bucket), and the
 token a prefill samples is not counted as decoded. ``--layers`` cuts the
-depth; the weights are random, from seed 0. The JAX launcher's host mesh
-(data-parallel serving replicas) is ROADMAP.md queue 1 item 11.
+depth; the weights are random, from seed 0. It serves from one process:
+``engine.plan_serve(mesh=...)`` plans data-parallel replicas, but a
+serving engine across the ranks of a world (the JAX launcher's host mesh)
+is not ported (ROADMAP.md queue 1 item 11, its serving half), and under
+torchrun with more than one rank the launcher refuses to start.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from .. import configs
 from ..core.streaming import prefetch_iterator
 from ..engine import serving
 from ..models import transformer
+from . import mesh as mesh_lib
 
 
 def _int_list(s: str):
@@ -78,6 +82,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     (whose pool and params stay alive while the caller holds it)."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if mesh_lib.world_size() > 1:
+        raise SystemExit(
+            f"the serve launcher runs one process; this world has "
+            f"{mesh_lib.world_size()} ranks (serving across ranks is not "
+            "ported: ROADMAP.md queue 1 item 11, its serving half)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is available here; pass "

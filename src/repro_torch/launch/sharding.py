@@ -1,0 +1,174 @@
+"""The reference's divisibility-aware sharding policy, as arithmetic.
+
+A spec (:class:`PartitionSpec`, a tuple) has one entry per dim of a
+leaf: an axis name, a tuple of axis names, or None (replicated on that
+dim) — what JAX's ``PartitionSpec`` holds, without GSPMD to act on it.
+The port runs pure data parallelism, where every rank holds the whole
+model; the specs serve
+the memory model (``core.memory_model.param_shard_ratio``) and the batch
+and cache layouts (the sample dim over the batch axes).
+
+Parameters: tensor-parallel over ``model`` on the last divisible dim,
+FSDP over ``data`` on the first remaining divisible dim (leaves of two or
+more dims). Stacked-per-period leaves (under ``blocks``/``enc_layers``/
+``dec_layers``) never shard their leading dim. Batch leaves shard dim
+``batch_dim`` over (pod, data). A dim that does not divide stays
+replicated.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+from . import mesh as mesh_lib
+
+_STACKED_ROOTS = ("blocks", "enc_layers", "dec_layers")
+
+
+class PartitionSpec(tuple):
+    """One leaf's spec: per dim, an axis name, a tuple of them or None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+def spec_leaves(specs) -> List[PartitionSpec]:
+    """A spec tree's specs in ``tree.leaves`` order (a spec is a tuple, so
+    ``tree.leaves`` would walk into it)."""
+    if isinstance(specs, PartitionSpec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, (tuple, list)):
+        return [s for x in specs for s in spec_leaves(x)]
+    return []
+
+
+def _map_with_keys(fn: Callable, t, keys: Tuple[str, ...] = ()):
+    """``fn(dict_keys, leaf)`` over a tree of dicts, tuples and lists; the
+    keys are the dict keys on the leaf's path (sequence indices are not
+    keys, as in the reference's ``DictKey`` filter)."""
+    if isinstance(t, dict):
+        return {k: _map_with_keys(fn, v, keys + (str(k),))
+                for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_map_with_keys(fn, v, keys) for v in t)
+    if t is None:
+        return None
+    return fn(keys, t)
+
+
+def _map(fn: Callable, t):
+    return _map_with_keys(lambda _, leaf: fn(leaf), t)
+
+
+def _entry(axes: Tuple[str, ...]):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _auto_dims(shape: Tuple[int, ...], model_size: int, data_size: int,
+               skip_leading: int, fsdp, fsdp_axes) -> List[Any]:
+    spec: List[Any] = [None] * len(shape)
+    dims = range(skip_leading, len(shape))
+    if len(shape) - skip_leading < 2:
+        return spec  # 1-D leaves (norm scales, biases): replicated
+    # model (TP) axis: last dim divisible by the model mesh size
+    for i in reversed(list(dims)):
+        if model_size > 1 and shape[i] % model_size == 0 \
+                and shape[i] >= model_size:
+            spec[i] = mesh_lib.MODEL_AXIS
+            break
+    if fsdp and data_size > 1:
+        for i in dims:
+            if spec[i] is None and shape[i] % data_size == 0 \
+                    and shape[i] >= data_size:
+                spec[i] = _entry(fsdp_axes)
+                break
+    return spec
+
+
+def param_specs(params_shapes, mesh, *, fsdp: bool = True,
+                fsdp_over_pod: bool = False):
+    """Spec tree for a parameter-like tree (params, gradients, optimizer
+    state): leaves are anything with a ``shape``. ``fsdp_over_pod``
+    extends the FSDP shard to the (pod, data) product."""
+    msize = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
+    dsize = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+    fsdp_axes: Tuple[str, ...] = (mesh_lib.DATA_AXIS,)
+    if fsdp_over_pod and mesh_lib.POD_AXIS in mesh:
+        fsdp_axes = (mesh_lib.POD_AXIS, mesh_lib.DATA_AXIS)
+        dsize *= mesh_lib.axis_size(mesh, mesh_lib.POD_AXIS)
+
+    def spec_for(keys, leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 0:
+            return P()
+        # embedding table: shard the vocab dim (Megatron-style) when the
+        # vocab divides the model axis; else the generic policy
+        if list(keys[-2:]) == ["embed", "table"] and msize > 1 \
+                and shape[0] % msize == 0:
+            spec: List[Any] = [mesh_lib.MODEL_AXIS, None]
+            if fsdp and dsize > 1 and shape[1] % dsize == 0:
+                spec[1] = _entry(fsdp_axes)
+            return P(*spec)
+        skip = 1 if keys and keys[0] in _STACKED_ROOTS else 0
+        return P(*_auto_dims(shape, msize, dsize, skip, fsdp, fsdp_axes))
+
+    return _map_with_keys(spec_for, params_shapes)
+
+
+def batch_specs(batch_shapes, mesh, *, batch_dim: int = 1):
+    """Spec tree for micro-batch stacks ``(N_Sμ, micro, ...)``: dim 0 (the
+    micro-batch axis) replicated, ``batch_dim`` over (pod, data) when
+    divisible."""
+    baxes = mesh_lib.batch_axes(mesh)
+    dp = mesh_lib.data_parallel_size(mesh)
+
+    def spec_for(leaf):
+        shape = tuple(leaf.shape)
+        spec: List[Any] = [None] * len(shape)
+        if len(shape) > batch_dim and dp > 1 and shape[batch_dim] % dp == 0 \
+                and shape[batch_dim] >= dp:
+            spec[batch_dim] = _entry(baxes)
+        return P(*spec)
+
+    return _map(spec_for, batch_shapes)
+
+
+def cache_specs(cache_shapes, mesh, *, stacked: bool = True):
+    """Spec tree for decode caches: leaves are (P, B, ...) — batch over
+    (pod, data), the model axis on the largest divisible dim after it."""
+    msize = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
+    baxes = mesh_lib.batch_axes(mesh)
+    dp = mesh_lib.data_parallel_size(mesh)
+    bdim = 1 if stacked else 0
+
+    def spec_for(leaf):
+        shape = tuple(leaf.shape)
+        spec: List[Any] = [None] * len(shape)
+        if len(shape) > bdim and dp > 1 and shape[bdim] % dp == 0 \
+                and shape[bdim] >= dp:
+            spec[bdim] = _entry(baxes)
+        cand = [i for i in range(bdim + 1, len(shape))
+                if msize > 1 and shape[i] % msize == 0 and shape[i] >= msize]
+        if cand:
+            spec[max(cand, key=lambda i: shape[i])] = mesh_lib.MODEL_AXIS
+        return P(*spec)
+
+    return _map(spec_for, cache_shapes)
+
+
+def shard_factor(spec, mesh) -> int:
+    """How many ways a spec splits its leaf over ``mesh``."""
+    f = 1
+    for entry in spec:
+        if entry is None:
+            continue
+        for ax in (entry if isinstance(entry, tuple) else (entry,)):
+            f *= mesh[ax]
+    return f

@@ -1,5 +1,5 @@
-"""Training launcher of the port — the single-device part of the JAX
-package's ``launch/train.py``.
+"""Training launcher of the port — the JAX package's ``launch/train.py``
+on one device or a data-parallel world of ranks.
 
 Plans the batch geometry (``--microbatches`` pins N_Sμ; without it the
 memory model sizes the micro-batch against the device's memory or
@@ -38,26 +38,52 @@ non-finite steps in a row, 44 a non-finite step under ``--on-nan halt``
       --reduced --steps 4 --device cpu --supervise [--max-restarts 3] \
       [--on-nan skip|halt]
 
-The reference's ``--mesh``, ``--fsdp`` and ``--no-donate`` (ROADMAP.md
-queue 1 item 11) are not ported. The launcher keeps no reference to the
-initial params and optimizer state once the Trainer (or the Supervisor)
-has them, so an executor whose update makes new trees (``compiled``,
-``fused``, ``streaming``) frees them after the first step; ``flat``
-trains its initial buffers in place.
+Data parallelism: under torchrun every rank runs this launcher, and
+``--mesh host`` (the default: the whole world on the data axis) or an
+explicit ``--mesh DATA:1`` with DATA the world size routes the step
+through :class:`engine.ShardedExecutor` (per-rank accumulation of
+``local_micro`` samples of every micro-batch with ``--executor``'s
+strategy, ONE gradient all-reduce per mini-batch). Each rank runs on
+``cuda:LOCAL_RANK`` over NCCL when the host has a card for every rank,
+or all on ``cuda:0`` over gloo when they share one card (each capped at
+an equal share of its memory, which is also its planning budget); the
+chosen backend is printed. Rank 0 plans (``plan_mbs(mesh=...)``, budget
+per device) and broadcasts the plan, every rank draws the same global
+mini-batch and stages its own block, rank 0 alone prints metrics and
+writes checkpoints, and every rank restores the same file on
+``--resume``. ``--report PATH`` writes each rank's numbers (losses,
+readback clocks, all-reduce census and seconds, kernel launches, peak
+memory beside the per-device estimate) to ``PATH.rank<r>.json``.
+
+  torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.train \
+      --arch qwen2-1.5b --reduced --steps 4 --mesh 2:1 --executor flat \
+      [--device cpu]
+
+Not ported: ``--mesh production`` and ``--multi-pod`` (the TPU GSPMD
+meshes with tensor and FSDP sharding; ROADMAP.md queue 1 item 11, its
+production-mesh half), a model axis > 1 and the ``--fsdp`` that applies
+only there (pipeline parallelism, item 14), and ``--no-donate``. The
+launcher keeps no reference to the initial params and optimizer state
+once the Trainer (or the Supervisor) has them, so an executor whose
+update makes new trees (``compiled``, ``fused``, ``streaming``) frees
+them after the first step; ``flat`` trains its initial buffers in place.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 from typing import Dict, Optional, Sequence
 
 import torch
 
-from .. import configs, engine, optim
+from .. import configs, engine, kernels, optim
+from ..core import memory_model
 from ..data import LMDataset
 from ..models import transformer
+from . import mesh as mesh_lib
 from . import steps
 
 GIB = 1024 ** 3
@@ -130,6 +156,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="host",
+                    help="'host' (every rank of the world on the data "
+                         "axis) or an explicit 'DATA:MODEL' axis spec such "
+                         "as '2:1'; 'production' and MODEL > 1 are not "
+                         "ported")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard params over the data axis of a pipelined "
+                         "'DATA:MODEL' mesh (not ported)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2-pod production mesh (not ported)")
+    ap.add_argument("--report", default=None, metavar="PATH",
+                    help="write this rank's run report (JSON) to "
+                         "PATH.rank<r>.json (PATH on one process), with the "
+                         "all-reduces timed on their own")
     return ap
 
 
@@ -159,102 +199,163 @@ def memory_kw(args, optimizer) -> dict:
                                         fused=args.executor == "flat"))
 
 
-def build_plan(cfg, args, optimizer, device) -> engine.MBSPlan:
-    """The launcher's batch geometry (:func:`memory_kw`). On the CPU the
-    budget defaults to the host's memory."""
+def build_mesh(args, device_type: str):
+    """This rank's data-parallel mesh under torchrun (None for a single
+    process with the default ``--mesh host``). Refuses what is not
+    ported, naming the ROADMAP item that holds it, and a spec that does
+    not cover the world."""
+    if args.mesh == "production" or args.multi_pod:
+        mesh_lib.make_production_mesh(multi_pod=args.multi_pod)  # raises
+    world = mesh_lib.world_size()
+    data, model = (world, 1) if args.mesh == "host" else \
+        mesh_lib.parse_mesh_spec(args.mesh, world)
+    if model > 1 or args.fsdp:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}{' --fsdp' if args.fsdp else ''}: a model "
+            "axis > 1 pipelines the block stack (1F1B), and --fsdp applies "
+            "only there; not ported (ROADMAP.md queue 1 item 14)")
+    if data != world:
+        raise ValueError(f"mesh spec {args.mesh!r} puts {data} ranks on the "
+                         f"data axis but the world has {world}: give every "
+                         "rank of the world a place on the mesh")
+    if world == 1:
+        return None
+    return mesh_lib.init_world(device_type)
+
+
+def _data_parallel(mesh) -> bool:
+    return mesh is not None and mesh_lib.data_parallel_size(mesh) > 1
+
+
+def plan_budget(args, device, mesh=None) -> Optional[int]:
+    """The per-device planning budget: ``--hbm-budget-gb``, else the
+    host's memory on the CPU, else the card's (None: ``plan_mbs`` reads
+    it) — or the rank's share of it when ranks share the card."""
     if args.hbm_budget_gb:
-        budget = int(args.hbm_budget_gb * GIB)
-    elif device.type == "cpu":
-        budget = host_memory_bytes()
-    else:
-        budget = None  # the card's own memory
+        return int(args.hbm_budget_gb * GIB)
+    if device.type == "cpu":
+        return host_memory_bytes()
+    if mesh is not None and mesh.memory_fraction < 1.0:
+        return int(memory_model.device_memory_bytes(device)
+                   * mesh.memory_fraction)
+    return None  # the card's own memory
+
+
+def build_plan(cfg, args, optimizer, device, mesh=None) -> engine.MBSPlan:
+    """The launcher's batch geometry (:func:`memory_kw`, :func:`plan_budget`).
+    With a data-parallel ``mesh`` the plan is per device and replicates
+    params (``fsdp_params=False``, the ``ShardedExecutor``'s layout)."""
+    dp = _data_parallel(mesh)
     return engine.plan_mbs(
         args.mini_batch, num_microbatches=args.microbatches,
-        model_cfg=cfg, seq_len=args.seq, budget_bytes=budget, device=device,
+        model_cfg=cfg, seq_len=args.seq,
+        budget_bytes=plan_budget(args, device, mesh), device=device,
         normalization=args.normalization, remat_policy=args.remat_policy,
         calibrate=args.calibrate, tuning_cache=args.tuning_cache,
-        executor=args.executor, **memory_kw(args, optimizer))
+        executor=args.executor, mesh=mesh if dp else None,
+        fsdp_params=not dp, **memory_kw(args, optimizer))
 
 
-def build_executor(cfg, plan, args, optimizer, guard: bool = False):
+def build_executor(cfg, plan, args, optimizer, guard: bool = False,
+                   mesh=None):
+    """``--executor``'s executor; with a data-parallel ``mesh`` it is the
+    inner strategy of a :class:`engine.ShardedExecutor` (per-rank
+    accumulation, one gradient all-reduce per mini-batch)."""
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     loss_fn = steps.make_loss_fn(cfg, dtype=dtype,
                                  remat_policy=plan.remat_policy)
+    if _data_parallel(mesh):
+        return engine.ShardedExecutor(loss_fn, optimizer, plan, mesh=mesh,
+                                      inner=args.executor, guard=guard)
     return engine.get_executor(args.executor)(loss_fn, optimizer, plan,
                                               guard=guard)
 
 
-def make_build(cfg, args, ds, optimizer, device, guard: bool = False):
+def make_build(cfg, args, ds, optimizer, device, guard: bool = False,
+               mesh=None):
     """``plan -> (executor, step_fn, pipeline)``: every executor's
     ``step_split`` over a Pipeline that stages whole split mini-batches to
-    ``device`` (the streaming executor slices micro-batches there). The
-    Supervisor calls it again for each degraded plan; ``guard=True`` (the
-    supervised mode) gives the executors the finite guard."""
+    ``device`` (the streaming executor slices micro-batches there) — on a
+    data-parallel mesh, this rank's block of each (the
+    ``ShardedExecutor``'s ``shard``). The Supervisor calls it again for
+    each degraded plan; ``guard=True`` (the supervised mode) gives the
+    executors the finite guard."""
     def build(plan):
-        executor = build_executor(cfg, plan, args, optimizer, guard=guard)
-        pipeline = engine.Pipeline(ds, plan, prefetch=args.prefetch,
-                                   device=device)
+        executor = build_executor(cfg, plan, args, optimizer, guard=guard,
+                                  mesh=mesh)
+        pipeline = engine.Pipeline(
+            ds, plan, prefetch=args.prefetch, device=device,
+            sharding=executor.shard if _data_parallel(mesh) else None)
         return executor, executor.step_split, pipeline
     return build
 
 
-def make_plan_ctx(cfg, args, optimizer, device) -> Dict[str, object]:
+def make_plan_ctx(cfg, args, optimizer, device, mesh=None
+                  ) -> Dict[str, object]:
     """The Supervisor's planning context: what :func:`build_plan` knows, so
     an OOM re-plan goes through the same ``plan_mbs`` the launcher used,
     and the observed failure lands under the same tuning-cache key. The
     budget is the one asked for (None: the re-plan halves instead)."""
+    dp = _data_parallel(mesh)
     return dict(
         model_cfg=cfg, seq_len=args.seq,
         budget_bytes=(int(args.hbm_budget_gb * GIB) if args.hbm_budget_gb
                       else None),
-        device=device, executor=args.executor,
-        tuning_cache=args.tuning_cache, mm_kw=memory_kw(args, optimizer))
+        device=device, executor=args.executor, mesh=mesh if dp else None,
+        tuning_cache=args.tuning_cache,
+        mm_kw=dict(memory_kw(args, optimizer), fsdp_params=not dp))
 
 
-def run_trainer(trainer, state: Dict[str, object], args):
+def run_trainer(trainer, state: Dict[str, object], args,
+                quiet: bool = False):
     """Resume (when asked) + fit. ``state`` holds the initial
     ``"params"`` and ``"opt_state"``; both are popped from it and handed
     to ``Trainer.fit`` without a local name, so once the first step has
-    made new trees no frame keeps the initial ones alive."""
+    made new trees no frame keeps the initial ones alive. ``quiet``: the
+    ranks of a data-parallel world but rank 0 print nothing."""
+    say = (lambda *a, **k: None) if quiet else print
     start = 0
     if args.resume:
         restored = trainer.restore(state["params"], state["opt_state"])
         if restored is not None:
             state["params"], state["opt_state"], start = restored
             rec = trainer.ckpt_log[-1]
-            print(f"resumed from step {start} ({rec['seconds']:.2f}s)",
-                  flush=True)
+            say(f"resumed from step {start} ({rec['seconds']:.2f}s)",
+                flush=True)
         else:
-            print("no checkpoint to resume from; starting fresh", flush=True)
+            say("no checkpoint to resume from; starting fresh", flush=True)
         del restored
     params, opt_state, last = trainer.fit(state.pop("params"),
                                           state.pop("opt_state"), args.steps,
                                           start_step=start)
     if args.ckpt_dir:
         saves = [r for r in trainer.ckpt_log if r["op"] == "save"]
-        print(f"checkpointed to {args.ckpt_dir}: "
-              + ", ".join(f"step {r['step']} {r['bytes']} B in "
-                          f"{r['seconds']:.2f}s" for r in saves), flush=True)
+        say(f"checkpointed to {args.ckpt_dir}: "
+            + ", ".join(f"step {r['step']} {r['bytes']} B in "
+                        f"{r['seconds']:.2f}s" for r in saves), flush=True)
     stats = trainer.pipeline.stats
-    print(f"input-wait fraction {stats.input_wait_fraction:.3f} "
-          f"({stats.wait_s:.2f}s of {stats.elapsed_s:.2f}s, "
-          f"{stats.retries} producer retries)", flush=True)
+    say(f"input-wait fraction {stats.input_wait_fraction:.3f} "
+        f"({stats.wait_s:.2f}s of {stats.elapsed_s:.2f}s, "
+        f"{stats.retries} producer retries)", flush=True)
     return params, opt_state, last
 
 
-def run_supervised(supervisor, state: Dict[str, object], args):
+def run_supervised(supervisor, state: Dict[str, object], args,
+                   quiet: bool = False):
     """Resume (when asked) + supervised fit, with the initial state popped
     from ``state`` as :func:`run_trainer` does. A supervisor give-up
     becomes the process's exit status (40–44), so an orchestrator can
-    tell "shrink the job" (42) from "look at the data" (43)."""
+    tell "shrink the job" (42) from "look at the data" (43). ``quiet`` as
+    in :func:`run_trainer`."""
+    say = (lambda *a, **k: None) if quiet else print
     start = 0
     if args.resume:
         restored = supervisor.restore(state["params"], state["opt_state"])
         if restored is not None:
             state["params"], state["opt_state"], start = restored
-            print(f"resumed from step {start}", flush=True)
+            say(f"resumed from step {start}", flush=True)
         else:
-            print("no checkpoint to resume from; starting fresh", flush=True)
+            say("no checkpoint to resume from; starting fresh", flush=True)
         del restored
     try:
         params, opt_state, last = supervisor.fit(
@@ -264,21 +365,58 @@ def run_supervised(supervisor, state: Dict[str, object], args):
         print(f"[supervisor] giving up: {e}", flush=True)
         sys.exit(e.exit_code)
     rep = supervisor.report()
-    print(f"[supervisor] done: restarts={rep['restarts']} "
-          f"steps_lost={rep['steps_lost']} "
-          f"plan: micro={rep['plan']['micro_batch_size']} "
-          f"remat={rep['plan']['remat_policy']}", flush=True)
-    print("[supervisor] anchors (host copies of the state): "
-          + ", ".join(f"step {a['step']} {a['bytes']} B in "
-                      f"{a['seconds']:.2f}s" for a in rep["anchors"]),
-          flush=True)
+    say(f"[supervisor] done: restarts={rep['restarts']} "
+        f"steps_lost={rep['steps_lost']} "
+        f"plan: micro={rep['plan']['micro_batch_size']} "
+        f"remat={rep['plan']['remat_policy']}", flush=True)
+    say("[supervisor] anchors (host copies of the state): "
+        + ", ".join(f"step {a['step']} {a['bytes']} B in "
+                    f"{a['seconds']:.2f}s" for a in rep["anchors"]),
+        flush=True)
     if args.ckpt_dir:
-        print(f"checkpointed to {args.ckpt_dir}", flush=True)
+        say(f"checkpointed to {args.ckpt_dir}", flush=True)
     stats = supervisor.pipeline.stats
-    print(f"input-wait fraction {stats.input_wait_fraction:.3f} "
-          f"({stats.wait_s:.2f}s of {stats.elapsed_s:.2f}s, "
-          f"{stats.retries} producer retries)", flush=True)
+    say(f"input-wait fraction {stats.input_wait_fraction:.3f} "
+        f"({stats.wait_s:.2f}s of {stats.elapsed_s:.2f}s, "
+        f"{stats.retries} producer retries)", flush=True)
     return params, opt_state, last
+
+
+def write_report(path: str, mesh, plan, cfg, args, history, base: dict,
+                 device) -> str:
+    """This rank's run report (see ``--report``); returns the file."""
+    rank = 0 if mesh is None else mesh.rank
+    if mesh is not None:
+        root, ext = os.path.splitext(path)
+        path = f"{root}.rank{rank}{ext or '.json'}"
+    dp = _data_parallel(mesh)
+    est = memory_model.estimate(
+        cfg, args.seq, remat_policy=plan.remat_policy,
+        mesh=mesh if dp else None, fsdp_params=not dp,
+        **memory_kw(args, default_optimizer(args)))
+    stats = engine.collective_stats()
+    counts = kernels.launch_counts()
+    cuda = device.type == "cuda"
+    rep = {
+        "rank": rank, "world": mesh_lib.world_size(),
+        "backend": None if mesh is None else mesh.backend,
+        "device": str(device),
+        "card": torch.cuda.get_device_name(device) if cuda else None,
+        "memory_fraction": 1.0 if mesh is None else mesh.memory_fraction,
+        "plan": plan.describe(), "local_micro": plan.local_micro,
+        "num_micro_batches": plan.num_micro_batches,
+        "history": history,
+        "all_reduce": {k: stats[k] - base["collectives"][k] for k in stats},
+        "launches": {k: counts[k] - base["launches"].get(k, 0)
+                     for k in counts},
+        "peak_allocated_bytes": (torch.cuda.max_memory_allocated(device)
+                                 if cuda else None),
+        "peak_reserved_bytes": (torch.cuda.max_memory_reserved(device)
+                                if cuda else None),
+        "estimate_bytes": est.total(plan.local_micro)}
+    with open(path, "w") as f:
+        json.dump(rep, f, indent=1)
+    return path
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
@@ -295,16 +433,48 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     if args.calibrate == "force" and device.type != "cuda":
         ap.error("--calibrate force measures the step's peak on the card; "
                  "on the CPU use --calibrate auto or off")
+    import torch.distributed as dist
+    joined = dist.is_available() and dist.is_initialized()
+    try:
+        mesh = build_mesh(args, device.type)
+    except (ValueError, NotImplementedError) as e:
+        ap.error(str(e))
+    try:
+        return _run(args, device if mesh is None else mesh.device, mesh)
+    finally:
+        if mesh is not None and not joined:
+            mesh_lib.shutdown()
+
+
+def _run(args, device, mesh) -> Dict[str, object]:
     if args.tuning_cache:
         # one cache serves both halves: the planner's memory correction
         # and the kernels' tuned launch blocks (the active cache)
         engine.set_cache_path(args.tuning_cache)
+    rank0 = mesh is None or mesh.rank == 0
+    if mesh is not None and rank0:
+        print(f"[mesh] {mesh_lib.world_size()} ranks on the data axis "
+              f"({dict(mesh)}), backend {mesh.backend}, rank 0 on {device}"
+              + (f", ranks sharing the card, each capped at "
+                 f"{mesh.memory_fraction:.3f} of its memory"
+                 if mesh.memory_fraction < 1.0 else ""), flush=True)
+    base = {"collectives": engine.collective_stats(),
+            "launches": kernels.launch_counts()}
+    if args.report:
+        engine.time_collectives(True)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
     cfg = build_config(args)
     opt = default_optimizer(args)
-    plan = build_plan(cfg, args, opt, device)
-    print(plan.describe(), flush=True)
+    # rank 0 plans and every rank takes its plan: one plan on all ranks
+    plan = mesh_lib.broadcast_object(
+        build_plan(cfg, args, opt, device, mesh) if rank0 else None, mesh)
+    if rank0:
+        print(plan.describe(), flush=True)
     ds = LMDataset(vocab_size=cfg.vocab_size, seq_len=args.seq, seed=0)
-    build = make_build(cfg, args, ds, opt, device, guard=args.supervise)
+    build = make_build(cfg, args, ds, opt, device, guard=args.supervise,
+                       mesh=mesh)
+    log = {} if rank0 else {"log_fn": None}
     if args.supervise:
         supervisor = engine.Supervisor(
             build, plan,
@@ -312,7 +482,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                                            on_nan=args.on_nan),
             ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
             ckpt_keep=args.ckpt_keep, log_every=args.log_every,
-            plan_ctx=make_plan_ctx(cfg, args, opt, device))
+            plan_ctx=make_plan_ctx(cfg, args, opt, device, mesh),
+            writer=rank0, **log)
         executor = supervisor.executor
     else:
         executor, step_fn, pipeline = build(plan)
@@ -321,26 +492,44 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     # frees it after the first step
     state = {"params": transformer.init_params(cfg, seed=0, device=device)}
     state["opt_state"] = opt.init(state["params"])
-    if isinstance(executor, engine.FlatFusedExecutor):
+    if getattr(executor, "prepare", None) is not None:
         state["params"], state["opt_state"] = executor.prepare(
             state["params"], state["opt_state"])
     if args.supervise:
         del executor
-        params, opt_state, _ = run_supervised(supervisor, state, args)
-        return {"plan": supervisor.plan, "config": cfg,
-                "history": [{"step": s, **m} for s, m in
-                            sorted(supervisor.metrics.items())],
-                "params": params, "opt_state": opt_state,
-                "pipeline": supervisor.pipeline.stats, "checkpoints": [],
-                "supervisor": supervisor.report()}
-    trainer = engine.Trainer(step_fn, pipeline, ckpt_dir=args.ckpt_dir,
-                             ckpt_every=args.ckpt_every,
-                             ckpt_keep=args.ckpt_keep,
-                             log_every=args.log_every)
-    params, opt_state, _ = run_trainer(trainer, state, args)
-    return {"plan": plan, "config": cfg, "history": trainer.history,
-            "params": params, "opt_state": opt_state,
-            "pipeline": pipeline.stats, "checkpoints": trainer.ckpt_log}
+        params, opt_state, _ = run_supervised(supervisor, state, args,
+                                              quiet=not rank0)
+        history = [{"step": s, **m} for s, m in
+                   sorted(supervisor.metrics.items())]
+        out = {"plan": supervisor.plan, "config": cfg, "history": history,
+               "params": params, "opt_state": opt_state,
+               "pipeline": supervisor.pipeline.stats, "checkpoints": [],
+               "supervisor": supervisor.report()}
+    else:
+        trainer = engine.Trainer(step_fn, pipeline, ckpt_dir=args.ckpt_dir,
+                                 ckpt_every=args.ckpt_every,
+                                 ckpt_keep=args.ckpt_keep,
+                                 log_every=args.log_every, writer=rank0,
+                                 **log)
+        params, opt_state, _ = run_trainer(trainer, state, args,
+                                           quiet=not rank0)
+        history = trainer.history
+        out = {"plan": plan, "config": cfg, "history": history,
+               "params": params, "opt_state": opt_state,
+               "pipeline": pipeline.stats, "checkpoints": trainer.ckpt_log}
+    if mesh is not None and rank0:
+        stats = engine.collective_stats()
+        calls = stats["calls"] - base["collectives"]["calls"]
+        print(f"[mesh] all-reduce: {calls} calls in {len(history)} steps "
+              f"({calls / max(len(history), 1):.2f} a step), "
+              f"{stats['bytes'] - base['collectives']['bytes']} B reduced",
+              flush=True)
+    if args.report:
+        engine.time_collectives(False)
+        out["report"] = write_report(args.report, mesh, out["plan"], cfg,
+                                     args, history, base, device)
+    out["mesh"] = mesh
+    return out
 
 
 if __name__ == "__main__":

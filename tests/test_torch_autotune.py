@@ -214,9 +214,9 @@ def test_keys_equal_the_reference():
 
 
 def test_mesh_keyed_entry_does_not_leak(tmp_path):
-    """A correction keyed by a mesh never serves a single-device plan. (The
-    other half of the reference's case, a mesh plan that sees it, waits for
-    ``plan_mbs(mesh=)``, ROADMAP queue 1 item 11.)"""
+    """A correction keyed by a mesh never serves a single-device plan, and
+    the mesh plan with the same cache does see it (the reference's case
+    whole, now that ``plan_mbs(mesh=)`` is ported)."""
     cfg = _cfg()
     p = str(tmp_path / "t.json")
     cache = autotune.get_cache(p)
@@ -224,9 +224,32 @@ def test_mesh_keyed_entry_does_not_leak(tmp_path):
     cache.put_memory(autotune.memory_key(cfg, SEQ, "period", mesh, "sgd",
                                          "compiled", "cpu"), 0.5, 0.0)
     assert not _plan(calibrate="auto", tuning_cache=p).calibrated
+    assert _plan(calibrate="auto", tuning_cache=p, mesh=mesh).calibrated
     cache.put_memory(autotune.memory_key(cfg, SEQ, "period", None, "sgd",
                                          "compiled", "cpu"), 0.5, 0.0)
     assert _plan(calibrate="auto", tuning_cache=p).calibrated
+
+
+def test_calibrated_mesh_plan_equals_reference(tmp_path):
+    """One cache file the reference writes under a data-parallel mesh's
+    key gives both planners the same calibrated per-device plan."""
+    from conftest import host_mesh
+    p = str(tmp_path / "ref.json")
+    jcfg = jconfigs.get_reduced(ARCH)
+    jautotune.TuningCache(p).put_memory(
+        jautotune.memory_key(jcfg, SEQ, "period", host_mesh(2), "sgd",
+                             "compiled"),
+        0.5, -10 * 1024 ** 2, [(1, 100, 90), (2, 200, 170)])
+    kw = dict(PLAN_KW, budget_bytes=72 * 1024 ** 2, calibrate="auto",
+              tuning_cache=p)
+    want = jengine.plan_mbs(MINI, model_cfg=jcfg, mesh=host_mesh(2), **kw)
+    got = engine.plan_mbs(MINI, model_cfg=_cfg(), device="cpu",
+                          mesh={"data": 2, "model": 1}, **kw)
+    assert want.calibrated and got.calibrated
+    for f in ("micro_batch_size", "num_micro_batches", "pad",
+              "data_parallel", "local_micro", "remat_policy", "correction"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.describe() == want.describe()
 
 
 def test_a_tpu_or_gpu_entry_never_serves_the_cpu(tmp_path):

@@ -46,6 +46,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "LEAKED []" in out.stdout, out.stdout
 
 
+def test_spawned_ranks_import_neither_jax_nor_the_jax_package(tmp_path):
+    """The data-parallel ranks of a ``LocalWorld`` are spawned, so this
+    process's JAX does not reach them, and the port's sharded modules
+    load none."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_cases
+    from repro_torch.launch.world import LocalWorld
+    with LocalWorld(2, store_dir=str(tmp_path), timeout_s=120) as world:
+        assert world.run(torch_mesh_cases.leaked_modules) == [[], []]
+
+
 def test_launcher_runs_on_cpu_when_asked():
     out = _run(TRAIN + ["--device", "cpu"])
     assert out.returncode == 0, out.stderr

@@ -309,8 +309,23 @@ def test_pipeline_seeding_is_step_indexed():
 
 
 def test_pipeline_mesh_waits_for_data_parallelism():
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        _pipe(_plan(), mesh=object())
+    """Data parallelism is ported (ROADMAP.md queue 1 item 11): with
+    a mesh each rank stages its own block of the sample dim — the blocks
+    of all ranks are the whole split, retries and rebatches included —
+    and ``mesh=`` with ``sharding=`` is refused."""
+    from repro_torch.launch import mesh as mesh_lib
+    plan = _plan(16, 8, mesh={"data": 2, "model": 1})
+    whole = next(iter(_pipe(plan).batches(1)))
+    blocks = [_pipe(plan, mesh=mesh_lib.make_host_mesh(2, rank=r))
+              for r in range(2)]
+    for k, v in whole.items():
+        got = [next(iter(p.batches(1)))[k] for p in blocks]
+        assert got[0].shape[1] == plan.local_micro
+        assert torch.equal(torch.cat(got, dim=1), v)
+        assert torch.equal(blocks[1].rebatch(0)[k], got[1])
+    with pytest.raises(ValueError, match="not both"):
+        _pipe(plan, mesh=mesh_lib.make_host_mesh(2),
+              sharding=lambda split: split)
 
 
 # ---------------------------------------------------------------------------

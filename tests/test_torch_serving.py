@@ -599,13 +599,57 @@ def test_mixed_patterns_match_one_request_at_a_time(pattern):
             (pattern, r.rid)
 
 
-def test_plan_serve_on_a_mesh_names_item_11():
+def test_plan_serve_on_a_mesh_names_item_11(monkeypatch):
+    """``plan_serve(mesh=...)`` is ported (the arithmetic below); what
+    still names item 11 is a serving engine across ranks: the serve
+    launcher under a world of more than one rank refuses to start."""
+    from repro_torch.launch import serve
     cfg = configs.get_reduced("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serving.plan_serve(cfg, budget_bytes=1 << 30, max_len=32,
-                           mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        memory_model.serve_estimate(cfg, 32, mesh=object())
+    plan = serving.plan_serve(cfg, budget_bytes=1 << 30, max_len=32,
+                              mesh={"data": 2, "model": 1})
+    assert plan.data_parallel == 2
+    assert plan.max_decode_slots == 2 * plan.local_slots
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="item 11"):
+        serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-9b", "mamba2-780m",
+                                  "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("data", [2, 4, 8])
+def test_plan_serve_on_a_mesh_equals_reference(arch, data):
+    """Data-parallel serving plans (per-device budget, params replicated
+    or FSDP-discounted, ``local_slots`` per worker, pinned slots split
+    over the workers), field for field, refusals alike; and
+    ``serve_estimate(mesh=...)`` integer for integer."""
+    from conftest import host_mesh
+    cfg, jcfg = configs.get_reduced(arch), jconfigs.get_reduced(arch)
+    tm, jm = {"data": data, "model": 1}, host_mesh(data)
+    for fsdp in (False, True):
+        for max_len in (64, 256):
+            got = memory_model.serve_estimate(cfg, max_len, mesh=tm,
+                                              fsdp_params=fsdp)
+            want = jmemory_model.serve_estimate(jcfg, max_len, mesh=jm,
+                                                fsdp_params=fsdp)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        for budget in (1 << 22, 1 << 26, 1 << 30):
+            for pins in ({}, {"max_slots": 5}, {"prefill_micro": 2},
+                         {"max_slots": 64, "prefill_micro": 16}):
+                kw = dict(budget_bytes=budget, max_len=64,
+                          fsdp_params=fsdp, **pins)
+                out = []
+                for pkg, c, m in ((serving, cfg, tm), (jserving, jcfg, jm)):
+                    try:
+                        out.append(dataclasses.asdict(
+                            pkg.plan_serve(c, mesh=m, **kw)))
+                    except ValueError as e:
+                        out.append(str(e))
+                assert out[0] == out[1], (fsdp, budget, pins)
+                if isinstance(out[0], dict):
+                    plan = serving.ServePlan(**out[0])
+                    assert plan.data_parallel == data
+                    assert plan.describe() == \
+                        jserving.ServePlan(**out[1]).describe()
 
 
 def test_all_archs_plan_or_fail_cleanly():

@@ -12,8 +12,11 @@ the reference asks for it). The degradation ladder gives the same
 ``(plan, action)`` sequence in both packages, data-parallel divisibility
 included, and the give-ups the same exit codes (40–44) class by class.
 
-Not here: the reference's three ``@pytest.mark.mesh`` cases (data
-parallelism, ROADMAP.md queue 1 item 11), and its supervisor-free
+The reference's three ``@pytest.mark.mesh`` cases run the port in a gloo
+world of 2 CPU ranks (``repro_torch.launch.world.LocalWorld``, the
+ranks' side in ``tests/torch_mesh_cases.py``), each rank supervising an
+``engine.ShardedExecutor``, against the reference on ``host_mesh(2)``;
+the ranks agree bit for bit. Not here: the reference's supervisor-free
 checkpoint and fault cases, which ``tests/test_torch_pipeline.py`` ports.
 Beyond the reference: what eager PyTorch needs of an OOM recovery (the
 failed runtime freed, the prefetch worker stopped, the anchor a host
@@ -34,7 +37,9 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 import test_supervisor as jsup  # noqa: E402
-from conftest import DTYPE_ATOL, GOLDEN_LOSSES, ToyDataset  # noqa: E402
+import torch_mesh_cases as mesh_cases  # noqa: E402
+from conftest import (DTYPE_ATOL, GOLDEN_LOSSES, ToyDataset,  # noqa: E402
+                      host_mesh)
 from repro import configs as jconfigs  # noqa: E402
 from repro import engine as jengine  # noqa: E402
 from repro.core import memory_model as jmemory_model  # noqa: E402
@@ -43,6 +48,7 @@ from repro_torch import configs, engine, optim, tree, weights  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.core import memory_model  # noqa: E402
 from repro_torch.engine import faults  # noqa: E402
+from repro_torch.launch.world import LocalWorld  # noqa: E402
 from test_torch_streaming import t_loss_fn  # noqa: E402
 
 ATOL = DTYPE_ATOL[jnp.dtype(jnp.float32)]
@@ -497,23 +503,156 @@ def test_degradation_with_a_plan_context_matches_reference(tmp_path):
 
 
 def test_degradation_respects_data_parallel_divisibility():
-    """The reference's case, as arithmetic: a plan with two data-parallel
-    workers (no mesh in the port yet) halves to a multiple of 2 and stops
-    at the data extent, as the reference's does."""
-    def dp2(p):
-        return dataclasses.replace(p, data_parallel=2, local_micro=2)
-
-    plan = dp2(make_plan(remat_policy="full"))
-    jplan = dp2(jsup.make_plan(remat_policy="full"))
+    """The reference's case on a data-parallel mesh of 2: the halving
+    keeps the micro-batch a multiple of 2 and stops at the data extent,
+    plan for plan as the reference's does."""
+    plan = make_plan(remat_policy="full", mesh={"data": 2, "model": 1})
+    jplan = jsup.make_plan(remat_policy="full", mesh=host_mesh(2))
+    assert _plan_fields(plan) == _plan_fields(jplan)
     degraded, action = engine.degrade_plan(plan)
     jdegraded, jaction = jengine.degrade_plan(jplan)
     assert (_plan_fields(degraded), action) == (_plan_fields(jdegraded),
                                                 jaction)
     assert degraded.micro_batch_size == 2 and degraded.local_micro == 1
-    with pytest.raises(engine.PlanExhausted):
+    with pytest.raises(engine.PlanExhausted) as got:
         engine.degrade_plan(degraded)
-    with pytest.raises(jengine.PlanExhausted):
+    with pytest.raises(jengine.PlanExhausted) as want:
         jengine.degrade_plan(jdegraded)
+    assert str(got.value) == str(want.value)
+
+
+def test_degradation_on_a_mesh_with_a_plan_context_matches_reference(
+        tmp_path):
+    """The launcher's context on a data-parallel mesh of 4: every rung
+    re-plans through ``plan_mbs(mesh=...)`` (per-device budget, replicated
+    params, divisible micro sizes), the same plans and actions over the
+    whole ladder in both packages."""
+    seq, mini = 32, 32
+    cfg, jcfg = configs.get_reduced("qwen2-1.5b"), \
+        jconfigs.get_reduced("qwen2-1.5b")
+    tm, jm = {"data": 4, "model": 1}, host_mesh(4)
+    budget = memory_model.estimate(cfg, seq, remat_policy="none").total(4)
+    mm_kw = {"fsdp_params": False}
+    ctx = dict(model_cfg=cfg, seq_len=seq, budget_bytes=budget, mesh=tm,
+               device="cpu", tuning_cache=str(tmp_path / "t.json"),
+               mm_kw=mm_kw)
+    jctx = dict(model_cfg=jcfg, seq_len=seq, budget_bytes=budget, mesh=jm,
+                tuning_cache=str(tmp_path / "j.json"), mm_kw=mm_kw)
+    plan = engine.plan_mbs(mini, model_cfg=cfg, seq_len=seq,
+                           budget_bytes=budget, remat_policy="none",
+                           mesh=tm, fsdp_params=False, device="cpu")
+    jplan = jengine.plan_mbs(mini, model_cfg=jcfg, seq_len=seq,
+                             budget_bytes=budget, remat_policy="none",
+                             mesh=jm, fsdp_params=False)
+    assert _plan_fields(plan) == _plan_fields(jplan)
+    assert plan.data_parallel == 4
+    seen = _ladder(engine, plan, ctx)
+    assert seen == _ladder(jengine, jplan, jctx)
+    assert all(p["micro_batch_size"] % 4 == 0 for p, _ in seen)
+
+
+# ---------------------------------------------------------------------------
+# the supervisor over a data-parallel mesh (the reference's three
+# ``@pytest.mark.mesh`` cases): a gloo world of 2 CPU ranks, each running
+# its own supervisor over a ShardedExecutor, against the reference on
+# host_mesh(2)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    with LocalWorld(2, store_dir=str(tmp_path_factory.mktemp("world")),
+                    timeout_s=120) as w:
+        yield w
+
+
+def _mesh_plans(**kw):
+    plan = make_plan(mesh={"data": 2, "model": 1}, **kw)
+    jplan = jsup.make_plan(mesh=host_mesh(2), **kw)
+    assert _plan_fields(plan) == _plan_fields(jplan)
+    return plan, jplan
+
+
+def _ref_mesh_run(jplan, jspecs=(), guard=True):
+    build = jsup.make_build("compiled", guard=guard, mesh=host_mesh(2))
+    return jsup.run_supervised(build, jspecs, plan=jplan)
+
+
+def _tiny_np():
+    return jax.tree.map(np.asarray, jsup.tiny_params())
+
+
+def _port_mesh_run(world, plan, specs=(), guard=True):
+    """Both ranks' supervised runs, which must agree bit for bit."""
+    runs = world.run(mesh_cases.supervised, plan, list(specs), guard,
+                     _tiny_np(), STEPS)
+    for r in runs[1:]:
+        assert r["records"] == runs[0]["records"]
+        for a, b in zip(jax.tree.leaves((r["params"], r["opt_state"])),
+                        jax.tree.leaves((runs[0]["params"],
+                                         runs[0]["opt_state"]))):
+            assert np.array_equal(a, b)
+    return runs[0]
+
+
+def _assert_same_as_reference(run, ref, what):
+    jsup_, jfp, jp, js, _ = ref
+    assert run["records"] == _records(jsup_), what
+    assert run["fired"] == jfp.fired, what
+    assert run["plan"] == _plan_fields(jsup_.plan), what
+    np.testing.assert_allclose(
+        [run["history"][k] for k in sorted(run["history"])],
+        [jsup_.history[k] for k in sorted(jsup_.history)],
+        atol=ATOL, rtol=0, err_msg=what)
+    _close_np(run["params"], jp, what)
+    _close_np(run["opt_state"]["mom"], js["mom"], what)
+    assert int(run["opt_state"]["step"]) == int(js["step"]), what
+
+
+def _close_np(got, want, what):
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g, np.asarray(w, np.float32), atol=ATOL,
+                                   rtol=0, err_msg=what)
+
+
+def test_sharded_negative_control_bitwise(world2):
+    plan, jplan = _mesh_plans()
+    run = _port_mesh_run(world2, plan, guard=False)
+    ref_p, ref_s = world2.run(mesh_cases.unsupervised, plan, False,
+                              _tiny_np(), STEPS)[0]
+    assert run["fired"] == [] and run["records"] == []
+    for a, b in zip(jax.tree.leaves((run["params"], run["opt_state"])),
+                    jax.tree.leaves((ref_p, ref_s))):
+        assert np.array_equal(a, b)
+    _assert_same_as_reference(run, _ref_mesh_run(jplan, guard=False),
+                              "negative control")
+
+
+def test_sharded_oom_recovery_matches_degraded_golden(world2):
+    plan, jplan = _mesh_plans(remat_policy="full")
+    run = _port_mesh_run(world2, plan, [faults.oom_at(2)])
+    assert [k for k, *_ in run["fired"]] == ["oom"]
+    assert run["plan"]["micro_batch_size"] == 2
+    assert run["plan"]["local_micro"] == 1
+    degraded, _ = engine.degrade_plan(plan)
+    ref_p, ref_s = world2.run(mesh_cases.unsupervised, degraded, True,
+                              _tiny_np(), STEPS)[0]
+    _close_np(run["params"], ref_p, "sharded params after OOM")
+    _close_np(run["opt_state"]["mom"], ref_s["mom"], "sharded momentum")
+    _assert_same_as_reference(
+        run, _ref_mesh_run(jplan, [jfaults.oom_at(2)]), "OOM")
+
+
+def test_sharded_nan_retry_recovers_clean_trajectory(world2):
+    plan, jplan = _mesh_plans()
+    run = _port_mesh_run(world2, plan, [faults.nan_at(1)])
+    [rec] = run["records"]
+    assert rec[0] == "nonfinite" and rec[2].startswith("retried ok")
+    ref_p, _ = world2.run(mesh_cases.unsupervised, plan, True, _tiny_np(),
+                          STEPS)[0]
+    for a, b in zip(jax.tree.leaves(run["params"]), jax.tree.leaves(ref_p)):
+        assert np.array_equal(a, b)
+    _assert_same_as_reference(
+        run, _ref_mesh_run(jplan, [jfaults.nan_at(1)]), "NaN retry")
 
 
 # ---------------------------------------------------------------------------
