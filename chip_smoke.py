@@ -222,10 +222,36 @@ Phases (any failure exits non-zero before the last line is printed):
      all-reduce a step; ``defer_sync=False`` N_Sμ all-reduces a step; a
      NaN in rank 0's block alone leaves both ranks' state ``torch.equal``.
 
+  17a. seamless-m4t-medium (encoder-decoder, 12 + 12 layers, d 1024,
+     vocab 256,206) at full width (``family_train_phase`` with
+     ``run_executor``: the launcher's ``LMDataset`` has no frames, so
+     the ``flat`` executor is driven directly on
+     ``launch.steps.family_batch``'s frames and target tokens): 4096
+     frames, 1024 target tokens, mini-batch 8, SGD-m, bf16 over fp32, 4
+     steps, calibrated as 15a–15c (a probe OOM climbs the lattice, the
+     least budget up to 72 GiB): losses finite, the first near
+     ln(vocab), K1 steps × N_Sμ × launch groups and K2 steps × buckets,
+     the steady step and target tokens/s, the peak beside the budget
+     and the calibrated prediction, one traced micro-batch;
+  17b. qwen2-vl-72b at full width, depth cut to 1 of its 80 layers,
+     through ``launch.train.main`` text-only as the reference's launcher
+     feeds it (seq 1024, mini-batch 8, calibrated as 15a–15c); then
+     (``vlm_step_phase``) the full VLM batch — 256 patch embeddings of
+     width 1280 and M-RoPE streams that differ — whose logits must
+     differ from plain RoPE's and equal them when the streams are
+     equal, and one ``flat`` step on it with the streams split
+     (N_Sμ, 3, N_μ, S);
+  17c. 2 layers of each width (the enc-dec 2 + 2), fp32, TF32 off:
+     ``flat``, ``fused`` and ``streaming`` against ``compiled`` after 2
+     steps within phase 5's rtol / atol 1e-6 (``family_steps_check``);
+     enc-dec ``decode_step`` against ``forward`` for 8 teacher-forced
+     tokens within 1e-4 (``encdec_decode_check``); the VLM served
+     text-only as 14c checks (``serve_correctness_phase``).
+
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
 ``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's,
-15's and 16's numbers)
+15's, 16's and 17's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3111,6 +3137,9 @@ SERVE_CHECKS = {
         None, (300, 2040, 2200)),
     "moonshot-v1-16b-a3b": (dict(num_layers=2, capacity_factor=64.0),
                             [(1000, 1100)], None, (40, 700, 1000)),
+    # 17c: the VLM served text-only, as the reference serves it
+    "qwen2-vl-72b": (dict(num_layers=2), [(1000, 1100)], [100, 1000, 517],
+                     (40, 700, 1000)),
 }
 
 
@@ -3296,19 +3325,21 @@ def _trace_micro(dev, cfg, params, plan, seq: int) -> dict:
     the most time (the trace is written under ``build/`` and removed)."""
     import torch
     from repro_torch import tree
-    from repro_torch.data import LMDataset
     from repro_torch.launch import steps
 
     loss_fn = steps.make_loss_fn(cfg, dtype=torch.bfloat16,
                                  remat_policy=plan.remat_policy)
-    mb = {k: torch.from_numpy(v).to(dev) for k, v in LMDataset(
-        cfg.vocab_size, seq, seed=0).batch(plan.micro_batch_size, 0).items()}
+    # the family's batch: LMDataset tokens (a VLM text-only, as the
+    # launcher feeds it), an enc-dec config's frames and target tokens
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in steps.family_batch(
+        cfg, seq, plan.micro_batch_size, seed=0, vision=False).items()}
     leaves, td = tree.flatten(params)
     leaves = [x.detach().requires_grad_() for x in leaves]
 
     def once():
         loss, _ = loss_fn(tree.unflatten(td, leaves), mb)
-        grads = torch.autograd.grad(loss, leaves)
+        # a text-only VLM batch leaves vision_proj out of the graph
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         torch.cuda.synchronize()
         del grads
 
@@ -3339,9 +3370,11 @@ def _trace_micro(dev, cfg, params, plan, seq: int) -> dict:
     return out
 
 
-def family_train_phase(dev, arch: str) -> dict:
-    """15a-15c. ``launch.train.main`` for ``arch`` at full width
-    (FAMILY_TRAIN), ``flat``, SGD-m, bf16 over fp32 weights, seed 0,
+def family_train_phase(dev, arch: str, train_flags=None, drive=None
+                       ) -> dict:
+    """15a-15c, 17a, 17b. ``launch.train.main`` for ``arch`` at full width
+    (FAMILY_TRAIN, or ``train_flags``), ``flat``, SGD-m, bf16 over fp32
+    weights, seed 0,
     against CALIBRATION_BUDGET_GB: the analytic plan (``--calibrate off``,
     not run); ``--calibrate force`` under the analytic plan's remat
     policy, probing the real step at micro 1, 2 and 4 — a probe that does
@@ -3357,7 +3390,9 @@ def family_train_phase(dev, arch: str) -> dict:
     (a peak over the budget is reported, not hidden); one micro-batch's
     forward and backward traced (``_trace_micro``). MoE: the aux loss of
     step 0 and the share of routed (token, expert) choices that the
-    capacity dropped in step 0."""
+    capacity dropped in step 0. ``drive(dev, argv)`` replaces the
+    launcher's run (17a's ``run_executor``: the enc-dec, which the
+    launcher refuses) and returns what :func:`run_launcher` does."""
     import torch
     from repro_torch import optim
     from repro_torch.core import memory_model
@@ -3369,8 +3404,10 @@ def family_train_phase(dev, arch: str) -> dict:
     if os.path.exists(cache):
         os.remove(cache)
     autotune._caches.pop(cache, None)
-    base = ["--arch", arch, *FAMILY_ARGV, *FAMILY_TRAIN[arch],
-            "--tuning-cache", cache]
+    if train_flags is None:
+        train_flags = FAMILY_TRAIN[arch]
+    base = ["--arch", arch, *FAMILY_ARGV, *train_flags, "--tuning-cache",
+            cache]
     ap = train.build_parser()
     args0 = ap.parse_args(base)
     cfg, seq, mini = train.build_config(args0), args0.seq, args0.mini_batch
@@ -3444,7 +3481,7 @@ def family_train_phase(dev, arch: str) -> dict:
           f"predicted {predicted / GIB:.3f} GiB", flush=True)
     records, undo = (_route_recorder() if cfg.is_moe else (None, None))
     try:
-        res = run_launcher(dev, flags("auto", policy, budget_gb))
+        res = (drive or run_launcher)(dev, flags("auto", policy, budget_gb))
     finally:
         if undo is not None:
             undo()
@@ -3465,7 +3502,8 @@ def family_train_phase(dev, arch: str) -> dict:
           f"micro-batches x {groups} launch groups) and K2 {len(hist) * n_b}")
     step_s, peak = res["steady_step_s"], res["peak_bytes"]
     budget = int(budget_gb * GIB)
-    tokens = mini * seq
+    # an enc-dec config's tokens are its decoder's (frames / 4)
+    tokens = mini * (seq // 4 if cfg.is_encdec else seq)
     out.update(
         plan=got.describe(), micro=got.micro_batch_size,
         num_micro_batches=got.num_micro_batches, remat=got.remat_policy,
@@ -3846,6 +3884,313 @@ def dp_check_phase(dev) -> dict:
           flush=True)
     return out
 
+# ---------------------------------------------------------------------------
+# 17. the last two families: the encoder-decoder and the VLM backbone
+# ---------------------------------------------------------------------------
+
+# 17a: seamless-m4t-medium at full width (12 + 12 layers, d 1024, vocab
+# 256,206) at the reference's train_4k: 4096 frames, 1024 target tokens
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_TRAIN = ["--seq", "4096", "--mini-batch", "8"]
+# 17b: qwen2-vl-72b at full width (d 8192, d_ff 29,568, vocab 152,064,
+# untied head), depth cut to 1 of its 80 layers: one layer is 3.37 G
+# params, 50.2 GiB of flat state (params, momentum, accumulator and one
+# micro-batch's gradient leaves); two would be 63.3 GiB before activations
+VLM_ARCH = "qwen2-vl-72b"
+VLM_TRAIN = ["--seq", "1024", "--mini-batch", "8", "--layers", "1"]
+# 17c: 2 steps at 2 layers of each width (the enc-dec 2 + 2), fp32; the
+# VLM's batch is 256 patches and 128 text tokens
+FAMILY_CHECK_STEPS = 2
+FAMILY_CHECK_SEQ = {ENCDEC_ARCH: 256, VLM_ARCH: 384}
+ENCDEC_DECODE_ATOL = 1e-4  # tests/test_decode_consistency.py's bound
+
+
+def run_executor(dev, argv) -> dict:
+    """17a's runner: what ``launch.train.main(argv)`` would run, with the
+    executor driven directly on the family's batches
+    (``steps.family_batch``, seed = step; the launcher's ``LMDataset`` has
+    no frames, so it refuses an enc-dec arch): the plan
+    (``train.build_plan``: the tuning cache's correction under
+    ``--calibrate auto``), ``train.build_executor``, fp32 params from seed
+    0, the counters zeroed just before the steps and read just after.
+    Each step's batch is staged before its clock starts, and its clock
+    stops at its loss's readback; the steady step is the mean of the
+    steps but the first. Returns :func:`run_launcher`'s keys and checks
+    what it checks: every loss finite, the first near ln(vocab)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import steps, train
+
+    args = train.build_parser().parse_args(argv)
+    cfg = train.build_config(args)
+    opt = train.default_optimizer(args)
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    batches = [steps.family_batch(cfg, args.seq, args.mini_batch, seed=i)
+               for i in range(args.steps)]
+    gc_collect()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    plan = train.build_plan(cfg, args, opt, dev)
+    print(plan.describe(), flush=True)
+    ex = train.build_executor(cfg, plan, args, opt)
+    params = steps.init_params(cfg, seed=0, device=dev)
+    opt_state = opt.init(params)
+    params, opt_state = ex.prepare(params, opt_state)
+    kernels.reset_launch_counts()
+    hist, times = [], []
+    for i, b in enumerate(batches):
+        split = steps.device_split(plan, b, dev, dtype)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        params, opt_state, m = ex.step_split(params, opt_state, split)
+        loss = float(m["loss"])
+        times.append(time.perf_counter() - t)
+        hist.append({"step": i, "loss": loss})
+        print(f"step {i}: loss {loss:.4f} ({times[-1]:.4f}s)", flush=True)
+        del split, m
+    counts = kernels.launch_counts()
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses),
+          f"{argv}: losses not finite: {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+          f"first loss {losses[0]:.4f} is far from ln(vocab) "
+          f"{math.log(cfg.vocab_size):.4f} for a random model")
+    return {"plan": plan, "config": cfg, "history": hist, "params": params,
+            "opt_state": opt_state, "counts": counts, "losses": losses,
+            "readback_gaps_s": times,
+            "steady_step_s": sum(times[1:]) / max(len(times) - 1, 1),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+            "allocated_before_bytes": base,
+            "wall_s": time.perf_counter() - t0}
+
+
+def vlm_step_phase(dev) -> dict:
+    """17b (ii). qwen2-vl-72b at full width, 1 layer, bf16 over fp32
+    weights, on the full VLM batch (``steps.family_batch``: 256 patch
+    embeddings of width 1280 in the prefix, then text; the M-RoPE
+    streams of a 16 x 16 patch grid, t/h/w different over the image):
+    the logits of one sample under M-RoPE must differ from plain RoPE's
+    (no streams) and equal them when the three streams are equal (the
+    twin of ``test_mrope_equals_rope_when_positions_equal``); then one
+    ``flat`` step of 4 samples in 2 micro-batches, the streams split
+    (N_Smu, 3, N_mu, S) by ``steps.device_split``: loss finite, K1
+    launched once a micro-batch and launch group, K2 once a bucket."""
+    import torch
+    from repro_torch import configs, engine, kernels, optim
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(configs.get(VLM_ARCH), num_layers=1)
+    seq = 1024
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    one = {k: torch.from_numpy(v).to(dev) for k, v in steps.family_batch(
+        cfg, seq, 1, seed=0).items()}
+    equal = torch.arange(seq, device=dev).expand(3, 1, seq)
+    with torch.inference_mode():
+        def logits(pos):
+            return transformer.forward(
+                params, cfg, one["tokens"], dtype=bf16, remat=False,
+                vision_embeds=one["vision_embeds"], mrope_positions=pos)[0]
+        plain = logits(None)
+        mrope_diff = float((logits(one["mrope_positions"]) - plain
+                            ).abs().max())
+        same = logits(equal)
+        equal_err = float((same - plain).abs().max())
+        bitwise = bool(torch.equal(same, plain))
+        del plain, same
+    check(mrope_diff > 1e-3, f"{VLM_ARCH}: M-RoPE over differing streams "
+                             f"moved the logits by only {mrope_diff:.3e}")
+    check(equal_err <= 1e-6, f"{VLM_ARCH}: M-RoPE over equal streams "
+                             f"differs from plain RoPE by {equal_err:.3e}")
+    plan = engine.plan_mbs(4, micro_batch_size=2, remat_policy="none",
+                           device=dev)
+    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    ex = engine.get_executor("flat")(steps.make_loss_fn(
+        cfg, dtype=bf16, remat_policy="none"), opt, plan)
+    split = steps.device_split(plan, steps.family_batch(cfg, seq, 4, seed=1),
+                               dev, bf16)
+    shapes = {k: tuple(v.shape) for k, v in split.items()}
+    state = opt.init(params)
+    params, state = ex.prepare(params, state)
+    groups = _k1_groups(params)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, m = ex.step_split(params, state, split)
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(math.isfinite(loss), f"{VLM_ARCH}: the VLM step's loss is {loss}")
+    check(counts["grad_accum"] == 2 * groups and
+          counts["fused_sgd_mom"] == 1,
+          f"{VLM_ARCH}: the VLM step launched {counts}, expected K1 "
+          f"{2 * groups} and K2 1")
+    out = {"layers": 1, "seq": seq, "batch_shapes": shapes,
+           "mrope_vs_rope_max_diff": mrope_diff,
+           "equal_streams_vs_rope_max_err": equal_err,
+           "equal_streams_bitwise": bitwise, "loss": loss, "step_s": step_s,
+           "counts": counts, "peak_bytes": peak}
+    print(f"train {VLM_ARCH} (1 layer, bf16 over fp32) on the VLM batch "
+          f"{shapes}: M-RoPE vs plain RoPE logits differ by up to "
+          f"{mrope_diff:.4f}; equal streams vs plain RoPE {equal_err:.3e} "
+          f"(bit for bit: {bitwise}); one flat step of 2 x 2: loss "
+          f"{loss:.6f} in {step_s:.3f}s, K1/K2 {counts['grad_accum']}/"
+          f"{counts['fused_sgd_mom']}, peak {peak / GIB:.3f} GiB", flush=True)
+    del params, state, split, ex
+    gc_collect()
+    return out
+
+
+def family_steps_check(dev, arch: str) -> dict:
+    """17c. FAMILY_CHECK_STEPS steps of each executor at 2 layers of
+    ``arch``'s full width (the enc-dec 2 + 2), fp32, TF32 off, from seed
+    0's params on the family's batches (mini-batch 8 in 4 micro-batches,
+    remat ``none``; the VLM's with 256 patches and M-RoPE streams):
+    ``flat``, ``fused`` and ``streaming`` against ``compiled`` — every
+    param and optimizer-state leaf within phase 5's rtol / atol 1e-6,
+    each step's loss within 1e-5 relative. The enc-dec trains with SGD-m;
+    the VLM with plain SGD, because ``compiled``'s SGD-m update holds six
+    copies of its 17 GB of params (102 GB), plain SGD's four. The
+    reference state waits on the host while the others run."""
+    import torch
+    from repro_torch import configs, engine, kernels, optim, tree
+    from repro_torch.launch import steps
+
+    cfg = configs.get(arch)
+    cfg = dataclasses.replace(cfg, num_layers=2, **(
+        {"encoder_layers": 2} if cfg.is_encdec else {}))
+    momentum = 0.9 if cfg.is_encdec else 0.0
+    seq = FAMILY_CHECK_SEQ[arch]
+    plan = engine.plan_mbs(8, num_microbatches=4, remat_policy="none",
+                           device=dev)
+    loss_fn = steps.make_loss_fn(cfg, dtype=torch.float32,
+                                 remat_policy="none")
+    batches = [steps.family_batch(cfg, seq, 8, seed=i)
+               for i in range(FAMILY_CHECK_STEPS)]
+    ref, out = None, {"layers": cfg.num_layers, "seq": seq,
+                      "momentum": momentum, "losses": {}, "counts": {},
+                      "max_abs_err": {}, "peak_bytes": {}}
+    for name in ("compiled", "flat", "fused", "streaming"):
+        opt = optim.sgd(0.05, momentum=momentum, weight_decay=5e-4)
+        ex = engine.get_executor(name)(loss_fn, opt, plan)
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = steps.init_params(cfg, seed=0, device=dev)
+        state = opt.init(params)
+        if name == "flat":
+            params, state = ex.prepare(params, state)
+        kernels.reset_launch_counts()
+        losses = []
+        for b in batches:
+            params, state, m = ex.step_split(
+                params, state, steps.device_split(plan, b, dev))
+            losses.append(float(m["loss"]))
+        out["losses"][name], out["counts"][name] = losses, \
+            kernels.launch_counts()
+        out["peak_bytes"][name] = torch.cuda.max_memory_allocated(dev)
+        leaves = tree.leaves((params, state))
+        del params, state, m, ex
+        if ref is None:
+            check(all(math.isfinite(x) for x in losses),
+                  f"{arch}: compiled losses {losses}")
+            ref = [x.detach().cpu() for x in leaves]
+            del leaves
+            continue
+        check(len(leaves) == len(ref), f"{arch}: {name} has {len(leaves)} "
+                                       f"state leaves, compiled {len(ref)}")
+        worst = 0.0
+        for x, y in zip(leaves, ref):
+            err, ok = max_violation(x, y.to(dev))
+            worst = max(worst, err)
+            check(ok, f"{arch} (2 layers): {name} vs compiled disagree: max "
+                      f"abs err {err:.3e} (rtol 1e-6, atol 1e-6)")
+        for a, b in zip(losses, out["losses"]["compiled"]):
+            check(abs(a - b) <= 1e-5 * abs(b),
+                  f"{arch}: {name} losses {losses} vs compiled "
+                  f"{out['losses']['compiled']}")
+        out["max_abs_err"][name] = worst
+        del leaves
+    del ref
+    gc_collect()
+    print(f"train {arch} (2 layers, fp32, TF32 off, SGD momentum "
+          f"{momentum}): {FAMILY_CHECK_STEPS} steps of flat / fused / "
+          f"streaming vs compiled, max abs err {out['max_abs_err']}; losses "
+          f"{out['losses']['compiled']}; peaks "
+          + ", ".join(f"{k} {v / GIB:.2f}" for k, v in
+                      out["peak_bytes"].items()) + " GiB", flush=True)
+    return out
+
+
+def encdec_decode_check(dev) -> dict:
+    """17c. ``tests/test_decode_consistency.py``'s enc-dec case at 2 + 2
+    layers of seamless-m4t-medium's full width, fp32, TF32 off: the
+    encoder over 512 frames once, the cross K/V projected once
+    (``encdec.init_decode_cache``), then 8 teacher-forced tokens through
+    ``encdec.decode_step``, each step's logits within ENCDEC_DECODE_ATOL
+    of the teacher-forced ``forward``'s."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import encdec
+
+    f32 = torch.float32
+    cfg = dataclasses.replace(configs.get(ENCDEC_ARCH), num_layers=2,
+                              encoder_layers=2)
+    params = encdec.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 512, cfg.d_model), np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9))).to(dev)
+    with torch.inference_mode():
+        full, _ = encdec.forward(params, cfg, frames, toks, dtype=f32,
+                                 remat=False)
+    cache = encdec.init_decode_cache(params, cfg, frames, 16, f32)
+    errs = []
+    for t in range(8):
+        pos = torch.full((2,), t, dtype=torch.int32, device=dev)
+        lg, cache = encdec.decode_step(params, cfg, toks[:, t:t + 1], cache,
+                                       pos, dtype=f32)
+        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    worst = max(errs)
+    check(worst < ENCDEC_DECODE_ATOL,
+          f"{ENCDEC_ARCH} (2 + 2 layers): decode vs forward {errs}")
+    print(f"serve {ENCDEC_ARCH} (2 + 2 layers, fp32, TF32 off): 512 frames "
+          f"encoded once, 8 teacher-forced decode steps vs forward, max "
+          f"abs err {worst:.3e} (bound {ENCDEC_DECODE_ATOL})", flush=True)
+    del params, cache, full
+    gc_collect()
+    return {"layers": 2, "frames": 512, "steps": 8, "max_abs_err": worst,
+            "errs": errs}
+
+
+def encdec_vlm_phases(timed, dev) -> dict:
+    """17a-17c, in order: the enc-dec's training cell (the executor
+    driven directly), the VLM's (the launcher, text-only), the VLM batch
+    step, then the 2-layer checks of both."""
+    out = {"train": {
+        ENCDEC_ARCH: timed(f"17a train {ENCDEC_ARCH}", family_train_phase,
+                           dev, ENCDEC_ARCH, ENCDEC_TRAIN, run_executor),
+        VLM_ARCH: timed(f"17b train {VLM_ARCH}", family_train_phase, dev,
+                        VLM_ARCH, VLM_TRAIN)}}
+    out["vlm_batch"] = timed("17b VLM batch", vlm_step_phase, dev)
+    out["check"] = {
+        ENCDEC_ARCH: {
+            "steps": timed(f"17c step check {ENCDEC_ARCH}",
+                           family_steps_check, dev, ENCDEC_ARCH),
+            "decode": timed(f"17c decode check {ENCDEC_ARCH}",
+                            encdec_decode_check, dev)},
+        VLM_ARCH: {
+            "steps": timed(f"17c step check {VLM_ARCH}", family_steps_check,
+                           dev, VLM_ARCH),
+            "serve": timed(f"17c serve check {VLM_ARCH}",
+                           serve_correctness_phase, dev, VLM_ARCH)}}
+    return out
+
 
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
@@ -3915,9 +4260,11 @@ def run() -> dict:
     fam = family_phases(timed, dev)
     dp = {"train": timed("16a data parallel", dp_main_path_phase, dev),
           "check": timed("16b data-parallel check", dp_check_phase, dev)}
+    fam17 = encdec_vlm_phases(timed, dev)
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
-    # families' training paths, the data-parallel path's ranks, the
+    # families' training paths (15a-15c, 17a, 17b), the data-parallel
+    # path's ranks, the
     # kernel-API path's and the five serving paths' — each read right
     # after it ran (a rank's in its own process)
     serve_paths = {f"serve {a}": r["counts"]
@@ -3925,6 +4272,8 @@ def run() -> dict:
     paths = {"qwen2-1.5b": main["counts"],
              **{w: r["counts"] for w, r in cnns.items()},
              **{f"train {a}": r["counts"] for a, r in fam["train"].items()},
+             **{f"train {a}": r["counts"]
+                for a, r in fam17["train"].items()},
              **{f"dp qwen2-1.5b {k}": c
                 for k, c in dp["train"]["counts"].items()},
              **serve_paths}
@@ -3987,6 +4336,7 @@ def run() -> dict:
         "calibration": calibration, "cnn": cnns, "tuner": tuner,
         "guard": guard, "oom_ladder": ladder, "calibration_miss": miss,
         "serve": serve, "serve_check": serve_check, "families": fam,
+        "encdec_vlm": fam17,
         "data_parallel": {"train": {k: v for k, v in dp["train"].items()
                                     if k != "counts"},
                           "check": dp["check"]},

@@ -1,13 +1,14 @@
 """Architecture registry of the port.
 
 ``get(arch_id)`` / ``get_reduced(arch_id)`` return a ``ModelConfig``.
-``ARCHS`` lists every architecture the JAX package supports. The port
-builds the decoder-only families: dense — qwen2-1.5b (GQA, QKV bias),
-gemma2-9b and gemma3-12b (local/global windows, soft-caps, post-norms,
-embedding scale, QK-norm, dual RoPE theta); ssm — mamba2-780m; hybrid —
-recurrentgemma-2b (RG-LRU + local attention); MoE — moonshot-v1-16b-a3b,
-mixtral-8x22b (untied LM head) and grok-1-314b. The other two raise an
-error that names the ROADMAP item porting their layers.
+``ARCHS`` lists every architecture the JAX package supports, and the
+port builds them all: dense — qwen2-1.5b (GQA, QKV bias), gemma2-9b and
+gemma3-12b (local/global windows, soft-caps, post-norms, embedding scale,
+QK-norm, dual RoPE theta); ssm — mamba2-780m; hybrid — recurrentgemma-2b
+(RG-LRU + local attention); MoE — moonshot-v1-16b-a3b, mixtral-8x22b
+(untied LM head) and grok-1-314b; VLM — qwen2-vl-72b (the patch-embedding
+prefix and M-RoPE); audio — seamless-m4t-medium (encoder-decoder,
+``models.encdec``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ _MODULES: Dict[str, str] = {"qwen2-1.5b": "qwen2_1_5b",
                             "recurrentgemma-2b": "recurrentgemma_2b",
                             "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
                             "mixtral-8x22b": "mixtral_8x22b",
-                            "grok-1-314b": "grok_1_314b"}
+                            "grok-1-314b": "grok_1_314b",
+                            "qwen2-vl-72b": "qwen2_vl_72b",
+                            "seamless-m4t-medium": "seamless_m4t_medium"}
 
 ARCHS: List[str] = [
     "gemma2-9b", "grok-1-314b", "recurrentgemma-2b", "gemma3-12b",
@@ -31,20 +34,10 @@ ARCHS: List[str] = [
     "moonshot-v1-16b-a3b", "seamless-m4t-medium",
 ]
 
-# not ported: seamless-m4t-medium (the encoder-decoder stack and the
-# gelu FFN, ROADMAP queue 1 item 10) and qwen2-vl-72b (the VLM frontend
-# and M-RoPE, item 8)
-_NOT_PORTED = ("{arch} is not ported yet: ROADMAP.md queue 1 item 10 "
-               "(the encoder-decoder stack) and item 8 (the VLM frontend, "
-               "M-RoPE) bring its layers to repro_torch; ported: {ported}")
-
 
 def _module(arch_id: str):
     if arch_id not in ARCHS:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCHS}")
-    if arch_id not in _MODULES:
-        raise NotImplementedError(_NOT_PORTED.format(
-            arch=arch_id, ported=sorted(_MODULES)))
     return import_module(f".{_MODULES[arch_id]}", __package__)
 
 

@@ -151,11 +151,11 @@ def param_shard_ratio(cfg: ModelConfig, mesh, *, fsdp: bool = True) -> float:
 def param_shapes(cfg: ModelConfig):
     """The parameter tree of ``cfg`` as shapes only: ``init_params`` under
     a fake-tensor mode, which allocates nothing (the reference's
-    ``jax.eval_shape``)."""
+    ``jax.eval_shape``), the family's (``launch.steps.init_params``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from ..models import transformer  # deferred: models import this module
+    from ..launch import steps  # deferred: the models import this module
     with FakeTensorMode():
-        return transformer.init_params(cfg, seed=0, device="cpu")
+        return steps.init_params(cfg, seed=0, device="cpu")
 
 
 @functools.lru_cache(maxsize=256)

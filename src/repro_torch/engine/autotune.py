@@ -295,7 +295,12 @@ def measured_step_bytes(cfg, seq: int, micro: int, *,
     The reference reads XLA's ``memory_analysis()`` of an abstract
     compile and probes ``compiled`` in place of ``streaming``, which has
     no jittable step; every executor of the port has a real eager step,
-    so the one the key names is the one measured. The CPU has no
+    so the one the key names is the one measured. The batch is the
+    family's, as the reference's ``abstract_train_batch`` shapes it:
+    frames and target tokens for an enc-dec config, patch embeddings
+    and M-RoPE streams beside the tokens for a VLM
+    (``steps.family_batch``), frames and embeddings in the activation
+    dtype. The CPU has no
     allocator peak to read: there this raises, and never returns a
     modeled number."""
     device = torch.device(device)
@@ -304,9 +309,7 @@ def measured_step_bytes(cfg, seq: int, micro: int, *,
             f"measured_step_bytes needs a CUDA device, got {device}: the "
             "memory oracle reads the caching allocator's peak, which the "
             "CPU does not have")
-    from ..data import LMDataset
     from ..launch import steps
-    from ..models import transformer
     from .executors import FlatFusedExecutor, get_executor
     from .plan import plan_mbs
 
@@ -318,14 +321,14 @@ def measured_step_bytes(cfg, seq: int, micro: int, *,
     ex = get_executor(executor)(
         steps.make_loss_fn(cfg, dtype=dtype, remat_policy=remat_policy),
         opt, plan)
-    batch = LMDataset(cfg.vocab_size, seq, seed=0).batch(mini, 0)
+    batch = steps.family_batch(cfg, seq, mini, seed=0)
     gc.collect()
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    split = plan.device_split(batch, device)
-    state = {"params": transformer.init_params(cfg, seed=0, device=device)}
+    split = steps.device_split(plan, batch, device, dtype)
+    state = {"params": steps.init_params(cfg, seed=0, device=device)}
     state["opt_state"] = opt.init(state["params"])
     if isinstance(ex, FlatFusedExecutor):
         state["params"], state["opt_state"] = ex.prepare(

@@ -57,20 +57,18 @@ _ENCDEC_NOTE = ("encoder-decoder configs are not servable by the "
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """Fail fast, before any tensor is allocated: enc-dec configs with
-    the JAX package's message (the port has no enc-dec layers either,
-    ROADMAP.md queue 1 item 10), a layer kind without a decode-cache
-    slot, and a config whose layers the port lacks
-    (``transformer.check_supported``'s ``NotImplementedError``)."""
+    """Fail fast, before any tensor is allocated, with the JAX package's
+    messages: an enc-dec config (``models.encdec`` decodes one batch
+    through its own cross-attention cache, but this engine's pool is the
+    decoder-only ``init_cache``), and a layer kind without a decode-cache
+    slot. A VLM serves text-only, as in the JAX package."""
     if cfg.is_encdec:
-        raise ValueError(f"{cfg.name}: {_ENCDEC_NOTE} (nor are its layers "
-                         "ported: ROADMAP.md queue 1 item 10)")
+        raise ValueError(f"{cfg.name}: {_ENCDEC_NOTE}")
     for kind in cfg.layer_pattern:
         if kind not in ("global", "local", "ssm", "recurrent"):
             raise ValueError(
                 f"{cfg.name}: layer kind {kind!r} has no decode-cache slot "
                 "in transformer.init_cache — cannot serve this pattern")
-    transformer.check_supported(cfg)
 
 
 @dataclasses.dataclass

@@ -125,9 +125,16 @@ def batch_partition_specs(batch, micro: int, axes: Tuple[str, ...],
     ``sample_dim_from``; dim 0 is the micro-batch axis of a split batch)
     whose size equals the global micro-batch size — over the batch axes.
     Every leaf must have such a dim: a replicated leaf would be counted
-    once by every rank's local accumulation."""
+    once by every rank's local accumulation. The VLM's split
+    ``mrope_positions`` (N_Smu, 3, N_mu, S) is refused by name: at a
+    micro-batch of 3 the first matching dim would be the streams'."""
     from ..launch.sharding import P
     entry = axes if len(axes) > 1 else axes[0]
+    if "mrope_positions" in batch:
+        raise ValueError(
+            "ShardedExecutor does not shard mrope_positions: its (N_Smu, 3, "
+            "N_mu, S) layout puts the streams before the sample dim; a "
+            "data-parallel VLM trains text-only, as the launcher feeds it")
 
     def spec_for(leaf):
         shape = tuple(leaf.shape)

@@ -59,6 +59,12 @@ memory beside the per-device estimate) to ``PATH.rank<r>.json``.
       --arch qwen2-1.5b --reduced --steps 4 --mesh 2:1 --executor flat \
       [--device cpu]
 
+A VLM (``--arch qwen2-vl-72b``) trains text-only, as the JAX package's
+launcher feeds it: no patch embeddings, plain RoPE. An encoder-decoder
+(``--arch seamless-m4t-medium``) is refused before anything is
+allocated: its loss reads frames, which ``LMDataset`` does not make (the
+reference's launcher fails on the same batch).
+
 Not ported: ``--mesh production`` and ``--multi-pod`` (the TPU GSPMD
 meshes with tensor and FSDP sharding; ROADMAP.md queue 1 item 11, its
 production-mesh half), a model axis > 1 and the ``--fsdp`` that applies
@@ -82,11 +88,17 @@ import torch
 from .. import configs, engine, kernels, optim
 from ..core import memory_model
 from ..data import LMDataset
-from ..models import transformer
 from . import mesh as mesh_lib
 from . import steps
 
 GIB = 1024 ** 3
+
+ENCDEC_NOTE = (
+    "--arch {arch} is an encoder-decoder: its loss reads frames and target "
+    "tokens (mb['frames'], mb['tgt_tokens']), but this launcher's "
+    "LMDataset yields tokens only, as the JAX package's launcher's does "
+    "(so neither launcher trains it); drive an executor with "
+    "launch.steps.family_batch instead")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -433,6 +445,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     if args.calibrate == "force" and device.type != "cuda":
         ap.error("--calibrate force measures the step's peak on the card; "
                  "on the CPU use --calibrate auto or off")
+    if build_config(args).is_encdec:
+        ap.error(ENCDEC_NOTE.format(arch=args.arch))
     import torch.distributed as dist
     joined = dist.is_available() and dist.is_initialized()
     try:
@@ -490,7 +504,7 @@ def _run(args, device, mesh) -> Dict[str, object]:
     # the initial state lives only in ``state`` until run_trainer hands
     # it to the Trainer: an executor whose update makes new trees then
     # frees it after the first step
-    state = {"params": transformer.init_params(cfg, seed=0, device=device)}
+    state = {"params": steps.init_params(cfg, seed=0, device=device)}
     state["opt_state"] = opt.init(state["params"])
     if getattr(executor, "prepare", None) is not None:
         state["params"], state["opt_state"] = executor.prepare(

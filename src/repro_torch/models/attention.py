@@ -1,5 +1,6 @@
 """Attention: GQA with causal / sliding-window masks, optional logit
-soft-capping and QK-norm, RoPE — and the ring-buffer KV cache of decode.
+soft-capping and QK-norm, RoPE or M-RoPE, the encoder-decoder's cross
+attention — and the ring-buffer KV cache of decode.
 
 GQA runs through a ``(B, S, K, G, hd)`` view of the queries, softmax in
 fp32, masking by an additive ``-1e30`` bias — the JAX package's
@@ -101,9 +102,11 @@ def chunked_attention(q, k, v, *, q_pos, k_pos, window=None, causal=True,
 
 
 def attn_block(p, cfg: ModelConfig, x, positions, *, window=None,
-               rope_theta=None, compute_dtype=None):
-    """Full-sequence attention (train / prefill). x: (B, S, D).
-    Returns (out (B, S, D), (k, v))."""
+               rope_theta=None, compute_dtype=None, mrope_positions=None):
+    """Full-sequence attention (train / prefill). x: (B, S, D). With
+    ``cfg.mrope_sections`` and ``mrope_positions`` (3, B, S) both given,
+    q and k rotate by M-RoPE, else by plain RoPE at ``positions`` (which
+    the mask always reads). Returns (out (B, S, D), (k, v))."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = nn.dense(p["wq"], x, compute_dtype).reshape(B, S, H, hd)
@@ -113,10 +116,39 @@ def attn_block(p, cfg: ModelConfig, x, positions, *, window=None,
         q = nn.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = nn.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
-    q = nn.apply_rope(q, positions, theta)
-    k = nn.apply_rope(k, positions, theta)
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        q = nn.apply_mrope(q, mrope_positions, theta, cfg.mrope_sections)
+        k = nn.apply_mrope(k, mrope_positions, theta, cfg.mrope_sections)
+    else:
+        q = nn.apply_rope(q, positions, theta)
+        k = nn.apply_rope(k, positions, theta)
     out = chunked_attention(q, k, v, q_pos=positions, k_pos=positions,
                             window=window, softcap=cfg.attn_softcap)
+    out = nn.dense(p["wo"], out.reshape(B, S, H * hd), compute_dtype)
+    return out, (k, v)
+
+
+def cross_attn_block(p, cfg: ModelConfig, x, kv_src=None, kv_cache=None,
+                     src_valid=None, compute_dtype=None):
+    """Encoder-decoder cross attention, no RoPE and no causal mask. The
+    keys and values are ``kv_src`` (B, T, D), the encoder's output,
+    projected here, or a precomputed ``kv_cache`` = (k, v), each
+    (B, T, K, hd), in decode; ``src_valid`` an optional bool (B, T) of
+    the frames that may be attended. Returns (out (B, S, D), (k, v))."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = nn.dense(p["wq"], x, compute_dtype).reshape(B, S, H, hd)
+    if kv_cache is None:
+        T = kv_src.shape[1]
+        k = nn.dense(p["wk"], kv_src, compute_dtype).reshape(B, T, K, hd)
+        v = nn.dense(p["wv"], kv_src, compute_dtype).reshape(B, T, K, hd)
+    else:
+        k, v = kv_cache
+        T = k.shape[1]
+    zeros = torch.zeros((), dtype=torch.int32, device=x.device)
+    out = multihead_attention(q, k, v, q_pos=zeros.expand(B, S),
+                              k_pos=zeros.expand(B, T), causal=False,
+                              softcap=cfg.attn_softcap, k_valid=src_valid)
     out = nn.dense(p["wo"], out.reshape(B, S, H * hd), compute_dtype)
     return out, (k, v)
 

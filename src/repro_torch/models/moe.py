@@ -42,16 +42,17 @@ def moe_init(gen, cfg: ModelConfig, lead=(), device=None):
 
 
 def _expert_ffn(p, x, kind: str):
-    """x: (E, C, D) -> (E, C, D), one batched product per weight."""
-    if kind not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"ffn kind {kind!r} is not ported yet "
-                                  "(ROADMAP.md queue 1 item 10)")
+    """x: (E, C, D) -> (E, C, D), one batched product per weight; the
+    gated ``swiglu`` / ``geglu`` experts or plain ``gelu`` ones (tanh
+    GELU, as ``jax.nn.gelu``)."""
     up = torch.bmm(x, p["w_up"].to(x.dtype))
-    gate = torch.bmm(x, p["w_gate"].to(x.dtype))
     if kind == "swiglu":
-        h = F.silu(gate) * up
+        h = F.silu(torch.bmm(x, p["w_gate"].to(x.dtype))) * up
+    elif kind == "geglu":
+        h = F.gelu(torch.bmm(x, p["w_gate"].to(x.dtype)),
+                   approximate="tanh") * up
     else:
-        h = F.gelu(gate, approximate="tanh") * up
+        h = F.gelu(up, approximate="tanh")
     return torch.bmm(h, p["w_down"].to(x.dtype))
 
 

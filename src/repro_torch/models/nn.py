@@ -50,6 +50,22 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return (x * (1.0 + p["scale"])).to(dt)
 
 
+def layernorm_init(dim: int, lead: Tuple[int, ...] = (), device=None):
+    return {"scale": torch.ones(lead + (dim,), device=device),
+            "bias": torch.zeros(lead + (dim,), device=device)}
+
+
+def layernorm(p, x, eps: float = 1e-6):
+    """In fp32, cast back; the bias is added after ``scale`` (no ``1 +``,
+    unlike :func:`rmsnorm`)."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(dt)
+
+
 def softcap(x, cap: Optional[float]):
     """tanh logit soft-capping (gemma2 / grok)."""
     if cap is None:
@@ -73,10 +89,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
     ang = positions[..., None].float() * freqs  # (B, S, hd/2)
+    return _rotate(x, ang)
+
+
+def _rotate(x, ang):
+    """Rotate the split halves of x (B, S, H, hd) by angles (B, S, hd/2),
+    in fp32, cast back to x's dtype."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multi-axis RoPE (qwen2-vl). x: (B, S, H, hd); positions: (3, B, S),
+    the (t, h, w) streams. The hd/2 frequencies fall into three contiguous
+    sections, ``sections`` pairs each (they sum to hd/2), and section i
+    rotates by stream i's positions. Equal streams give :func:`apply_rope`."""
+    hd = x.shape[-1]
+    if sum(sections) * 2 != hd:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim/2 = {hd // 2}")
+    freqs = torch.split(rope_freqs(hd, theta, x.device), list(sections))
+    ang = torch.cat([positions[i].float()[..., None] * f
+                     for i, f in enumerate(freqs)], dim=-1)  # (B, S, hd/2)
+    return _rotate(x, ang)
 
 
 # ---------------------------------------------------------------------------
@@ -94,17 +132,18 @@ def ffn_init(gen, d_model: int, d_ff: int, kind: str,
 
 
 def ffn(p, x, kind: str, compute_dtype=None):
-    """Gated FFN. ``geglu``'s GELU is the tanh approximation, the default
-    of ``jax.nn.gelu``."""
-    if kind not in ("swiglu", "geglu"):
-        raise NotImplementedError(
-            f"ffn kind {kind!r} is not ported yet (ROADMAP.md queue 1 item 10)")
+    """The gated ``swiglu`` / ``geglu`` FFN or the plain ``gelu`` one. GELU
+    is the tanh approximation, the default of ``jax.nn.gelu``."""
     up = dense(p["w_up"], x, compute_dtype)
-    gate = dense(p["w_gate"], x, compute_dtype)
     if kind == "swiglu":
-        h = F.silu(gate) * up
+        h = F.silu(dense(p["w_gate"], x, compute_dtype)) * up
+    elif kind == "geglu":
+        h = F.gelu(dense(p["w_gate"], x, compute_dtype),
+                   approximate="tanh") * up
+    elif kind == "gelu":
+        h = F.gelu(up, approximate="tanh")
     else:
-        h = F.gelu(gate, approximate="tanh") * up
+        raise ValueError(kind)
     return dense(p["w_down"], h, compute_dtype)
 
 

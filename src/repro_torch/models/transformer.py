@@ -16,6 +16,12 @@ features too: post-norms after attention and FFN, the sqrt(d_model)
 embedding scale, attention and final logit soft-caps, QK-norm and a
 separate RoPE theta for the global layers. A config with
 ``tie_embeddings=False`` has its own LM head, ``params["unembed"]``.
+
+The VLM backbone (qwen2-vl) adds ``params["vision_proj"]``, which maps
+precomputed patch embeddings (the stubbed vision tower's, width
+``VISION_EMBED_DIM``) into the first positions of the sequence, and
+M-RoPE over (3, B, S) position streams. Encoder-decoder configs are
+``models.encdec``'s.
 """
 from __future__ import annotations
 
@@ -28,23 +34,22 @@ from . import attention, moe, nn, recurrent, ssm
 from . import remat as remat_lib
 from .config import ModelConfig
 
+VISION_EMBED_DIM = 1280  # the stubbed ViT's output width (qwen2-vl card)
+
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for features whose layers are not ported yet, naming the
-    ROADMAP.md queue-1 item that ports each."""
-    missing = []
+    """Raise for a config this decoder-only stack does not build: an
+    encoder-decoder (``models.encdec`` builds it) or a layer kind it
+    does not know."""
     if cfg.is_encdec:
-        missing.append("encoder-decoder stacks (item 10)")
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder config: call models.encdec "
+            "(init_params, forward, init_decode_cache, decode_step), not "
+            "the decoder-only models.transformer")
     bad = sorted(set(cfg.layer_pattern)
                  - {"global", "local", "recurrent", "ssm"})
     if bad:
-        missing.append(f"{bad} slots (item 10)")
-    if cfg.is_vlm or cfg.mrope_sections is not None:
-        missing.append("the VLM frontend / M-RoPE (item 8)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md "
-            "queue 1)")
+        raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")
 
 
 def _slot_init(gen, cfg: ModelConfig, kind: str, lead, device
@@ -85,6 +90,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
         "blocks": tuple(_slot_init(gen, cfg, kind, lead, device)
                         for kind in cfg.layer_pattern),
     }
+    if cfg.is_vlm:
+        params["vision_proj"] = nn.dense_init(gen, VISION_EMBED_DIM,
+                                              cfg.d_model, device=device)
     if not cfg.tie_embeddings:
         params["unembed"] = nn.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                           device=device)
@@ -104,9 +112,9 @@ def _theta_for(cfg: ModelConfig, kind: str):
 
 
 def _apply_slot(p, cfg: ModelConfig, kind: str, x, positions, *, dtype,
-                global_window=None, remat_policy: str = "none",
-                want_cache: bool = False, max_len: Optional[int] = None,
-                lengths=None):
+                global_window=None, mrope_positions=None,
+                remat_policy: str = "none", want_cache: bool = False,
+                max_len: Optional[int] = None, lengths=None):
     """Returns (x, aux loss, decode cache entry or None). Serving
     (``want_cache``) runs without autograd, so without checkpoints."""
     policy = "none" if want_cache else remat_policy
@@ -132,7 +140,8 @@ def _apply_slot(p, cfg: ModelConfig, kind: str, x, positions, *, dtype,
             h, kv = attention.attn_block(sp["attn"], cfg, h, positions,
                                          window=window,
                                          rope_theta=_theta_for(cfg, kind),
-                                         compute_dtype=dtype)
+                                         compute_dtype=dtype,
+                                         mrope_positions=mrope_positions)
             if cfg.use_post_norm:
                 h = nn.rmsnorm(sp["post_norm"], h, cfg.norm_eps)
             return h, kv
@@ -163,6 +172,31 @@ def _embed(params, cfg: ModelConfig, tokens, dtype):
     return nn.embed(params["embed"], tokens, dtype, scale=cfg.embed_scale)
 
 
+def _embed_inputs(params, cfg: ModelConfig, tokens, vision_embeds, dtype):
+    """Token embeddings; for a VLM given ``vision_embeds`` (B, n_vis,
+    VISION_EMBED_DIM), their projections take the first n_vis positions
+    (the prefix-image layout), scaled like the tokens in their dtype."""
+    x = _embed(params, cfg, tokens, dtype)
+    if cfg.is_vlm and vision_embeds is not None:
+        vis = nn.dense(params["vision_proj"], vision_embeds, dtype)
+        if cfg.embed_scale:
+            vis = vis * torch.tensor(cfg.d_model ** 0.5, dtype=vis.dtype)
+        x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
+    return x
+
+
+def _check_mrope(mrope_positions, B: int, S: int) -> None:
+    """One micro-batch's streams are (3, B, S): a split batch carries the
+    leaf as (N_Smu, 3, N_mu, S), built already split."""
+    if (mrope_positions is not None
+            and tuple(mrope_positions.shape) != (3, B, S)):
+        raise ValueError(
+            f"mrope_positions of shape {tuple(mrope_positions.shape)}, "
+            f"expected (3, {B}, {S}) for tokens ({B}, {S}); a split batch "
+            "holds it as (N_Smu, 3, N_mu, S), split before the plan's "
+            "split_minibatch, which splits every leaf on axis 0")
+
+
 def _lm_head(params, cfg: ModelConfig, x):
     """fp32 logits: the tied embedding, or the untied ``unembed``."""
     if cfg.tie_embeddings:
@@ -181,9 +215,12 @@ def _periods(blocks):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None,
-            dtype=torch.bfloat16, global_window=None, remat: bool = True,
+            vision_embeds=None, mrope_positions=None, dtype=torch.bfloat16,
+            global_window=None, remat: bool = True,
             remat_policy: Optional[str] = None, return_hidden=False):
-    """Full-sequence forward. tokens: (B, S) int.
+    """Full-sequence forward. tokens: (B, S) int; for a VLM optionally
+    ``vision_embeds`` (B, n_vis, VISION_EMBED_DIM) and ``mrope_positions``
+    (3, B, S).
 
     Returns (logits (B, S, V) fp32, aux loss scalar): the MoE router's
     load-balance losses summed over every layer (0 without MoE), as in
@@ -191,15 +228,17 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     check_supported(cfg)
     policy = remat_lib.resolve(remat, remat_policy)
     B, S = tokens.shape[:2]
+    _check_mrope(mrope_positions, B, S)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed(params, cfg, tokens, dtype)
+    x = _embed_inputs(params, cfg, tokens, vision_embeds, dtype)
 
     def period_fn(x, slot_params):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(cfg.layer_pattern, slot_params):
             x, aux, _ = _apply_slot(p, cfg, kind, x, positions, dtype=dtype,
                                     global_window=global_window,
+                                    mrope_positions=mrope_positions,
                                     remat_policy=policy)
             aux_total = aux_total + aux
         return x, aux_total
@@ -257,8 +296,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
-            positions=None, dtype=torch.bfloat16, global_window=None,
-            lengths=None):
+            positions=None, vision_embeds=None, mrope_positions=None,
+            dtype=torch.bfloat16, global_window=None, lengths=None):
     """Serving prefill: the full-sequence forward that also builds the
     decode cache (``init_cache``'s layout, the rings and conv tails in the
     compute dtype). Returns (last-token logits (B, V) fp32, cache).
@@ -269,9 +308,11 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
 
     ``lengths`` (B,) serves a right-padded ragged batch: the logits are
     each row's at ``lengths[b] - 1`` and the rings hold real tokens only.
-    Exact only where :func:`supports_ragged_prefill`."""
+    Exact only where :func:`supports_ragged_prefill`. ``vision_embeds``
+    and ``mrope_positions`` as in :func:`forward`."""
     check_supported(cfg)
     B, S = tokens.shape[:2]
+    _check_mrope(mrope_positions, B, S)
     if lengths is not None and not supports_ragged_prefill(cfg):
         raise ValueError(
             f"{cfg.name}: ragged (right-padded) prefill is only exact for "
@@ -282,12 +323,13 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=tokens.device)
-    x = _embed(params, cfg, tokens, dtype)
+    x = _embed_inputs(params, cfg, tokens, vision_embeds, dtype)
     cache = init_cache(cfg, B, max_len, x.dtype, global_window, x.device)
     for i, slot_params in enumerate(_periods(params["blocks"])):
         for kind, p, c in zip(cfg.layer_pattern, slot_params, cache):
             x, _, entry = _apply_slot(p, cfg, kind, x, positions, dtype=dtype,
                                       global_window=global_window,
+                                      mrope_positions=mrope_positions,
                                       want_cache=True, max_len=max_len,
                                       lengths=lengths)
             for name, leaf in c.items():

@@ -65,6 +65,7 @@ def to_reference(params):
     """The port's params → nested dicts/tuples of numpy arrays."""
     def conv(t, name):
         a = _to_numpy(t)
-        return np.ascontiguousarray(a.transpose(2, 3, 1, 0)
-                                    if _is_conv(a, name) else a)
+        # np.array, not np.ascontiguousarray: that makes a 0-d leaf 1-d
+        return np.array(a.transpose(2, 3, 1, 0) if _is_conv(a, name) else a,
+                        order="C")
     return _map_named(conv, params)

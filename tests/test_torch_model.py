@@ -5,6 +5,8 @@ the same logits, loss and gradients under every remat policy.
 Tolerance: atol 1e-5, rtol 1e-5 in fp32 — XLA and torch sum the matmuls
 in different orders, so agreement is to rounding, not bit for bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -106,8 +108,14 @@ def test_bf16_leaves_round_trip():
 
 
 def test_unported_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        configs.get("qwen2-vl-72b")
+    """No family is left unported: every arch of ``configs.ARCHS``
+    resolves, full and reduced, to the reference's config; an unknown
+    one still raises."""
+    for arch in configs.ARCHS:
+        for get, jget in ((configs.get, jconfigs.get),
+                          (configs.get_reduced, jconfigs.get_reduced)):
+            assert dataclasses.asdict(get(arch)) == \
+                dataclasses.asdict(jget(arch)), arch
     with pytest.raises(ValueError, match="unknown arch"):
         configs.get("gpt-17")
 

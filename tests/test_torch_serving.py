@@ -4,8 +4,8 @@ one-request-at-a-time decode and of the reference engine, the slot pool
 admits, evicts and reuses, ``plan_serve`` and the memory model's serving
 terms equal the reference's field by field, ``synthetic_traffic`` gives
 the same requests; the ssm, hybrid and MoE families prefill exact-length
-groups and serve as the reference does, and enc-dec configs are refused
-naming their ROADMAP item.
+groups and serve as the reference does, the VLM serves text-only, and
+enc-dec configs are refused with the reference's message.
 
 Tolerance: fp32 logits within 1e-4 (``tests/test_decode_consistency.py``'s);
 a token must equal the reference's wherever the reference's top-2 margin
@@ -513,23 +513,25 @@ def test_unported_families_name_item_10(case):
     holds exactly slots × ``kv_slot_bytes``, and its engine gives the
     reference engine's tokens; enc-dec is refused before anything is
     allocated — in check_servable and plan_serve with the reference's
-    message, in init_cache, prefill and the pool — naming item 10."""
+    message, and in init_cache, prefill and the pool naming
+    ``models.encdec``, the stack that builds it."""
     kw = dict(_FAMILIES[case])
     jcfg, cfg = _cfgs(kw.pop("pattern"), **kw)
     if case == "encdec":
-        with pytest.raises(ValueError, match="encoder-decoder"):
+        with pytest.raises(ValueError, match="encoder-decoder") as want:
             jserving.check_servable(jcfg)
         for call in (lambda: serving.check_servable(cfg),
                      lambda: serving.plan_serve(cfg, budget_bytes=1 << 28,
                                                 max_len=24)):
-            with pytest.raises(ValueError, match="encoder-decoder.*item 10"):
+            with pytest.raises(ValueError) as got:
                 call()
+            assert str(got.value) == str(want.value)
         for call in (lambda: transformer.init_cache(cfg, 2, 24, F32,
                                                     device="cpu"),
                      lambda: transformer.prefill(
                          {}, cfg, torch.zeros((2, 8), dtype=torch.long), 24),
                      lambda: KVPool(cfg, 2, 24, device="cpu")):
-            with pytest.raises(NotImplementedError, match="item 10"):
+            with pytest.raises(ValueError, match="models.encdec"):
                 call()
         return
     got, want = _plan_both(jcfg, cfg, budget_bytes=1 << 28, max_len=24)
@@ -654,16 +656,20 @@ def test_plan_serve_on_a_mesh_equals_reference(arch, data):
 
 def test_all_archs_plan_or_fail_cleanly():
     """Every --arch either plans and decodes one step through a pool of
-    its plan's geometry, or raises an error naming the ROADMAP item that
-    ports it — never a shape error."""
+    its plan's geometry (the VLM text-only), or is refused with the
+    reference's error — the enc-dec one — never a shape error."""
     served = []
     for arch in configs.ARCHS:
+        cfg = configs.get_reduced(arch)
         try:
-            cfg = configs.get_reduced(arch)
             plan = serving.plan_serve(cfg, budget_bytes=1 << 30, max_len=32,
                                       max_slots=2, prefill_micro=1)
-        except NotImplementedError as e:
-            assert "ROADMAP.md queue 1" in str(e), (arch, e)
+        except ValueError as e:
+            with pytest.raises(ValueError) as want:
+                jserving.plan_serve(jconfigs.get_reduced(arch),
+                                    budget_bytes=1 << 30, max_len=32,
+                                    max_slots=2, prefill_micro=1)
+            assert cfg.is_encdec and str(e) == str(want.value), (arch, e)
             continue
         params = transformer.init_params(cfg, seed=0, device="cpu")
         pool = KVPool(cfg, plan.max_decode_slots, plan.max_len, dtype=F32,
@@ -675,4 +681,4 @@ def test_all_archs_plan_or_fail_cleanly():
         served.append(arch)
     assert served == ["gemma2-9b", "grok-1-314b", "recurrentgemma-2b",
                       "gemma3-12b", "qwen2-1.5b", "mixtral-8x22b",
-                      "mamba2-780m", "moonshot-v1-16b-a3b"]
+                      "mamba2-780m", "qwen2-vl-72b", "moonshot-v1-16b-a3b"]
