@@ -143,17 +143,19 @@ Phases (any failure exits non-zero before the last line is printed):
      bytes allocated after each rebuild (no more than the state and one
      batch); the final plan unsupervised against it; ``--max-restarts
      0`` exits 41;
-  13b. the calibrated planner's miss (``calibration_miss_phase``):
-     ``streaming`` under ``--calibrate auto`` with 7a's cache, at a
-     budget where 7a's fit admits a micro-batch whose real peak (the line
-     through the backward-bound probes) exceeds it, the allocator capped
-     there: one OOM, the negative bound in the cache file, the recovered
+  13b. a calibrated miss (``calibration_miss_phase``): ``streaming``
+     under ``--calibrate auto`` with 7a's cache, its entry set back to
+     the fit of 7a's probes at micro 1, 2 and 4 alone (the reference's
+     loop, without the planner's back-off), at a budget where that fit
+     admits a micro-batch whose real peak (the line through the
+     backward-bound probes) exceeds it, the allocator capped there: one
+     OOM, the negative bound in the cache file, the recovered
      plan under the cap, and a second plan that no longer admits what
      failed (injected with ``faults.oom_at`` if no budget provokes it).
 
   14a. serving full qwen2-1.5b (28 layers; fp32 weights, bf16 compute
      and cache) through ``repro_torch.launch.serve.main`` at a 10 GiB
-     budget, max_len 2048, 96 Poisson requests at 32/s, prompts
+     budget, max_len 2048, 64 Poisson requests at 32/s, prompts
      128/512/1024, 64 or 256 new tokens, greedy (``serve_phase``): the
      plan the reference's arithmetic gives (51 slots, prefill micro 8)
      and the memory model's largest fit, every request finished with its
@@ -175,15 +177,18 @@ Phases (any failure exits non-zero before the last line is printed):
      count of agreeing tokens;
   15a–15c. the ssm, hybrid and MoE families trained at full width
      through ``repro_torch.launch.train.main`` (``family_train_phase``:
-     ``flat``, SGD-m, bf16 over fp32 weights, seed 0, 4 steps):
-     mamba2-780m (48 layers, d 1536, state 128, chunk 256) at seq 4096,
+     ``flat``, SGD-m, bf16 over fp32 weights, seed 0, 3 steps):
+     mamba2-780m (d 1536, state 128, chunk 256; depth cut to 24 of its
+     48 layers) at seq 4096,
      mini-batch 16; recurrentgemma-2b (26 layers, d 2560, vocab 256,000,
      window 2048) at seq 2048, mini-batch 8; moonshot-v1-16b-a3b (d 2048,
      64 experts top-6, 2 shared, vocab 163,840; depth cut to 4 of its 48
      layers) at seq 2048, mini-batch 8 — each: the analytic plan at 60
-     GiB (not run), ``--calibrate force`` under its remat policy (a probe
-     that does not fit the card moves to the next policy, printed), the
-     least budget up to 72 GiB when the fit admits nothing at 60, then
+     GiB (not run), ``--calibrate force --remat-policy auto`` (the
+     planner climbs past a policy whose probe does not fit the card —
+     the tuning entries' records printed — and probes an admitted size
+     it never probed, stepping down while its peak is over the budget),
+     the least budget up to 72 GiB when the fit admits nothing at 60, then
      ``--calibrate auto`` with the counters zeroed around it: K1 steps ×
      N_Sμ × launch groups, K2 steps × buckets, the steady step and
      tokens/s, the allocator's peak beside the budget and the calibrated prediction;
@@ -227,7 +232,7 @@ Phases (any failure exits non-zero before the last line is printed):
      ``run_executor``: the launcher's ``LMDataset`` has no frames, so
      the ``flat`` executor is driven directly on
      ``launch.steps.family_batch``'s frames and target tokens): 4096
-     frames, 1024 target tokens, mini-batch 8, SGD-m, bf16 over fp32, 4
+     frames, 1024 target tokens, mini-batch 8, SGD-m, bf16 over fp32, 3
      steps, calibrated as 15a–15c (a probe OOM climbs the lattice, the
      least budget up to 72 GiB): losses finite, the first near
      ln(vocab), K1 steps × N_Sμ × launch groups and K2 steps × buckets,
@@ -248,10 +253,32 @@ Phases (any failure exits non-zero before the last line is printed):
      tokens within 1e-4 (``encdec_decode_check``); the VLM served
      text-only as 14c checks (``serve_correctness_phase``).
 
+  18a. the step builders at the reference's assigned shapes
+     (``steps_train_phase``): ``launch.steps.build_step(qwen2-1.5b full
+     width, SHAPES["train_4k"], num_microbatches=None, executor="flat",
+     remat_policy="auto", calibrate="force")`` at 60 GiB, bf16 over fp32,
+     SGD-m; the bundle's ``fn`` runs one step over the whole 256 × 4096
+     mini-batch: the plan, probes and fit, the loss finite and near
+     ln(vocab), K1 N_Sμ × launch groups and K2 once a bucket, the split
+     equal to the bundle's abstract batch, the first step's seconds and
+     tokens/s, the peak at or under the budget beside the calibrated
+     prediction, ``max_minibatch_without_mbs`` (analytic and calibrated)
+     below 256;
+  18b / 18c. (``steps_serve_phase``) decode at ``long_500k`` over a full
+     seeded 524,288-entry ring (14.0 GiB bf16); per device of the
+     reference's 16 × 16 mesh, prefill at ``prefill_32k`` (batch 2) and
+     decode at ``decode_32k`` (batch 8, a full 7.0 GiB cache): ms a step
+     and a token, seconds, finite logits, each peak;
+  18d. (``steps_check_phase``) 2 layers, fp32: the train bundle's step
+     bit-identical to the executor built by hand, the prefill / decode
+     bundles to ``transformer.prefill`` / ``decode_step``; at full width
+     the abstract params, optimizer state and cache trees equal the real
+     ones in paths, shapes and dtypes.
+
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
 ``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's,
-15's, 16's and 17's numbers)
+15's, 16's, 17's and 18's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2746,9 +2773,12 @@ def oom_ladder_phase(dev, state_bytes: int) -> dict:
 
 
 def calibration_miss_phase(dev, calibration: dict) -> dict:
-    """13b. The calibration miss (ROADMAP queue 3 fault 1) recovered:
-    ``streaming`` under ``--calibrate auto`` with phase 7a's cache, the
-    allocator capped at a budget worked out from 7a's probes (the fit
+    """13b. A calibration miss recovered by the supervisor: ``streaming``
+    under ``--calibrate auto`` with phase 7a's cache, whose entry is set
+    back to the fit the reference's loop leaves — the line through 7a's
+    probes at micro 1, 2 and 4 alone, without the planner's back-off
+    probes (ROADMAP queue 3 fault 1, which that back-off repairs) — the
+    allocator capped at a budget worked out from those probes (the fit
     admits micro m, while the line through the two backward-bound probes
     puts m's real peak clear above the budget), 2 supervised steps. One
     OOM record, the negative bound in the cache file, the recovered
@@ -2764,8 +2794,9 @@ def calibration_miss_phase(dev, calibration: dict) -> dict:
 
     cache = os.path.join(ROOT, "build", "tuning.json")
     rec7a = calibration["streaming"]
-    a, b = rec7a["fit"]
-    probes = sorted(rec7a["probes"])  # (micro, modeled, measured)
+    # (micro, modeled, measured) of the reference's probes, and their fit
+    probes = sorted(p for p in rec7a["probes"] if p[0] in (1, 2, 4))
+    a, b = autotune._fit_affine([(mod, meas) for _, mod, meas in probes])
     (m_lo, _, y_lo), (m_hi, _, y_hi) = probes[-2], probes[-1]
     slope = (y_hi - y_lo) / (m_hi - m_lo)
     argv = main_argv("--supervise", "--tuning-cache", cache, steps=2,
@@ -2799,6 +2830,9 @@ def calibration_miss_phase(dev, calibration: dict) -> dict:
                               f" (fit {a}, {b}; probes {probes})")
     budget_gb = budget / GIB
     argv += ["--hbm-budget-gb", repr(budget_gb)]
+    autotune.get_cache(cache).put_memory(autotune.memory_key(
+        cfg, args.seq, rec7a["analytic_policy"], None, "sgd", "streaming",
+        autotune.backend_of(dev)), a, b, probes)
     plan0 = train.build_plan(cfg, ap.parse_args(argv), opt, dev)
     engine.set_cache_path(None)
     check(plan0.calibrated and plan0.micro_batch_size == micro,
@@ -2882,7 +2916,7 @@ def calibration_miss_phase(dev, calibration: dict) -> dict:
 # bytes per sample)
 SERVE_ARGV = {
     "qwen2-1.5b": ["--arch", "qwen2-1.5b", "--dtype", "bfloat16",
-                   "--budget", "10", "--max-len", "2048", "--requests", "96",
+                   "--budget", "10", "--max-len", "2048", "--requests", "64",
                    "--rate", "32", "--prompt-lens", "128,512,1024",
                    "--new-tokens", "64,256", "--temperature", "0"],
     "gemma2-9b": ["--arch", "gemma2-9b", "--dtype", "bfloat16",
@@ -2892,11 +2926,11 @@ SERVE_ARGV = {
     # 15d: the state and MoE families, exact-length prefill groups
     "mamba2-780m": ["--arch", "mamba2-780m", "--dtype", "bfloat16",
                     "--budget", "10", "--max-len", "2048", "--requests",
-                    "96", "--rate", "32", "--prompt-lens", "128,512,1024",
+                    "64", "--rate", "32", "--prompt-lens", "128,512,1024",
                     "--new-tokens", "64,256", "--temperature", "0"],
     "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", "--dtype",
                           "bfloat16", "--budget", "24", "--max-len", "4096",
-                          "--requests", "96", "--rate", "32",
+                          "--requests", "64", "--rate", "32",
                           "--prompt-lens", "128,512,1024", "--new-tokens",
                           "64,256", "--temperature", "0"],
     "moonshot-v1-16b-a3b": ["--arch", "moonshot-v1-16b-a3b", "--layers", "4",
@@ -3278,13 +3312,15 @@ def serve_correctness_phase(dev, arch: str) -> dict:
 # arch: the launcher's flags beyond FAMILY_ARGV (full width; moonshot's
 # depth cut to 4 of its 48 layers: 48 would be ~64 GB of fp32 params)
 FAMILY_TRAIN = {
-    "mamba2-780m": ["--seq", "4096", "--mini-batch", "16"],
+    # mamba2's depth cut to 24 of its 48 layers (chip_smoke's time limit)
+    "mamba2-780m": ["--seq", "4096", "--mini-batch", "16", "--layers", "24"],
     "recurrentgemma-2b": ["--seq", "2048", "--mini-batch", "8"],
     "moonshot-v1-16b-a3b": ["--seq", "2048", "--mini-batch", "8",
                             "--layers", "4"],
 }
-FAMILY_ARGV = ["--executor", "flat", "--dtype", "bfloat16", "--steps", "4",
-               "--log-every", "1"]
+FAMILY_STEPS = 3
+FAMILY_ARGV = ["--executor", "flat", "--dtype", "bfloat16", "--steps",
+               str(FAMILY_STEPS), "--log-every", "1"]
 # a calibrated plan that admits no micro-batch at the 60 GiB budget gets
 # the least budget, in quarter GiB, up to this one that admits one
 FAMILY_MAX_BUDGET_GB = 72
@@ -3370,22 +3406,43 @@ def _trace_micro(dev, cfg, params, plan, seq: int) -> dict:
     return out
 
 
+def probe_ooms(cache: str, cfg, seq: int, dev) -> list:
+    """The policies whose calibration probe did not fit the card, as the
+    planner recorded them in the tuning entries of ``cache`` (flat, SGD-m,
+    one device), each printed."""
+    from repro_torch.engine import autotune
+    from repro_torch.models import remat
+
+    out = []
+    for pol in remat.POLICIES:
+        oom = autotune.get_cache(cache).memory_oom(autotune.memory_key(
+            cfg, seq, pol, None, "sgd", "flat", autotune.backend_of(dev)))
+        if oom is not None:
+            out.append({"policy": pol, **oom})
+            print(f"train {cfg.name}: the calibration probe at micro "
+                  f"{oom['micro']} under remat {pol} does not fit the card: "
+                  f"{oom['error']}", flush=True)
+    return out
+
+
 def family_train_phase(dev, arch: str, train_flags=None, drive=None
                        ) -> dict:
     """15a-15c, 17a, 17b. ``launch.train.main`` for ``arch`` at full width
     (FAMILY_TRAIN, or ``train_flags``), ``flat``, SGD-m, bf16 over fp32
     weights, seed 0,
     against CALIBRATION_BUDGET_GB: the analytic plan (``--calibrate off``,
-    not run); ``--calibrate force`` under the analytic plan's remat
-    policy, probing the real step at micro 1, 2 and 4 — a probe that does
-    not fit the card (``torch.OutOfMemoryError``) is printed and the next
-    policy of the lattice is probed, as the supervisor's ladder climbs;
+    not run); ``--calibrate force --remat-policy auto``, probing the real
+    step at micro 1, 2 and 4 under the analytic plan's policy — a probe
+    that does not fit the card rules its policy out and the planner
+    climbs the lattice itself (the tuning entries' ``oom`` records are
+    printed), then probes the admitted size once and steps down while its
+    measured peak is over the budget;
     when the fit admits no micro-batch at the budget, the least budget up
     to FAMILY_MAX_BUDGET_GB that does; then ``--calibrate auto`` at that
-    budget (which must plan what ``force`` planned) for 4 steps with the
-    counters zeroed around it: every loss finite, K1 launched steps × N_Sμ
-    × launch groups times and K2 steps × buckets; the steady step and
-    tokens/s;
+    budget (which must plan what ``force`` planned) for FAMILY_STEPS steps
+    with the counters zeroed around it: every loss finite, K1 launched
+    steps × N_Sμ × launch groups times and K2 steps × buckets; the steady
+    step and tokens/s;
     the allocator's peak beside the budget and the calibrated prediction
     (a peak over the budget is reported, not hidden); one micro-batch's
     forward and backward traced (``_trace_micro``). MoE: the aux loss of
@@ -3398,7 +3455,6 @@ def family_train_phase(dev, arch: str, train_flags=None, drive=None
     from repro_torch.core import memory_model
     from repro_torch.engine import FlatSpec, autotune
     from repro_torch.launch import train
-    from repro_torch.models import remat
 
     cache = os.path.join(ROOT, "build", f"tuning-{arch}.json")
     if os.path.exists(cache):
@@ -3436,30 +3492,15 @@ def family_train_phase(dev, arch: str, train_flags=None, drive=None
            "analytic_micro": analytic.micro_batch_size,
            "analytic_policy": analytic.remat_policy,
            "analytic_modeled_bytes": modeled(analytic), "probe_ooms": []}
-    policy, forced = "auto", None
-    ladder = remat.POLICIES[remat.POLICIES.index(analytic.remat_policy):]
-    for i, pol in enumerate(ladder):
-        policy = "auto" if i == 0 else pol
-        t0 = time.perf_counter()
-        try:
-            forced = plan("force", policy)
-        except torch.OutOfMemoryError as e:
-            out["probe_ooms"].append({"policy": pol, "seconds":
-                                      time.perf_counter() - t0,
-                                      "error": str(e).splitlines()[0]})
-            print(f"train {arch}: a calibration probe under remat {pol} "
-                  f"does not fit the card: {str(e).splitlines()[0]}",
-                  flush=True)
-            forced = None
-        gc_collect()
-        if forced is not None:
-            out["probe_s"] = time.perf_counter() - t0
-            break
-    check(forced is not None, f"train {arch}: no remat policy's calibration "
-                              f"probes fit the card")
+    policy = "auto"
+    t0 = time.perf_counter()
+    forced = plan("force", policy)
+    out["probe_s"] = time.perf_counter() - t0
+    gc_collect()
+    out["probe_ooms"] = probe_ooms(cache, cfg, seq, dev)
     key = autotune.memory_key(cfg, seq, forced.remat_policy, None, "sgd",
                               "flat", autotune.backend_of(dev))
-    entry = autotune.get_cache(cache).data["memory"][key]
+    entry = autotune.get_cache(cache).memory_entry(key)
     a, b = autotune.get_cache(cache).memory_correction(key)
     budget_gb = CALIBRATION_BUDGET_GB
     if not forced.calibrated:  # the fit admits no micro-batch at 60 GiB
@@ -3488,7 +3529,7 @@ def family_train_phase(dev, arch: str, train_flags=None, drive=None
     got, hist, counts = res["plan"], res["history"], res["counts"]
     check(got == forced, f"train {arch}: --calibrate auto planned "
                          f"{got.describe()}, force {forced.describe()}")
-    check(len(hist) == 4, f"train {arch}: ran {len(hist)} steps")
+    check(len(hist) == FAMILY_STEPS, f"train {arch}: ran {len(hist)} steps")
     spec = FlatSpec.for_tree(res["params"])
     n_b = spec.num_buckets
     for buf in spec.buffers_of(res["params"]):
@@ -4192,6 +4233,384 @@ def encdec_vlm_phases(timed, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18. the step builders at the reference's assigned shapes
+# ---------------------------------------------------------------------------
+
+STEPS_ARCH = "qwen2-1.5b"
+# 18c: one card runs the data shard of the 16 x 16 mesh the reference
+# compiles prefill_32k and decode_32k for
+STEPS_DATA_SHARDS = 16
+STEPS_DECODE_STEPS = 4  # 18b / 18c decode steps, the first a warm-up
+
+
+def _tree_layout(t) -> list:
+    """(path, shape, dtype) of every leaf of a tree of dicts and tuples."""
+    out = []
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], path + (str(k),))
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                walk(v, path + (str(i),))
+        elif x is not None:
+            out.append(("/".join(path), tuple(x.shape), x.dtype))
+    walk(t, ())
+    return out
+
+
+def _filled_cache(abstract, dev, seed: int, start: int = 0) -> dict:
+    """A decode cache shaped as ``abstract`` (a meta tree) on the card:
+    keys and values seeded normals, and every ring slot j holding
+    position ``start + j`` — a full ring, so a decode step attends over
+    all of it."""
+    import torch
+    from repro_torch import tree
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(x):
+        if x.dtype == torch.int32:  # pos: (L, B, W)
+            w = x.shape[-1]
+            return (torch.arange(start, start + w, dtype=torch.int32,
+                                 device=dev).expand(x.shape).contiguous())
+        return torch.randn(x.shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(x.dtype)
+    return tree.map(leaf, abstract)
+
+
+def _decode_run(dev, cfg, bundle, params, label: str) -> dict:
+    """``bundle``'s decode step STEPS_DECODE_STEPS times over a full
+    seeded cache, the positions going on past the ring; ms a step (the
+    steps after the first), logits finite, the allocator's peak."""
+    import torch
+    from repro_torch import tree
+
+    _, tok, abstract, _ = bundle.arg_shapes
+    b, w = tok.shape[0], abstract[0]["pos"].shape[-1]
+    cache = _filled_cache(abstract, dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in tree.leaves(cache))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(STEPS_DECODE_STEPS):
+        token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                              device=dev, dtype=torch.int32)
+        cur = torch.full((b,), w + i, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, cache = bundle.fn(params, token, cache, cur)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        check(tuple(logits.shape) == (b, 1, cfg.vocab_size) and
+              bool(torch.isfinite(logits).all()),
+              f"{label}: decode logits {tuple(logits.shape)} not finite")
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = 1e3 * sum(times[1:]) / (len(times) - 1)
+    del cache, logits
+    gc_collect()
+    return {"batch": b, "cache_len": w, "cache_bytes": cache_bytes,
+            "step_ms": ms, "first_step_ms": 1e3 * times[0],
+            "ms_per_token": ms / b, "peak_bytes": peak}
+
+
+def steps_train_phase(dev) -> dict:
+    """18a. ``steps.build_step(qwen2-1.5b full width, SHAPES["train_4k"],
+    num_microbatches=None, executor="flat", remat_policy="auto",
+    calibrate="force")`` against CALIBRATION_BUDGET_GB, bf16 over fp32
+    weights, SGD-m (``steps.make_optimizer``): the planner probes the
+    real step, climbs past a policy whose probe does not fit, and backs
+    off an admitted size whose measured peak is over the budget; then the
+    bundle's ``fn`` runs one step over the whole 256 x 4096 mini-batch
+    (1,048,576 tokens) with the counters zeroed just before it and read
+    just after: the loss finite, K1 launched N_Smu x launch groups
+    times, K2 once a bucket; the split equal to the bundle's abstract
+    batch in shapes and dtypes; the step's seconds and tokens/s (a first
+    step); the allocator's peak beside the budget and the calibrated
+    prediction; ``memory_model.max_minibatch_without_mbs`` at the same
+    budget, analytic and as the fit corrects it (both below 256)."""
+    import torch
+    from repro_torch import configs, kernels, optim
+    from repro_torch.core import memory_model
+    from repro_torch.engine import FlatSpec, autotune
+    from repro_torch.launch import steps
+
+    card = card_line()
+    cfg, shape = configs.get(STEPS_ARCH), configs.SHAPES["train_4k"]
+    seq, mini = shape.seq_len, shape.global_batch
+    cache = os.path.join(ROOT, "build", "tuning-steps.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    autotune._caches.pop(cache, None)
+    budget = CALIBRATION_BUDGET_GB * GIB
+    gc_collect()
+    t0 = time.perf_counter()
+    bundle = steps.build_step(
+        cfg, shape, num_microbatches=None, executor="flat",
+        remat_policy="auto", calibrate="force", budget_bytes=budget,
+        tuning_cache=cache, device=dev)
+    probe_s = time.perf_counter() - t0
+    plan, opt = bundle.plan, bundle.optimizer
+    ooms = probe_ooms(cache, cfg, seq, dev)
+    key = autotune.memory_key(cfg, seq, plan.remat_policy, None, "sgd",
+                              "flat", autotune.backend_of(dev))
+    entry = autotune.get_cache(cache).memory_entry(key)
+    check(plan.calibrated, f"18a: no calibrated plan at "
+                           f"{CALIBRATION_BUDGET_GB} GiB: {plan.describe()}")
+    a, b = plan.correction
+    mm_kw = dict(act_bytes=2, remat_policy=plan.remat_policy,
+                 **optim.memory_model_kw(opt, fused=True))
+    est = memory_model.estimate(cfg, seq, **mm_kw)
+    predicted = a * est.total(plan.micro_batch_size) + b
+    print(f"18a train_4k {STEPS_ARCH} [{card}]: {plan.describe()}; fit "
+          f"measured = {a:.6f} x modeled + {b:.0f} B from probes (micro, "
+          f"modeled B, measured B) {entry['probes']}"
+          + (f", out of memory at micro {entry['oom_micros']}"
+             if entry.get("oom_micros") else "")
+          + f" in {probe_s:.1f}s; predicted {predicted / GIB:.3f} GiB",
+          flush=True)
+    nomb = memory_model.max_minibatch_without_mbs(cfg, seq,
+                                                  budget_bytes=budget,
+                                                  **mm_kw)
+    nomb_cal = autotune.corrected_micro_search(
+        cfg, seq, 1 << 20, budget, (a, b), **mm_kw) or 0
+    params = steps.init_params(cfg, seed=0, device=dev)
+    state = opt.init(params)
+    ex = bundle.fn.__self__  # the bundle's executor: its flat layout
+    params, state = ex.prepare(params, state)
+    split = steps.device_split(plan, steps.family_batch(cfg, seq, mini),
+                               dev, torch.bfloat16)
+    check(_tree_layout(split) == _tree_layout(bundle.arg_shapes[2]),
+          f"18a: the split {_tree_layout(split)} is not the bundle's "
+          f"abstract batch {_tree_layout(bundle.arg_shapes[2])}")
+    groups = _k1_groups(params)
+    n_b = FlatSpec.for_tree(params).num_buckets
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, m = bundle.fn(params, state, split)
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(math.isfinite(loss), f"18a: loss {loss}")
+    check(abs(loss - math.log(cfg.vocab_size)) < 1.0,
+          f"18a: first loss {loss:.4f} is far from ln(vocab) "
+          f"{math.log(cfg.vocab_size):.4f} for a random model")
+    want_k1 = plan.num_micro_batches * groups
+    check(counts["grad_accum"] == want_k1 and counts["fused_sgd_mom"] == n_b,
+          f"18a: launches {counts}, expected K1 {want_k1} (N_Smu x {groups} "
+          f"launch groups) and K2 {n_b}")
+    check(nomb < mini and nomb_cal < mini,
+          f"18a: without MBS {nomb} (analytic) / {nomb_cal} (calibrated) "
+          f"samples fit {CALIBRATION_BUDGET_GB} GiB, not fewer than {mini}")
+    check(peak <= budget, f"18a: the step peaked at {peak / GIB:.3f} GiB, "
+                          f"over its {CALIBRATION_BUDGET_GB} GiB budget")
+    tokens = mini * seq
+    out = {"card": card, "plan": plan.describe(),
+           "micro": plan.micro_batch_size,
+           "num_micro_batches": plan.num_micro_batches, "pad": plan.pad,
+           "remat": plan.remat_policy, "fit": [a, b],
+           "probes": entry["probes"],
+           "oom_micros": entry.get("oom_micros", []), "probe_ooms": ooms,
+           "probe_s": probe_s, "budget_bytes": budget,
+           "calibrated_prediction_bytes": predicted,
+           "modeled_bytes": est.total(plan.micro_batch_size),
+           "loss": loss, "first_step_s": step_s,
+           "first_step_tokens_per_s": tokens / step_s, "peak_bytes": peak,
+           "counts": counts, "launch_groups": groups, "buckets": n_b,
+           "max_minibatch_without_mbs": nomb,
+           "max_minibatch_without_mbs_calibrated": nomb_cal}
+    print(f"18a train_4k {STEPS_ARCH}: one step over {mini} x {seq} = "
+          f"{tokens} tokens through the bundle: loss {loss:.6f}; first step "
+          f"{step_s:.3f}s, {tokens / step_s:.1f} tokens/s; peak allocated "
+          f"{peak} B ({peak / GIB:.3f} GiB) vs budget "
+          f"{CALIBRATION_BUDGET_GB} GiB and calibrated prediction "
+          f"{predicted / GIB:.3f} GiB; K1 {counts['grad_accum']} (= "
+          f"{plan.num_micro_batches} x {groups}), K2 "
+          f"{counts['fused_sgd_mom']} (buckets {n_b}); without MBS the "
+          f"budget holds {nomb} samples (analytic) / {nomb_cal} (calibrated"
+          f"), against {mini}", flush=True)
+    del params, state, split, m, ex, bundle
+    gc_collect()
+    return out
+
+
+def steps_serve_phase(dev) -> dict:
+    """18b / 18c. Decode at ``long_500k`` (its batch of 1, a 524,288-entry
+    ring: 14.0 GiB bf16) and, per device of the reference's 16 x 16 mesh,
+    prefill at ``prefill_32k`` (batch 32 / 16 = 2) and decode at
+    ``decode_32k`` (batch 128 / 16 = 8, a 7.0 GiB cache), each through
+    ``steps.build_step`` at full qwen2-1.5b width, fp32 weights from seed
+    0, bf16 compute and cache: the cache seeded and full
+    (``_filled_cache``), STEPS_DECODE_STEPS decode steps, ms a step and a
+    token; the prefill's seconds and finite logits; each allocator peak."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+
+    card = card_line()
+    cfg = configs.get(STEPS_ARCH)
+    params = steps.init_params(cfg, seed=0, device=dev)
+    out = {"card": card}
+    long = steps.build_step(cfg, configs.SHAPES["long_500k"])
+    out["long_500k"] = _decode_run(dev, cfg, long, params, "18b long_500k")
+    r = out["long_500k"]
+    print(f"18b long_500k {STEPS_ARCH} [{card}]: decode at batch "
+          f"{r['batch']} over a full {r['cache_len']}-entry cache "
+          f"({r['cache_bytes'] / GIB:.3f} GiB bf16): {r['step_ms']:.3f} ms a "
+          f"step and token (first {r['first_step_ms']:.1f} ms); peak "
+          f"{r['peak_bytes'] / GIB:.3f} GiB", flush=True)
+    del long
+    pre = dataclasses.replace(configs.SHAPES["prefill_32k"],
+                              global_batch=32 // STEPS_DATA_SHARDS)
+    bundle = steps.build_step(cfg, pre)
+    tokens = torch.from_numpy(LMDataset(cfg.vocab_size, pre.seq_len,
+                                        seed=3).batch(pre.global_batch, 0)
+                              ["tokens"]).to(dev)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits, cache = bundle.fn(params, tokens)
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    check(tuple(logits.shape) == (pre.global_batch, cfg.vocab_size) and
+          bool(torch.isfinite(logits).all()), "18c prefill_32k: logits")
+    out["prefill_32k"] = {"batch": pre.global_batch, "seq": pre.seq_len,
+                          "seconds": prefill_s,
+                          "tokens_per_s": pre.global_batch * pre.seq_len
+                          / prefill_s,
+                          "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del logits, cache, tokens, bundle
+    gc_collect()
+    dec = dataclasses.replace(configs.SHAPES["decode_32k"],
+                              global_batch=128 // STEPS_DATA_SHARDS)
+    out["decode_32k"] = _decode_run(dev, cfg, steps.build_step(cfg, dec),
+                                    params, "18c decode_32k")
+    p, d = out["prefill_32k"], out["decode_32k"]
+    print(f"18c {STEPS_ARCH} per device of the reference's 16 x 16 mesh "
+          f"(reduced: global batch / {STEPS_DATA_SHARDS}): prefill_32k batch "
+          f"{p['batch']} x {p['seq']} in {p['seconds']:.3f}s "
+          f"({p['tokens_per_s']:.1f} tokens/s), peak "
+          f"{p['peak_bytes'] / GIB:.3f} GiB; decode_32k batch {d['batch']} "
+          f"over a full {d['cache_bytes'] / GIB:.3f} GiB cache: "
+          f"{d['step_ms']:.3f} ms a step, {d['ms_per_token']:.3f} ms a token, "
+          f"peak {d['peak_bytes'] / GIB:.3f} GiB", flush=True)
+    del params
+    gc_collect()
+    return out
+
+
+def steps_check_phase(dev) -> dict:
+    """18d. 2 layers of qwen2-1.5b's full width, fp32: the train bundle's
+    step (``flat``, mini-batch 8 in 4 micro-batches, seq 256) bit-identical
+    to the executor built by hand (``make_loss_fn`` + ``get_executor``
+    under the bundle's plan) on the same split; the prefill and decode
+    bundles bit-identical to ``transformer.prefill`` / ``decode_step``;
+    and at full width the abstract trees (``abstract_params``,
+    ``abstract_opt_state``, ``abstract_cache``) equal the real
+    ``init_params`` / ``opt.init`` / ``init_cache`` trees in paths,
+    shapes and dtypes."""
+    import torch
+    from repro_torch import configs, engine, tree
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    f32 = torch.float32
+    full = configs.get(STEPS_ARCH)
+    cfg = dataclasses.replace(full, num_layers=2)
+    shape = InputShape("train_check", "train", 256, 8)
+    bundle = steps.build_step(cfg, shape, num_microbatches=4, dtype=f32,
+                              executor="flat", remat_policy="period",
+                              budget_bytes=CALIBRATION_BUDGET_GB * GIB,
+                              device=dev)
+    plan = bundle.plan
+    hand = engine.get_executor("flat")(steps.make_loss_fn(
+        cfg, f32, remat_policy=plan.remat_policy), steps.make_optimizer(cfg),
+        plan)
+    batch = LMDataset(cfg.vocab_size, 256, seed=4).batch(8, 0)
+    res = {}
+    for name, fn, ex in (("bundle", bundle.fn, bundle.fn.__self__),
+                         ("hand", hand.step_split, hand)):
+        params = steps.init_params(cfg, seed=0, device=dev)
+        params, state = ex.prepare(params, ex.optimizer.init(params))
+        p, s, m = fn(params, state, plan.device_split(batch, dev))
+        res[name] = (tree.leaves((p, s)), m["loss"])
+    train_equal = (torch.equal(res["bundle"][1], res["hand"][1]) and all(
+        torch.equal(x, y) for x, y in zip(res["bundle"][0], res["hand"][0])))
+    check(train_equal, "18d: the train bundle's step differs from the "
+                       "executor built by hand")
+    del res
+    params = steps.init_params(cfg, seed=0, device=dev)
+    pre = InputShape("prefill_check", "prefill", 256, 2)
+    tokens = torch.from_numpy(LMDataset(cfg.vocab_size, 256, seed=5).batch(
+        2, 0)["tokens"]).to(dev)
+    got = steps.build_step(cfg, pre, dtype=f32).fn(params, tokens)
+    want = transformer.prefill(params, cfg, tokens, max_len=256, dtype=f32)
+    prefill_equal = all(torch.equal(x, y) for x, y in zip(
+        tree.leaves(got), tree.leaves(want)))
+    check(prefill_equal, "18d: the prefill bundle differs from "
+                         "transformer.prefill")
+    dec = InputShape("decode_check", "decode", 256, 2)
+    cache_a = got[1]
+    cache_b = tree.map(lambda x: x.clone(), cache_a)
+    tok = tokens[:, -1:]
+    cur = torch.full((2,), 256, dtype=torch.int32, device=dev)
+    la, ca = steps.build_step(cfg, dec, dtype=f32).fn(params, tok, cache_a,
+                                                       cur)
+    lb, cb = transformer.decode_step(params, cfg, tok, cache_b, cur,
+                                     dtype=f32)
+    decode_equal = torch.equal(la, lb) and all(
+        torch.equal(x, y) for x, y in zip(tree.leaves(ca), tree.leaves(cb)))
+    check(decode_equal, "18d: the decode bundle differs from "
+                        "transformer.decode_step")
+    del params, got, want, cache_a, cache_b, la, lb, ca, cb
+    gc_collect()
+    # the abstract trees at full width against the real ones
+    real = steps.init_params(full, seed=0, device=dev)
+    opt = steps.make_optimizer(full)
+    ab_p = steps.abstract_params(full)
+    trees = {"params": (_tree_layout(ab_p), _tree_layout(real)),
+             "opt_state": (_tree_layout(steps.abstract_opt_state(opt, ab_p)),
+                           _tree_layout(opt.init(real)))}
+    del real
+    gc_collect()
+    shape = dataclasses.replace(configs.SHAPES["decode_32k"], global_batch=1)
+    trees["cache"] = (
+        _tree_layout(steps.abstract_cache(full, shape)),
+        _tree_layout(transformer.init_cache(full, 1, shape.seq_len,
+                                            device=dev)))
+    for what, (abstract, concrete) in trees.items():
+        check(abstract == concrete, f"18d: the abstract {what} tree differs "
+                                    f"from the real one")
+    out = {"train_bitwise": train_equal, "prefill_bitwise": prefill_equal,
+           "decode_bitwise": decode_equal,
+           "abstract_leaves": {k: len(v[0]) for k, v in trees.items()}}
+    print(f"18d {STEPS_ARCH} (2 layers, fp32): the train bundle equals the "
+          f"hand-built flat executor bit for bit ({plan.describe()}); "
+          f"prefill and decode bundles equal transformer.prefill / "
+          f"decode_step bit for bit; at full width the abstract params, "
+          f"optimizer state and decode_32k cache equal the real trees "
+          f"({out['abstract_leaves']} leaves)", flush=True)
+    gc_collect()
+    return out
+
+
+def steps_phases(timed, dev) -> dict:
+    return {"train": timed("18a train_4k", steps_train_phase, dev),
+            "serve": timed("18b/18c long_500k, prefill_32k, decode_32k",
+                           steps_serve_phase, dev),
+            "check": timed("18d step checks", steps_check_phase, dev)}
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -4261,6 +4680,7 @@ def run() -> dict:
     dp = {"train": timed("16a data parallel", dp_main_path_phase, dev),
           "check": timed("16b data-parallel check", dp_check_phase, dev)}
     fam17 = encdec_vlm_phases(timed, dev)
+    st = steps_phases(timed, dev)
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
     # families' training paths (15a-15c, 17a, 17b), the data-parallel
@@ -4276,6 +4696,7 @@ def run() -> dict:
                 for a, r in fam17["train"].items()},
              **{f"dp qwen2-1.5b {k}": c
                 for k, c in dp["train"]["counts"].items()},
+             f"train_4k {STEPS_ARCH}": st["train"]["counts"],
              **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
@@ -4336,7 +4757,7 @@ def run() -> dict:
         "calibration": calibration, "cnn": cnns, "tuner": tuner,
         "guard": guard, "oom_ladder": ladder, "calibration_miss": miss,
         "serve": serve, "serve_check": serve_check, "families": fam,
-        "encdec_vlm": fam17,
+        "encdec_vlm": fam17, "steps": st,
         "data_parallel": {"train": {k: v for k, v in dp["train"].items()
                                     if k != "counts"},
                           "check": dp["check"]},

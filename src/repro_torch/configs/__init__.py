@@ -1,8 +1,8 @@
 """Architecture registry of the port.
 
 ``get(arch_id)`` / ``get_reduced(arch_id)`` return a ``ModelConfig``.
-``ARCHS`` lists every architecture the JAX package supports, and the
-port builds them all: dense — qwen2-1.5b (GQA, QKV bias), gemma2-9b and
+``ARCHS`` lists every architecture the JAX package supports (``SHAPES``
+its assigned input shapes), and the port builds them all: dense — qwen2-1.5b (GQA, QKV bias), gemma2-9b and
 gemma3-12b (local/global windows, soft-caps, post-norms, embedding scale,
 QK-norm, dual RoPE theta); ssm — mamba2-780m; hybrid — recurrentgemma-2b
 (RG-LRU + local attention); MoE — moonshot-v1-16b-a3b, mixtral-8x22b
@@ -16,6 +16,7 @@ from importlib import import_module
 from typing import Dict, List
 
 from ..models.config import ModelConfig
+from .shapes import SHAPES, InputShape  # noqa: F401
 
 _MODULES: Dict[str, str] = {"qwen2-1.5b": "qwen2_1_5b",
                             "gemma2-9b": "gemma2_9b",

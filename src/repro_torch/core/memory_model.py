@@ -175,28 +175,29 @@ def _param_shard_ratio(cfg: ModelConfig, mesh_dims: tuple,
     return sharded / total if total else 1.0
 
 
-def estimate(cfg: ModelConfig, seq: int, *,
+def estimate(cfg: ModelConfig, seq: int, *, tp: int = 1, fsdp: int = 1,
              opt_slots: Optional[int] = None, act_bytes: int = 2,
              remat: bool = True, remat_policy: Optional[str] = None,
              optimizer: str = "sgd", fused_update: bool = False,
              mesh=None, fsdp_params: bool = True) -> MemoryEstimate:
     """``fused_update=True`` models the flat in-place update (``--executor
-    flat``), whose step-❺ transient is zero.
+    flat``), whose step-❺ transient is zero. ``tp`` / ``fsdp`` are the
+    reference's manual divisors: the parameter-sized terms are divided by
+    ``tp * fsdp`` and the activation term by ``tp``.
 
     ``mesh`` switches to the PER-DEVICE estimate: the params, gradients,
     optimizer-state and update-transient terms are discounted by
     :func:`param_shard_ratio` (``fsdp_params=False``: the replicating
-    data-parallel executor) and the activation term is divided by the
-    model axis only — the data axis enters through the *local*
-    micro-batch the caller budgets with."""
-    tp = 1
+    data-parallel executor; the manual divisors are ignored) and the
+    activation term is divided by the model axis only — the data axis
+    enters through the *local* micro-batch the caller budgets with."""
     if mesh is not None:
         from ..launch import mesh as mesh_lib  # deferred: no cycle
         tp = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
         p_bytes = int(cfg.param_count() * 4
                       * param_shard_ratio(cfg, mesh, fsdp=fsdp_params))
     else:
-        p_bytes = cfg.param_count() * 4
+        p_bytes = cfg.param_count() * 4 // (tp * fsdp)
     slots = _resolve_slots(optimizer, opt_slots)
     return MemoryEstimate(
         params_bytes=p_bytes,
@@ -246,6 +247,19 @@ def suggest_remat_policy_and_micro(
             best_policy, best_micro = policy, micro
     return best_policy, best_micro
 
+
+def max_minibatch_without_mbs(cfg: ModelConfig, seq: int, *,
+                              budget_bytes: int, **kw) -> int:
+    """The paper's "w/o MBS" failure point: the largest mini-batch whose
+    whole-batch activations fit the budget (beyond it, the run 'Fails').
+    ``kw`` are :func:`estimate`'s options."""
+    est = estimate(cfg, seq, **kw)
+    m = 0
+    while est.total(m + 1) <= budget_bytes:
+        m += 1
+        if m > 1 << 24:
+            break
+    return m
 
 
 # ---------------------------------------------------------------------------

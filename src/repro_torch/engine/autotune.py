@@ -20,7 +20,24 @@ after each (:func:`measured_step_bytes`), a per-key affine fit
 ``plan_mbs(calibrate="auto"|"force")`` then binary-searches admission
 (any integer micro-batch) against *corrected* bytes and records
 ``MBSPlan.calibrated``/``correction``; with no cache entry it falls back
-to the analytic model.
+to the analytic model. Two repairs over the reference's loop
+(:func:`calibrated_micro`), both kept in the cache entry so ``"auto"``
+plans what ``"force"`` planned:
+
+  * a probe the card cannot hold (the allocator's ``OutOfMemoryError``)
+    frees what it allocated, is recorded under the policy's key
+    (``"oom"``) and raises :class:`ProbeOutOfMemory`: the policy does not
+    fit, and ``plan_mbs`` climbs the remat lattice. On the lattice's last
+    rung (or a pinned policy) only the smallest probe's OOM rules the
+    policy out (the planner's ``ValueError``); a larger one caps
+    admission below its size;
+  * the measured peak is the larger of two lines (the set-up's and the
+    step's), so a fit over micro 1, 2, 4 can under-predict a larger
+    admitted size. Under ``"force"`` an admitted size that was never
+    probed is probed once; a measured peak over the budget caps admission
+    below that size, the fit is redone with the point, and the search
+    steps down until a measured probe fits (the probe list's own
+    over-budget points cap every later search, at any budget).
 
 **Half 2 — block tuner.** :func:`tune_block_sizes` / :func:`tune_for_params`
 time K1 (``grad_accum``) and K2 (``fused_update``) over candidate launch
@@ -137,6 +154,19 @@ def default_cache_path() -> str:
                         "repro-torch-tuning", "tuning.json")
 
 
+class ProbeOutOfMemory(RuntimeError):
+    """A calibration probe's real step did not fit the card: the policy of
+    ``key`` does not fit (recorded in the cache under ``key``)."""
+
+    def __init__(self, key: str, remat_policy: str, micro: int,
+                 error: str):
+        super().__init__(
+            f"remat policy {remat_policy!r}: the calibration probe at "
+            f"micro-batch {micro} does not fit the card ({error})")
+        self.key, self.remat_policy = key, remat_policy
+        self.micro, self.error = micro, error
+
+
 def _empty() -> Dict[str, Any]:
     return {"version": CACHE_VERSION, "memory": {}, "blocks": {}}
 
@@ -199,13 +229,34 @@ class TuningCache:
             return None
         return a, b
 
+    def memory_entry(self, key: str) -> Dict[str, Any]:
+        entry = self.data["memory"].get(key)
+        return entry if isinstance(entry, dict) else {}
+
+    def memory_oom(self, key: str) -> Optional[Dict[str, Any]]:
+        """The record of a probe the card could not hold under ``key``
+        (``{"micro", "error"}``), or None."""
+        oom = self.memory_entry(key).get("oom")
+        return oom if isinstance(oom, dict) else None
+
     def put_memory(self, key: str, a: float, b: float,
-                   probes: Sequence[Sequence[float]] = ()) -> None:
+                   probes: Sequence[Sequence[float]] = (),
+                   oom_micros: Sequence[int] = ()) -> None:
+        """A fit and its probes (micro, modeled, measured); ``oom_micros``
+        are probed sizes the card could not hold."""
+        entry = {"a": float(a), "b": float(b),
+                 "probes": [[int(m), int(mod), int(meas)]
+                            for m, mod, meas in probes]}
+        if oom_micros:
+            entry["oom_micros"] = sorted(int(m) for m in oom_micros)
+        self.data["memory"][key] = entry
+        self.save()
+
+    def put_memory_oom(self, key: str, micro: int, error: str) -> None:
+        """The policy of ``key`` does not fit: its smallest probe,
+        ``micro``, ran out of memory (no fit)."""
         self.data["memory"][key] = {
-            "a": float(a), "b": float(b),
-            "probes": [[int(m), int(mod), int(meas)]
-                       for m, mod, meas in probes],
-        }
+            "oom": {"micro": int(micro), "error": str(error)}}
         self.save()
 
     # -- tuned-block entries ------------------------------------------------
@@ -300,9 +351,10 @@ def measured_step_bytes(cfg, seq: int, micro: int, *,
     frames and target tokens for an enc-dec config, patch embeddings
     and M-RoPE streams beside the tokens for a VLM
     (``steps.family_batch``), frames and embeddings in the activation
-    dtype. The CPU has no
-    allocator peak to read: there this raises, and never returns a
-    modeled number."""
+    dtype. A step the card cannot hold frees what the probe allocated and
+    raises a fresh ``torch.OutOfMemoryError`` (no traceback holding the
+    probe's tensors). The CPU has no allocator peak to read: there this
+    raises, and never returns a modeled number."""
     device = torch.device(device)
     if device.type != "cuda":
         raise RuntimeError(
@@ -327,18 +379,28 @@ def measured_step_bytes(cfg, seq: int, micro: int, *,
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    split = steps.device_split(plan, batch, device, dtype)
-    state = {"params": steps.init_params(cfg, seed=0, device=device)}
-    state["opt_state"] = opt.init(state["params"])
-    if isinstance(ex, FlatFusedExecutor):
-        state["params"], state["opt_state"] = ex.prepare(
-            state["params"], state["opt_state"])
-    out = ex.step_split(state.pop("params"), state.pop("opt_state"), split)
-    torch.cuda.synchronize(device)
+    state, error = {}, None
+    try:
+        state["split"] = steps.device_split(plan, batch, device, dtype)
+        state["params"] = steps.init_params(cfg, seed=0, device=device)
+        state["opt_state"] = opt.init(state["params"])
+        if isinstance(ex, FlatFusedExecutor):
+            state["params"], state["opt_state"] = ex.prepare(
+                state["params"], state["opt_state"])
+        state["out"] = ex.step_split(state.pop("params"),
+                                     state.pop("opt_state"), state["split"])
+        torch.cuda.synchronize(device)
+    except torch.OutOfMemoryError as e:
+        error = (str(e).splitlines() or ["out of memory"])[0]
     peak = torch.cuda.max_memory_allocated(device) - base
-    del out, split, ex
+    state.clear()
+    del ex
     gc.collect()
     torch.cuda.empty_cache()
+    if error is not None:
+        raise torch.OutOfMemoryError(
+            f"calibration probe at micro-batch {micro} (remat "
+            f"{remat_policy}): {error}")
     return int(peak)
 
 
@@ -364,61 +426,123 @@ def _fit_affine(points: Sequence[Tuple[float, float]]) -> Tuple[float, float]:
 def calibrate_memory(cfg, seq: int, *, remat_policy: str = "period",
                      optimizer: str = "sgd", executor: str = "compiled",
                      mesh=None, probe_micros: Sequence[int] = (1, 2, 4),
-                     act_bytes: int = 4, opt_slots: Optional[int] = None,
+                     act_bytes: int = 4, tp: int = 1, fsdp: int = 1,
+                     opt_slots: Optional[int] = None,
                      fused_update: bool = False, fsdp_params: bool = True,
                      cache: Optional[TuningCache] = None,
                      cache_path: Optional[str] = None,
-                     device="cuda") -> MemoryCorrection:
+                     device="cuda", strict: bool = True) -> MemoryCorrection:
     """Run the probes for one key, fit, and persist the correction.
 
     A probe is the single-worker step at micro ``m``; for a mesh plan
     that is the per-device view the planner budgets (exact for the
     replicating data-parallel executor), and the entry is keyed by the
-    mesh so it never serves another topology."""
+    mesh so it never serves another topology. When the card cannot hold
+    a probe, the policy does not fit: that is recorded under the key and
+    raises :class:`ProbeOutOfMemory` — unless ``strict`` is False and an
+    earlier probe ran, when the probing ends there, the fit is made over
+    the probes that ran, and admission stays below the size that did not
+    fit (``oom_micros``, :func:`measured_cap`)."""
     from ..core import memory_model
     cache = cache or get_cache(cache_path)
     est = memory_model.estimate(
-        cfg, seq, opt_slots=opt_slots, act_bytes=act_bytes,
-        remat_policy=remat_policy, optimizer=optimizer,
+        cfg, seq, tp=tp, fsdp=fsdp, opt_slots=opt_slots,
+        act_bytes=act_bytes, remat_policy=remat_policy, optimizer=optimizer,
         fused_update=fused_update, mesh=mesh, fsdp_params=fsdp_params)
-    probes = []
-    for m in dict.fromkeys(int(m) for m in probe_micros if m >= 1):
-        measured = measured_step_bytes(
-            cfg, seq, m, remat_policy=remat_policy, optimizer=optimizer,
-            executor=executor, act_bytes=act_bytes, device=device)
-        probes.append((m, est.total(m), measured))
-    a, b = _fit_affine([(mod, meas) for _, mod, meas in probes])
     key = memory_key(cfg, seq, remat_policy, mesh, optimizer, executor,
                      backend_of(device))
-    cache.put_memory(key, a, b, probes)
+    probes, ooms = [], []
+    for m in sorted({int(m) for m in probe_micros if m >= 1}):
+        try:
+            measured = measured_step_bytes(
+                cfg, seq, m, remat_policy=remat_policy, optimizer=optimizer,
+                executor=executor, act_bytes=act_bytes, device=device)
+        except torch.OutOfMemoryError as e:
+            if probes and not strict:
+                ooms.append(m)
+                break
+            error = (str(e).splitlines() or ["out of memory"])[0]
+            cache.put_memory_oom(key, m, error)
+            raise ProbeOutOfMemory(key, remat_policy, m, error) from None
+        probes.append((m, est.total(m), measured))
+    a, b = _fit_affine([(mod, meas) for _, mod, meas in probes])
+    cache.put_memory(key, a, b, probes, ooms)
     return MemoryCorrection(a, b, tuple(probes))
 
 
-def planner_correction(cfg, seq: int, *, remat_policy: str, mesh,
-                       optimizer: str, executor: str, mode: str,
-                       cache_path: Optional[str] = None,
-                       probe_micros: Sequence[int] = (1, 2, 4),
-                       device="cuda", **mm_kw
-                       ) -> Optional[Tuple[float, float]]:
-    """The planner's entry: ``mode="auto"`` is a pure cache lookup (no
-    entry → None → analytic fallback); ``"force"`` runs the probes now
-    and returns the fresh fit."""
+def measured_cap(entry: Dict[str, Any], budget: int) -> Optional[int]:
+    """The smallest probed micro-batch of a cache entry that did not fit
+    ``budget`` (its measured peak above it, or out of memory), or None:
+    admission stays below it whatever the fit says."""
+    over = [int(p[0]) for p in entry.get("probes", ()) if p[2] > budget]
+    over += [int(m) for m in entry.get("oom_micros", ())]
+    return min(over) if over else None
+
+
+def calibrated_micro(cfg, seq: int, local_mini: int, budget: int, *,
+                     remat_policy: str, mesh, optimizer: str, executor: str,
+                     mode: str, cache_path: Optional[str] = None,
+                     probe_micros: Sequence[int] = (1, 2, 4),
+                     device="cuda", strict: bool = True, **mm_kw
+                     ) -> Tuple[Optional[int], Optional[Tuple[float, float]]]:
+    """The planner's entry: (admitted local micro-batch, correction), both
+    None without a correction; the micro None when the corrected search
+    admits nothing. ``mode="auto"`` reads the cache (no entry → the
+    analytic fallback); ``"force"`` runs the probes now, then backs off:
+    an admitted size never probed is probed once, and the search is
+    redone with its point until it lands on a probed size (module doc).
+    A policy whose probe ran out of memory — now, or as the cache records
+    — raises :class:`ProbeOutOfMemory` (``strict``: as
+    :func:`calibrate_memory`)."""
+    cache = get_cache(cache_path)
+    key = memory_key(cfg, seq, remat_policy, mesh, optimizer, executor,
+                     backend_of(device))
     if mode == "force":
-        return calibrate_memory(
+        calibrate_memory(
             cfg, seq, remat_policy=remat_policy, optimizer=optimizer,
             executor=executor, mesh=mesh, probe_micros=probe_micros,
-            cache_path=cache_path, device=device, **mm_kw).correction
-    return get_cache(cache_path).memory_correction(memory_key(
-        cfg, seq, remat_policy, mesh, optimizer, executor,
-        backend_of(device)))
+            cache=cache, device=device, strict=strict, **mm_kw)
+    oom = cache.memory_oom(key)
+    if oom is not None:
+        raise ProbeOutOfMemory(key, remat_policy, oom.get("micro", 0),
+                               oom.get("error", "out of memory"))
+    corr = cache.memory_correction(key)
+    if corr is None:
+        return None, None
+    from ..core import memory_model
+    est = memory_model.estimate(cfg, seq, remat_policy=remat_policy,
+                                mesh=mesh, optimizer=optimizer, **mm_kw)
+    while True:
+        entry = cache.memory_entry(key)
+        micro = corrected_micro_search(
+            cfg, seq, local_mini, budget, corr, remat_policy=remat_policy,
+            cap=measured_cap(entry, budget), mesh=mesh, optimizer=optimizer,
+            **mm_kw)
+        probes = [tuple(p) for p in entry.get("probes", ())]
+        ooms = list(entry.get("oom_micros", ()))
+        if (mode != "force" or micro is None
+                or micro in {p[0] for p in probes} | set(ooms)):
+            return micro, corr
+        try:
+            probes.append((micro, est.total(micro), measured_step_bytes(
+                cfg, seq, micro, remat_policy=remat_policy,
+                optimizer=optimizer, executor=executor,
+                act_bytes=mm_kw.get("act_bytes", 4), device=device)))
+        except torch.OutOfMemoryError:
+            ooms.append(micro)
+        corr = _fit_affine([(mod, meas) for _, mod, meas in probes])
+        cache.put_memory(key, *corr, probes, ooms)
 
 
 def corrected_micro_search(cfg, seq: int, local_mini: int, budget: int,
                            correction: Tuple[float, float], *,
-                           remat_policy: str, **mm_kw) -> Optional[int]:
+                           remat_policy: str, cap: Optional[int] = None,
+                           **mm_kw) -> Optional[int]:
     """Largest micro-batch (any integer ≤ ``local_mini``, not only powers
     of two: corrected bytes are trusted, so the power-of-two margin goes)
-    whose corrected bytes fit the budget; None when even 1 does not."""
+    whose corrected bytes fit the budget, below ``cap`` when given (a
+    probed size measured over the budget, :func:`measured_cap`); None
+    when even 1 does not."""
     from ..core import memory_model
     est = memory_model.estimate(cfg, seq, remat_policy=remat_policy, **mm_kw)
     a, b = correction
@@ -427,9 +551,11 @@ def corrected_micro_search(cfg, seq: int, local_mini: int, budget: int,
     def fits(m: int) -> bool:
         return a * (fixed + per_sample * m) + b <= budget
 
-    if not fits(1):
+    if not fits(1) or (cap is not None and cap <= 1):
         return None
     lo, hi = 1, max(int(local_mini), 1)
+    if cap is not None:
+        hi = min(hi, cap - 1)
     while lo < hi:  # binary search of the admission frontier (monotone)
         mid = (lo + hi + 1) // 2
         if fits(mid):
@@ -463,7 +589,9 @@ def record_oom_bound(cfg, seq: int, micro: int, budget: int, *,
     modeled = fixed + per_sample * max(int(micro), 1)
     if a * modeled + b <= budget:  # the correction wrongly admits micro
         b = float(budget) - a * modeled + 1.0
-        cache.put_memory(key, a, b)
+        entry = cache.memory_entry(key)
+        cache.put_memory(key, a, b, entry.get("probes", ()),
+                         entry.get("oom_micros", ()))
     return a, b
 
 

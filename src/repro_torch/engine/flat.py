@@ -68,6 +68,10 @@ class FlatSpec:
         return cls(treedef, tuple(slots), tuple(fill), tuple(buckets))
 
     @property
+    def num_leaves(self) -> int:
+        return len(self.slots)
+
+    @property
     def num_buckets(self) -> int:
         return len(self.bucket_sizes)
 

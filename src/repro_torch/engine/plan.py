@@ -126,6 +126,10 @@ class MBSPlan:
                     'build the plan with normalization="exact"')
         return split_minibatch(batch, self.micro_batch_size)
 
+    def as_config(self) -> MBSConfig:
+        return MBSConfig(self.micro_batch_size, self.normalization,
+                         self.accum_dtype)
+
     @classmethod
     def from_config(cls, cfg: MBSConfig,
                     mini_batch_size: Optional[int] = None) -> "MBSPlan":
@@ -212,7 +216,7 @@ def plan_mbs(mini_batch_size: int, *,
              budget_bytes: Optional[int] = None, device="cuda",
              normalization: str = "paper",
              accum_dtype: Any = torch.float32,
-             opt_slots: Optional[int] = None,
+             tp: int = 1, fsdp: int = 1, opt_slots: Optional[int] = None,
              act_bytes: int = 2, remat: bool = True,
              remat_policy: Optional[str] = None,
              optimizer: str = "sgd", fused_update: bool = False,
@@ -233,6 +237,9 @@ def plan_mbs(mini_batch_size: int, *,
     chooses it jointly with the micro size (cheapest recompute that meets
     the whole mini-batch, or with a pinned size the cheapest that admits
     it); ``None`` maps the ``remat`` bool (True → "period").
+
+    ``tp`` / ``fsdp`` are the memory model's manual divisors (the
+    reference's; a mesh overrides them, ``memory_model.estimate``).
 
     ``mesh`` (a mapping of axis name to size, e.g. a
     ``launch.mesh.Mesh``) makes the plan data-parallel: the budget is
@@ -256,7 +263,17 @@ def plan_mbs(mini_batch_size: int, *,
         size; without one, or when the corrected search admits nothing,
         the analytic choice stands;
       * ``"force"``: run the probe steps now (``autotune.calibrate_memory``
-        on CUDA ``device``), persist the fit, then admit against it.
+        on CUDA ``device``), persist the fit, then admit against it,
+        probing an admitted size that was never probed and stepping down
+        while its measured peak is over the budget
+        (``autotune.calibrated_micro``).
+    A policy one of whose probes the card cannot hold (now, or as the
+    cache records) is ruled out: under ``"auto"`` the planner climbs the
+    remat lattice to the next policy, as it does past a policy whose
+    corrected bytes exceed the budget even at micro 1 (the heaviest
+    policy's analytic plan stands when none admits one). On the last
+    rung, and for a pinned policy, only an out-of-memory smallest probe
+    rules it out — ``ValueError`` — and a larger one caps admission.
     A calibrated plan records ``calibrated=True`` and the correction.
     ``executor`` only keys the cache entry (and names the executor the
     probes run); it does not change the geometry."""
@@ -280,7 +297,7 @@ def plan_mbs(mini_batch_size: int, *,
     policy = (None if auto_policy_requested
               else remat_lib.resolve(remat, remat_policy))
     can_search = model_cfg is not None and seq_len is not None
-    mm_kw = dict(opt_slots=opt_slots, act_bytes=act_bytes,
+    mm_kw = dict(tp=tp, fsdp=fsdp, opt_slots=opt_slots, act_bytes=act_bytes,
                  optimizer=optimizer, fused_update=fused_update,
                  mesh=mesh, fsdp_params=fsdp_params)
     # the memory model budgets what ONE device holds: local samples
@@ -314,22 +331,41 @@ def plan_mbs(mini_batch_size: int, *,
                 remat_policy=policy, **mm_kw)
         if calibrate != "off":
             # the analytic search picked the policy; calibration refines
-            # the micro size for that policy only
+            # the micro size for that policy only — or, when its probe
+            # does not fit the card, for the next policy that fits
             from . import autotune
-            corr = autotune.planner_correction(
-                model_cfg, seq_len, remat_policy=policy, mesh=mesh,
-                optimizer=optimizer, executor=executor, mode=calibrate,
-                cache_path=tuning_cache, device=device,
-                opt_slots=opt_slots, act_bytes=act_bytes,
-                fused_update=fused_update, fsdp_params=fsdp_params)
-            if corr is not None:
-                cal_local = autotune.corrected_micro_search(
-                    model_cfg, seq_len, local_mini, budget(), corr,
-                    remat_policy=policy, **mm_kw)
+            order = memory_model.POLICY_ORDER
+            ladder = (order[order.index(policy):] if auto_policy_requested
+                      else (policy,))
+            for i, pol in enumerate(ladder):
+                last = i + 1 == len(ladder)
+                try:
+                    cal_local, corr = autotune.calibrated_micro(
+                        model_cfg, seq_len, local_mini, budget(),
+                        remat_policy=pol, executor=executor,
+                        mode=calibrate, cache_path=tuning_cache,
+                        device=device, strict=not last, **mm_kw)
+                except autotune.ProbeOutOfMemory as e:
+                    if not last:
+                        continue
+                    raise ValueError(f"{e} — " + (
+                        f"no policy from {ladder[0]!r} up fits the card"
+                        if auto_policy_requested else
+                        'pin a heavier remat policy or pass remat_policy='
+                        '"auto"')) from None
+                if cal_local is None and corr is not None and not last:
+                    continue  # measured over the budget even at micro 1
+                if pol != policy:
+                    policy = pol
+                    local = memory_model.suggest_micro_batch_size(
+                        model_cfg, seq_len, local_mini,
+                        budget_bytes=budget(), remat_policy=policy,
+                        **mm_kw)
                 if cal_local is not None:
                     local = cal_local
                     calibrated = True
                     correction = (float(corr[0]), float(corr[1]))
+                break
         micro = (local or 1) * dp
         auto = True
     else:

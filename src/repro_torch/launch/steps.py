@@ -1,21 +1,35 @@
-"""Loss construction for the training step (the JAX package's
-``launch/steps.make_loss_fn``): every family — dense, MoE, SSM, hybrid,
-the VLM (patch embeddings and M-RoPE positions when the batch has them)
-and the encoder-decoder (frames and target tokens)."""
+"""Step builders and abstract input specs for every (architecture ×
+shape) — the JAX package's ``launch/steps.py``:
+
+  * train:   the MBS train step (the paper's technique): the planner's
+             split, loss normalization and one optimizer update;
+  * prefill: the full-sequence forward that builds the decode cache;
+  * decode:  one new token against a ``seq_len`` cache.
+
+A :class:`StepBundle` holds the step and its arguments as **meta-device
+tensors** — the torch twin of ``jax.ShapeDtypeStruct``: shape and dtype,
+no storage — so a bundle for grok-1-314b allocates nothing. Also here:
+the loss of every family (``make_loss_fn``) and a family's train batch as
+data (``family_batch`` / ``device_split``, the data twin of
+:func:`abstract_train_batch`).
+"""
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import tree
+from .. import engine, optim, tree
+from ..configs.shapes import InputShape
 from ..core import losses
 from ..data import LMDataset
 from ..models import encdec, transformer
 from ..models import remat as remat_lib
 from ..models.config import ModelConfig
+from . import mesh as mesh_lib
 
 N_VISION_TOKENS = 256  # stubbed patch embeddings a sample (qwen2-vl)
 AUDIO_TGT_FRACTION = 4  # enc-dec training: decoder length = seq / 4
@@ -63,6 +77,251 @@ def make_loss_fn(cfg: ModelConfig, dtype=torch.bfloat16, remat: bool = True,
         return loss, {"aux_loss": aux}
 
     return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# the step bundle and its abstract arguments
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+@dataclasses.dataclass(frozen=True)
+class StepBundle:
+    """A step and its arguments.
+
+    ``fn`` is the port's eager step: the executor's ``step_split`` for a
+    train bundle (``plan``, ``optimizer``, ``loss_fn`` and ``executor``
+    say what it was built against), the prefill or decode closure
+    otherwise. ``arg_shapes`` are ``fn``'s arguments as meta-device
+    tensor trees. ``donate_argnums`` keeps the reference's values; here
+    they name the arguments the step consumes: a train step returns the
+    state that replaces its params and optimizer state (``flat`` writes
+    them in place) and the split batch is spent after it; a decode step
+    writes its cache in place and returns it. A caller drops its own
+    references to those arguments."""
+    kind: str
+    fn: Callable
+    arg_shapes: Tuple[Any, ...]
+    donate_argnums: Tuple[int, ...] = ()
+    plan: Optional[Any] = None
+    optimizer: Optional[Any] = None
+    loss_fn: Optional[Callable] = None
+    executor: Optional[str] = None
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The family's ``init_params`` tree as meta tensors. A generator
+    cannot live on the meta device, so ``init_params`` is traced under a
+    fake-tensor mode (``memory_model.param_shapes``), which allocates
+    nothing either."""
+    from ..core import memory_model
+    return tree.map(lambda x: _meta(x.shape, x.dtype),
+                    memory_model.param_shapes(cfg))
+
+
+def make_optimizer(cfg: ModelConfig, lr: float = 1e-3) -> optim.Optimizer:
+    """The production default, the paper's optimizer: SGD with momentum
+    0.9 and weight decay 5e-4."""
+    return optim.sgd(lr, momentum=0.9, weight_decay=5e-4)
+
+
+def abstract_opt_state(optimizer, params_shapes):
+    """``optimizer.init`` over a meta tree: the state's meta tree."""
+    return optimizer.init(params_shapes)
+
+
+def abstract_train_batch(cfg: ModelConfig, seq_len: int, plan, *,
+                         dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Meta tree of a split ``(N_Smu, N_mu, ...)`` train batch: tokens and
+    labels; an enc-dec config's ``frames`` and target tokens of
+    ``seq_len // AUDIO_TGT_FRACTION``; a VLM's ``vision_embeds`` (N_Smu,
+    N_mu, N_VISION_TOKENS, VISION_EMBED_DIM) and ``mrope_positions``
+    (N_Smu, 3, N_mu, S) — :func:`device_split`'s layout — and the
+    ``sample_weight`` mask the plan's split always emits. ``N_mu`` is a
+    data-parallel plan's ``local_micro``: what one rank's step takes."""
+    s = seq_len
+    n, m = plan.num_micro_batches, plan.local_micro
+    i32, f32 = torch.int32, torch.float32
+    if cfg.is_encdec:
+        t = s // AUDIO_TGT_FRACTION
+        batch = {"frames": _meta((n, m, s, cfg.d_model), dtype),
+                 "tgt_tokens": _meta((n, m, t), i32),
+                 "labels": _meta((n, m, t), i32)}
+    else:
+        batch = {"tokens": _meta((n, m, s), i32),
+                 "labels": _meta((n, m, s), i32)}
+        if cfg.is_vlm:
+            batch["vision_embeds"] = _meta(
+                (n, m, N_VISION_TOKENS, transformer.VISION_EMBED_DIM), dtype)
+            batch["mrope_positions"] = _meta((n, 3, m, s), i32)
+    batch["sample_weight"] = _meta((n, m), f32)
+    return batch
+
+
+def build_train_step(cfg: ModelConfig, shape: InputShape, *,
+                     num_microbatches: Optional[int] = None, optimizer=None,
+                     dtype=torch.bfloat16, remat: bool = True,
+                     remat_policy: Optional[str] = None,
+                     normalization: str = "paper",
+                     executor: str = "compiled", mesh=None,
+                     fsdp: bool = False, calibrate: str = "off",
+                     budget_bytes: Optional[int] = None,
+                     tuning_cache: Optional[str] = None,
+                     device="cuda") -> StepBundle:
+    """The train step through the MBS engine, as the reference builds it:
+    ``plan_mbs`` sizes the micro-batch (``num_microbatches=None``: from
+    the memory model; a ragged split is padded and masked) and chooses
+    the policy (``remat_policy="auto"``), and the loss is built with the
+    plan's policy. The port's planner arguments pass through:
+    ``calibrate``, ``budget_bytes`` (default: the memory of CUDA
+    ``device``), ``tuning_cache`` and ``device``. ``executor`` names the
+    executor; a ``mesh`` with a data extent above 1 wraps it in
+    ``engine.ShardedExecutor`` (params replicated, so the plan is made
+    with ``fsdp_params=False``), and the batch is one rank's block.
+
+    A mesh whose model axis is larger than 1 pipelines the block stack in
+    the reference (1F1B), and ``fsdp=True`` applies only there: both are
+    refused (ROADMAP.md queue 1 item 14)."""
+    model_axis = (mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
+                  if mesh is not None else 1)
+    if model_axis > 1 or fsdp:
+        raise NotImplementedError(
+            f"build_train_step(mesh model axis {model_axis}, fsdp={fsdp}): "
+            "a model axis > 1 pipelines the block stack (1F1B), and fsdp "
+            "applies only there; not ported (ROADMAP.md queue 1 item 14)")
+    optimizer = optimizer or make_optimizer(cfg)
+    dp = mesh_lib.data_parallel_size(mesh) if mesh is not None else 1
+    plan = engine.plan_mbs(
+        shape.global_batch, num_microbatches=num_microbatches,
+        model_cfg=cfg, seq_len=shape.seq_len, budget_bytes=budget_bytes,
+        device=device, normalization=normalization,
+        act_bytes=torch.empty((), dtype=dtype).element_size(), remat=remat,
+        remat_policy=remat_policy, mesh=mesh if dp > 1 else None,
+        fsdp_params=dp < 2, calibrate=calibrate, tuning_cache=tuning_cache,
+        executor=executor,
+        **optim.memory_model_kw(optimizer, fused=executor == "flat"))
+    loss_fn = make_loss_fn(cfg, dtype, remat_policy=plan.remat_policy)
+    if dp > 1:
+        ex = engine.ShardedExecutor(loss_fn, optimizer, plan, mesh=mesh,
+                                    inner=executor)
+    else:
+        ex = engine.get_executor(executor)(loss_fn, optimizer, plan)
+    params = abstract_params(cfg)
+    return StepBundle(
+        "train", ex.step_split,
+        (params, abstract_opt_state(optimizer, params),
+         abstract_train_batch(cfg, shape.seq_len, plan, dtype=dtype)),
+        donate_argnums=(0, 1, 2), plan=plan, optimizer=optimizer,
+        loss_fn=loss_fn, executor=executor)
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+def _global_window(cfg: ModelConfig, shape: InputShape) -> Optional[int]:
+    return (cfg.long_context_global_window if shape.name == "long_500k"
+            else None)
+
+
+def build_prefill_step(cfg: ModelConfig, shape: InputShape, *,
+                       dtype=torch.bfloat16,
+                       remat_policy: str = "none") -> StepBundle:
+    """The prefill: ``transformer.prefill`` (last-token logits and the
+    decode cache; ``long_500k`` under ``cfg.long_context_global_window``)
+    — an enc-dec config's encoder and teacher-forced decoder, returning
+    the last position's logits. ``remat_policy`` reaches the enc-dec
+    forward (the reference's default "none": forward only)."""
+    s, b = shape.seq_len, shape.global_batch
+    i32 = torch.int32
+    if cfg.is_encdec:
+        @torch.inference_mode()
+        def fn(params, frames, tokens):
+            logits, _ = encdec.forward(params, cfg, frames, tokens,
+                                       dtype=dtype,
+                                       remat_policy=remat_policy)
+            return logits[:, -1]
+
+        return StepBundle("prefill", fn, (
+            abstract_params(cfg), _meta((b, s, cfg.d_model), dtype),
+            _meta((b, s // AUDIO_TGT_FRACTION), i32)))
+
+    gw = _global_window(cfg, shape)
+
+    def fn(params, tokens, vision_embeds=None, mrope_positions=None):
+        return transformer.prefill(params, cfg, tokens, max_len=s,
+                                   vision_embeds=vision_embeds,
+                                   mrope_positions=mrope_positions,
+                                   dtype=dtype, global_window=gw)
+
+    args = [abstract_params(cfg), _meta((b, s), i32)]
+    if cfg.is_vlm:
+        args += [_meta((b, N_VISION_TOKENS, transformer.VISION_EMBED_DIM),
+                       dtype), _meta((3, b, s), i32)]
+    return StepBundle("prefill", fn, tuple(args))
+
+
+def abstract_cache(cfg: ModelConfig, shape: InputShape,
+                   dtype=torch.bfloat16):
+    """The decode cache's meta tree: ``transformer.init_cache`` on the
+    meta device, or the enc-dec cache's layout (``encdec.init_decode_cache``:
+    self-attention rings over ``seq_len``, cross keys and values over
+    ``seq_len // AUDIO_TGT_FRACTION`` encoder frames)."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.is_encdec:
+        K, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+        T = s // AUDIO_TGT_FRACTION
+        return {"self": {"k": _meta((L, b, s, K, hd), dtype),
+                         "v": _meta((L, b, s, K, hd), dtype),
+                         "pos": _meta((L, b, s), torch.int32)},
+                "cross": {"k": _meta((L, b, T, K, hd), dtype),
+                          "v": _meta((L, b, T, K, hd), dtype)}}
+    return transformer.init_cache(cfg, b, s, dtype,
+                                  global_window=_global_window(cfg, shape),
+                                  device=META)
+
+
+def build_decode_step(cfg: ModelConfig, shape: InputShape, *,
+                      dtype=torch.bfloat16) -> StepBundle:
+    """One decode step, ``fn(params, token (B, 1), cache, pos (B,))`` →
+    (logits, cache), the cache written in place."""
+    b = shape.global_batch
+    if cfg.is_encdec:
+        def fn(params, token, cache, pos):
+            return encdec.decode_step(params, cfg, token, cache, pos,
+                                      dtype=dtype)
+    else:
+        gw = _global_window(cfg, shape)
+
+        def fn(params, token, cache, pos):
+            return transformer.decode_step(params, cfg, token, cache, pos,
+                                           dtype=dtype, global_window=gw)
+
+    args = (abstract_params(cfg), _meta((b, 1), torch.int32),
+            abstract_cache(cfg, shape, dtype), _meta((b,), torch.int32))
+    return StepBundle("decode", fn, args, donate_argnums=(2,))
+
+
+def build_step(cfg: ModelConfig, shape: InputShape, *,
+               num_microbatches: Optional[int] = 8, dtype=torch.bfloat16,
+               **kw) -> StepBundle:
+    """The shape's step: train (``kw`` to :func:`build_train_step`),
+    prefill (under ``kw``'s ``remat_policy``, "none" for "auto": there is
+    no planner to choose) or decode."""
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, num_microbatches=num_microbatches,
+                                dtype=dtype, **kw)
+    if shape.kind == "prefill":
+        policy = kw.get("remat_policy") or "none"
+        return build_prefill_step(
+            cfg, shape, dtype=dtype,
+            remat_policy="none" if policy == "auto" else policy)
+    return build_decode_step(cfg, shape, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,12 @@ def validate(policy: str) -> str:
     return policy
 
 
+def policy_weight(policy: str) -> int:
+    """Position on the lattice (0 = no remat): admission is monotone
+    non-decreasing in it."""
+    return POLICIES.index(validate(policy))
+
+
 def resolve(remat: Optional[bool] = None,
             remat_policy: Optional[str] = None) -> str:
     """Collapse the (legacy bool, graded policy) pair to one policy: an

@@ -305,6 +305,112 @@ def test_pinned_micro_ignores_calibration(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# calibrate="force" against a fake memory oracle: a probe the card cannot
+# hold, and a peak that changes regime between the probes
+# ---------------------------------------------------------------------------
+
+GB = 10 ** 9
+BUDGET_60 = 60 * 1024 ** 3
+
+
+def _fake_oracle(monkeypatch, fn):
+    """Make ``fn(micro, policy)`` the probe's measured bytes (or raise)."""
+    calls = []
+
+    def oracle(cfg, seq, micro, *, remat_policy="period", **kw):
+        calls.append((remat_policy, micro))
+        return fn(micro, remat_policy)
+    monkeypatch.setattr(autotune, "measured_step_bytes", oracle)
+    return calls
+
+
+def _force(tmp_path, mini=16, cal="force", **kw):
+    return engine.plan_mbs(
+        mini, model_cfg=configs.get(ARCH), seq_len=1024,
+        budget_bytes=BUDGET_60, device="cpu", calibrate=cal,
+        tuning_cache=str(tmp_path / "t.json"), act_bytes=2,
+        **{"remat_policy": "auto", **kw})
+
+
+def test_probe_oom_climbs_the_lattice(tmp_path, monkeypatch):
+    """A probe that does not fit rules its policy out: ``none`` and
+    ``dots`` OOM, the planner climbs to ``period`` itself, records the
+    OOM'd policies in their tuning entries, and ``auto`` plans the same
+    from the cache alone."""
+    def fn(micro, policy):
+        if policy in ("none", "dots"):
+            raise torch.OutOfMemoryError(f"injected at micro {micro}")
+        return int(20 * GB + 2 * GB * micro)
+    calls = _fake_oracle(monkeypatch, fn)
+    assert engine.plan_mbs(16, model_cfg=configs.get(ARCH), seq_len=1024,
+                           budget_bytes=BUDGET_60, device="cpu",
+                           remat_policy="auto", act_bytes=2
+                           ).remat_policy == "none"  # the analytic choice
+    plan = _force(tmp_path)
+    assert plan.remat_policy == "period" and plan.auto_policy
+    assert plan.calibrated and plan.micro_batch_size == 16
+    assert [c for c in calls if c[0] != "period"] == [("none", 1),
+                                                      ("dots", 1)]
+    cache = autotune.get_cache(str(tmp_path / "t.json"))
+    for pol in ("none", "dots"):
+        oom = cache.memory_oom(autotune.memory_key(
+            configs.get(ARCH), 1024, pol, None, "sgd", "compiled", "cpu"))
+        assert oom == {"micro": 1, "error": "injected at micro 1"}
+    n = len(calls)
+    assert _force(tmp_path, cal="auto") == plan
+    assert len(calls) == n  # "auto" probes nothing
+
+
+def test_probe_oom_of_a_pinned_policy_is_the_planners_error(tmp_path,
+                                                            monkeypatch):
+    """A pinned policy (or the lattice's last rung) is ruled out only by
+    an out-of-memory smallest probe — the planner's ``ValueError``, not
+    the allocator's; a larger probe's OOM caps admission below it."""
+    def fn(micro, policy):
+        if policy == "none" or micro >= 2:
+            raise torch.OutOfMemoryError("injected")
+        return int(40 * GB)
+    _fake_oracle(monkeypatch, fn)
+    with pytest.raises(ValueError, match="remat policy 'none'"):
+        _force(tmp_path, remat_policy="none")
+    plan = _force(tmp_path, remat_policy="full")
+    assert plan.remat_policy == "full" and plan.calibrated
+    assert plan.micro_batch_size == 1
+
+
+def test_back_off_probe_keeps_the_plan_in_budget(tmp_path, monkeypatch):
+    """The two regimes of qwen2-vl-72b's probes on the card (1 layer,
+    ``flat``): micro 1 and 2 peak at the set-up (54.11 / 54.14 GB), micro
+    4 at the step (58.68 GB), whose line is steeper. The line through the
+    three admits micro 7 (the reference's plan, 66 GiB real); the planner
+    probes 7, finds it over the budget, refits and steps down until a
+    measured probe fits."""
+    def oracle_bytes(micro):
+        setup = 54.11 * GB + 0.03 * GB * (micro - 1)
+        step = 58.68 * GB + 4.094 * GB * (micro - 4)
+        return int(max(setup, step))
+    calls = _fake_oracle(monkeypatch, lambda m, p: oracle_bytes(m))
+    cfg = configs.get(ARCH)
+    est = memory_model.estimate(cfg, 1024, act_bytes=2,
+                                remat_policy="period")
+    first = [(est.total(m), oracle_bytes(m)) for m in (1, 2, 4)]
+    reference = autotune.corrected_micro_search(
+        cfg, 1024, 8, BUDGET_60, autotune._fit_affine(first),
+        remat_policy="period", act_bytes=2)
+    assert oracle_bytes(reference) > BUDGET_60  # the fault repaired here
+    plan = _force(tmp_path, mini=8, remat_policy="period")
+    assert plan.calibrated
+    assert oracle_bytes(plan.micro_batch_size) <= BUDGET_60
+    assert 2 < plan.micro_batch_size < reference
+    probed = [m for _, m in calls]
+    assert probed[:3] == [1, 2, 4] and reference in probed
+    assert plan.micro_batch_size in probed
+    # the cache caps "auto" below the size measured over the budget
+    assert _force(tmp_path, mini=8, remat_policy="period",
+                  cal="auto") == plan
+
+
+# ---------------------------------------------------------------------------
 # negative bounds from an observed OOM
 # ---------------------------------------------------------------------------
 

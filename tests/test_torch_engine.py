@@ -7,6 +7,7 @@ Plans are pure arithmetic and must be equal. Gradients, params and
 optimizer state agree to atol 1e-5 / rtol 1e-5 (XLA and torch order the
 matmul sums differently); Pallas kernels run in interpret mode.
 """
+import argparse
 import dataclasses
 import itertools
 
@@ -308,3 +309,316 @@ def test_schedules_match_reference():
             np.testing.assert_allclose(
                 float(got), float(jsched(jnp.asarray(step, jnp.int32))),
                 rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_engine.py case for case: the planner's geometry, the four
+# executors against the full batch and the no-MBS baseline, the launcher's
+# ragged path and build_train_step — each in both packages on the same
+# numpy inputs (fp32 within DTYPE_ATOL; the reference's own bounds hold)
+# ---------------------------------------------------------------------------
+
+from conftest import (DTYPE_ATOL, EXECUTOR_GRID, tiny_batch,  # noqa: E402
+                      tiny_loss_fn, tiny_params)
+from repro.core import losses as jlosses  # noqa: E402
+from repro.core import memory_model as jmemory_model  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
+from repro_torch.core import losses, memory_model  # noqa: E402
+from repro_torch.engine import exec_core  # noqa: E402
+from test_torch_mbs import max_err, t_batch  # noqa: E402
+from test_torch_streaming import t_loss_fn  # noqa: E402
+
+F32_ATOL = DTYPE_ATOL[jnp.dtype(jnp.float32)]
+V5E = jmemory_model.V5E_HBM_BYTES
+
+
+def _tparams(seed=0):
+    np_p = jax.tree.map(np.asarray, tiny_params(seed))
+    return weights.from_reference(np_p, "cpu"), jax.tree.map(jnp.asarray,
+                                                             np_p)
+
+
+def _both_plans(*args, **kw):
+    return (engine.plan_mbs(*args, device="cpu", **kw),
+            jengine.plan_mbs(*args, **kw))
+
+
+def _same_geometry(got, want):
+    for f in ("mini_batch_size", "micro_batch_size", "num_micro_batches",
+              "pad", "normalization", "auto_micro", "auto_normalization",
+              "remat_policy", "auto_policy"):
+        assert getattr(got, f) == getattr(want, f), f
+
+
+def test_plan_pins_micro_batch_size():
+    plan, jplan = _both_plans(16, micro_batch_size=4)
+    assert (plan.micro_batch_size, plan.num_micro_batches, plan.pad) == \
+        (4, 4, 0)
+    assert not plan.auto_micro and plan.normalization == "paper"
+    _same_geometry(plan, jplan)
+
+
+def test_plan_pins_num_microbatches_with_ragged_tail():
+    plan, jplan = _both_plans(10, num_microbatches=3)
+    assert (plan.micro_batch_size, plan.num_micro_batches, plan.pad) == \
+        (4, 3, 2)
+    assert plan.normalization == "exact" and plan.auto_normalization
+    _same_geometry(plan, jplan)
+
+
+def test_plan_auto_micro_from_memory_model():
+    """The reference's default budget (one v5e), passed explicitly: the
+    port's default is the card's memory."""
+    cfg, jcfg = configs.get_reduced(ARCH), jconfigs.get_reduced(ARCH)
+    plan = engine.plan_mbs(64, model_cfg=cfg, seq_len=16, budget_bytes=V5E,
+                           device="cpu")
+    jplan = jengine.plan_mbs(64, model_cfg=jcfg, seq_len=16)
+    assert plan.auto_micro
+    suggested = memory_model.suggest_micro_batch_size(cfg, 16, 64,
+                                                      budget_bytes=V5E)
+    assert plan.micro_batch_size == (suggested or 1)
+    est = memory_model.estimate(cfg, 16)
+    assert est.total(plan.micro_batch_size) <= V5E
+    _same_geometry(plan, jplan)
+
+
+def test_plan_auto_micro_respects_tight_budget():
+    cfg, jcfg = configs.get_reduced(ARCH), jconfigs.get_reduced(ARCH)
+    act = memory_model.activation_bytes_per_sample(cfg, 16)
+    est = memory_model.estimate(cfg, 16)
+    cap = est.total(0) + act * 3  # room for <= 3 samples of activations
+    assert cap == jmemory_model.estimate(jcfg, 16).total(0) + 3 * \
+        jmemory_model.activation_bytes_per_sample(jcfg, 16)
+    plan = engine.plan_mbs(64, model_cfg=cfg, seq_len=16, budget_bytes=cap,
+                           device="cpu")
+    assert plan.auto_micro and plan.micro_batch_size <= 3
+    _same_geometry(plan, jengine.plan_mbs(64, model_cfg=jcfg, seq_len=16,
+                                          budget_bytes=cap))
+
+
+def test_plan_split_is_masked_partition():
+    plan, jplan = _both_plans(10, num_microbatches=3)
+    batch = tiny_batch(10)
+    split = plan.split(batch)
+    assert split["x"].shape == (3, 4, 8)
+    w = split["sample_weight"].reshape(-1)
+    assert w.sum() == 10
+    np.testing.assert_array_equal(split["x"].reshape(-1, 8)[w > 0],
+                                  batch["x"])
+    for k, v in jplan.split(batch).items():
+        np.testing.assert_array_equal(split[k], v)
+
+
+def test_plan_from_legacy_config_roundtrip():
+    cfg = engine.MBSConfig(4, "exact", torch.bfloat16)
+    plan = engine.MBSPlan.from_config(cfg, 12)
+    assert plan.micro_batch_size == 4 and plan.num_micro_batches == 3
+    assert plan.as_config() == cfg
+    jplan = jengine.MBSPlan.from_config(
+        jengine.MBSConfig(4, "exact", jnp.bfloat16), 12)
+    _same_geometry(plan, jplan)
+
+
+def _executor_split(plan, batch):
+    return plan.device_split(batch, "cpu")
+
+
+@pytest.mark.parametrize("executor", EXECUTOR_GRID)
+@pytest.mark.parametrize("n_b,n_mu,normalization", [
+    (12, 4, "paper"), (16, 8, "paper"),
+    (12, 4, "exact"), (10, 4, "exact"), (13, 5, "exact"),
+])
+def test_executor_gradients_match_full_batch(executor, n_b, n_mu,
+                                             normalization):
+    tp, jp = _tparams()
+    batch = tiny_batch(n_b)
+    ref_loss, _, ref = exec_core.value_and_grad(
+        lambda p: t_loss_fn(p, t_batch(batch)), tp)
+    plan = engine.plan_mbs(n_b, micro_batch_size=n_mu,
+                           normalization=normalization, device="cpu")
+    assert plan.normalization == "exact" or n_b % n_mu == 0
+    ex = engine.get_executor(executor)(t_loss_fn, optim.sgd(0.1), plan)
+    g, loss = ex.gradients(tp, _executor_split(plan, batch))
+    assert max_err(g, {k: v.detach().numpy() for k, v in ref.items()}) \
+        < 2e-6
+    assert abs(float(loss) - float(ref_loss)) < 2e-6
+    jplan = jengine.plan_mbs(n_b, micro_batch_size=n_mu,
+                             normalization=normalization)
+    jg, jloss = make_executor(executor, tiny_loss_fn, joptim.sgd(0.1),
+                              jplan).gradients(jp, jplan.device_split(batch))
+    assert max_err(g, jg) <= F32_ATOL
+    assert abs(float(loss) - float(jloss)) <= F32_ATOL
+
+
+@pytest.mark.parametrize("executor", EXECUTOR_GRID)
+def test_executor_step_matches_baseline_update(executor):
+    """One optimizer step via any executor == the no-MBS baseline."""
+    tp, jp = _tparams(2)
+    batch = tiny_batch(16, seed=2)
+    opt = optim.sgd(0.1, momentum=0.9, weight_decay=1e-4)
+    p_ref, _, m_ref = engine.make_baseline_train_step(t_loss_fn, opt)(
+        tp, opt.init(tp), t_batch(batch))
+    plan = engine.plan_mbs(16, micro_batch_size=4, device="cpu")
+    ex = engine.get_executor(executor)(t_loss_fn, opt, plan)
+    state = opt.init(tp)
+    params = tp
+    if executor == "flat":
+        params, state = ex.prepare(
+            tree.map(torch.clone, tp), state)
+    p, _, m = ex.step_split(params, state, _executor_split(plan, batch))
+    assert max_err(p, {k: v.detach().numpy() for k, v in p_ref.items()}) \
+        < 2e-6
+    assert abs(float(m["loss"]) - float(m_ref["loss"])) < 2e-6
+    assert abs(float(m["grad_norm"]) - float(m_ref["grad_norm"])) < 2e-5
+    jopt = joptim.sgd(0.1, momentum=0.9, weight_decay=1e-4)
+    jex = make_executor(executor, tiny_loss_fn, jopt,
+                        jengine.plan_mbs(16, micro_batch_size=4),
+                        donate=False)
+    jp2, _, jm = jex.step(jp, jopt.init(jp), dict(batch))
+    assert max_err(p, jp2) <= F32_ATOL
+    assert abs(float(m["loss"]) - float(jm["loss"])) <= F32_ATOL
+
+
+def _aux_loss_fn(p, batch, exact_denom=None):
+    """test_engine.py's CE + an additive (non-per-sample) regularizer under
+    the exact-mode contract, in PyTorch."""
+    h = torch.tanh(batch["x"] @ p["w1"])
+    logits = h @ p["w2"]
+    ce = losses.cross_entropy(logits, batch["y"],
+                              sample_weight=batch.get("sample_weight"),
+                              exact_denom=exact_denom)
+    aux = 0.1 * torch.mean(torch.square(h))
+    if exact_denom is not None:
+        sw = batch.get("sample_weight")
+        n_valid = (torch.sum(sw) if sw is not None
+                   else float(batch["x"].shape[0]))
+        aux = aux * (n_valid / exact_denom)
+    return ce + aux, {}
+
+
+def _j_aux_loss_fn(p, batch, exact_denom=None):
+    h = jnp.tanh(batch["x"] @ p["w1"])
+    logits = h @ p["w2"]
+    ce = jlosses.cross_entropy(logits, batch["y"],
+                               sample_weight=batch.get("sample_weight"),
+                               exact_denom=exact_denom)
+    aux = 0.1 * jnp.mean(jnp.square(h))
+    if exact_denom is not None:
+        sw = batch.get("sample_weight")
+        n_valid = (jnp.sum(sw) if sw is not None
+                   else jnp.asarray(float(batch["x"].shape[0])))
+        aux = aux * (n_valid / exact_denom)
+    return ce + aux, {}
+
+
+@pytest.mark.parametrize("n_b,n_mu", [(12, 4), (10, 4)])
+def test_additive_aux_loss_consistent_across_executors(n_b, n_mu):
+    """Additive regularizers (the MoE router's aux) get the same weight
+    from every executor in exact mode, ragged tails included."""
+    tp, jp = _tparams()
+    batch = tiny_batch(n_b)
+    plan = engine.plan_mbs(n_b, micro_batch_size=n_mu,
+                           normalization="exact", device="cpu")
+    split = _executor_split(plan, batch)
+    grads, ls = {}, {}
+    for name in EXECUTOR_GRID:
+        ex = engine.get_executor(name)(_aux_loss_fn, optim.sgd(0.1), plan)
+        grads[name], ls[name] = ex.gradients(tp, split)
+    for name in ("streaming", "fused", "flat"):
+        assert max_err(grads[name], {k: v.detach().numpy() for k, v in
+                                     grads["compiled"].items()}) < 2e-6
+        assert abs(float(ls[name]) - float(ls["compiled"])) < 2e-6
+    if n_b % n_mu == 0:  # uniform split: exact == paper == mean-of-micro aux
+        plan_p = engine.plan_mbs(n_b, micro_batch_size=n_mu, device="cpu")
+        g_p, _ = engine.CompiledScanExecutor(
+            _aux_loss_fn, optim.sgd(0.1), plan_p).gradients(tp, split)
+        assert max_err(g_p, {k: v.detach().numpy() for k, v in
+                             grads["compiled"].items()}) < 2e-6
+    jplan = jengine.plan_mbs(n_b, micro_batch_size=n_mu,
+                             normalization="exact")
+    jg, jl = jengine.CompiledScanExecutor(
+        _j_aux_loss_fn, joptim.sgd(0.1), jplan).gradients(
+        jp, jplan.device_split(batch))
+    assert max_err(grads["compiled"], jg) <= F32_ATOL
+    assert abs(float(ls["compiled"]) - float(jl)) <= F32_ATOL
+
+
+def test_fused_accum_dtype_is_respected():
+    executor = "fused"
+    tp, jp = _tparams()
+    batch = tiny_batch(8)
+    plan = engine.plan_mbs(8, micro_batch_size=4, accum_dtype=torch.bfloat16,
+                           device="cpu")
+    ex = engine.get_executor(executor)(t_loss_fn, optim.sgd(0.1), plan)
+    g, _ = ex.gradients(tp, _executor_split(plan, batch))
+    assert all(x.dtype == torch.bfloat16 for x in tree.leaves(g))
+    jplan = jengine.plan_mbs(8, micro_batch_size=4, accum_dtype=jnp.bfloat16)
+    jg, _ = make_executor(executor, tiny_loss_fn, joptim.sgd(0.1),
+                          jplan).gradients(jp, jplan.device_split(batch))
+    assert max_err(g, jg) <= DTYPE_ATOL[jnp.dtype(jnp.bfloat16)]
+
+
+def _train_argv(executor):
+    return ["--arch", ARCH, "--reduced", "--mini-batch", "10",
+            "--microbatches", "3", "--executor", executor, "--seq", "16",
+            "--dtype", "float32", "--lr", "0.05", "--normalization",
+            "paper", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("executor", EXECUTOR_GRID)
+def test_ragged_train_path_matches_full_batch(executor, ref_params):
+    """mini-batch 10, micro 4 through the launcher's plan and executor:
+    the same update as the full-batch baseline, and as the reference's
+    launcher path."""
+    args = train.build_parser().parse_args(_train_argv(executor))
+    cfg = configs.get_reduced(ARCH)
+    opt = train.default_optimizer(args)
+    plan = train.build_plan(cfg, args, opt, torch.device("cpu"))
+    assert plan.micro_batch_size == 4 and plan.pad == 2
+    assert plan.normalization == "exact"  # auto-upgraded for the ragged tail
+    ex = train.build_executor(cfg, plan, args, opt)
+    mini = LMDataset(cfg.vocab_size, 16, seed=0).batch(10, 0)
+    params = weights.from_reference(ref_params, "cpu")
+    p_ref, _, m_ref = engine.make_baseline_train_step(ex.loss_fn, opt)(
+        params, opt.init(params), t_batch(mini))
+    state = opt.init(params)
+    if executor == "flat":
+        params, state = ex.prepare(tree.map(torch.clone, params), state)
+    p, _, m = ex.step_split(params, state, plan.device_split(mini, "cpu"))
+    assert max_err(p, jax.tree.map(lambda t: t.detach().numpy(), p_ref)) \
+        < 1e-5
+    assert abs(float(m["loss"]) - float(m_ref["loss"])) < 1e-5
+    jargs = argparse.Namespace(
+        microbatches=3, executor="compiled", normalization="paper",
+        hbm_budget_gb=None, seq=16, mini_batch=10, dtype="float32",
+        lr=0.05, reduced=True)
+    jcfg = jconfigs.get_reduced(ARCH)
+    jex, jopt = jtrain.build_executor(jcfg, jtrain.build_plan(jcfg, jargs),
+                                      jargs)
+    jp = jax.tree.map(jnp.asarray, ref_params)
+    jp2, _, jm = jex.step(jp, jopt.init(jp), mini)
+    assert max_err(p, jp2) <= 1e-5
+    assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-5
+
+
+def test_build_train_step_auto_micro_and_mask_shapes():
+    """steps.build_train_step goes through the planner: no divisibility
+    assert, the sample-weight mask in the abstract batch."""
+    cfg, jcfg = configs.get_reduced(ARCH), jconfigs.get_reduced(ARCH)
+    shape = configs.SHAPES["train_4k"]
+    bundle = steps.build_train_step(cfg, shape, num_microbatches=8,
+                                    dtype=torch.float32, remat=False,
+                                    device="cpu")
+    batch = bundle.arg_shapes[2]
+    assert batch["tokens"].shape[:2] == (8, 32)
+    assert batch["sample_weight"].shape == (8, 32)
+    auto = steps.build_train_step(cfg, shape, dtype=torch.float32,
+                                  remat=False, budget_bytes=V5E,
+                                  device="cpu")
+    n, m = auto.arg_shapes[2]["tokens"].shape[:2]
+    assert n * m >= shape.global_batch
+    assert m == (memory_model.suggest_micro_batch_size(
+        cfg, shape.seq_len, shape.global_batch, budget_bytes=V5E) or 1)
+    jauto = jsteps.build_train_step(jcfg, shape, dtype=jnp.float32,
+                                    remat=False)
+    assert (n, m) == jauto.arg_shapes[2]["tokens"].shape[:2]

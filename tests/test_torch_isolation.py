@@ -28,6 +28,24 @@ print("LEAKED", bad)
 """
 
 
+BUILD_ALL = """
+import sys
+from repro_torch import configs, tree
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch import steps
+n = 0
+for arch in configs.ARCHS:
+    for shape in SHAPES.values():
+        b = steps.build_step(configs.get(arch), shape, budget_bytes=16 << 30,
+                             device="cpu")
+        assert all(x.device.type == "meta" for x in tree.leaves(b.arg_shapes))
+        n += 1
+bad = sorted(k for k in sys.modules
+             if k.startswith("jax") or k == "repro" or k.startswith("repro."))
+print("BUILT", n, "LEAKED", bad)
+"""
+
+
 def _run(cmd, cwd=ROOT, timeout=300):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT]))
@@ -44,6 +62,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = _run([sys.executable, "-c", IMPORT_ALL])
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_step_builders_build_every_bundle_without_jax():
+    """``configs/shapes.py`` and the step builders: every architecture ×
+    assigned shape builds its bundle from meta tensors, loading neither
+    JAX nor the JAX package."""
+    out = _run([sys.executable, "-c", BUILD_ALL])
+    assert out.returncode == 0, out.stderr
+    assert "BUILT 40 LEAKED []" in out.stdout, out.stdout
 
 
 def test_spawned_ranks_import_neither_jax_nor_the_jax_package(tmp_path):
