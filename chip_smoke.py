@@ -178,7 +178,7 @@ Phases (any failure exits non-zero before the last line is printed):
   15a–15c. the ssm, hybrid and MoE families trained at full width
      through ``repro_torch.launch.train.main`` (``family_train_phase``:
      ``flat``, SGD-m, bf16 over fp32 weights, seed 0, 3 steps):
-     mamba2-780m (d 1536, state 128, chunk 256; depth cut to 24 of its
+     mamba2-780m (d 1536, state 128, chunk 256; depth cut to 12 of its
      48 layers) at seq 4096,
      mini-batch 16; recurrentgemma-2b (26 layers, d 2560, vocab 256,000,
      window 2048) at seq 2048, mini-batch 8; moonshot-v1-16b-a3b (d 2048,
@@ -208,9 +208,9 @@ Phases (any failure exits non-zero before the last line is printed):
 
   16a. data parallelism through the launcher (``dp_main_path_phase``):
      ``torchrun --standalone --nproc_per_node 2 -m
-     repro_torch.launch.train`` for full qwen2-1.5b (``flat``, bf16 over
-     fp32, seq 1024, mini-batch 16 = 8 × micro 2, local micro 1, 3 steps,
-     ``--mesh 2:1``), both ranks on ``cuda:0`` over gloo, each capped at
+     repro_torch.launch.train`` for qwen2-1.5b at full width, depth cut
+     to 7 layers (``flat``, bf16 over fp32, seq 1024, mini-batch 16 = 8 ×
+     micro 2, local micro 1, 3 steps, ``--mesh 2:1``), both ranks on ``cuda:0`` over gloo, each capped at
      0.48 of the card (``launch.mesh.init_world``); the whole command is
      killed with its ranks past DP_TIMEOUT_S. Each rank's ``--report``:
      losses finite, the first near ln(vocab), equal on both ranks;
@@ -226,6 +226,19 @@ Phases (any failure exits non-zero before the last line is printed):
      within phase 5's rtol / atol 1e-6, the ranks bit-identical, one
      all-reduce a step; ``defer_sync=False`` N_Sμ all-reduces a step; a
      NaN in rank 0's block alone leaves both ranks' state ``torch.equal``.
+  16c. a fault on one rank agreed across the ranks
+     (``fault_agreement_phase``): two ranks sharing the card in a
+     ``LocalWorld``, full width at 2 layers, bf16 over fp32, the supervised
+     ``ShardedExecutor`` over ``flat`` (mini-batch 16 = 2 × micro 8 at
+     remat ``full``, so the rung down halves the micro-batch; 2 steps);
+     first an OOM injected on rank 1 alone at step 1 (``oom_at(1,
+     rank=1)``), then a real one: rank 1 holds a ballast sized from both
+     plans' reserved
+     peaks (measured first, one step each) so that the plan's step
+     overflows its share of the card and the degraded one does not. In
+     both: both ranks record the fault (naming rank 1) at the same step,
+     degrade to the same plan, resume from the same step and end with the
+     same state (sha256), in seconds — the process group would wait 300.
 
   17a. seamless-m4t-medium (encoder-decoder, 12 + 12 layers, d 1024,
      vocab 256,206) at full width (``family_train_phase`` with
@@ -255,7 +268,7 @@ Phases (any failure exits non-zero before the last line is printed):
 
   18a. the step builders at the reference's assigned shapes
      (``steps_train_phase``): ``launch.steps.build_step(qwen2-1.5b full
-     width, SHAPES["train_4k"], num_microbatches=None, executor="flat",
+     width, depth cut to 4 layers, SHAPES["train_4k"], num_microbatches=None, executor="flat",
      remat_policy="auto", calibrate="force")`` at 60 GiB, bf16 over fp32,
      SGD-m; the bundle's ``fn`` runs one step over the whole 256 × 4096
      mini-batch: the plan, probes and fit, the loss finite and near
@@ -275,10 +288,36 @@ Phases (any failure exits non-zero before the last line is printed):
      the abstract params, optimizer state and cache trees equal the real
      ones in paths, shapes and dtypes.
 
+  19a. pipeline parallelism through the launcher (``pp_launcher_phase``):
+     ``torchrun --standalone --nproc_per_node 2 -m
+     repro_torch.launch.train --arch qwen2-1.5b --mesh 1:2 --dtype
+     bfloat16 --seq 1024 --mini-batch 16 --microbatches 8 --steps 3``:
+     full width and all 28 layers, 14 a stage, SGD-m, both ranks on
+     ``cuda:0`` over gloo, each capped at 0.48 of the card, the command
+     killed whole past PP_TIMEOUT_S. Each rank's ``--report``: losses
+     finite, the first near ln(vocab), equal on both ranks; the census of
+     the schedule's closed form (``engine.p2p_counts``: 8 sends and 8
+     receives a step in each direction a stage has), one (data+model)
+     all-reduce a step and no data-axis one (one rank on that axis); the
+     steady step and tokens/s; the all-reduces' seconds with the device
+     synchronized around each; the peak beside
+     ``memory_model.estimate(..., pipeline=True)``; K1–K6 launched 0
+     times (the reference's pipelined path runs no kernel);
+  19b. the same with ``--mesh 2:2 --fsdp``: four ranks, each capped at
+     0.24 of the card, 28 layers (each rank's peak fits its share); the
+     census adds one model-axis and two data-axis all-reduces a step and
+     as many all-gathers as reduce-scatters, equal on every rank;
+  19c. (``pp_check_phase``) ``LocalWorld``s of 2 and 4 ranks on the card,
+     4 layers of full width, seq 128, fp32, TF32 off: (stages, dp) ∈ {(2, 1),
+     (2, 2), (4, 1)} and FSDP at (2, 2), 2 steps of the
+     ``PipelinedExecutor`` against one device's ``compiled`` on the same
+     global mini-batches — params and momentum within phase 5's rtol /
+     atol 1e-6, shared leaves bit-identical across the ranks.
+
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
 ``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's,
-15's, 16's, 17's and 18's numbers)
+15's, 16's, 17's, 18's and 19's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3312,8 +3351,8 @@ def serve_correctness_phase(dev, arch: str) -> dict:
 # arch: the launcher's flags beyond FAMILY_ARGV (full width; moonshot's
 # depth cut to 4 of its 48 layers: 48 would be ~64 GB of fp32 params)
 FAMILY_TRAIN = {
-    # mamba2's depth cut to 24 of its 48 layers (chip_smoke's time limit)
-    "mamba2-780m": ["--seq", "4096", "--mini-batch", "16", "--layers", "24"],
+    # mamba2's depth cut to 12 of its 48 layers (chip_smoke's time limit)
+    "mamba2-780m": ["--seq", "4096", "--mini-batch", "16", "--layers", "12"],
     "recurrentgemma-2b": ["--seq", "2048", "--mini-batch", "8"],
     "moonshot-v1-16b-a3b": ["--seq", "2048", "--mini-batch", "8",
                             "--layers", "4"],
@@ -3640,10 +3679,12 @@ def family_phases(timed, dev) -> dict:
 # 16a: the launcher under torchrun, full qwen2-1.5b, the main path's
 # settings with 8 micro-batches of 2 (local micro 1 a rank)
 DP_RANKS = 2
+# (depth cut to 7 of 28 layers for the run's time limit: the all-reduce
+# of the whole model through gloo's host ring was 94 % of the step)
 DP_ARGV = ["--arch", "qwen2-1.5b", "--executor", "flat",
            "--dtype", "bfloat16", "--seq", "1024", "--mini-batch", "16",
            "--microbatches", "8", "--steps", "3", "--log-every", "1",
-           "--mesh", f"{DP_RANKS}:1"]
+           "--mesh", f"{DP_RANKS}:1", "--layers", "7"]
 DP_TIMEOUT_S = 600  # the whole torchrun command; the ranks' own process
 # group times out a collective after launch.mesh.DEFAULT_TIMEOUT_S
 # 16b: the four inners at 2 layers of full width, fp32, against one
@@ -3924,6 +3965,490 @@ def dp_check_phase(dev) -> dict:
           f"ranks, 1 all-reduce; rank peaks {out['peak_bytes']} B",
           flush=True)
     return out
+
+# ---------------------------------------------------------------------------
+# 16c. a fault on one rank, agreed across the ranks
+# ---------------------------------------------------------------------------
+
+# two ranks sharing the card at full qwen2-1.5b width, 2 layers, bf16
+# over fp32, seq 1024: mini-batch 16 = 2 micro-batches of 8 (local 4) at
+# remat "full", so that the supervisor's one rung down halves the
+# micro-batch (to 4, local 2) and the step's activations with it
+FAULT_ARGS = {"layers": 2, "seq": 1024, "mini": 16, "micro": 8, "steps": 2}
+
+
+def _fault_runtime(mesh, cfg, guard=True):
+    """``plan -> (executor, step_fn, pipeline)`` for the supervisor: the
+    supervised ``ShardedExecutor`` over ``flat`` on this rank's block."""
+    import torch
+    from repro_torch import engine, optim
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps as steps_lib
+    ds = LMDataset(cfg.vocab_size, FAULT_ARGS["seq"], seed=0)
+
+    def build(plan):
+        loss_fn = steps_lib.make_loss_fn(cfg, dtype=torch.bfloat16,
+                                         remat_policy=plan.remat_policy)
+        ex = engine.ShardedExecutor(
+            loss_fn, optim.sgd(0.05, momentum=0.9, weight_decay=5e-4),
+            plan, mesh=mesh, inner="flat", guard=guard)
+        return ex, ex.step_split, engine.Pipeline(
+            ds, plan, prefetch=0, device=mesh.device, sharding=ex.shard)
+    return build
+
+
+def _fault_state(ex, cfg, dev):
+    from repro_torch import optim
+    from repro_torch.launch import steps as steps_lib
+    params = steps_lib.init_params(cfg, seed=0, device=dev)
+    return ex.prepare(params, optim.sgd(0.05, momentum=0.9,
+                                        weight_decay=5e-4).init(params))
+
+
+def fault_agreement_rank(mesh, case: str) -> dict:
+    """16c on one rank: the supervised run under ``case`` — "injected"
+    (``oom_at(1, rank=1)``) or "real" (rank 1 holds a ballast that leaves
+    its share of the card too small for the plan's step and large enough
+    for the degraded one, sized from both steps' reserved peaks measured
+    here first on every rank). Returns the records, plans, losses, a
+    hash of the final state, the seconds and the peaks."""
+    import hashlib
+    import torch
+    from repro_torch import configs, engine, tree
+    from repro_torch.engine import faults
+    dev = mesh.device
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
+                              num_layers=FAULT_ARGS["layers"])
+    plan = engine.plan_mbs(FAULT_ARGS["mini"],
+                           micro_batch_size=FAULT_ARGS["micro"],
+                           remat_policy="full", mesh=mesh,
+                           fsdp_params=False, device=dev)
+    degraded, _ = engine.degrade_plan(plan)
+    build = _fault_runtime(mesh, cfg)
+    out = {"plan": plan.describe(), "degraded": degraded.describe()}
+    ballast = None
+    if case == "real":
+        peaks = []
+        for p in (plan, degraded):  # one step each, on every rank alike
+            gc_collect()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ex, step_fn, pipe = build(p)
+            params, state = _fault_state(ex, cfg, dev)
+            for batch in pipe.batches(1):
+                params, state, m = step_fn(params, state, batch)
+            float(m["loss"])
+            del ex, step_fn, pipe, params, state, batch, m
+            peaks.append(torch.cuda.max_memory_reserved(dev))
+        gc_collect()
+        cap = int(torch.cuda.get_device_properties(dev).total_memory
+                  * mesh.memory_fraction)
+        held = torch.cuda.memory_reserved(dev)
+        size = cap - (peaks[0] + peaks[1]) // 2
+        out.update(peaks_reserved=peaks, cap_bytes=cap, held_bytes=held,
+                   ballast_bytes=size if mesh.rank == 1 else 0)
+        if mesh.rank == 1:
+            ballast = torch.empty((size,), dtype=torch.uint8, device=dev)
+        specs = []
+    else:
+        specs = [faults.oom_at(1, rank=1)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    sup = engine.Supervisor(build, plan, log_fn=None,
+                            writer=mesh.rank == 0)
+    params, state = _fault_state(sup.executor, cfg, dev)
+    t0 = time.perf_counter()
+    with faults.inject(faults.FaultPlan(*specs)) as fp:
+        params, state, _ = sup.fit(params, state, FAULT_ARGS["steps"])
+    torch.cuda.synchronize(dev)
+    out["seconds"] = time.perf_counter() - t0
+    sha = hashlib.sha256()
+    for t in tree.leaves((params, state)):
+        sha.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                   .numpy().tobytes())
+    out.update(
+        records=[(r.kind, r.step, r.action, r.steps_lost, r.detail)
+                 for r in sup.records],
+        recovery_s=[r.recovery_s for r in sup.records],
+        peaks_at_failure=[r.peak_allocated_bytes for r in sup.records],
+        fired=list(fp.fired), final_plan=sup.plan.describe(),
+        history=dict(sup.history), state_sha256=sha.hexdigest(),
+        peak_allocated=torch.cuda.max_memory_allocated(dev))
+    del sup, params, state, ballast
+    gc_collect()
+    return out
+
+
+def fault_agreement_phase(dev) -> dict:
+    """16c. Two ranks sharing the card (``LocalWorld`` on CUDA, gloo),
+    full qwen2-1.5b width at 2 layers, the supervised ``ShardedExecutor``
+    over ``flat`` (FAULT_ARGS): an OOM injected on rank 1 alone at step 1,
+    then a real OOM of rank 1 alone (a ballast on rank 1 only). In both:
+    both ranks record the fault at the same step, degrade to the same
+    plan, resume from the same step and end bit-identical, every step
+    agreed within seconds — the process group would time out after
+    300 s, and no rank waits for it."""
+    from repro_torch.launch.world import LocalWorld
+
+    gc_collect()
+    store = os.path.join(ROOT, "build", "pp")
+    os.makedirs(store, exist_ok=True)
+    card = card_line()
+    out = {"card": card}
+    with LocalWorld(2, device="cuda", store_dir=store, timeout_s=300,
+                    threads=0) as world:
+        for case in ("injected", "real"):
+            t0 = time.perf_counter()
+            res = world.run(fault_agreement_rank, case)
+            wall = time.perf_counter() - t0
+            a, b = res
+            check(a["records"] and a["records"] == b["records"],
+                  f"16c {case}: the ranks' records differ: {a['records']} "
+                  f"vs {b['records']}")
+            kind, step, action, lost, detail = a["records"][0]
+            check(kind == "oom" and "rank(s) [1] of 2" in detail,
+                  f"16c {case}: {a['records']}")
+            check(a["final_plan"] == b["final_plan"] == a["degraded"],
+                  f"16c {case}: plans {a['final_plan']} / "
+                  f"{b['final_plan']}, expected {a['degraded']}")
+            check(a["state_sha256"] == b["state_sha256"]
+                  and a["history"] == b["history"],
+                  f"16c {case}: the ranks' final states differ")
+            check(sorted(a["history"]) == list(range(FAULT_ARGS["steps"])),
+                  f"16c {case}: completed steps {sorted(a['history'])}")
+            check(all(math.isfinite(x) for x in a["history"].values()),
+                  f"16c {case}: losses {a['history']}")
+            check(max(a["seconds"], b["seconds"]) < 120,
+                  f"16c {case}: the run took {a['seconds']:.1f} / "
+                  f"{b['seconds']:.1f}s")
+            fired = [r["fired"] for r in res]
+            if case == "injected":
+                check(fired == [[], [("oom", 1)]],
+                      f"16c injected: fired {fired}")
+            out[case] = {
+                "records": a["records"], "plan": a["plan"],
+                "final_plan": a["final_plan"], "losses": a["history"],
+                "seconds": [r["seconds"] for r in res], "wall_s": wall,
+                "recovery_s": [r["recovery_s"] for r in res],
+                "peaks_at_failure": [r["peaks_at_failure"] for r in res],
+                "peak_allocated": [r["peak_allocated"] for r in res],
+                "state_sha256": a["state_sha256"],
+                **{k: [r.get(k) for r in res]
+                   for k in ("peaks_reserved", "cap_bytes", "ballast_bytes")
+                   if case == "real"}}
+            print(f"16c {case} [{card}]: {a['records'][0][:4]} on both "
+                  f"ranks ({detail}); {a['plan']} -> {a['final_plan']}; "
+                  f"losses {a['history']}; supervised run "
+                  f"{a['seconds']:.2f} / {b['seconds']:.2f}s, recovery "
+                  f"{out[case]['recovery_s']}; final state sha256 "
+                  f"{a['state_sha256'][:16]} on both"
+                  + (f"; reserved peaks {a['peaks_reserved']}, cap "
+                     f"{a['cap_bytes']}, rank 1 ballast "
+                     f"{b['ballast_bytes']} B" if case == "real" else ""),
+                  flush=True)
+    out["same_final_state"] = (out["injected"]["state_sha256"]
+                               == out["real"]["state_sha256"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 19. pipeline parallelism: stages sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# 19a: the launcher under torchrun, full qwen2-1.5b (28 layers, 14 a
+# stage), bf16 over fp32, SGD-m, 8 micro-batches of 2, on a 1 x 2 mesh
+PP_ARGV = ["--arch", "qwen2-1.5b", "--dtype", "bfloat16", "--seq", "1024",
+           "--mini-batch", "16", "--microbatches", "8", "--steps", "3",
+           "--log-every", "1"]
+PP_RUNS = {"19a pipeline 1:2": (2, ["--mesh", "1:2"]),
+           "19b pipeline 2:2 fsdp": (4, ["--mesh", "2:2", "--fsdp"])}
+PP_TIMEOUT_S = 400  # the whole torchrun command
+# 19c: 4 layers of full width, fp32, mini-batch 8 = 4 micro-batches of 2
+# of 128 tokens
+PP_CHECK_STEPS = 2
+PP_CHECK_SEQ = 128
+PP_CHECK_CELLS = [(2, 1, False), (2, 2, False), (4, 1, False), (2, 2, True)]
+
+
+def pp_launcher_phase(dev, label: str) -> dict:
+    """19a / 19b. ``torchrun --nproc_per_node N -m repro_torch.launch.train``
+    with PP_ARGV and the run's mesh: every rank on ``cuda:0`` over gloo,
+    each capped at 0.96 / N of the card; the command killed whole past
+    PP_TIMEOUT_S. Each rank's ``--report``: losses finite, the first near
+    ln(vocab), equal on every rank; the census of every step — the
+    schedule's closed form of sends and receives by direction
+    (``engine.p2p_counts``), one (data+model) all-reduce, one data-axis
+    all-reduce of the stage gradients where the data axis has two ranks
+    (19a has one: none), and under FSDP one model-axis all-reduce of the
+    shared gradients, the leaves the policy leaves whole on the data
+    axis in one data-axis all-reduce each for the stage's and the shared,
+    and as many all-gathers as reduce-scatters, the same every step; the
+    steady step and tokens/s; the all-reduces' seconds with the device
+    synchronized around each; the peak beside
+    ``memory_model.estimate(..., pipeline=True)``'s per-device bytes;
+    K1–K6 launched 0 times (the reference's pipelined executor
+    accumulates with a plain add and updates with ``apply_update``)."""
+    from repro_torch import engine
+    ranks, mesh_argv = PP_RUNS[label]
+    tag = label.split()[0]
+    out_dir = os.path.join(ROOT, "build", "pp", tag)
+    os.makedirs(out_dir, exist_ok=True)
+    report = os.path.join(out_dir, "run.json")
+    for r in range(ranks):
+        path = os.path.join(out_dir, f"run.rank{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    gc_collect()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(ranks), "-m", "repro_torch.launch.train",
+           *PP_ARGV, *mesh_argv, "--report", report]
+    t0 = time.perf_counter()
+    rc, log = _run_group(cmd, env, PP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "launcher.log"), "w") as f:
+        f.write(log)
+    check(rc == 0, f"{tag}: torchrun exited {rc}:\n{log[-4000:]}")
+    check("pipeline stages" in log and "backend gloo" in log,
+          f"{tag}: the launcher did not say it pipelines over gloo:\n"
+          f"{log[-2000:]}")
+    reps = []
+    for r in range(ranks):
+        with open(os.path.join(out_dir, f"run.rank{r}.json")) as f:
+            reps.append(json.load(f))
+    vocab = 151936
+    losses = [[h["loss"] for h in rep["history"]] for rep in reps]
+    steps, n_s = len(losses[0]), reps[0]["num_micro_batches"]
+    check(steps == 3, f"{tag}: {steps} steps")
+    check(all(x == losses[0] for x in losses),
+          f"{tag}: the ranks' losses differ: {losses}")
+    check(all(math.isfinite(x) for x in losses[0]),
+          f"{tag}: losses not finite: {losses[0]}")
+    check(abs(losses[0][0] - math.log(vocab)) < 1.0,
+          f"{tag}: first loss {losses[0][0]} is far from ln(vocab)")
+    card = card_line()
+    out = {"card": card, "plan": reps[0]["plan"], "losses": losses[0],
+           "wall_s": wall, "ranks": []}
+    fsdp = "--fsdp" in mesh_argv
+    gathers = set()
+    for rep in reps:
+        r, mesh = rep["rank"], rep["mesh"]
+        dp, S = mesh["data"], mesh["model"]
+        census = rep["all_reduce"]
+        want_p2p = {k: steps * v for k, v in
+                    engine.p2p_counts(S, n_s, r % S).items() if v}
+        check(census["p2p"] == want_p2p,
+              f"{tag} rank {r}: point-to-point {census['p2p']}, the "
+              f"schedule's closed form {want_p2p}")
+        want_axes = {"data+model": steps}
+        if fsdp:
+            want_axes.update(model=steps, data=2 * steps)
+            check(census["all_gather"] == census["reduce_scatter"]
+                  and census["all_gather"] % steps == 0,
+                  f"{tag} rank {r}: all-gathers {census['all_gather']}, "
+                  f"reduce-scatters {census['reduce_scatter']}")
+            gathers.add(census["all_gather"])
+        elif dp > 1:
+            want_axes["data"] = steps
+        check(census["by_axis"] == want_axes,
+              f"{tag} rank {r}: all-reduces by axis {census['by_axis']}, "
+              f"expected {want_axes}")
+        launches = {k: v for k, v in rep["launches"].items() if v}
+        check(not launches, f"{tag} rank {r}: kernel launches {launches} "
+                            "on the pipelined path (expected none)")
+        clocks = [h["readback_s"] for h in rep["history"]]
+        gaps = [b - a for a, b in zip(clocks, clocks[1:])]
+        steady = sum(gaps[:-1]) / len(gaps[:-1])
+        ar_s = census["seconds"] / census["calls"]
+        tokens = 16 * 1024 / steady
+        out["ranks"].append({
+            "rank": r, "stage": r % S, "replica": r // S,
+            "memory_fraction": rep["memory_fraction"],
+            "census": {k: census[k] for k in ("by_axis", "p2p",
+                                              "all_gather",
+                                              "reduce_scatter")},
+            "all_reduce_bytes": census["bytes"],
+            "all_reduce_s": ar_s, "all_reduce_s_total": census["seconds"],
+            "gather_scatter_s": census["gather_seconds"],
+            "steady_step_s": steady, "tokens_per_s": tokens,
+            "readback_gaps_s": gaps,
+            "peak_bytes": rep["peak_allocated_bytes"],
+            "peak_reserved_bytes": rep["peak_reserved_bytes"],
+            "estimate_bytes": rep["estimate_bytes"]})
+        print(f"{tag} rank {r} (stage {r % S}, replica {r // S}) [{card}]: "
+              f"losses {losses[0]}; steady step {steady:.4f}s "
+              f"({tokens:.1f} tokens/s for the world; gaps {gaps}); "
+              f"all-reduces {census['by_axis']} ({census['calls']} calls, "
+              f"{census['bytes']} B, {ar_s:.4f}s each with the device "
+              f"synchronized); point-to-point {census['p2p']}; all-gather "
+              f"{census['all_gather']}, reduce-scatter "
+              f"{census['reduce_scatter']} ({census['gather_seconds']:.3f}s)"
+              f"; peak allocated {rep['peak_allocated_bytes']} B "
+              f"({rep['peak_allocated_bytes'] / GIB:.3f} GiB) vs per-device "
+              f"estimate {rep['estimate_bytes']} B "
+              f"({rep['estimate_bytes'] / GIB:.3f} GiB) at memory fraction "
+              f"{rep['memory_fraction']:.3f}; K1-K6 launches 0", flush=True)
+    if fsdp:
+        check(len(gathers) == 1, f"{tag}: the ranks' all-gathers differ: "
+                                 f"{gathers}")
+    print(f"{tag}: {reps[0]['plan']}; torchrun wall {wall:.1f}s incl. "
+          f"start and init", flush=True)
+    out["counts"] = {f"rank{rep['rank']}": rep["launches"] for rep in reps}
+    return out
+
+
+# one device's compiled steps, computed once in each rank's process and
+# kept for the cells after the first: (params, optimizer state, losses)
+_PP_REFERENCE: dict = {}
+
+
+def _pp_reference(dev, cfg, batches):
+    import torch
+    from repro_torch import engine, optim
+    from repro_torch.launch import steps as steps_lib
+    if "ref" not in _PP_REFERENCE:
+        plan = engine.plan_mbs(8, num_microbatches=4, remat_policy="none",
+                               device=dev)
+        sgd = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+        one = engine.CompiledScanExecutor(
+            steps_lib.make_loss_fn(cfg, dtype=torch.float32,
+                                   remat_policy="none"), sgd, plan)
+        params = steps_lib.init_params(cfg, seed=0, device=dev)
+        state = sgd.init(params)
+        losses = []
+        for b in batches:
+            params, state, m = one.step_split(params, state,
+                                              plan.device_split(b, dev))
+            losses.append(float(m["loss"]))
+        _PP_REFERENCE["ref"] = (params, state, losses)
+    return _PP_REFERENCE["ref"]
+
+
+def pp_check_rank(mesh, stages: int, dp: int, fsdp: bool,
+                  steps: int) -> dict:
+    """19c on one rank: ``steps`` steps of the ``PipelinedExecutor`` on a
+    ``(dp, stages)`` mesh of this world against one device's ``compiled``
+    steps on the same global mini-batches (computed once on this rank),
+    at 4 layers of full qwen2-1.5b width, fp32, TF32 off: the worst error
+    of this rank's params and momentum against the same slice of the
+    reference's (``prepare`` cuts it) and whether all are within rtol /
+    atol 1e-6; a hash of this rank's shared leaves; the losses; the
+    census of the last step."""
+    import hashlib
+    import torch
+    from repro_torch import configs, engine, optim, tree
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    pmesh = mesh_lib.pipeline_mesh(mesh, dp, stages)
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=4)
+    plan = engine.plan_mbs(8, num_microbatches=4, remat_policy="none",
+                           mesh=pmesh, fsdp_params=False, pipeline=True,
+                           device=dev)
+    ds = LMDataset(cfg.vocab_size, PP_CHECK_SEQ, seed=0)
+    batches = [ds.batch(8, i) for i in range(steps)]
+    ref_params, ref_state, ref_losses = _pp_reference(dev, cfg, batches)
+    sgd = lambda: optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)  # noqa
+    ex = engine.PipelinedExecutor(
+        steps_lib.make_staged_loss(cfg, torch.float32, remat_policy="none"),
+        sgd(), plan, mesh=pmesh, fsdp=fsdp)
+    params = steps_lib.init_params(cfg, seed=0, device=dev)
+    params, state = ex.prepare(params, sgd().init(params))
+    losses = []
+    for b in batches:
+        engine.reset_collective_stats()
+        params, state, m = ex.step_split(params, state,
+                                         ex.stage(plan.split(b)))
+        losses.append(float(m["loss"]))
+    census = engine.collective_stats()
+    want_p, want_s = ex.prepare(ref_params, ref_state)
+    worst, ok = 0.0, True
+    for x, y in zip(tree.leaves((params, state["mom"])),
+                    tree.leaves((want_p, want_s["mom"]))):
+        err, fine = max_violation(x, y)
+        worst, ok = max(worst, err), ok and fine
+    sha = hashlib.sha256()  # this rank's shared leaves (FSDP: its shard)
+    for k in sorted(params):
+        if k != "blocks":
+            for t in tree.leaves(params[k]):
+                sha.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                           .numpy().tobytes())
+    del ex, params, state, want_p, want_s
+    gc_collect()
+    return {"plan": plan.describe(), "losses": losses,
+            "ref_losses": ref_losses, "max_abs_err": worst, "within": ok,
+            "replica": mesh.rank // stages, "shared_sha256": sha.hexdigest(),
+            "census": {k: census[k] for k in ("by_axis", "p2p", "all_gather",
+                                              "reduce_scatter")},
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def pp_check_phase(dev) -> dict:
+    """19c. ``LocalWorld``s of 2 and 4 ranks sharing the card (gloo),
+    4 layers of full qwen2-1.5b width, fp32, TF32 off: (stages, dp) ∈
+    {(2, 1), (2, 2), (4, 1)} and FSDP at (2, 2), PP_CHECK_STEPS steps of
+    the ``PipelinedExecutor`` against one device's ``compiled`` on the
+    same global mini-batches — each rank's params and momentum within
+    phase 5's rtol / atol 1e-6 of the same slice of the reference's, the
+    shared leaves bit-identical across the ranks that hold them (under
+    FSDP, across the stages of a replica), the losses within 1e-5
+    relative."""
+    from repro_torch.launch.world import LocalWorld
+
+    gc_collect()
+    store = os.path.join(ROOT, "build", "pp")
+    os.makedirs(store, exist_ok=True)
+    card = card_line()
+    out = {"card": card, "cells": {}}
+    for world_n in (2, 4):
+        cells = [c for c in PP_CHECK_CELLS if c[0] * c[1] == world_n]
+        with LocalWorld(world_n, device="cuda", store_dir=store,
+                        timeout_s=300, threads=0) as world:
+            for stages, dp, fsdp in cells:
+                name = f"{stages}x{dp}" + (" fsdp" if fsdp else "")
+                res = world.run(pp_check_rank, stages, dp, fsdp,
+                                PP_CHECK_STEPS)
+                for r in res:
+                    check(r["within"], f"19c {name}: params/momentum differ "
+                                       f"from one device's compiled by "
+                                       f"{r['max_abs_err']:.3e} (rtol 1e-6, "
+                                       "atol 1e-6)")
+                    for x, y in zip(r["losses"], r["ref_losses"]):
+                        check(abs(x - y) <= 1e-5 * abs(y),
+                              f"19c {name}: loss {x} vs one device's {y}")
+                # every rank holds the shared leaves whole; under FSDP
+                # the stages of a replica hold the same shard of them
+                groups = {}
+                for r in res:
+                    groups.setdefault(r["replica"] if fsdp else 0,
+                                      set()).add(r["shared_sha256"])
+                check(all(len(h) == 1 for h in groups.values()),
+                      f"19c {name}: the shared leaves differ across ranks")
+                check(all(r["losses"] == res[0]["losses"] for r in res),
+                      f"19c {name}: the ranks' losses differ")
+                out["cells"][name] = {
+                    "plan": res[0]["plan"], "losses": res[0]["losses"],
+                    "ref_losses": res[0]["ref_losses"],
+                    "max_abs_err": max(r["max_abs_err"] for r in res),
+                    "census": [r["census"] for r in res],
+                    "peak_bytes": [r["peak_bytes"] for r in res]}
+                print(f"19c [{card}]: pipelined {name} (stages x data) == "
+                      f"one device's compiled after {PP_CHECK_STEPS} steps "
+                      f"at qwen2-1.5b width, 4 layers, fp32 (losses "
+                      f"{res[0]['losses']}, max abs err "
+                      f"{out['cells'][name]['max_abs_err']:.3e}); shared "
+                      f"leaves bit-identical on {world_n} ranks; census of "
+                      f"rank 0's last step {res[0]['census']}", flush=True)
+    return out
+
+
+def pipeline_phases(timed, dev) -> dict:
+    return {"train": {label: timed(label, pp_launcher_phase, dev, label)
+                      for label in PP_RUNS},
+            "check": timed("19c pipeline check", pp_check_phase, dev)}
 
 # ---------------------------------------------------------------------------
 # 17. the last two families: the encoder-decoder and the VLM backbone
@@ -4238,6 +4763,9 @@ def encdec_vlm_phases(timed, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 STEPS_ARCH = "qwen2-1.5b"
+# 18a's depth, cut to 4 of qwen2-1.5b's 28 layers for the run's time
+# limit: the width, the 256 x 4096 mini-batch and the calibration stay
+STEPS_TRAIN_LAYERS = 4
 # 18c: one card runs the data shard of the 16 x 16 mesh the reference
 # compiles prefill_32k and decode_32k for
 STEPS_DATA_SHARDS = 16
@@ -4319,7 +4847,8 @@ def _decode_run(dev, cfg, bundle, params, label: str) -> dict:
 
 
 def steps_train_phase(dev) -> dict:
-    """18a. ``steps.build_step(qwen2-1.5b full width, SHAPES["train_4k"],
+    """18a. ``steps.build_step(qwen2-1.5b full width at STEPS_TRAIN_LAYERS
+    layers, SHAPES["train_4k"],
     num_microbatches=None, executor="flat", remat_policy="auto",
     calibrate="force")`` against CALIBRATION_BUDGET_GB, bf16 over fp32
     weights, SGD-m (``steps.make_optimizer``): the planner probes the
@@ -4340,7 +4869,9 @@ def steps_train_phase(dev) -> dict:
     from repro_torch.launch import steps
 
     card = card_line()
-    cfg, shape = configs.get(STEPS_ARCH), configs.SHAPES["train_4k"]
+    cfg = dataclasses.replace(configs.get(STEPS_ARCH),
+                              num_layers=STEPS_TRAIN_LAYERS)
+    shape = configs.SHAPES["train_4k"]
     seq, mini = shape.seq_len, shape.global_batch
     cache = os.path.join(ROOT, "build", "tuning-steps.json")
     if os.path.exists(cache):
@@ -4679,8 +5210,10 @@ def run() -> dict:
     fam = family_phases(timed, dev)
     dp = {"train": timed("16a data parallel", dp_main_path_phase, dev),
           "check": timed("16b data-parallel check", dp_check_phase, dev)}
+    fault = timed("16c fault agreement", fault_agreement_phase, dev)
     fam17 = encdec_vlm_phases(timed, dev)
     st = steps_phases(timed, dev)
+    pp = pipeline_phases(timed, dev)
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
     # families' training paths (15a-15c, 17a, 17b), the data-parallel
@@ -4697,6 +5230,9 @@ def run() -> dict:
              **{f"dp qwen2-1.5b {k}": c
                 for k, c in dp["train"]["counts"].items()},
              f"train_4k {STEPS_ARCH}": st["train"]["counts"],
+             **{f"{label.split()[0]} qwen2-1.5b {k}": c
+                for label, r in pp["train"].items()
+                for k, c in r["counts"].items()},
              **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
@@ -4761,6 +5297,11 @@ def run() -> dict:
         "data_parallel": {"train": {k: v for k, v in dp["train"].items()
                                     if k != "counts"},
                           "check": dp["check"]},
+        "fault_agreement": fault,
+        "pipeline": {"train": {label: {k: v for k, v in r.items()
+                                       if k != "counts"}
+                               for label, r in pp["train"].items()},
+                     "check": pp["check"]},
         "phase_s": phase_s,
         "total_s": sum(phase_s.values())}}),
         flush=True)

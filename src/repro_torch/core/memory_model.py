@@ -136,6 +136,60 @@ def activation_bytes_per_sample(cfg: ModelConfig, seq: int,
     return boundary + live + logits_live
 
 
+def pipeline_activation_bytes_per_sample(cfg: ModelConfig, seq: int,
+                                         stages: int, act_bytes: int = 2,
+                                         remat: bool = True,
+                                         remat_policy: Optional[str] = None
+                                         ) -> int:
+    """Per-device live activation bytes for ONE local sample under the
+    1F1B pipelined executor with ``stages`` stages — the reference's
+    arithmetic term for term:
+
+      rings        2 depth-``stages`` rings (arriving activations and the
+                   backward's saved inputs), each slot one residual-stream
+                   carry (seq * d_model);
+      stage live   ONE stage's working set: its share of the period
+                   boundaries (num_periods / stages) plus the remat
+                   policy's live term, the lattice of
+                   :func:`activation_bytes_per_sample` with the period
+                   count cut to the stage's share;
+      logits       the blocked-CE logits slice, charged on every stage.
+
+    The reference's SPMD schedule traces the masked loss head on every
+    stage, so it charges the logits everywhere; the port runs the head on
+    the last stage only, and keeps the charge so that both packages admit
+    the same plans."""
+    if stages < 1:
+        raise ValueError(f"stages must be >= 1, got {stages}")
+    policy = remat_lib.resolve(remat, remat_policy)
+    d = cfg.d_model
+    carry = seq * d * act_bytes
+    rings = 2 * stages * carry
+    per_stage = -(-cfg.num_periods // stages)
+    widths = [d * 6]
+    if cfg.is_moe:
+        widths.append(cfg.experts_per_token * cfg.moe_d_ff * 3
+                      * cfg.capacity_factor)
+    elif cfg.d_ff:
+        widths.append(cfg.d_ff * 3)
+    if cfg.ssm_state:
+        widths.append(cfg.ssm_d_inner * 4)
+    if cfg.lru_width:
+        widths.append(cfg.lru_width * 6)
+    period_live = seq * int(max(widths)) * act_bytes * cfg.pattern_len
+    logits_live = seq * cfg.vocab_size * 4 // 8
+    if policy == "none":
+        live = per_stage * period_live
+    elif policy == "dots":
+        live = period_live + int(
+            DOTS_SAVED_FRACTION * (per_stage - 1) * period_live)
+    elif policy == "period":
+        live = period_live
+    else:  # "full"
+        live = -(-period_live // cfg.pattern_len)
+    return rings + per_stage * carry + live + logits_live
+
+
 def param_shard_ratio(cfg: ModelConfig, mesh, *, fsdp: bool = True) -> float:
     """Per-device fraction of the parameter bytes under the reference's
     sharding policy (``launch/sharding.param_specs``), divisibility
@@ -179,7 +233,8 @@ def estimate(cfg: ModelConfig, seq: int, *, tp: int = 1, fsdp: int = 1,
              opt_slots: Optional[int] = None, act_bytes: int = 2,
              remat: bool = True, remat_policy: Optional[str] = None,
              optimizer: str = "sgd", fused_update: bool = False,
-             mesh=None, fsdp_params: bool = True) -> MemoryEstimate:
+             mesh=None, fsdp_params: bool = True,
+             pipeline: bool = False) -> MemoryEstimate:
     """``fused_update=True`` models the flat in-place update (``--executor
     flat``), whose step-❺ transient is zero. ``tp`` / ``fsdp`` are the
     reference's manual divisors: the parameter-sized terms are divided by
@@ -190,7 +245,12 @@ def estimate(cfg: ModelConfig, seq: int, *, tp: int = 1, fsdp: int = 1,
     :func:`param_shard_ratio` (``fsdp_params=False``: the replicating
     data-parallel executor; the manual divisors are ignored) and the
     activation term is divided by the model axis only — the data axis
-    enters through the *local* micro-batch the caller budgets with."""
+    enters through the *local* micro-batch the caller budgets with.
+
+    ``pipeline=True`` reads the mesh's model axis as 1F1B stages: the
+    activation term becomes :func:`pipeline_activation_bytes_per_sample`
+    instead of the ``// tp`` discount (the parameter terms keep the
+    reference's sharding-policy ratio)."""
     if mesh is not None:
         from ..launch import mesh as mesh_lib  # deferred: no cycle
         tp = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
@@ -198,13 +258,18 @@ def estimate(cfg: ModelConfig, seq: int, *, tp: int = 1, fsdp: int = 1,
                       * param_shard_ratio(cfg, mesh, fsdp=fsdp_params))
     else:
         p_bytes = cfg.param_count() * 4 // (tp * fsdp)
+    if pipeline and tp > 1:
+        act_per_sample = pipeline_activation_bytes_per_sample(
+            cfg, seq, tp, act_bytes, remat, remat_policy)
+    else:
+        act_per_sample = activation_bytes_per_sample(
+            cfg, seq, act_bytes, remat, remat_policy) // tp
     slots = _resolve_slots(optimizer, opt_slots)
     return MemoryEstimate(
         params_bytes=p_bytes,
         grads_bytes=p_bytes,
         opt_bytes=slots * p_bytes,
-        activation_bytes_per_sample=activation_bytes_per_sample(
-            cfg, seq, act_bytes, remat, remat_policy) // tp,
+        activation_bytes_per_sample=act_per_sample,
         fixed_bytes=FIXED_BYTES,
         update_transient_bytes=update_transient_bytes(
             p_bytes, optimizer, fused_update, opt_slots=slots),

@@ -10,7 +10,9 @@ guard's retry and skip, bounded I/O retries, give-ups as exit codes
 installed on import), serving (``serving.py``, ``kv.py``: KV-slot
 admission by ``plan_serve`` and the continuous-batching engine), and
 data parallelism (``sharded.py``: the ``ShardedExecutor``, one flat
-all-reduce per mini-batch over ``torch.distributed``)."""
+all-reduce per mini-batch over ``torch.distributed``) and pipeline
+parallelism (``pipelined.py``: the 1F1B ``PipelinedExecutor`` over a
+``(data, model)`` mesh, ``StagedLoss``, ``schedule_1f1b``)."""
 from .plan import (MBSConfig, MBSPlan, num_micro_batches,  # noqa: F401
                    plan_mbs, split_minibatch)
 from .autotune import (TuningCache, calibrate_memory,  # noqa: F401
@@ -23,6 +25,8 @@ from .executors import (EXECUTORS, CompiledScanExecutor,  # noqa: F401
                         get_executor, make_baseline_train_step)
 from .sharded import (ShardedExecutor, collective_stats,  # noqa: F401
                       psum_flat, reset_collective_stats, time_collectives)
+from .pipelined import (PipelinedExecutor, StagedLoss,  # noqa: F401
+                        p2p_counts, schedule_1f1b)
 from .pipeline import Pipeline, PipelineStats  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from .supervisor import (FaultRecord, NaNCircuitBreaker, NaNHalt,  # noqa: F401

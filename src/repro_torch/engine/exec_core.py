@@ -101,6 +101,24 @@ def accumulate(acc, grads, *, scale=None, fused: bool = False):
     return tree.map(lambda a, g: a.add_((g * scale).to(a.dtype)), acc, grads)
 
 
+def abstract_call(fn: Callable, *trees):
+    """``fn(*trees)``'s outputs as meta tensors (shape and dtype, no
+    storage): ``fn`` runs under a fake-tensor mode on CPU fakes of the
+    inputs' shapes, so it allocates nothing and launches nothing — the
+    twin of ``jax.eval_shape``. Non-tensor outputs come back as they
+    are."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fakes = [tree.map(lambda t: torch.empty(tuple(t.shape),
+                                                dtype=t.dtype), x)
+                 for x in trees]
+        out = fn(*fakes)
+    leaves, treedef = tree.flatten(out)
+    return tree.unflatten(treedef, [
+        torch.empty(tuple(x.shape), dtype=x.dtype, device="meta")
+        if isinstance(x, torch.Tensor) else x for x in leaves])
+
+
 def apply_update(optimizer, grads, opt_state, params):
     """Paper Fig. 2 step ❺: one optimizer update per mini-batch."""
     updates, new_opt_state = optimizer.update(grads, opt_state, params)
@@ -223,17 +241,20 @@ def finite_all(grads) -> torch.Tensor:
     return torch.ones((), dtype=torch.bool) if ok is None else ok
 
 
-def guarded_update(optimizer, grads, opt_state, params):
+def guarded_update(optimizer, grads, opt_state, params, ok=None):
     """Step ❺ behind the finite check: where the accumulated gradient has
     a non-finite element the update is skipped — params and optimizer
-    state, the step counter included, come back as they were.
+    state, the step counter included, come back as they were. ``ok``
+    (a device bool) overrides the check of ``grads``: a pipeline stage
+    holds a part of the gradient, and takes the flag of the whole.
 
     The reference's ``lax.cond`` becomes a selection on the device: the
     update runs, and leaf by leaf ``torch.where(ok, new, old)`` keeps one
     of the two, the new leaf dropped at once, so the guard adds at most
     one leaf (the largest) to the update's memory and reads nothing back.
     Returns ``(new_params, new_opt_state, ok)``."""
-    ok = finite_all(grads)
+    if ok is None:
+        ok = finite_all(grads)
     new, treedef = tree.flatten(apply_update(optimizer, grads, opt_state,
                                              params))
     old = tree.leaves((params, opt_state))
@@ -261,13 +282,15 @@ def guarded_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,
     return new_params, new_opt_state, ok
 
 
-def finalize_metrics(metric_sum: Dict[str, Any], loss, grads, ok=None
-                     ) -> Dict[str, Any]:
+def finalize_metrics(metric_sum: Dict[str, Any], loss, grads, ok=None,
+                     grad_norm=None) -> Dict[str, Any]:
     """The step's device-scalar metrics; under the guard also
-    ``nonfinite`` (1.0 when the update was skipped)."""
+    ``nonfinite`` (1.0 when the update was skipped). ``grad_norm``
+    overrides the norm of ``grads`` (a pipeline stage's part)."""
     out = dict(metric_sum)
     out["loss"] = loss  # Σ normalized micro losses == mini-batch mean loss
-    out["grad_norm"] = global_grad_norm(grads)
+    out["grad_norm"] = (global_grad_norm(grads) if grad_norm is None
+                        else grad_norm)
     if ok is not None:
         out["nonfinite"] = 1.0 - ok.to(torch.float32)
     return out

@@ -39,6 +39,12 @@ Fault classes (``FaultSpec.kind``):
 ``nan``/``worker``, the *save step* for the checkpoint kinds, and the
 *dispatch counter* (``step_split`` calls since activation) for ``oom``.
 ``step=None`` is a wildcard.
+
+``FaultSpec.rank`` makes an ``oom`` fire on one rank of a world alone
+(the executor passes its rank to ``on_dispatch``); ``None`` fires on
+every rank. The reference has one controller, so the field is the test
+harness's only: it stages the fault that the executors must agree across
+the ranks (``agreed_oom``).
 """
 from __future__ import annotations
 
@@ -132,6 +138,16 @@ def injected_oom(detail: str = "") -> torch.OutOfMemoryError:
         + (f": {detail}" if detail else ""))
 
 
+def agreed_oom(ranks, world: int) -> torch.OutOfMemoryError:
+    """The error every rank of a world raises once the step's all-reduce
+    has shown that ``ranks`` ran out of memory: one message on every rank,
+    so every rank's supervisor records the same fault."""
+    return torch.OutOfMemoryError(
+        f"RESOURCE_EXHAUSTED: out of memory on rank(s) "
+        f"{sorted(int(r) for r in ranks)} of {world}, agreed across the "
+        "world by the step's all-reduce")
+
+
 # ---------------------------------------------------------------------------
 # the plan
 # ---------------------------------------------------------------------------
@@ -140,12 +156,14 @@ def injected_oom(detail: str = "") -> torch.OutOfMemoryError:
 class FaultSpec:
     """One scheduled fault. ``times`` is the number of firings, ``micro``
     the poisoned micro-batch for ``nan``, ``min_micro`` the admission
-    threshold below which an ``oom`` stops firing (0 = always)."""
+    threshold below which an ``oom`` stops firing (0 = always), ``rank``
+    the one rank an ``oom`` fires on (None = every rank)."""
     kind: str
     step: Optional[int] = 0
     micro: int = 0
     times: int = 1
     min_micro: int = 0
+    rank: Optional[int] = None
 
     def __post_init__(self):
         if self.kind not in KINDS:
@@ -153,8 +171,10 @@ class FaultSpec:
                              f"known: {list(KINDS)}")
 
 
-def oom_at(step: int, *, times: int = 1, min_micro: int = 0) -> FaultSpec:
-    return FaultSpec("oom", step, times=times, min_micro=min_micro)
+def oom_at(step: int, *, times: int = 1, min_micro: int = 0,
+           rank: Optional[int] = None) -> FaultSpec:
+    return FaultSpec("oom", step, times=times, min_micro=min_micro,
+                     rank=rank)
 
 
 def nan_at(step: Optional[int], *, micro: int = 0, times: int = 1
@@ -241,10 +261,12 @@ def inject(plan: FaultPlan):
         deactivate()
 
 
-def on_dispatch(plan_geometry: Any = None) -> None:
+def on_dispatch(plan_geometry: Any = None, rank: Optional[int] = None
+                ) -> None:
     """Executor hook, called at every ``step_split`` dispatch: raises an
-    injected OOM when an armed ``oom`` spec matches the dispatch index and
-    the plan's micro-batch is not below ``min_micro``."""
+    injected OOM when an armed ``oom`` spec matches the dispatch index,
+    the plan's micro-batch is not below ``min_micro`` and the spec's
+    ``rank`` (if any) is the caller's ``rank``."""
     if _ACTIVE is None:
         return
     idx = _ACTIVE.dispatches
@@ -253,7 +275,8 @@ def on_dispatch(plan_geometry: Any = None) -> None:
     for i, s in enumerate(_ACTIVE.specs):
         if (s.kind == "oom" and _ACTIVE._remaining[i] > 0
                 and (s.step is None or idx >= s.step)
-                and (micro is None or micro >= s.min_micro)):
+                and (micro is None or micro >= s.min_micro)
+                and (s.rank is None or s.rank == rank)):
             _ACTIVE._remaining[i] -= 1
             _ACTIVE.fired.append(("oom", idx))
             raise injected_oom(f"dispatch {idx}, micro={micro}")

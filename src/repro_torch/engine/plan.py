@@ -8,10 +8,11 @@
     upgraded to ``"exact"`` (eq. 15–17 hold for any split there).
 
 Plans equal the JAX package's field for field for the same inputs, on
-one device and on a data-parallel mesh (the JAX plan's pipeline fields
-keep their defaults: pipeline parallelism is not ported), calibrated
-ones included: with ``calibrate="auto"`` both read the same tuning-cache
-entry (``engine/autotune.py``).
+one device, on a data-parallel mesh and on a pipeline mesh
+(``pipeline=True``: the model axis runs 1F1B stages,
+``engine.PipelinedExecutor``), calibrated ones included: with
+``calibrate="auto"`` both read the same tuning-cache entry
+(``engine/autotune.py``).
 
 Staging (paper Fig. 1): :func:`host_tensors` turns a split numpy batch
 into page-locked host tensors, :func:`stage` copies them to the card with
@@ -106,6 +107,11 @@ class MBSPlan:
     # once per mini-batch (``engine.ShardedExecutor``)
     data_parallel: int = 1
     local_micro: Optional[int] = None  # = micro_batch_size when dp == 1
+    # > 1 when the plan was admitted pipeline-aware (plan_mbs(pipeline=
+    # True) on a mesh with a model axis): the model axis runs this many
+    # 1F1B stages, and the activation budget charged stage-local
+    # activations × the in-flight depth instead of the // tp discount
+    pipeline_stages: int = 1
 
     def __post_init__(self):
         if self.local_micro is None:
@@ -157,6 +163,8 @@ class MBSPlan:
         accum = str(self.accum_dtype).replace("torch.", "")
         mesh = (f", data-parallel {self.data_parallel} x local "
                 f"{self.local_micro}" if self.data_parallel > 1 else "")
+        if self.pipeline_stages > 1:
+            mesh += f", pipeline {self.pipeline_stages} stages"
         return (f"MBSPlan: mini-batch {self.mini_batch_size} -> "
                 f"{self.num_micro_batches} x micro-batch "
                 f"{self.micro_batch_size} (pad {self.pad}, micro {src}, "
@@ -222,7 +230,7 @@ def plan_mbs(mini_batch_size: int, *,
              optimizer: str = "sgd", fused_update: bool = False,
              mesh=None, fsdp_params: bool = True,
              calibrate: str = "off", tuning_cache: Optional[str] = None,
-             executor: str = "compiled") -> MBSPlan:
+             executor: str = "compiled", pipeline: bool = False) -> MBSPlan:
     """Produce an :class:`MBSPlan` for one training setup.
 
     Micro-batch size, in priority order:
@@ -276,7 +284,16 @@ def plan_mbs(mini_batch_size: int, *,
     rules it out — ``ValueError`` — and a larger one caps admission.
     A calibrated plan records ``calibrated=True`` and the correction.
     ``executor`` only keys the cache entry (and names the executor the
-    probes run); it does not change the geometry."""
+    probes run); it does not change the geometry.
+
+    ``pipeline=True`` reads the mesh's model axis as 1F1B pipeline
+    stages: admission charges stage-local activations × the in-flight
+    micro-batch count (``memory_model.pipeline_activation_bytes_per_sample``)
+    instead of the tensor-parallel ``// tp`` discount, and the plan
+    records ``pipeline_stages``. A stage count that does not divide the
+    model's block stack is refused here, before any executor is built.
+    ``calibrate="force"`` is refused with it: the probes run one worker's
+    whole-model step, not a stage's."""
     if calibrate not in ("off", "auto", "force"):
         raise ValueError(
             f'calibrate must be "off", "auto" or "force", got {calibrate!r}')
@@ -285,9 +302,23 @@ def plan_mbs(mini_batch_size: int, *,
     from ..core import memory_model  # deferred: core imports this package
     from ..models import remat as remat_lib
     dp = 1
+    stages = 1
     if mesh is not None:
         from ..launch import mesh as mesh_lib  # deferred: no cycle
         dp = mesh_lib.data_parallel_size(mesh)
+        if pipeline:
+            stages = mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
+    if pipeline and stages > 1 and model_cfg is not None \
+            and model_cfg.num_periods % stages:
+        raise ValueError(
+            f"pipeline stage count {stages} (the mesh's model axis) does "
+            f"not divide the block stack ({model_cfg.num_periods} periods) "
+            "— pick a model axis that divides num_periods evenly")
+    if pipeline and calibrate == "force":
+        raise ValueError(
+            'calibrate="force" probes one worker\'s whole-model step; a '
+            "pipeline stage's peak is not measured — plan the pipeline "
+            'with calibrate="auto" or "off"')
     if mini_batch_size < dp:
         raise ValueError(
             f"mini-batch {mini_batch_size} is smaller than the mesh's "
@@ -300,6 +331,8 @@ def plan_mbs(mini_batch_size: int, *,
     mm_kw = dict(tp=tp, fsdp=fsdp, opt_slots=opt_slots, act_bytes=act_bytes,
                  optimizer=optimizer, fused_update=fused_update,
                  mesh=mesh, fsdp_params=fsdp_params)
+    if pipeline:  # the probes of calibrate="force" (refused above) lack it
+        mm_kw["pipeline"] = True
     # the memory model budgets what ONE device holds: local samples
     local_mini = mini_batch_size // dp
 
@@ -403,4 +436,5 @@ def plan_mbs(mini_batch_size: int, *,
                    auto_normalization=auto_norm, remat_policy=policy,
                    auto_policy=auto_policy_requested and policy_searched,
                    calibrated=calibrated, correction=correction,
-                   data_parallel=dp, local_micro=micro // dp)
+                   data_parallel=dp, local_micro=micro // dp,
+                   pipeline_stages=stages)

@@ -45,9 +45,22 @@ Scope: pure data parallelism — params and optimizer state replicated on
 every rank (``plan_mbs(mesh=..., fsdp_params=False)`` budgets so). MoE
 router statistics are per local micro-batch (standard data-parallel MoE),
 as in the reference, so sharded MoE losses are not bitwise those of one
-device. A fault on one rank alone (a real OOM) is not agreed across
-ranks: the others wait in the collective until the process group's
-timeout raises there.
+device.
+
+A fault on one rank is agreed across the ranks, as the reference's one
+controller sees it once: a rank whose dispatch hook or local forward and
+backward raises the allocator's out-of-memory error still joins the
+step's one all-reduce, with its gradient, loss, metrics and valid count
+zeroed, and the reduced buffer carries one fault slot per rank (the tail
+of ``flat``'s fp32 store, one more leaf of the tree path's and of each
+per-micro baseline reduction). When a slot is above 0 after the sum,
+every rank raises the same ``torch.OutOfMemoryError``
+(``faults.agreed_oom``, naming the faulting ranks) before the update, so
+every rank's supervisor degrades alike — no rank waits out the process
+group's timeout, and the census stays one all-reduce a step. Reading the
+slots back is one host sync a step. A rank that faults before its loss
+has ever returned learns the metrics' layout from a fake-tensor trace of
+the loss (``exec_core.abstract_call``).
 """
 from __future__ import annotations
 
@@ -63,19 +76,57 @@ from . import exec_core, faults, flat as flat_lib
 from .executors import EXECUTORS, _as_plan, _micro, get_executor
 from .plan import MBSPlan
 
-_STATS = {"calls": 0, "seconds": 0.0, "bytes": 0}
+_STATS: Dict[str, Any] = {}
 _SYNC_TIMING = [False]
 
 
 def reset_collective_stats() -> None:
-    _STATS.update(calls=0, seconds=0.0, bytes=0)
+    _STATS.clear()
+    _STATS.update(calls=0, seconds=0.0, bytes=0, by_axis={}, all_gather=0,
+                  reduce_scatter=0, gather_seconds=0.0, p2p={})
+
+
+reset_collective_stats()
 
 
 def collective_stats() -> Dict[str, Any]:
     """``calls``: all-reduces issued since the last reset; ``bytes``: what
     they reduced; ``seconds``: their host time (the collective's own on
-    the CPU, or on CUDA under :func:`time_collectives`)."""
-    return dict(_STATS)
+    the CPU, or on CUDA under :func:`time_collectives`); ``by_axis``: the
+    all-reduces by the mesh axes they ran over (``"data"``, ``"model"``,
+    ``"data+model"``). The pipelined executor adds ``all_gather`` and
+    ``reduce_scatter`` (FSDP's calls, their seconds in
+    ``gather_seconds``) and ``p2p``: its point-to-point calls by
+    direction and kind (``fwd_send``, ``fwd_recv``, ``bwd_send``,
+    ``bwd_recv``)."""
+    out = dict(_STATS)
+    out["by_axis"] = dict(_STATS["by_axis"])
+    out["p2p"] = dict(_STATS["p2p"])
+    return out
+
+
+def count_collective(kind: str, n: int = 1, seconds: float = 0.0) -> None:
+    """Count ``n`` calls of a collective other than the all-reduce
+    (``all_gather``, ``reduce_scatter``, or a ``p2p`` key)."""
+    if kind in ("all_gather", "reduce_scatter"):
+        _STATS[kind] += n
+        _STATS["gather_seconds"] += seconds
+    else:
+        _STATS["p2p"][kind] = _STATS["p2p"].get(kind, 0) + n
+
+
+def timed_call(x: torch.Tensor, fn) -> float:
+    """The host seconds of the collective ``fn()`` on ``x``'s device, the
+    device synchronized before and after it under
+    :func:`time_collectives`."""
+    sync = _SYNC_TIMING[0] and x.is_cuda
+    if sync:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    fn()
+    if sync:
+        torch.cuda.synchronize(x.device)
+    return time.perf_counter() - t0
 
 
 def time_collectives(on: bool = True) -> None:
@@ -85,12 +136,13 @@ def time_collectives(on: bool = True) -> None:
     _SYNC_TIMING[0] = bool(on)
 
 
-def psum_flat(t, mesh):
+def psum_flat(t, mesh, axis: str = "data"):
     """One collective for a whole tree: every leaf summed across the ranks
     of ``mesh`` by ONE ``all_reduce`` of one fp32 buffer. A tree that is a
     single contiguous 1-D fp32 tensor is reduced in place and returned;
     otherwise the leaves are concatenated (cast to fp32) and the summed
-    leaves come back as views of the reduced buffer, in their dtypes."""
+    leaves come back as views of the reduced buffer, in their dtypes.
+    ``axis`` names the mesh axes ``mesh.group`` spans, for the census."""
     import torch.distributed as dist
     leaves, treedef = tree.flatten(t)
     if not leaves:
@@ -99,16 +151,11 @@ def psum_flat(t, mesh):
               and leaves[0].dim() == 1 and leaves[0].is_contiguous())
     buf = leaves[0] if single else torch.cat(
         [x.reshape(-1).to(torch.float32) for x in leaves])
-    sync = _SYNC_TIMING[0] and buf.is_cuda
-    if sync:
-        torch.cuda.synchronize(buf.device)
-    t0 = time.perf_counter()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    if sync:
-        torch.cuda.synchronize(buf.device)
-    _STATS["seconds"] += time.perf_counter() - t0
+    _STATS["seconds"] += timed_call(buf, lambda: dist.all_reduce(
+        buf, op=dist.ReduceOp.SUM, group=mesh.group))
     _STATS["calls"] += 1
     _STATS["bytes"] += buf.numel() * 4
+    _STATS["by_axis"][axis] = _STATS["by_axis"].get(axis, 0) + 1
     if single:
         return t
     out, off = [], 0
@@ -185,6 +232,36 @@ def _local_valid_count(mb, sample_dims: int = 2) -> torch.Tensor:
     return torch.full((), n, dtype=torch.float32, device=first.device)
 
 
+def _oom_of(fn, *args):
+    """``(fn(*args), False)``, or ``(None, True)`` when it raised the
+    allocator's out-of-memory error (``faults.is_oom``); anything else
+    propagates. The failed call's tensors, which its traceback holds, are
+    dropped before this returns."""
+    try:
+        return fn(*args), False
+    except Exception as exc:  # noqa: BLE001 (re-raised unless an OOM)
+        if not faults.is_oom(exc):
+            raise
+    return None, True
+
+
+def fault_slots(fault: bool, rank: int, world: int, device) -> torch.Tensor:
+    """One fp32 slot per rank of a reduction's group: 1 at ``rank`` when
+    this rank's step ran out of memory, else 0."""
+    slots = torch.zeros((world,), dtype=torch.float32, device=device)
+    if fault:
+        slots[rank] = 1.0
+    return slots
+
+
+def raise_agreed(slots: torch.Tensor) -> None:
+    """After the reduction, on every rank alike: the agreed OOM
+    (``faults.agreed_oom``) when any rank's slot is set. One readback."""
+    bad = torch.nonzero(slots.detach().cpu() > 0).flatten().tolist()
+    if bad:
+        raise faults.agreed_oom(bad, slots.numel())
+
+
 class ShardedExecutor:
     """Data-parallel wrapper around an inner MBS executor (see the module
     doc). ``inner`` names the local accumulation strategy ("compiled" |
@@ -240,6 +317,7 @@ class ShardedExecutor:
         self.inner_name = inner
         self.inner = get_executor(inner)(loss_fn, optimizer, self.plan)
         self.device = mesh.device
+        self._metrics = None  # the loss's metrics as meta tensors, once known
 
     # -- staging ------------------------------------------------------------
 
@@ -270,25 +348,73 @@ class ShardedExecutor:
         return (self.inner_name == "flat"
                 and self.plan.accum_dtype == torch.float32)
 
-    def _flat_synced(self, params, local):
+    def _slots(self, fault: bool) -> torch.Tensor:
+        return fault_slots(fault, self.mesh.rank, self.dp, self.device)
+
+    def _metric_zeros(self, params, local):
+        """Zero metrics in the loss's layout: learnt from a step that ran,
+        else from a fake-tensor trace of the loss on one micro-batch."""
+        if self._metrics is None:
+            mb = {k: (torch.from_numpy(np.ascontiguousarray(v[0]))
+                      if isinstance(v, np.ndarray) else v[0])
+                  for k, v in local.items()}
+            self._metrics = exec_core.abstract_call(
+                lambda p, b: self.loss_fn(p, b)[1], params, mb)
+        return tree.map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                              device=self.device),
+                        self._metrics)
+
+    def _learn_metrics(self, msum) -> None:
+        if self._metrics is None:
+            self._metrics = tree.map(
+                lambda m: torch.empty(m.shape, dtype=m.dtype, device="meta"),
+                msum)
+
+    def _zero_sums(self, params, local):
+        """A faulted rank's contribution: zero gradient sums (flat buckets
+        for ``flat``, a tree otherwise), loss and metrics."""
+        if self.inner_name == "flat":
+            grads = flat_lib.FlatSpec.for_tree(params).zeros(
+                self.plan.accum_dtype, self.device)
+        else:
+            grads = exec_core.init_accum(params, self.plan.accum_dtype)
+        return (grads, torch.zeros((), device=self.device),
+                self._metric_zeros(params, local))
+
+    def _flat_synced(self, params, local, fault: bool = False):
         """``flat``: K1 into bucket views of one fp32 store whose tail holds
-        the loss, metric and valid-count slots; one in-place all-reduce of
-        the store. Returns (spec, summed buckets, loss, metrics, valid)."""
+        the loss, metric, valid-count and fault slots; one in-place
+        all-reduce of the store. Returns (spec, summed buckets, loss,
+        metrics, valid)."""
         layout = {}
 
         def tail(metrics) -> int:
             layout["metrics"] = tree.flatten(metrics)
-            return 2 + sum(m.numel() for m in layout["metrics"][0])
+            return 2 + sum(m.numel() for m in layout["metrics"][0]) + self.dp
 
-        spec, acc, loss, msum, store = self.inner.raw_accumulate(
-            params, local, tail=tail)
+        out = None
+        if not fault:
+            out, fault = _oom_of(self.inner.raw_accumulate, params, local,
+                                 tail)
+        if fault:
+            spec = flat_lib.FlatSpec.for_tree(params)
+            msum = self._metric_zeros(params, local)
+            store, acc = spec.packed_zeros(self.plan.accum_dtype,
+                                           self.device, tail(msum))
+            loss = valid = torch.zeros((), device=self.device)
+        else:
+            spec, acc, loss, msum, store = out
+            self._learn_metrics(msum)
+            valid = _local_valid_count(local)
+        del out
         n = sum(spec.bucket_sizes)
         parts = [loss.reshape(1)] + [m.reshape(-1).to(torch.float32)
                                      for m in tree.leaves(msum)]
-        parts.append(_local_valid_count(local).reshape(1))
+        parts += [valid.reshape(1), self._slots(fault)]
         store[n:] = torch.cat(parts)
         psum_flat(store, self.mesh)  # the ONE all-reduce, in place
         tail_vals = store[n:]
+        raise_agreed(tail_vals[-self.dp:])
         loss = tail_vals[0]
         metric_leaves, off = [], 1
         for m in layout["metrics"][0]:
@@ -300,37 +426,79 @@ class ShardedExecutor:
                 tree.unflatten(layout["metrics"][1], metric_leaves),
                 tail_vals[off])
 
-    def _synced(self, params, local):
+    def _synced(self, params, local, fault: bool = False):
         """(grads — flat buckets for ``flat``, a tree otherwise — loss,
-        metric_sum, valid), all summed across the ranks."""
+        metric_sum, valid), all summed across the ranks. ``fault``: this
+        rank has already failed (its dispatch hook ran out of memory)."""
         if self._packed():
-            _, acc, loss, msum, valid = self._flat_synced(params, local)
+            _, acc, loss, msum, valid = self._flat_synced(params, local,
+                                                          fault)
             return acc, loss, msum, valid
         if not self.defer_sync:
-            return self._per_micro_synced(params, local)
+            return self._per_micro_synced(params, local, fault)
         if self.inner_name == "flat":
-            _, acc, loss, msum, _ = self.inner.raw_accumulate(params, local)
-            grads = tuple(acc)
+            def accumulate():
+                _, acc, loss, msum, _ = self.inner.raw_accumulate(params,
+                                                                  local)
+                return tuple(acc), loss, msum
         else:
-            grads, loss, msum = self.inner.raw_accumulate(params, local)
-        # the ONE all-reduce per mini-batch
-        return psum_flat((grads, loss, msum, _local_valid_count(local)),
-                         self.mesh)
+            def accumulate():
+                return self.inner.raw_accumulate(params, local)
+        return self._reduced(params, local, fault, accumulate,
+                             lambda: _local_valid_count(local))
 
-    def _per_micro_synced(self, params, local):
+    def _reduced(self, params, local, fault: bool, accumulate, valid):
+        """(grads, loss, metric_sum, valid) summed across the ranks by the
+        ONE all-reduce of the mini-batch, the fault slots with them:
+        ``accumulate()`` gives this rank's (grads, loss, metric sums) and
+        ``valid()`` its valid count; a rank that faulted, before or in
+        ``accumulate``, sends zeros."""
+        out = None
+        if not fault:
+            out, fault = _oom_of(accumulate)
+        if fault:
+            grads, loss, msum = self._zero_sums(params, local)
+            count = torch.zeros((), device=self.device)
+        else:
+            grads, loss, msum = out
+            self._learn_metrics(msum)
+            count = valid()
+        del out
+        *synced, slots = psum_flat(
+            (grads, loss, msum, count, self._slots(fault)), self.mesh)
+        raise_agreed(slots)
+        return synced
+
+    def _micro_grads(self, params, mb, n_s: int):
+        lfn = exec_core.micro_loss_fn(self.loss_fn, "exact", n_s, 1.0, mb,
+                                      defer_scale=True)
+        return exec_core.value_and_grad(lfn, params)
+
+    def _per_micro_synced(self, params, local, fault: bool = False):
         """The baseline deferral removes: one all-reduce per micro-batch,
-        each carrying that micro-batch's gradient, loss, metrics and valid
-        count (N_Sμ collectives a step)."""
+        each carrying that micro-batch's gradient, loss, metrics, valid
+        count and fault slots (N_Sμ collectives a step; a fault ends the
+        step on every rank after the reduction that carries it)."""
         n_s = next(iter(local.values())).shape[0]
         acc = exec_core.init_accum(params, self.plan.accum_dtype)
         loss_sum = metric_sum = valid = None
         for i in range(n_s):
             mb = _micro(local, i)
-            lfn = exec_core.micro_loss_fn(self.loss_fn, "exact", n_s, 1.0, mb,
-                                          defer_scale=True)
-            loss, metrics, grads = exec_core.value_and_grad(lfn, params)
-            grads, loss, metrics, v = psum_flat(
-                (grads, loss, metrics, _local_valid_count(mb, 1)), self.mesh)
+            out = None
+            if not fault:
+                out, fault = _oom_of(self._micro_grads, params, mb, n_s)
+            if fault:
+                loss = v = torch.zeros((), device=self.device)
+                metrics = self._metric_zeros(params, local)
+                grads = tree.map(torch.zeros_like, params)
+            else:
+                loss, metrics, grads = out
+                self._learn_metrics(metrics)
+                v = _local_valid_count(mb, 1)
+            del out
+            grads, loss, metrics, v, slots = psum_flat(
+                (grads, loss, metrics, v, self._slots(fault)), self.mesh)
+            raise_agreed(slots)
             acc = exec_core.accumulate(acc, grads)
             del grads
             if loss_sum is None:
@@ -379,12 +547,13 @@ class ShardedExecutor:
                    ) -> Tuple[Any, Any, Dict[str, Any]]:
         """One mini-batch over this rank's block of a split batch on the
         device."""
-        faults.on_dispatch(self.plan)
+        _, fault = _oom_of(faults.on_dispatch, self.plan, self.mesh.rank)
         if self.inner_name == "flat":
             params, opt_state = self.prepare(params, opt_state)
         n_s = next(iter(micro_batches.values())).shape[0]
         return self._finalize(params, opt_state,
-                              *self._synced(params, micro_batches), n_s)
+                              *self._synced(params, micro_batches, fault),
+                              n_s)
 
     def step(self, params, opt_state, minibatch
              ) -> Tuple[Any, Any, Dict[str, Any]]:
@@ -396,11 +565,12 @@ class ShardedExecutor:
             return self.step_split(params, opt_state,
                                    self.stage(self.plan.split(minibatch)))
         split = self.shard(self.plan.split(minibatch))
-        faults.on_dispatch(self.plan)
-        grads, loss, msum = self.inner.stream_accumulate(params, split,
-                                                         raw=True)
-        w = torch.from_numpy(split["sample_weight"]).to(self.device)
-        synced = psum_flat((grads, loss, msum, torch.sum(w)), self.mesh)
+        _, fault = _oom_of(faults.on_dispatch, self.plan, self.mesh.rank)
+        synced = self._reduced(
+            params, split, fault,
+            lambda: self.inner.stream_accumulate(params, split, raw=True),
+            lambda: torch.sum(torch.from_numpy(split["sample_weight"])
+                              .to(self.device)))
         return self._finalize(params, opt_state, *synced,
                               split["sample_weight"].shape[0])
 

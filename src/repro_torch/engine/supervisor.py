@@ -53,14 +53,25 @@ Supervision cost: with the guard on, the supervisor reads the
 ``nonfinite`` flag back every step (the retry must know before the next
 step is dispatched). The guarded step itself reads nothing back.
 
-On a data-parallel mesh every rank runs its own supervisor over an
-``engine.ShardedExecutor``: the guard's flag comes from the globally
-reduced gradient, so every rank retries or skips alike; an injected
-fault is plan-driven and fires on every rank, so every rank degrades
-alike (the re-plan keeps the micro-batch divisible by the data extent).
-Only a ``writer`` (rank 0) saves checkpoints; every rank restores the
-same files. A real fault on one rank alone is not agreed: its peers
-wait in the next collective until the process group's timeout raises.
+On a mesh every rank runs its own supervisor over an
+``engine.ShardedExecutor`` or ``engine.PipelinedExecutor``, and a fault
+is one decision for all of them, as the reference's single controller
+takes it. The guard's flag comes from the globally reduced gradient, so
+every rank retries or skips alike. An out-of-memory error on one rank
+alone (a real one, or one ``faults.oom_at(..., rank=r)`` injects) is
+agreed by the step's own all-reduce: every rank raises the same error
+before the update (``ShardedExecutor``'s module doc). The recovery then
+takes its decisions on rank 0 alone and broadcasts them
+(``launch.mesh.broadcast_object`` over the executor's mesh): the negative
+bound is written to the tuning cache by rank 0 only, the degraded plan
+(or the give-up) is rank 0's, and so is the resume step, which every
+rank restores (the same checkpoint, or its anchor of that step). The
+allocator's peaks in the record stay each rank's own. Only a ``writer``
+(rank 0) saves checkpoints. A pipelined run anchors and checkpoints the
+reference-format state, which ``PipelinedExecutor.gather_state`` puts
+together on every rank (a collective, at the same steps on every rank),
+and each rank restores its own slice through the executor's
+``prepare``.
 """
 from __future__ import annotations
 
@@ -76,6 +87,7 @@ import torch
 
 from .. import tree
 from ..checkpoint import checkpoint
+from ..launch import mesh as mesh_lib
 from ..models import remat as remat_lib
 from . import autotune, faults
 from .plan import MBSPlan, plan_mbs
@@ -295,12 +307,18 @@ class Supervisor:
     def _anchor(self, params, opt_state, step: int) -> None:
         """Host copy of the completed state at ``step``: the restore
         source of last resort (``flat`` overwrites its buffers at the next
-        step, the tree executors free the old trees). Refreshed at the
-        checkpoint cadence, so its cost amortizes like a save."""
+        step, the tree executors free the old trees; a pipelined
+        executor's is the reference-format state it gathers). Refreshed
+        at the checkpoint cadence, so its cost amortizes like a save."""
         t0 = time.perf_counter()
         self._snapshot = None  # the old copy goes before the new is made
-        params, opt_state = tree.map(
-            lambda t: t.detach().to("cpu", copy=True), (params, opt_state))
+        gather = getattr(self.executor, "gather_state", None)
+        if gather is not None:
+            params, opt_state = gather(params, opt_state)
+        else:
+            params, opt_state = tree.map(
+                lambda t: t.detach().to("cpu", copy=True),
+                (params, opt_state))
         self._snapshot = (params, opt_state, step)
         self.anchor_log.append({"step": step,
                                 "bytes": _nbytes((params, opt_state)),
@@ -314,6 +332,7 @@ class Supervisor:
         self._anchor(params, opt_state, step)
         if not self.ckpt_dir or not self.writer:
             return
+        params, opt_state, _ = self._snapshot  # the host copy just made
         for attempt in range(self.config.io_retries + 1):
             try:
                 checkpoint.save(self.ckpt_dir, step,
@@ -349,20 +368,26 @@ class Supervisor:
             return None
         return t["params"], t["opt_state"]
 
-    def _restore(self):
+    def _restore(self, only: Optional[int] = None):
         """(params, opt_state, step) of the newest recoverable completed
         state, placed for the current executor: the newest loadable
         committed checkpoint when it is not older than the anchor, else
-        the anchor."""
+        the anchor. ``only``: the step another rank chose (its checkpoint,
+        or the anchor when it is the anchor's)."""
         params, opt_state, step = self._snapshot
         if self.ckpt_dir:
             template = {"params": params, "opt_state": opt_state}
             for s in reversed(checkpoint.committed_steps(self.ckpt_dir)):
                 if s < step:
                     break  # the anchor is newer
+                if only is not None and s != only:
+                    continue
                 loaded = self._load(s, template)
                 if loaded is not None:
                     return (*self._place(*loaded), s)
+        if only is not None and only != step:
+            raise RuntimeError(f"rank 0 resumes from step {only}, which "
+                               f"this rank cannot load (anchor at {step})")
         return (*self._place(params, opt_state), step)
 
     def restore(self, params, opt_state):
@@ -372,6 +397,9 @@ class Supervisor:
         executor — or ``None``."""
         if not self.ckpt_dir:
             return None
+        full = getattr(self.executor, "full_template", None)
+        if full is not None:  # a pipeline stage's slice: the whole's shape
+            params, opt_state = full(params, opt_state)
         template = {"params": params, "opt_state": opt_state}
         for step in reversed(checkpoint.committed_steps(self.ckpt_dir)):
             loaded = self._load(step, template)
@@ -399,29 +427,25 @@ class Supervisor:
                 f"{self.restarts - 1} restarts exhausted (last OOM at step "
                 f"{failed_step}: {failure})")
         at_failure = _memory(self.device)
-        ctx = self.plan_ctx
-        cache_path = (ctx or {}).get("tuning_cache")
-        faults.on_replan(cache_path or
-                         (autotune.get_cache().path if ctx else None))
-        if ctx and ctx.get("model_cfg") is not None \
-                and ctx.get("budget_bytes") is not None:
-            # the observed failure becomes a negative calibration bound
-            # BEFORE re-planning, so plan_mbs(calibrate="auto") sees it
-            autotune.record_oom_bound(
-                ctx["model_cfg"], ctx["seq_len"], self.plan.micro_batch_size,
-                ctx["budget_bytes"], remat_policy=self.plan.remat_policy,
-                mesh=ctx.get("mesh"), optimizer=ctx.get("optimizer", "sgd"),
-                executor=ctx.get("executor", "compiled"),
-                cache_path=cache_path, device=ctx.get("device", "cuda"),
-                **(ctx.get("mm_kw") or {}))
-        self.plan, action = degrade_plan(self.plan, ctx)
+        mesh = getattr(self.executor, "mesh", None)
+        decider = mesh is None or mesh.rank == 0
+        decision = self._degrade(failed_step) if decider else None
+        self.plan, action, give_up = mesh_lib.broadcast_object(decision,
+                                                               mesh)
+        if give_up is not None:
+            raise give_up
         # the failed runtime goes before the next is built
         self.executor = self.step_fn = self.pipeline = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self.executor, self.step_fn, self.pipeline = self.build(self.plan)
-        params, opt_state, resume_step = self._restore()
+        if decider:
+            params, opt_state, resume_step = self._restore()
+            mesh_lib.broadcast_object(resume_step, mesh)
+        else:
+            params, opt_state, resume_step = self._restore(
+                mesh_lib.broadcast_object(None, mesh))
         after = _memory(self.device)
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -443,6 +467,30 @@ class Supervisor:
                   f"allocated {rec.allocated_bytes} B, reserved "
                   f"{rec.reserved_bytes} B after the rebuild", flush=True)
         return params, opt_state, resume_step
+
+    def _degrade(self, failed_step: int):
+        """The recovery's decision (rank 0's on a mesh): the negative
+        bound recorded, then ``(degraded plan, action, None)``, or
+        ``(None, None, give-up)`` at the bottom of the ladder."""
+        ctx = self.plan_ctx
+        cache_path = (ctx or {}).get("tuning_cache")
+        faults.on_replan(cache_path or
+                         (autotune.get_cache().path if ctx else None))
+        if ctx and ctx.get("model_cfg") is not None \
+                and ctx.get("budget_bytes") is not None:
+            # the observed failure becomes a negative calibration bound
+            # BEFORE re-planning, so plan_mbs(calibrate="auto") sees it
+            autotune.record_oom_bound(
+                ctx["model_cfg"], ctx["seq_len"], self.plan.micro_batch_size,
+                ctx["budget_bytes"], remat_policy=self.plan.remat_policy,
+                mesh=ctx.get("mesh"), optimizer=ctx.get("optimizer", "sgd"),
+                executor=ctx.get("executor", "compiled"),
+                cache_path=cache_path, device=ctx.get("device", "cuda"),
+                **(ctx.get("mm_kw") or {}))
+        try:
+            return (*degrade_plan(self.plan, ctx), None)
+        except PlanExhausted as e:
+            return None, None, e
 
     def _handle_nonfinite(self, params, opt_state, metrics, step: int):
         """Bounded same-batch (clean re-draw) retry, then skip. The guarded

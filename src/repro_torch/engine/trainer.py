@@ -46,15 +46,22 @@ class Trainer:
     selects, and the last, also go through ``log_fn``. :meth:`restore`
     places the state on the pipeline's device. ``writer=False`` (the
     ranks of a data-parallel world but rank 0, which all hold the same
-    state) restores from ``ckpt_dir`` but never saves."""
+    state) restores from ``ckpt_dir`` but never saves.
+
+    ``layout`` is the executor of a state that each rank holds a part of
+    (``engine.PipelinedExecutor``): a save first puts the reference-format
+    state together on every rank (its ``gather_state``, a collective), and
+    a restore reads the reference-format checkpoint (``full_template``)
+    and keeps this rank's part (``prepare``)."""
 
     def __init__(self, step_fn: Callable, pipeline: Pipeline, *,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  ckpt_keep: Optional[int] = None, log_every: int = 5,
                  log_fn: Optional[Callable] = _default_log,
-                 writer: bool = True):
+                 writer: bool = True, layout: Any = None):
         self.step_fn = step_fn
         self.writer = writer
+        self.layout = layout
         self.pipeline = pipeline
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -68,9 +75,13 @@ class Trainer:
     # -- checkpointing ------------------------------------------------------
 
     def save(self, step: int, params, opt_state) -> Optional[str]:
-        if not self.ckpt_dir or not self.writer:
+        if not self.ckpt_dir:
             return None
         t0 = time.perf_counter()
+        if self.layout is not None:  # every rank gathers, one writes
+            params, opt_state = self.layout.gather_state(params, opt_state)
+        if not self.writer:
+            return None
         path = checkpoint.save(self.ckpt_dir, step,
                                {"params": params, "opt_state": opt_state},
                                keep=self.ckpt_keep)
@@ -103,6 +114,16 @@ class Trainer:
         return None
 
     def _restore_step(self, step: int, params_template, opt_state_template):
+        if self.layout is not None:
+            params_template, opt_state_template = self.layout.full_template(
+                params_template, opt_state_template)
+            t = checkpoint.restore(
+                self.ckpt_dir, {"params": params_template,
+                                "opt_state": opt_state_template}, step,
+                device="cpu")
+            params, opt_state = self.layout.prepare(
+                t["params"], t["opt_state"], device=self.device)
+            return {"params": params, "opt_state": opt_state}
         template = {"params": params_template,
                     "opt_state": opt_state_template}
         try:

@@ -8,10 +8,15 @@ collectives run on, its rank and its device.
 
 Axes, ``batch_axes``, ``axis_size`` and ``data_parallel_size`` are the
 reference's (``pod`` and ``data`` are batch axes, ``model`` splits the
-model). The port runs pure data parallelism: every rank of the world sits
-on the data axis and holds the whole model (``engine.ShardedExecutor``).
-The reference's production GSPMD meshes (16×16 and 2×16×16 TPU slices,
-tensor and FSDP sharding) are not ported (:func:`make_production_mesh`).
+model). On a ``(data, 1)`` mesh every rank holds the whole model
+(``engine.ShardedExecutor``); on a ``(data, model)`` mesh with ``model``
+> 1 the model axis runs the stages of a 1F1B pipeline
+(``engine.PipelinedExecutor``): rank ``r`` is stage ``r % model`` of data
+replica ``r // model`` (the reference's row-major device layout), and
+``Mesh.groups`` holds the process groups of its two axis lines
+(:func:`axis_groups`). The reference's production GSPMD meshes (16×16 and
+2×16×16 TPU slices, tensor and FSDP sharding) are not ported
+(:func:`make_production_mesh`).
 
 :func:`init_world` starts or joins the process group from torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -26,9 +31,10 @@ There is no fallback from one to the other.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 from collections.abc import Mapping
-from typing import Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -49,17 +55,21 @@ class Mesh(Mapping):
     plus this rank's view of the world: ``rank``, ``group`` (the process
     group the collectives run on; None is the default group) and
     ``device``. ``memory_fraction`` is the share of the device's memory
-    this rank may hold (below 1 when ranks share a card)."""
+    this rank may hold (below 1 when ranks share a card). ``groups`` maps
+    an axis name to the process group of this rank's line along it (a
+    pipeline mesh's ``"data"`` and ``"model"``)."""
 
     def __init__(self, dims: Dict[str, int], *, rank: int = 0, group=None,
                  device="cpu", backend: Optional[str] = None,
-                 memory_fraction: float = 1.0):
+                 memory_fraction: float = 1.0,
+                 groups: Optional[Dict[str, Any]] = None):
         self._dims = {str(k): int(v) for k, v in dict(dims).items()}
         self.rank = int(rank)
         self.group = group
         self.device = torch.device(device)
         self.backend = backend
         self.memory_fraction = float(memory_fraction)
+        self.groups = dict(groups or {})
 
     def __getitem__(self, name: str) -> int:
         return self._dims[name]
@@ -79,20 +89,22 @@ def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
         "the production meshes (16x16 data x model, 2x16x16 with --multi-pod"
         ") shard params by tensor and FSDP parallelism under GSPMD; the "
-        "port runs pure data parallelism only (ROADMAP.md queue 1 item 11, "
-        "its production-mesh half)")
+        "port runs data parallelism and 1F1B pipeline stages only "
+        "(ROADMAP.md queue 1 item 11, its production-mesh half)")
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0, *,
                    rank: int = 0, group=None, device="cpu",
                    backend: Optional[str] = None,
-                   memory_fraction: float = 1.0) -> Mesh:
+                   memory_fraction: float = 1.0,
+                   groups: Optional[Dict[str, Any]] = None) -> Mesh:
     """The reference's small mesh: ``(data, model)`` or ``(pod, data,
     model)`` axes, as this rank sees them."""
     dims = ({POD_AXIS: pod, DATA_AXIS: data, MODEL_AXIS: model} if pod
             else {DATA_AXIS: data, MODEL_AXIS: model})
     return Mesh(dims, rank=rank, group=group, device=device,
-                backend=backend, memory_fraction=memory_fraction)
+                backend=backend, memory_fraction=memory_fraction,
+                groups=groups)
 
 
 def parse_mesh_spec(spec: str, device_count: Optional[int] = None):
@@ -178,9 +190,11 @@ def init_world(device_type: str = "cuda", *,
                timeout_s: float = DEFAULT_TIMEOUT_S,
                init_method: Optional[str] = None, rank: Optional[int] = None,
                world: Optional[int] = None, local_rank: Optional[int] = None,
-               local_world: Optional[int] = None) -> Mesh:
-    """Start or join the process group and return this rank's data-parallel
-    mesh ``{"data": world, "model": 1}``.
+               local_world: Optional[int] = None, model: int = 1) -> Mesh:
+    """Start or join the process group and return this rank's mesh: the
+    data-parallel ``{"data": world, "model": 1}``, or with ``model`` > 1
+    the pipeline mesh ``{"data": world // model, "model": model}`` and
+    its axis groups (:func:`pipeline_mesh`).
 
     Rank, world size and local rank come from the arguments, else from a
     process group already started in this process, else from torchrun's
@@ -212,16 +226,68 @@ def init_world(device_type: str = "cuda", *,
             backend, init_method=init_method or "env://", rank=rank,
             world_size=world,
             timeout=datetime.timedelta(seconds=timeout_s))
-    return make_host_mesh(data=world, model=1, rank=rank, device=device,
+    mesh = make_host_mesh(data=world, model=1, rank=rank, device=device,
                           backend=backend if world > 1 else None,
                           memory_fraction=fraction)
+    if model > 1:
+        return pipeline_mesh(mesh, world // model, model,
+                             timeout_s=timeout_s)
+    return mesh
+
+
+# the axis groups made so far, by (data, model): making a group is a
+# collective call, so a world makes each layout's groups once
+_AXIS_GROUPS: Dict[Tuple[int, int], Dict[str, Any]] = {}
+
+
+def axis_groups(data: int, model: int, rank: int, *,
+                timeout_s: float = DEFAULT_TIMEOUT_S) -> Dict[str, Any]:
+    """The process groups of rank ``rank``'s two lines of a ``(data,
+    model)`` mesh over the world (rank ``d·model + s``): ``"data"``, the
+    ranks of its stage ``s`` across the replicas, and ``"model"``, the
+    stages of its replica ``d``. Every rank of the world calls this in
+    the same order (``torch.distributed.new_group`` is collective)."""
+    import torch.distributed as dist
+    timeout = datetime.timedelta(seconds=timeout_s)
+    out = {}
+    for s in range(model):
+        g = dist.new_group([d * model + s for d in range(data)],
+                           timeout=timeout)
+        if rank % model == s:
+            out[DATA_AXIS] = g
+    for d in range(data):
+        g = dist.new_group([d * model + s for s in range(model)],
+                           timeout=timeout)
+        if rank // model == d:
+            out[MODEL_AXIS] = g
+    return out
+
+
+def pipeline_mesh(world_mesh: Mesh, data: int, model: int, *,
+                  timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+    """This rank's ``(data, model)`` mesh over the world of ``world_mesh``
+    (its rank, device, backend and memory share), with the axis groups
+    (:func:`axis_groups`, made once a layout). Every rank of the world
+    calls it."""
+    n = world_size()
+    if data * model != n:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+                         f"ranks; the world has {n}")
+    if (data, model) not in _AXIS_GROUPS:
+        _AXIS_GROUPS[(data, model)] = axis_groups(
+            data, model, world_mesh.rank, timeout_s=timeout_s)
+    return make_host_mesh(data=data, model=model, rank=world_mesh.rank,
+                          group=world_mesh.group, device=world_mesh.device,
+                          backend=world_mesh.backend,
+                          memory_fraction=world_mesh.memory_fraction,
+                          groups=_AXIS_GROUPS[(data, model)])
 
 
 def broadcast_object(obj, mesh: Optional[Mesh], src: int = 0):
     """``obj`` as rank ``src`` holds it, on every rank of ``mesh`` (what
     one rank decides — a plan — every rank then holds). Identity on a
     mesh of one rank."""
-    if mesh is None or data_parallel_size(mesh) < 2:
+    if mesh is None or math.prod(mesh.values()) < 2:
         return obj
     import torch.distributed as dist
     box = [obj if mesh.rank == src else None]
@@ -234,5 +300,6 @@ def broadcast_object(obj, mesh: Optional[Mesh], src: int = 0):
 def shutdown() -> None:
     """Leave the process group (if one was started)."""
     import torch.distributed as dist
+    _AXIS_GROUPS.clear()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()

@@ -26,7 +26,7 @@ from .. import engine, optim, tree
 from ..configs.shapes import InputShape
 from ..core import losses
 from ..data import LMDataset
-from ..models import encdec, transformer
+from ..models import encdec, nn, transformer
 from ..models import remat as remat_lib
 from ..models.config import ModelConfig
 from . import mesh as mesh_lib
@@ -77,6 +77,69 @@ def make_loss_fn(cfg: ModelConfig, dtype=torch.bfloat16, remat: bool = True,
         return loss, {"aux_loss": aux}
 
     return loss_fn
+
+
+def make_staged_loss(cfg: ModelConfig, dtype=torch.bfloat16,
+                     remat: bool = True,
+                     remat_policy: Optional[str] = None) -> engine.StagedLoss:
+    """The decoder-only transformer loss as the prelude / stage_fn /
+    finale triple that :class:`engine.PipelinedExecutor` schedules.
+
+    The stage boundary is the period axis: ``params["blocks"]`` leaves are
+    stacked ``(num_periods, ...)`` and ``StagedLoss.partition`` cuts them
+    into ``(stages, periods_per_stage, ...)``; a stage runs its periods as
+    :func:`transformer.forward` runs the whole stack, under the same
+    checkpoint lattice. The finale returns the RAW loss sum
+    (``exact_denom=1``): the executor divides by the global valid count
+    after its all-reduce.
+
+    Families whose forward does not cut at period boundaries with one
+    ``(B, S, d_model)`` carry are refused, as the reference refuses them:
+    MoE (the router's aux loss accumulates across periods into the loss),
+    enc-dec (two stacks joined by cross attention) and VLM (the vision
+    frontend feeds the embedding)."""
+    if cfg.is_encdec or cfg.is_moe or cfg.is_vlm:
+        which = ("enc-dec" if cfg.is_encdec else
+                 "MoE" if cfg.is_moe else "VLM")
+        raise ValueError(
+            f"{cfg.name}: pipeline staging supports dense decoder-only "
+            f"stacks; {which} forwards do not factor into "
+            "prelude/stage_fn/finale with a (B, S, d_model) carry — run "
+            "this family on the data axis (ShardedExecutor) instead")
+    transformer.check_supported(cfg)
+    policy = remat_lib.resolve(remat, remat_policy)
+
+    def prelude(shared, mb):
+        return transformer._embed_inputs(shared, cfg, mb["tokens"], None,
+                                         dtype)
+
+    def period_fn(x, slot_params):
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        for kind, p in zip(cfg.layer_pattern, slot_params):
+            x, _, _ = transformer._apply_slot(p, cfg, kind, x, positions,
+                                              dtype=dtype,
+                                              remat_policy=policy)
+        return x
+
+    period_fn = remat_lib.checkpoint_period(period_fn, policy)
+
+    def stage_fn(stage_p, x):
+        for slot_params in transformer._periods(stage_p):
+            x = period_fn(x, slot_params)
+        return x
+
+    def finale(shared, x, mb):
+        x = nn.rmsnorm(shared["final_norm"], x, cfg.norm_eps)
+        logits = transformer._lm_head(shared, cfg, x)
+        loss = losses.cross_entropy(logits, mb["labels"],
+                                    sample_weight=mb.get("sample_weight"),
+                                    exact_denom=1.0)
+        return loss, {}
+
+    return engine.StagedLoss(num_layers=cfg.num_periods, prelude=prelude,
+                             stage_fn=stage_fn, finale=finale,
+                             stacked_key="blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -184,33 +247,43 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
     ``engine.ShardedExecutor`` (params replicated, so the plan is made
     with ``fsdp_params=False``), and the batch is one rank's block.
 
-    A mesh whose model axis is larger than 1 pipelines the block stack in
-    the reference (1F1B), and ``fsdp=True`` applies only there: both are
-    refused (ROADMAP.md queue 1 item 14)."""
+    A mesh whose model axis is larger than 1 routes through the pipeline
+    instead, as the reference's does: ``plan_mbs(pipeline=True)`` budgets
+    stage-local activations × the in-flight depth, and
+    :class:`engine.PipelinedExecutor` runs the plan's micro-batches
+    through the 1F1B schedule over :func:`make_staged_loss`
+    (``fsdp=True`` also shards params over the data axis; without a model
+    axis it is ignored, as in the reference). ``executor`` is then
+    "pipelined", the bundle's ``fn`` its ``step_split`` (call the
+    executor's ``prepare`` on the reference-format state first) and the
+    abstract state the reference-format trees."""
+    optimizer = optimizer or make_optimizer(cfg)
     model_axis = (mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
                   if mesh is not None else 1)
-    if model_axis > 1 or fsdp:
-        raise NotImplementedError(
-            f"build_train_step(mesh model axis {model_axis}, fsdp={fsdp}): "
-            "a model axis > 1 pipelines the block stack (1F1B), and fsdp "
-            "applies only there; not ported (ROADMAP.md queue 1 item 14)")
-    optimizer = optimizer or make_optimizer(cfg)
+    pipeline = model_axis > 1
     dp = mesh_lib.data_parallel_size(mesh) if mesh is not None else 1
     plan = engine.plan_mbs(
         shape.global_batch, num_microbatches=num_microbatches,
         model_cfg=cfg, seq_len=shape.seq_len, budget_bytes=budget_bytes,
         device=device, normalization=normalization,
         act_bytes=torch.empty((), dtype=dtype).element_size(), remat=remat,
-        remat_policy=remat_policy, mesh=mesh if dp > 1 else None,
-        fsdp_params=dp < 2, calibrate=calibrate, tuning_cache=tuning_cache,
-        executor=executor,
+        remat_policy=remat_policy,
+        mesh=mesh if dp > 1 or pipeline else None,
+        fsdp_params=dp < 2 or pipeline, calibrate=calibrate,
+        tuning_cache=tuning_cache, executor=executor, pipeline=pipeline,
         **optim.memory_model_kw(optimizer, fused=executor == "flat"))
-    loss_fn = make_loss_fn(cfg, dtype, remat_policy=plan.remat_policy)
-    if dp > 1:
-        ex = engine.ShardedExecutor(loss_fn, optimizer, plan, mesh=mesh,
-                                    inner=executor)
+    if pipeline:
+        staged = make_staged_loss(cfg, dtype, remat_policy=plan.remat_policy)
+        ex = engine.PipelinedExecutor(staged, optimizer, plan, mesh=mesh,
+                                      fsdp=fsdp)
+        executor, loss_fn = "pipelined", None
     else:
-        ex = engine.get_executor(executor)(loss_fn, optimizer, plan)
+        loss_fn = make_loss_fn(cfg, dtype, remat_policy=plan.remat_policy)
+        if dp > 1:
+            ex = engine.ShardedExecutor(loss_fn, optimizer, plan, mesh=mesh,
+                                        inner=executor)
+        else:
+            ex = engine.get_executor(executor)(loss_fn, optimizer, plan)
     params = abstract_params(cfg)
     return StepBundle(
         "train", ex.step_split,

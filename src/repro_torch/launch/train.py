@@ -59,6 +59,21 @@ memory beside the per-device estimate) to ``PATH.rank<r>.json``.
       --arch qwen2-1.5b --reduced --steps 4 --mesh 2:1 --executor flat \
       [--device cpu]
 
+Pipeline parallelism: ``--mesh DATA:MODEL`` with MODEL > 1 (and DATA ×
+MODEL the world size) routes the step through
+:class:`engine.PipelinedExecutor`, as the reference's launcher does —
+rank ``r`` is stage ``r % MODEL`` of replica ``r // MODEL``, the block
+stack is cut into MODEL stages of a 1F1B schedule over the plan's
+micro-batches (``plan_mbs(pipeline=True)``), and ``--executor`` is
+ignored. ``--fsdp`` (accepted only on such a mesh, with the reference's
+parse-time error otherwise) also shards params over the data axis. Each
+rank holds its stage's leaves; checkpoints stay in the reference's
+format: every rank gathers the whole state, rank 0 writes it, and each
+rank restores its own slice. ``--supervise`` composes with both.
+
+  torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.train \
+      --arch qwen2-1.5b --reduced --steps 4 --mesh 1:2 [--device cpu]
+
 A VLM (``--arch qwen2-vl-72b``) trains text-only, as the JAX package's
 launcher feeds it: no patch embeddings, plain RoPE. An encoder-decoder
 (``--arch seamless-m4t-medium``) is refused before anything is
@@ -67,8 +82,7 @@ reference's launcher fails on the same batch).
 
 Not ported: ``--mesh production`` and ``--multi-pod`` (the TPU GSPMD
 meshes with tensor and FSDP sharding; ROADMAP.md queue 1 item 11, its
-production-mesh half), a model axis > 1 and the ``--fsdp`` that applies
-only there (pipeline parallelism, item 14), and ``--no-donate``. The
+production-mesh half), and ``--no-donate``. The
 launcher keeps no reference to the initial params and optimizer state
 once the Trainer (or the Supervisor) has them, so an executor whose
 update makes new trees (``compiled``, ``fused``, ``streaming``) frees
@@ -171,11 +185,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="host",
                     help="'host' (every rank of the world on the data "
                          "axis) or an explicit 'DATA:MODEL' axis spec such "
-                         "as '2:1'; 'production' and MODEL > 1 are not "
-                         "ported")
+                         "as '2:1' (MODEL > 1: 1F1B pipeline stages); "
+                         "'production' is not ported")
     ap.add_argument("--fsdp", action="store_true",
                     help="shard params over the data axis of a pipelined "
-                         "'DATA:MODEL' mesh (not ported)")
+                         "'DATA:MODEL' mesh (MODEL > 1)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="the 2-pod production mesh (not ported)")
     ap.add_argument("--report", default=None, metavar="PATH",
@@ -211,32 +225,44 @@ def memory_kw(args, optimizer) -> dict:
                                         fused=args.executor == "flat"))
 
 
+FSDP_NOTE = ("--fsdp applies to the pipelined path: pass an explicit "
+             "'DATA:MODEL' mesh spec with MODEL > 1")
+
+
 def build_mesh(args, device_type: str):
-    """This rank's data-parallel mesh under torchrun (None for a single
-    process with the default ``--mesh host``). Refuses what is not
-    ported, naming the ROADMAP item that holds it, and a spec that does
-    not cover the world."""
+    """This rank's mesh under torchrun (None for a single process with the
+    default ``--mesh host``): the data-parallel one, or with MODEL > 1 the
+    pipeline mesh and its axis groups. Refuses what is not ported, naming
+    the ROADMAP item that holds it, ``--fsdp`` off a pipeline mesh, and a
+    spec that does not cover the world."""
     if args.mesh == "production" or args.multi_pod:
         mesh_lib.make_production_mesh(multi_pod=args.multi_pod)  # raises
     world = mesh_lib.world_size()
     data, model = (world, 1) if args.mesh == "host" else \
         mesh_lib.parse_mesh_spec(args.mesh, world)
-    if model > 1 or args.fsdp:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}{' --fsdp' if args.fsdp else ''}: a model "
-            "axis > 1 pipelines the block stack (1F1B), and --fsdp applies "
-            "only there; not ported (ROADMAP.md queue 1 item 14)")
-    if data != world:
-        raise ValueError(f"mesh spec {args.mesh!r} puts {data} ranks on the "
-                         f"data axis but the world has {world}: give every "
-                         "rank of the world a place on the mesh")
+    if args.fsdp and model < 2:
+        raise ValueError(FSDP_NOTE)
+    if data * model != world:
+        raise ValueError(f"mesh spec {args.mesh!r} puts {data * model} "
+                         f"ranks on the mesh but the world has {world}: "
+                         "give every rank of the world a place on the mesh")
     if world == 1:
         return None
-    return mesh_lib.init_world(device_type)
+    return mesh_lib.init_world(device_type, model=model)
 
 
 def _data_parallel(mesh) -> bool:
     return mesh is not None and mesh_lib.data_parallel_size(mesh) > 1
+
+
+def _pipelined(mesh) -> bool:
+    return mesh is not None and mesh_lib.axis_size(
+        mesh, mesh_lib.MODEL_AXIS) > 1
+
+
+def _on_mesh(mesh) -> bool:
+    """A plan for this mesh is per device (data-parallel or pipelined)."""
+    return _data_parallel(mesh) or _pipelined(mesh)
 
 
 def plan_budget(args, device, mesh=None) -> Optional[int]:
@@ -255,25 +281,35 @@ def plan_budget(args, device, mesh=None) -> Optional[int]:
 
 def build_plan(cfg, args, optimizer, device, mesh=None) -> engine.MBSPlan:
     """The launcher's batch geometry (:func:`memory_kw`, :func:`plan_budget`).
-    With a data-parallel ``mesh`` the plan is per device and replicates
-    params (``fsdp_params=False``, the ``ShardedExecutor``'s layout)."""
-    dp = _data_parallel(mesh)
+    On a data-parallel or pipeline ``mesh`` the plan is per device with
+    params not FSDP-sharded (``fsdp_params=False``, the reference
+    launcher's host-mesh plan); a pipeline mesh plans with
+    ``pipeline=True``."""
+    on = _on_mesh(mesh)
     return engine.plan_mbs(
         args.mini_batch, num_microbatches=args.microbatches,
         model_cfg=cfg, seq_len=args.seq,
         budget_bytes=plan_budget(args, device, mesh), device=device,
         normalization=args.normalization, remat_policy=args.remat_policy,
         calibrate=args.calibrate, tuning_cache=args.tuning_cache,
-        executor=args.executor, mesh=mesh if dp else None,
-        fsdp_params=not dp, **memory_kw(args, optimizer))
+        executor=args.executor, mesh=mesh if on else None,
+        fsdp_params=not on, pipeline=_pipelined(mesh),
+        **memory_kw(args, optimizer))
 
 
 def build_executor(cfg, plan, args, optimizer, guard: bool = False,
                    mesh=None):
     """``--executor``'s executor; with a data-parallel ``mesh`` it is the
     inner strategy of a :class:`engine.ShardedExecutor` (per-rank
-    accumulation, one gradient all-reduce per mini-batch)."""
+    accumulation, one gradient all-reduce per mini-batch); on a pipeline
+    mesh it is the :class:`engine.PipelinedExecutor` of
+    ``steps.make_staged_loss`` (``--executor`` ignored)."""
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    if _pipelined(mesh):
+        staged = steps.make_staged_loss(cfg, dtype=dtype,
+                                        remat_policy=plan.remat_policy)
+        return engine.PipelinedExecutor(staged, optimizer, plan, mesh=mesh,
+                                        fsdp=args.fsdp, guard=guard)
     loss_fn = steps.make_loss_fn(cfg, dtype=dtype,
                                  remat_policy=plan.remat_policy)
     if _data_parallel(mesh):
@@ -297,7 +333,7 @@ def make_build(cfg, args, ds, optimizer, device, guard: bool = False,
                                   mesh=mesh)
         pipeline = engine.Pipeline(
             ds, plan, prefetch=args.prefetch, device=device,
-            sharding=executor.shard if _data_parallel(mesh) else None)
+            sharding=executor.shard if _on_mesh(mesh) else None)
         return executor, executor.step_split, pipeline
     return build
 
@@ -308,14 +344,15 @@ def make_plan_ctx(cfg, args, optimizer, device, mesh=None
     an OOM re-plan goes through the same ``plan_mbs`` the launcher used,
     and the observed failure lands under the same tuning-cache key. The
     budget is the one asked for (None: the re-plan halves instead)."""
-    dp = _data_parallel(mesh)
+    on = _on_mesh(mesh)
     return dict(
         model_cfg=cfg, seq_len=args.seq,
         budget_bytes=(int(args.hbm_budget_gb * GIB) if args.hbm_budget_gb
                       else None),
-        device=device, executor=args.executor, mesh=mesh if dp else None,
+        device=device, executor=args.executor, mesh=mesh if on else None,
         tuning_cache=args.tuning_cache,
-        mm_kw=dict(memory_kw(args, optimizer), fsdp_params=not dp))
+        mm_kw=dict(memory_kw(args, optimizer), fsdp_params=not on,
+                   pipeline=_pipelined(mesh)))
 
 
 def run_trainer(trainer, state: Dict[str, object], args,
@@ -401,13 +438,19 @@ def write_report(path: str, mesh, plan, cfg, args, history, base: dict,
     if mesh is not None:
         root, ext = os.path.splitext(path)
         path = f"{root}.rank{rank}{ext or '.json'}"
-    dp = _data_parallel(mesh)
+    on = _on_mesh(mesh)
     est = memory_model.estimate(
         cfg, args.seq, remat_policy=plan.remat_policy,
-        mesh=mesh if dp else None, fsdp_params=not dp,
+        mesh=mesh if on else None, fsdp_params=not on,
+        pipeline=_pipelined(mesh),
         **memory_kw(args, default_optimizer(args)))
     stats = engine.collective_stats()
     counts = kernels.launch_counts()
+
+    def since(now, then):
+        if isinstance(now, dict):
+            return {k: since(v, then.get(k, 0)) for k, v in now.items()}
+        return now - then
     cuda = device.type == "cuda"
     rep = {
         "rank": rank, "world": mesh_lib.world_size(),
@@ -418,7 +461,8 @@ def write_report(path: str, mesh, plan, cfg, args, history, base: dict,
         "plan": plan.describe(), "local_micro": plan.local_micro,
         "num_micro_batches": plan.num_micro_batches,
         "history": history,
-        "all_reduce": {k: stats[k] - base["collectives"][k] for k in stats},
+        "mesh": None if mesh is None else dict(mesh),
+        "all_reduce": since(stats, base["collectives"]),
         "launches": {k: counts[k] - base["launches"].get(k, 0)
                      for k in counts},
         "peak_allocated_bytes": (torch.cuda.max_memory_allocated(device)
@@ -467,7 +511,9 @@ def _run(args, device, mesh) -> Dict[str, object]:
         engine.set_cache_path(args.tuning_cache)
     rank0 = mesh is None or mesh.rank == 0
     if mesh is not None and rank0:
-        print(f"[mesh] {mesh_lib.world_size()} ranks on the data axis "
+        where = ("as data x model pipeline stages" if _pipelined(mesh)
+                 else "on the data axis")
+        print(f"[mesh] {mesh_lib.world_size()} ranks {where} "
               f"({dict(mesh)}), backend {mesh.backend}, rank 0 on {device}"
               + (f", ranks sharing the card, each capped at "
                  f"{mesh.memory_fraction:.3f} of its memory"
@@ -505,8 +551,11 @@ def _run(args, device, mesh) -> Dict[str, object]:
     # it to the Trainer: an executor whose update makes new trees then
     # frees it after the first step
     state = {"params": steps.init_params(cfg, seed=0, device=device)}
+    if _pipelined(mesh):  # this rank's stage of the whole, then its state
+        state["params"], _ = executor.prepare(state["params"], {})
     state["opt_state"] = opt.init(state["params"])
-    if getattr(executor, "prepare", None) is not None:
+    if getattr(executor, "prepare", None) is not None \
+            and not _pipelined(mesh):
         state["params"], state["opt_state"] = executor.prepare(
             state["params"], state["opt_state"])
     if args.supervise:
@@ -524,7 +573,8 @@ def _run(args, device, mesh) -> Dict[str, object]:
                                  ckpt_every=args.ckpt_every,
                                  ckpt_keep=args.ckpt_keep,
                                  log_every=args.log_every, writer=rank0,
-                                 **log)
+                                 layout=(executor if _pipelined(mesh)
+                                         else None), **log)
         params, opt_state, _ = run_trainer(trainer, state, args,
                                            quiet=not rank0)
         history = trainer.history
@@ -538,6 +588,11 @@ def _run(args, device, mesh) -> Dict[str, object]:
               f"({calls / max(len(history), 1):.2f} a step), "
               f"{stats['bytes'] - base['collectives']['bytes']} B reduced",
               flush=True)
+        if _pipelined(mesh):
+            print(f"[mesh] rank 0 by axis {stats['by_axis']}, "
+                  f"point-to-point {stats['p2p']}, all-gather "
+                  f"{stats['all_gather']}, reduce-scatter "
+                  f"{stats['reduce_scatter']}", flush=True)
     if args.report:
         engine.time_collectives(False)
         out["report"] = write_report(args.report, mesh, out["plan"], cfg,

@@ -22,6 +22,7 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+assert "repro_torch.engine.pipelined" in sys.modules
 bad = sorted(k for k in sys.modules
              if k.startswith("jax") or k == "repro" or k.startswith("repro."))
 print("LEAKED", bad)
@@ -79,9 +80,12 @@ def test_spawned_ranks_import_neither_jax_nor_the_jax_package(tmp_path):
     load none."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch_mesh_cases
+    import torch_pipeline_cases
     from repro_torch.launch.world import LocalWorld
     with LocalWorld(2, store_dir=str(tmp_path), timeout_s=120) as world:
         assert world.run(torch_mesh_cases.leaked_modules) == [[], []]
+        # the pipelined executor's cases, a 1 x 2 pipeline mesh built
+        assert world.run(torch_pipeline_cases.leaked_modules) == [[], []]
 
 
 def test_launcher_runs_on_cpu_when_asked():

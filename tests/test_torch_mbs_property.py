@@ -6,13 +6,12 @@ bound (2e-5); and the planner's invariants: admission
 monotone in the budget and in the remat-policy weight, the joint
 (policy, N_μ) choice within the budget it was admitted under, the
 data-parallel plan covering the global batch within the per-device
-budget — each plan equal to the reference's for the same draw.
-
-The reference's pipeline-parallel properties
-(``test_pipeline_admission_monotone_in_budget``,
-``test_pipeline_plan_never_exceeds_per_device_budget``,
-``test_pipeline_non_dividing_stages_raise``; ``plan_mbs(pipeline=True)``)
-wait for pipeline parallelism, ROADMAP.md queue 1 item 14.
+budget, and the pipeline-aware admission (``plan_mbs(pipeline=True)``:
+monotone in the budget, within the per-device budget, non-dividing stage
+counts refused) — each plan equal to the reference's for the same draw.
+Beyond the reference's properties: ``pipeline_activation_bytes_per_sample``
+and ``plan_mbs(pipeline=True)`` equal the reference's exactly over full
+configs, stage counts and remat policies.
 """
 import numpy as np
 import pytest
@@ -115,16 +114,19 @@ def _budget_around(cfg, seq, frac):
     return int(est.total(0) + frac * 64 * est.activation_bytes_per_sample)
 
 
-def _plan(arch, *args, mesh=None, **kw):
-    """The port's plan, and the reference's equal to it field by field."""
-    got = engine.plan_mbs(*args, model_cfg=_CFGS[arch], device="cpu",
+def _plan(arch, *args, mesh=None, model=1, cfgs=None, **kw):
+    """The port's plan, and the reference's equal to it field by field
+    (``mesh``: the data extent; ``model``: the model axis)."""
+    cfgs = cfgs or (_CFGS, _JCFGS)
+    got = engine.plan_mbs(*args, model_cfg=cfgs[0][arch], device="cpu",
                           mesh=None if mesh is None else
-                          {"data": mesh, "model": 1}, **kw)
-    want = jengine.plan_mbs(*args, model_cfg=_JCFGS[arch],
-                            mesh=None if mesh is None else _FakeMesh(mesh),
-                            **kw)
+                          {"data": mesh, "model": model}, **kw)
+    want = jengine.plan_mbs(*args, model_cfg=cfgs[1][arch],
+                            mesh=None if mesh is None else
+                            _FakeMesh(mesh, model), **kw)
     for f in ("micro_batch_size", "num_micro_batches", "pad",
-              "remat_policy", "auto_policy", "data_parallel", "local_micro"):
+              "normalization", "remat_policy", "auto_policy",
+              "data_parallel", "local_micro", "pipeline_stages"):
         assert getattr(got, f) == getattr(want, f), f
     return got
 
@@ -243,6 +245,109 @@ def test_mesh_plan_never_exceeds_per_device_budget(arch, seq, frac, dpe,
                                 mesh=mesh, fsdp_params=fsdp)
     if est.total(1) <= budget:
         assert est.total(plan.local_micro) <= budget
+
+
+# ---------------------------------------------------------------------------
+# pipeline-aware admission (plan_mbs(pipeline=True))
+# ---------------------------------------------------------------------------
+
+# archs whose reduced block stacks split over 2 stages (num_periods = 2)
+_PIPE_ARCHS = ["qwen2-1.5b", "mamba2-780m"]
+
+
+@settings(max_examples=20, deadline=None)
+@given(arch=st.sampled_from(_PIPE_ARCHS), seq=st.sampled_from([16, 64]),
+       f1=st.floats(0.0, 1.0), f2=st.floats(0.0, 1.0),
+       dpe=st.integers(0, 4))
+def test_pipeline_admission_monotone_in_budget(arch, seq, f1, f2, dpe):
+    """More per-device memory never admits a smaller micro-batch on a
+    pipelined 2-D mesh (fixed stage count)."""
+    cfg = _CFGS[arch]
+    lo, hi = sorted([_budget_around(cfg, seq, f1),
+                     _budget_around(cfg, seq, f2)])
+
+    def admitted(budget):
+        return _plan(arch, 256, seq_len=seq, budget_bytes=budget,
+                     mesh=2 ** dpe, model=2, fsdp_params=False,
+                     pipeline=True).micro_batch_size
+
+    assert admitted(lo) <= admitted(hi)
+
+
+@settings(max_examples=20, deadline=None)
+@given(arch=st.sampled_from(_PIPE_ARCHS), seq=st.sampled_from([16, 64]),
+       frac=st.floats(0.0, 1.0), dpe=st.integers(0, 4))
+def test_pipeline_plan_never_exceeds_per_device_budget(arch, seq, frac,
+                                                       dpe):
+    """The pipelined plan's own per-device estimate (stage-local
+    activations × the warmup depth) fits the budget it was admitted under
+    whenever anything fits, and records the mesh's stage count."""
+    cfg = _CFGS[arch]
+    budget = _budget_around(cfg, seq, frac)
+    plan = _plan(arch, 256, seq_len=seq, budget_bytes=budget, mesh=2 ** dpe,
+                 model=2, fsdp_params=False, pipeline=True)
+    assert plan.pipeline_stages == 2
+    est = memory_model.estimate(cfg, seq, remat_policy=plan.remat_policy,
+                                mesh={"data": 2 ** dpe, "model": 2},
+                                fsdp_params=False, pipeline=True)
+    if est.total(1) <= budget:
+        assert est.total(plan.local_micro) <= budget
+
+
+@settings(max_examples=15, deadline=None)
+@given(arch=st.sampled_from(_PIPE_ARCHS), seq=st.sampled_from([16, 64]),
+       stages=st.integers(3, 7))
+def test_pipeline_non_dividing_stages_raise(arch, seq, stages):
+    """A model axis that does not divide the block stack is refused at
+    plan time, in both packages, with the same words."""
+    if _CFGS[arch].num_periods % stages == 0:
+        return  # a dividing count: nothing to refuse
+    for plan_mbs, cfg, mesh in (
+            (engine.plan_mbs, _CFGS[arch], {"data": 1, "model": stages}),
+            (jengine.plan_mbs, _JCFGS[arch], _FakeMesh(1, stages))):
+        with pytest.raises(ValueError,
+                           match="does not divide the block stack"):
+            plan_mbs(256, model_cfg=cfg, seq_len=seq, mesh=mesh,
+                     pipeline=True)
+
+
+# full configs whose period stacks divide 2, 4 and 7 stages or some of them
+_FULL_PIPE = ["qwen2-1.5b", "mamba2-780m", "gemma2-9b"]
+_FULL_CFGS = ({a: configs.get(a) for a in _FULL_PIPE},
+              {a: jconfigs.get(a) for a in _FULL_PIPE})
+
+
+@pytest.mark.parametrize("arch", _FULL_PIPE)
+@pytest.mark.parametrize("stages", [2, 4, 7])
+def test_pipeline_plans_equal_the_reference(arch, stages):
+    """``pipeline_activation_bytes_per_sample`` and the whole
+    ``plan_mbs(pipeline=True)`` (auto micro-batch and, with ``"auto"``,
+    the joint policy) equal the reference's at full width, for every remat
+    policy, at a budget around the stage's state."""
+    cfg, jcfg = _FULL_CFGS[0][arch], _FULL_CFGS[1][arch]
+    if cfg.num_periods % stages:
+        with pytest.raises(ValueError, match="does not divide"):
+            _plan(arch, 64, seq_len=512, mesh=1, model=stages,
+                  pipeline=True, budget_bytes=1 << 34, cfgs=_FULL_CFGS)
+        return
+    for policy in remat.POLICIES:
+        for act_bytes in (2, 4):
+            got = memory_model.pipeline_activation_bytes_per_sample(
+                cfg, 512, stages, act_bytes, remat_policy=policy)
+            want = jmemory_model.pipeline_activation_bytes_per_sample(
+                jcfg, 512, stages, act_bytes, remat_policy=policy)
+            assert got == want, (policy, act_bytes)
+    for dp in (1, 2):
+        mesh = {"data": dp, "model": stages}
+        state = memory_model.estimate(cfg, 512, mesh=mesh,
+                                      fsdp_params=False,
+                                      pipeline=True).total(0)
+        for frac in (0.5, 2.0, 8.0):
+            budget = int(state + frac * (1 << 30))
+            for policy in list(remat.POLICIES) + ["auto"]:
+                _plan(arch, 64, seq_len=512, mesh=dp, model=stages,
+                      pipeline=True, fsdp_params=False, budget_bytes=budget,
+                      remat_policy=policy, cfgs=_FULL_CFGS)
 
 
 @settings(max_examples=30, deadline=None)

@@ -555,15 +555,99 @@ def test_launcher_on_two_gloo_ranks_matches_reference(tmp_path):
 
 
 def test_launcher_refuses_what_is_not_ported(capsys):
-    """The production meshes, a model axis and --fsdp are refused naming
-    their ROADMAP items; a spec larger than the world, as the reference
-    words it."""
+    """The production meshes are refused naming their ROADMAP item; a spec
+    larger than the world, and --fsdp off a pipelined mesh, with the
+    reference's words (its parse-time --fsdp error)."""
     from repro_torch.launch import train
     for argv, words in [(["--mesh", "production"], "item 11"),
                         (["--multi-pod"], "item 11"),
                         (["--mesh", "2:1"], "needs 2 devices but only 1"),
-                        (["--mesh", "1:1", "--fsdp"], "item 14")]:
+                        (["--mesh", "1:1", "--fsdp"],
+                         "--fsdp applies to the pipelined path: pass an "
+                         "explicit 'DATA:MODEL' mesh spec with MODEL > 1")]:
         with pytest.raises(SystemExit):
             train.main(["--arch", "qwen2-1.5b", "--reduced", "--device",
                         "cpu", "--steps", "1", *argv])
         assert words in capsys.readouterr().err, argv
+
+
+def _reference_pipelined_run(params, steps):
+    """The reference's PipelinedExecutor on ``pipeline_mesh(1, 2)``,
+    driven as its launcher drives ``--mesh 1:2`` (build_plan,
+    build_executor, Pipeline with the executor's batch shardings,
+    Trainer), from ``params``: (plan, losses, final params, final
+    optimizer state)."""
+    import argparse
+    from conftest import pipeline_mesh
+    from repro.data import LMDataset as JLMDataset
+    from repro.launch import train as jtrain
+    ns = argparse.Namespace(
+        arch="qwen2-1.5b", reduced=True, mini_batch=16, microbatches=4,
+        executor="compiled", normalization="paper", remat_policy="auto",
+        hbm_budget_gb=16.0, calibrate="off", tuning_cache=None, seq=64,
+        lr=0.05, dtype="float32", mesh="1:2", prefetch=0, supervise=False,
+        fsdp=False)
+    mesh = pipeline_mesh(1, 2)
+    cfg = jconfigs.get_reduced("qwen2-1.5b")
+    opt = jtrain.default_optimizer(ns)
+    plan = jtrain.build_plan(cfg, ns, optimizer=opt, mesh=mesh)
+    ex, _ = jtrain.build_executor(cfg, plan, ns, optimizer=opt, mesh=mesh)
+    pipe = jengine.Pipeline(JLMDataset(cfg.vocab_size, 64, seed=0), plan,
+                            prefetch=0, sharding=ex.batch_shardings)
+    losses = []
+    p, s, _ = jengine.Trainer(
+        ex.step_split, pipe, log_every=1,
+        log_fn=lambda st, m, t: losses.append(m["loss"])).fit(
+            jax.tree.map(jnp.asarray, params),
+            opt.init(jax.tree.map(jnp.asarray, params)), steps)
+    return plan, losses, p, s
+
+
+def test_pipelined_launcher_checkpoint_round_trips_both_packages(tmp_path):
+    """``torchrun --nproc_per_node 2 -m repro_torch.launch.train --mesh
+    1:2``: both ranks resume their stage from a reference-format
+    checkpoint of the reference's initial params, train 3 steps with the
+    reference's pipelined launcher's plan and losses (on every rank), and
+    the checkpoint rank 0 writes from the gathered state restores in the
+    JAX package to the reference's trained params and momentum."""
+    import json
+    from repro.checkpoint import checkpoint as jckpt
+    from repro.models import transformer as jtransformer
+    cfg = jconfigs.get_reduced("qwen2-1.5b")
+    params = jax.tree.map(np.asarray, jtransformer.init_params(
+        cfg, jax.random.PRNGKey(0)))
+    tparams = weights.from_reference(params, "cpu")
+    opt = optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)
+    ckpt = str(tmp_path / "ckpt")
+    ckpt_lib.save(ckpt, 0, {"params": tparams,
+                            "opt_state": opt.init(tparams)})
+    report = str(tmp_path / "run.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "repro_torch.launch.train",
+           "--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+           "--mesh", "1:2", "--microbatches", "4", "--hbm-budget-gb", "16",
+           "--calibrate", "off", "--prefetch", "0", "--steps", "3",
+           "--log-every", "1", "--ckpt-dir", ckpt, "--resume",
+           "--report", report]
+    out = subprocess.run(cmd, cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    jplan, want, jparams, jstate = _reference_pipelined_run(params, 3)
+    assert jplan.describe() in out.stdout
+    assert "[mesh] 2 ranks as data x model pipeline stages" in out.stdout
+    reps = [json.load(open(str(tmp_path / f"run.rank{r}.json")))
+            for r in range(2)]
+    got = [[h["loss"] for h in rep["history"]] for rep in reps]
+    assert got[0] == got[1]
+    np.testing.assert_allclose(got[0], want, atol=ATOL, rtol=0)
+    for r, rep in enumerate(reps):
+        assert rep["all_reduce"]["by_axis"] == {"data+model": 3}
+        assert rep["mesh"] == {"data": 1, "model": 2}
+    assert ckpt_lib.committed_steps(ckpt) == [0, 3]
+    template = {"params": jparams, "opt_state": jstate}
+    back = jckpt.restore(ckpt, template, 3)
+    assert_close(back["params"], jparams, "checkpointed params")
+    assert_close(back["opt_state"]["mom"], jstate["mom"],
+                 "checkpointed momentum")

@@ -224,14 +224,49 @@ def test_prefill_and_decode_bundles_match_the_reference(arch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": mesh_lib.make_host_mesh(data=1, model=2)},
-    {"mesh": mesh_lib.make_host_mesh(data=2, model=4)},
-    {"fsdp": True}], ids=["model-axis", "data-and-model", "fsdp"])
-def test_pipelined_and_fsdp_steps_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        steps.build_train_step(configs.get_reduced("qwen2-1.5b"),
-                               configs.SHAPES["train_4k"], budget_bytes=V5E,
-                               device="cpu", **kw)
+    {"data": 1, "model": 2},
+    {"data": 2, "model": 2},
+    {"data": 2, "model": 2, "fsdp": True}],
+    ids=["model-axis", "data-and-model", "fsdp"])
+def test_pipelined_and_fsdp_steps_are_refused(kw, tmp_path):
+    """Once refused (pipeline parallelism unported), now built as the
+    reference builds them: a mesh with a model axis routes through
+    ``PipelinedExecutor`` with the reference's plan (``pipeline=True``),
+    the staged loss and one rank's abstract block; and the bundle's step
+    runs — on a gloo world of 2 ranks for the 2-stage mesh (one step
+    against the single-device executor's)."""
+    from conftest import pipeline_mesh
+    kw = dict(kw)
+    fsdp = kw.pop("fsdp", False)
+    shape = configs.SHAPES["train_4k"]
+    got = steps.build_train_step(
+        configs.get_reduced("qwen2-1.5b"), shape, num_microbatches=8,
+        mesh=mesh_lib.make_host_mesh(**kw), fsdp=fsdp, budget_bytes=V5E,
+        device="cpu")
+    want = jsteps.build_train_step(
+        jconfigs.get_reduced("qwen2-1.5b"), shape, num_microbatches=8,
+        mesh=pipeline_mesh(kw["data"], kw["model"]), fsdp=fsdp)
+    for f in ("micro_batch_size", "num_micro_batches", "data_parallel",
+              "local_micro", "remat_policy", "pipeline_stages"):
+        assert getattr(got.plan, f) == getattr(want.plan, f), f
+    assert got.executor == want.executor == "pipelined"
+    ex = got.fn.__self__
+    assert isinstance(ex, engine.PipelinedExecutor) and ex.fsdp == fsdp
+    assert got.arg_shapes[2]["tokens"].shape == (
+        8, got.plan.local_micro, shape.seq_len)
+    with pytest.raises(ValueError, match="does not divide the block stack"):
+        steps.build_train_step(  # 4 stages of reduced qwen2's 2 layers
+            configs.get_reduced("qwen2-1.5b"), shape, num_microbatches=8,
+            mesh=mesh_lib.make_host_mesh(data=2, model=4), budget_bytes=V5E,
+            device="cpu")
+    if kw == {"data": 1, "model": 2}:
+        import torch_pipeline_cases as cases
+        from repro_torch.launch.world import LocalWorld
+        with LocalWorld(2, store_dir=str(tmp_path), timeout_s=120) as w:
+            losses = w.run(cases.bundle_step, "qwen2-1.5b", 16, 4)
+        assert losses[0] == losses[1]
+        np.testing.assert_allclose(losses[0][0], losses[0][1], rtol=0,
+                                   atol=2e-6)
 
 
 def test_data_parallel_mesh_wraps_the_executor():

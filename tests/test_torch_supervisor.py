@@ -729,3 +729,72 @@ def test_on_replan_writes_the_references_garbage(tmp_path):
         assert fp.fired_kinds() == ["corrupt_cache"]
     assert got.read_text() == want.read_text()
     faults.on_replan(str(got))  # no active plan: a no-op
+
+
+# ---------------------------------------------------------------------------
+# a fault on one rank alone, agreed across the ranks (beyond the reference,
+# whose one controller sees every device's OOM once)
+# ---------------------------------------------------------------------------
+
+def _staged_np():
+    from conftest import staged_batch, staged_params
+    return (jax.tree.map(np.asarray, staged_params()),
+            [jax.tree.map(np.asarray, staged_batch(8, seed=t))
+             for t in range(4)])
+
+
+@pytest.mark.parametrize("executor", ["sharded", "pipelined"])
+def test_one_rank_oom_is_agreed_across_ranks(world2, executor):
+    """``oom_at(1, rank=1)`` fires on rank 1 alone: both ranks record it
+    at the same step, degrade to the same plan, resume from the same step
+    and end bit-identical — and equal to the run where the fault fires on
+    every rank — within seconds (the process group's timeout is 120 s
+    here), with one all-reduce in each step either way."""
+    import torch_pipeline_cases as pipe_cases
+    sharded = executor == "sharded"
+    mesh = {"data": 2, "model": 1} if sharded else {"data": 1, "model": 2}
+    plan = engine.plan_mbs(8, micro_batch_size=4, normalization="exact",
+                           mesh=mesh, pipeline=not sharded, device="cpu")
+    params, batches = _staged_np()
+
+    def run(specs):
+        runs = world2.run(pipe_cases.supervised, mesh["data"],
+                          mesh["model"], plan, specs, params, batches,
+                          sharded, timeout_s=60)
+        for r in runs:
+            assert r["seconds"] < 60
+            assert r["records"] == runs[0]["records"]
+            assert r["plan"] == runs[0]["plan"]
+            assert r["calls"] == [1] * len(r["calls"])
+            for a, b in zip(jax.tree.leaves((r["params"], r["opt_state"])),
+                            jax.tree.leaves((runs[0]["params"],
+                                             runs[0]["opt_state"]))):
+                assert np.array_equal(a, b)
+        return runs
+
+    one = run([faults.oom_at(1, rank=1)])
+    assert [r["fired"] for r in one] == [[], [("oom", 1)]]
+    assert one[0]["records"] == [("oom", 1, "remat period->full", 1)]
+    every = run([faults.oom_at(1)])
+    assert one[0]["records"] == every[0]["records"]
+    assert one[0]["plan"] == every[0]["plan"]
+    assert one[0]["history"] == every[0]["history"]
+    for a, b in zip(jax.tree.leaves((one[0]["params"], one[0]["opt_state"])),
+                    jax.tree.leaves((every[0]["params"],
+                                     every[0]["opt_state"]))):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("inner", ["flat", "compiled"])
+def test_first_step_oom_on_one_rank_is_agreed(world2, inner):
+    """An OOM on rank 1 at its first dispatch, before its loss has ever
+    returned: it learns the metrics' layout from a fake-tensor trace of
+    the (reduced qwen2) loss, joins the step's one all-reduce with zeros,
+    and both ranks raise the same error naming rank 1."""
+    plan = engine.plan_mbs(8, micro_batch_size=4, normalization="exact",
+                           mesh={"data": 2, "model": 1}, device="cpu")
+    runs = world2.run(mesh_cases.agreed_first_step, inner,
+                      configs.get_reduced("qwen2-1.5b"), plan, timeout_s=60)
+    assert runs[0] == runs[1]
+    err, calls = runs[0]
+    assert "rank(s) [1] of 2" in err and calls == 1

@@ -180,3 +180,26 @@ def unsupervised(mesh, plan, guard, params_np, steps):
     params, state, _ = engine.Trainer(step_fn, pipeline, log_fn=None).fit(
         *_state(params_np, make_opt(TINY_OPT)), steps)
     return to_np(params), to_np(state)
+
+
+def agreed_first_step(mesh, inner, cfg, plan):
+    """One sharded step of ``cfg``'s loss (fp32, on LMDataset batches)
+    with an OOM injected on rank 1 at the first dispatch: the error this
+    rank raised (None if none) and the all-reduces issued."""
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import steps
+    loss_fn = steps.make_loss_fn(cfg, torch.float32,
+                                 remat_policy=plan.remat_policy)
+    opt = make_opt(TINY_OPT)
+    ex = engine.ShardedExecutor(loss_fn, opt, plan, mesh=mesh, inner=inner)
+    params = steps.init_params(cfg, seed=0, device="cpu")
+    split = ex.stage(plan.split(LMDataset(cfg.vocab_size, 16, seed=0)
+                                .batch(plan.mini_batch_size, 0)))
+    engine.reset_collective_stats()
+    err = None
+    with faults.inject(faults.FaultPlan(faults.oom_at(0, rank=1))):
+        try:
+            ex.step_split(params, opt.init(params), split)
+        except torch.OutOfMemoryError as e:
+            err = str(e)
+    return err, engine.collective_stats()["calls"]
