@@ -135,7 +135,8 @@ Phases (any failure exits non-zero before the last line is printed):
      the unguarded step's, and a step poisoned by ``faults.nan_at``
      leaving every buffer and the step counter ``torch.equal``; the
      supervised launcher with that NaN retried against the unfaulted
-     run (phase 8's rule); then the four executors at 2 layers;
+     run (phase 8's rule), at GUARD_SUPERVISED_LAYERS = 4 layers (cut
+     for the run's time limit); then the four executors at 2 layers;
   13a. a real OOM at full width (``oom_ladder_phase``): the supervised
      launcher, ``flat``, mini-batch 16 in one micro-batch, remat
      ``none``, climbs the ladder on real ``torch.OutOfMemoryError``s;
@@ -209,7 +210,7 @@ Phases (any failure exits non-zero before the last line is printed):
   16a. data parallelism through the launcher (``dp_main_path_phase``):
      ``torchrun --standalone --nproc_per_node 2 -m
      repro_torch.launch.train`` for qwen2-1.5b at full width, depth cut
-     to 7 layers (``flat``, bf16 over fp32, seq 1024, mini-batch 16 = 8 ×
+     to DP_LAYERS = 4 layers (``flat``, bf16 over fp32, seq 1024, mini-batch 16 = 8 ×
      micro 2, local micro 1, 3 steps, ``--mesh 2:1``), both ranks on ``cuda:0`` over gloo, each capped at
      0.48 of the card (``launch.mesh.init_world``); the whole command is
      killed with its ranks past DP_TIMEOUT_S. Each rank's ``--report``:
@@ -292,7 +293,8 @@ Phases (any failure exits non-zero before the last line is printed):
      ``torchrun --standalone --nproc_per_node 2 -m
      repro_torch.launch.train --arch qwen2-1.5b --mesh 1:2 --dtype
      bfloat16 --seq 1024 --mini-batch 16 --microbatches 8 --steps 3``:
-     full width and all 28 layers, 14 a stage, SGD-m, both ranks on
+     full width at PP_LAYERS = 8 of 28 layers (cut for the run's time
+     limit), 4 a stage, SGD-m, both ranks on
      ``cuda:0`` over gloo, each capped at 0.48 of the card, the command
      killed whole past PP_TIMEOUT_S. Each rank's ``--report``: losses
      finite, the first near ln(vocab), equal on both ranks; the census of
@@ -304,7 +306,7 @@ Phases (any failure exits non-zero before the last line is printed):
      ``memory_model.estimate(..., pipeline=True)``; K1–K6 launched 0
      times (the reference's pipelined path runs no kernel);
   19b. the same with ``--mesh 2:2 --fsdp``: four ranks, each capped at
-     0.24 of the card, 28 layers (each rank's peak fits its share); the
+     0.24 of the card, 8 layers (each rank's peak fits its share); the
      census adds one model-axis and two data-axis all-reduces a step and
      as many all-gathers as reduce-scatters, equal on every rank;
   19c. (``pp_check_phase``) ``LocalWorld``s of 2 and 4 ranks on the card,
@@ -314,10 +316,25 @@ Phases (any failure exits non-zero before the last line is printed):
      global mini-batches — params and momentum within phase 5's rtol /
      atol 1e-6, shared leaves bit-identical across the ranks.
 
+  20a. the engine contract checker (``repro_torch.analysis``) on the card
+     (``analysis_phase``): the suite over reduced qwen2-1.5b × {compiled,
+     streaming, fused, flat} and ResNet-50 × flat, and the serve suite
+     over qwen2-1.5b and mamba2-780m, each step recorded with the card's
+     synchronizing calls counted (JX003), HLO003 / SRV002 reading
+     ``max_memory_allocated``, the launch counters zeroed around them:
+     zero findings, K1 and K2 launched; the port's tree lint-clean;
+  20b. seeded faults on the card: ``fused`` accumulating in bf16 under an
+     fp32 contract fires JX001, an undonated KV pool SRV001;
+  20c. (``dryrun_phase``) the dry run (``launch.dryrun``) of 18a's step —
+     full width at 4 layers, planned from 18a's tuning cache — on fake
+     CUDA tensors, allocating nothing: the plan 18a's, the predicted peak
+     beside 18a's allocator peak and calibrated prediction, the FLOPs a
+     step and 18a's TFLOP/s from them against the bf16 peak.
+
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
 ``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's,
-15's, 16's, 17's, 18's and 19's numbers)
+15's, 16's, 17's, 18's, 19's and 20's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2478,6 +2495,11 @@ def _same_run(what, ref_host, ref_losses, got_leaves, got_losses, redo):
     return {"bitwise": False, "max_diff": diff, "bound": bound}
 
 
+# 13c's supervised runs: depth cut to 4 of 28 layers for the run's time
+# limit (at 28 their two 12.3 GB host anchors a run took ~12 s)
+GUARD_SUPERVISED_LAYERS = 4
+
+
 def guard_phase(dev) -> dict:
     """13c. The guard on the card. At full qwen2-1.5b through the main
     path's ``flat`` executor: guarded and unguarded steps timed in turns
@@ -2486,8 +2508,9 @@ def guard_phase(dev) -> dict:
     make none that the unguarded does not), and one guarded step on a
     batch poisoned by ``faults.nan_at``: every param and momentum buffer
     and the step counter ``torch.equal`` to copies taken before it. Then
-    the supervised launcher with the NaN injected (``nan_retries`` 1)
-    against the unfaulted supervised run. Then ``compiled``, ``fused``,
+    the supervised launcher at GUARD_SUPERVISED_LAYERS with the NaN
+    injected (``nan_retries`` 1) against the unfaulted supervised run.
+    Then ``compiled``, ``fused``,
     ``streaming`` and ``flat`` at 2 layers (phase 5's size): guarded equal
     to unguarded on a clean batch (phase 8's rule), state untouched on a
     poisoned one, and the guarded peak within the largest leaf + 0.1 GiB
@@ -2572,7 +2595,8 @@ def guard_phase(dev) -> dict:
     gc_collect()
 
     # the supervised launcher: a NaN at step 1, retried, against no fault
-    argv = main_argv("--supervise")
+    argv = main_argv("--supervise", "--layers",
+                     str(GUARD_SUPERVISED_LAYERS))
     ref = run_launcher(dev, argv)
     ref_host = _host(_state_leaves(ref["params"], ref["opt_state"]))
     ref_losses = ref["losses"]
@@ -2679,20 +2703,10 @@ def guard_phase(dev) -> dict:
 
 def sync_calls(fn) -> list:
     """The synchronizing calls ``fn()`` makes, as
-    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
-    import warnings
-    import torch
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    return sorted(str(w.message) for w in seen
-                  if "called a synchronizing" in str(w.message))
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them
+    (``engine.steptrace.sync_calls``)."""
+    from repro_torch.engine import steptrace
+    return steptrace.sync_calls(fn)
 
 
 def gc_collect() -> None:
@@ -3679,12 +3693,13 @@ def family_phases(timed, dev) -> dict:
 # 16a: the launcher under torchrun, full qwen2-1.5b, the main path's
 # settings with 8 micro-batches of 2 (local micro 1 a rank)
 DP_RANKS = 2
-# (depth cut to 7 of 28 layers for the run's time limit: the all-reduce
+# (depth cut to 4 of 28 layers for the run's time limit: the all-reduce
 # of the whole model through gloo's host ring was 94 % of the step)
+DP_LAYERS = 4
 DP_ARGV = ["--arch", "qwen2-1.5b", "--executor", "flat",
            "--dtype", "bfloat16", "--seq", "1024", "--mini-batch", "16",
            "--microbatches", "8", "--steps", "3", "--log-every", "1",
-           "--mesh", f"{DP_RANKS}:1", "--layers", "7"]
+           "--mesh", f"{DP_RANKS}:1", "--layers", str(DP_LAYERS)]
 DP_TIMEOUT_S = 600  # the whole torchrun command; the ranks' own process
 # group times out a collective after launch.mesh.DEFAULT_TIMEOUT_S
 # 16b: the four inners at 2 layers of full width, fp32, against one
@@ -4153,11 +4168,16 @@ def fault_agreement_phase(dev) -> dict:
 # 19. pipeline parallelism: stages sharing the card over gloo
 # ---------------------------------------------------------------------------
 
-# 19a: the launcher under torchrun, full qwen2-1.5b (28 layers, 14 a
-# stage), bf16 over fp32, SGD-m, 8 micro-batches of 2, on a 1 x 2 mesh
+# 19a: the launcher under torchrun, full qwen2-1.5b width at PP_LAYERS (4
+# a stage), bf16 over fp32, SGD-m, 8 micro-batches of 2, on a 1 x 2 mesh;
+# 19b the same on a 2 x 2 mesh with FSDP. Depth cut for the run's time
+# limit: with all 28 layers in 19a and 19b the whole script took 1,184 s
+# of its 1,200 on an H100 80GB HBM3 at 700 W; rank start-up, not depth,
+# is most of either phase
+PP_LAYERS = 8
 PP_ARGV = ["--arch", "qwen2-1.5b", "--dtype", "bfloat16", "--seq", "1024",
            "--mini-batch", "16", "--microbatches", "8", "--steps", "3",
-           "--log-every", "1"]
+           "--log-every", "1", "--layers", str(PP_LAYERS)]
 PP_RUNS = {"19a pipeline 1:2": (2, ["--mesh", "1:2"]),
            "19b pipeline 2:2 fsdp": (4, ["--mesh", "2:2", "--fsdp"])}
 PP_TIMEOUT_S = 400  # the whole torchrun command
@@ -5142,6 +5162,159 @@ def steps_phases(timed, dev) -> dict:
             "check": timed("18d step checks", steps_check_phase, dev)}
 
 
+# ---------------------------------------------------------------------------
+# 20. the engine contract checker and the dry run
+# ---------------------------------------------------------------------------
+
+# 20a: the suite's targets on the card (reduced configs at the reference's
+# analysis geometry: seq 32, mini-batch 32 in 4 micro-batches)
+ANALYSIS_RUNS = [("qwen2_reduced", "compiled"), ("qwen2_reduced", "streaming"),
+                 ("qwen2_reduced", "fused"), ("qwen2_reduced", "flat"),
+                 ("resnet50", "flat")]
+
+
+def analysis_phase(dev) -> dict:
+    """20a / 20b. ``repro_torch.analysis`` on the card: the suite over
+    ANALYSIS_RUNS and the serve suite over both serve targets, each step
+    recorded under ``torch.cuda.set_sync_debug_mode`` (JX003 counts every
+    synchronizing call), HLO003 / SRV002 reading ``max_memory_allocated``,
+    with the launch counters zeroed just before and read just after: zero
+    findings, K1 launched by ``fused`` and ``flat`` and K2 by ``flat``
+    (20a). Then the seeded faults (20b): ``fused`` accumulating in bf16
+    under an fp32 contract (its K1 calls carry the bf16 accumulator)
+    fires JX001, and an undonated pool fires SRV001."""
+    import torch
+    from repro_torch import analysis, engine, kernels
+    from repro_torch.analysis import suite
+
+    card = card_line()
+    gc_collect()
+    reports = {}
+    kernels.reset_launch_counts()
+    for target, ex_name in ANALYSIS_RUNS:
+        rep = analysis.run_suite(target, executor=ex_name, lint=False,
+                                 device=dev)
+        reports[f"{target}/{ex_name}"] = rep
+    for arch in analysis.SERVE_TARGETS:
+        reports[f"serve {arch}"] = analysis.run_serve_suite(arch, device=dev)
+    counts = kernels.launch_counts()
+    lint = analysis.lint_repo()
+    out = {"card": card, "counts": counts, "lint_findings": len(lint),
+           "runs": {}}
+    for name, rep in reports.items():
+        check(rep.ok, f"20a {name}: {rep.format()}")
+        out["runs"][name] = {k: rep.context.get(k) for k in
+                             ("peak_bytes", "peak_source",
+                              "kernel_launches")}
+        out["runs"][name]["checks"] = list(rep.checks_run)
+        print(f"20a {name} [{card}]: zero findings over "
+              f"{', '.join(rep.checks_run)}; peak "
+              f"{rep.context.get('peak_bytes')} B "
+              f"({rep.context.get('peak_source')}), kernel launches "
+              f"{rep.context.get('kernel_launches', 0)}", flush=True)
+    check(not lint, f"20a: the lint found {[f.format() for f in lint]}")
+    n_micro = suite.ANALYSIS_MICROS
+    # fused and flat over qwen2 and flat over ResNet-50: K1 once a micro-
+    # batch and launch group; flat's K2 once a bucket
+    check(counts["grad_accum"] >= 3 * n_micro
+          and counts["fused_sgd_mom"] >= 2,
+          f"20a: launches {counts}, expected K1 from fused and flat and K2 "
+          f"from flat")
+    print(f"20a launches (counters zeroed before, read after): {counts}",
+          flush=True)
+
+    # 20b: the seeded faults fire on the card
+    built = suite.TARGETS["qwen2_reduced"].build("fused", None, "period",
+                                                 dev)
+    fp32_plan = built["plan"]
+    built["plan"] = dataclasses.replace(fp32_plan,
+                                        accum_dtype=torch.bfloat16)
+    ex = suite.make_executor(built, "fused", None)
+    params, state, split = suite._state(ex, built, dev)
+    trace = ex.trace_step(params, state, split)
+    jx001 = analysis.check_accum_dtype(trace, fp32_plan, params)
+    check({f.rule for f in jx001} == {"JX001"},
+          f"20b: a bf16 accumulator gave {[f.format() for f in jx001]}")
+    bf16_k1 = sum(1 for c in trace.kernels if c.name == "grad_accum"
+                  and c.launched and "bfloat16" in c.write_dtypes)
+    srv = analysis.run_serve_suite("qwen2-1.5b", donate=False, device=dev)
+    check({f.rule for f in srv.findings} == {"SRV001"},
+          f"20b: an undonated pool gave {srv.format()}")
+    out["seeded"] = {"bf16_accumulator": sorted({f.rule for f in jx001}),
+                     "bf16_k1_calls": bf16_k1,
+                     "undonated_pool": sorted({f.rule
+                                               for f in srv.findings})}
+    print(f"20b [{card}]: a bf16 accumulator fired {len(jx001)} JX001 "
+          f"finding(s) ({bf16_k1} K1 calls into bf16 accumulators); an "
+          f"undonated pool fired {[f.rule for f in srv.findings]}",
+          flush=True)
+    del ex, params, state, split, trace, built
+    gc_collect()
+    return out
+
+
+def dryrun_phase(dev, st_train: dict) -> dict:
+    """20c. ``launch.dryrun.run_dryrun`` of full-width qwen2-1.5b
+    ``train_4k`` at 18a's cut (STEPS_TRAIN_LAYERS layers), the ``flat``
+    executor, at 18a's plan (its N_Smu and remat policy pinned, so the
+    planner gives its micro size), its step run under a
+    ``FakeTensorMode`` on fake CUDA tensors (nothing allocated): its
+    predicted peak beside 18a's allocator peak and
+    calibrated prediction; its FLOPs per step (FlopCounterMode), and
+    18a's TFLOP/s from them against the bf16 peak."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    card = card_line()
+    gc_collect()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    res = dryrun.run_dryrun(
+        STEPS_ARCH, "train_4k", executor="flat",
+        num_microbatches=st_train["num_micro_batches"],
+        remat_policy=st_train["remat"],
+        cfg_overrides={"num_layers": STEPS_TRAIN_LAYERS},
+        plan_budget_bytes=CALIBRATION_BUDGET_GB * GIB, device=dev,
+        probe=False, verbose=False)
+    wall = time.perf_counter() - t0
+    check(torch.cuda.memory_allocated(dev) == before,
+          "20c: the dry run allocated on the card")
+    got = (res["num_microbatches"], res["per_device"]["local_micro"],
+           res["remat_policy"])
+    want = (st_train["num_micro_batches"], st_train["micro"],
+            st_train["remat"])
+    check(got == want, f"20c: the dry run's plan (N_Smu, micro, remat) "
+                       f"{got} is not 18a's {want}")
+    peak = res["memory"]["peak_bytes_est"]
+    flops = res["raw_cost_analysis"]["flops"]
+    tflops = flops / st_train["first_step_s"] / 1e12
+    out = {"card": card, "plan": res["per_device"]["plan"],
+           "predicted_peak_bytes": peak,
+           "allocator_peak_bytes_18a": st_train["peak_bytes"],
+           "calibrated_prediction_bytes_18a":
+               st_train["calibrated_prediction_bytes"],
+           "modeled_bytes": res["oracle"]["modeled_bytes"],
+           "flops_per_step": flops,
+           "bytes_accessed": res["raw_cost_analysis"]["bytes accessed"],
+           "ops": res["ops"], "kernel_calls": res["kernel_calls"],
+           "first_step_s_18a": st_train["first_step_s"],
+           "tflops_18a": tflops, "bf16_peak_share": tflops * 1e12
+           / BF16_FLOPS_PER_S, "dryrun_s": wall, "step_s": res["step_s"]}
+    print(f"20c dry run of {STEPS_ARCH} train_4k at {STEPS_TRAIN_LAYERS} "
+          f"layers [{card}]: {out['plan']}; predicted peak {peak} B "
+          f"({peak / GIB:.3f} GiB) beside 18a's allocator peak "
+          f"{st_train['peak_bytes'] / GIB:.3f} GiB and calibrated "
+          f"prediction {st_train['calibrated_prediction_bytes'] / GIB:.3f}"
+          f" GiB (memory model {res['oracle']['modeled_bytes'] / GIB:.3f} "
+          f"GiB); {flops:.6e} FLOPs a step, so 18a's first step of "
+          f"{st_train['first_step_s']:.3f} s ran {tflops:.2f} TFLOP/s, "
+          f"{100 * out['bf16_peak_share']:.2f} % of the "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak; "
+          f"{res['ops']} ops, kernel calls {res['kernel_calls']}; "
+          f"{wall:.1f} s", flush=True)
+    return out
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -5214,6 +5387,9 @@ def run() -> dict:
     fam17 = encdec_vlm_phases(timed, dev)
     st = steps_phases(timed, dev)
     pp = pipeline_phases(timed, dev)
+    checker = {"analysis": timed("20a/20b analysis", analysis_phase, dev),
+               "dryrun": timed("20c dry run", dryrun_phase, dev,
+                               st["train"])}
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
     # families' training paths (15a-15c, 17a, 17b), the data-parallel
@@ -5233,6 +5409,7 @@ def run() -> dict:
              **{f"{label.split()[0]} qwen2-1.5b {k}": c
                 for label, r in pp["train"].items()
                 for k, c in r["counts"].items()},
+             "analysis 20a": checker["analysis"]["counts"],
              **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
@@ -5298,6 +5475,10 @@ def run() -> dict:
                                     if k != "counts"},
                           "check": dp["check"]},
         "fault_agreement": fault,
+        "checker": {"analysis": {k: v for k, v in
+                                 checker["analysis"].items()
+                                 if k != "counts"},
+                    "dryrun": checker["dryrun"]},
         "pipeline": {"train": {label: {k: v for k, v in r.items()
                                        if k != "counts"}
                                for label, r in pp["train"].items()},

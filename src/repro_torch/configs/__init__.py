@@ -36,6 +36,20 @@ ARCHS: List[str] = [
 ]
 
 
+# the archs whose attention is sub-quadratic at 524,288 tokens (the
+# reference's)
+LONG_500K_ARCHS = {"mamba2-780m", "recurrentgemma-2b", "mixtral-8x22b",
+                   "gemma3-12b"}
+
+
+def supports_shape(arch_id: str, shape_name: str) -> bool:
+    """Whether the reference assigns ``shape_name`` to ``arch_id``:
+    ``long_500k`` only to the sub-quadratic archs."""
+    if shape_name == "long_500k":
+        return arch_id in LONG_500K_ARCHS
+    return True
+
+
 def _module(arch_id: str):
     if arch_id not in ARCHS:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCHS}")

@@ -12,7 +12,9 @@ admission by ``plan_serve`` and the continuous-batching engine), and
 data parallelism (``sharded.py``: the ``ShardedExecutor``, one flat
 all-reduce per mini-batch over ``torch.distributed``) and pipeline
 parallelism (``pipelined.py``: the 1F1B ``PipelinedExecutor`` over a
-``(data, model)`` mesh, ``StagedLoss``, ``schedule_1f1b``)."""
+``(data, model)`` mesh, ``StagedLoss``, ``schedule_1f1b``), and the
+recorded step (``steptrace.py``: every executor's ``trace_step`` /
+``measure_step``, which ``repro_torch.analysis`` checks)."""
 from .plan import (MBSConfig, MBSPlan, num_micro_batches,  # noqa: F401
                    plan_mbs, split_minibatch)
 from .autotune import (TuningCache, calibrate_memory,  # noqa: F401
@@ -32,7 +34,7 @@ from .trainer import Trainer  # noqa: F401
 from .supervisor import (FaultRecord, NaNCircuitBreaker, NaNHalt,  # noqa: F401
                          PlanExhausted, RestartBudgetExceeded, Supervisor,
                          SupervisorConfig, SupervisorError, degrade_plan)
-from . import faults  # noqa: F401
+from . import faults, steptrace  # noqa: F401
 from .kv import KVPool, PoolExhausted  # noqa: F401
 from .serving import (Request, ServePlan, ServingEngine,  # noqa: F401
                       check_servable, plan_serve, synthetic_traffic)

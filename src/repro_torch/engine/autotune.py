@@ -709,7 +709,8 @@ def _tuned_block_resolver(kind: str, dtype_str: str, n: int,
     try:
         tuned = get_cache().tuned_block(
             block_key(kind, dtype_str, n, interpret=interpret))
-    except Exception:  # a broken cache must never sink a kernel launch
+    # a broken cache must never sink a kernel launch
+    except Exception:  # repro: noqa(LINT006) the fallback is the default block
         return None
     # 0 (the reference's whole buffer) and a block that is not a power of
     # two are no launch geometry here: keep the default

@@ -36,7 +36,8 @@ def denominators(micro_batches) -> Tuple[int, torch.Tensor]:
     n_s = first.shape[0]
     w = micro_batches.get("sample_weight")
     total_valid = (torch.sum(w) if w is not None
-                   else torch.full((), float(n_s * first.shape[1]),
+                   else torch.full((), n_s * first.shape[1],
+                                   dtype=torch.get_default_dtype(),
                                    device=first.device))
     return n_s, total_valid
 

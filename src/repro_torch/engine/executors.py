@@ -51,6 +51,7 @@ from .. import tree
 from . import exec_core, faults, flat
 from . import plan as plan_lib
 from .plan import MBSConfig, MBSPlan
+from .steptrace import Traceable
 
 
 def _micro(micro_batches, i: int):
@@ -65,7 +66,7 @@ def _as_plan(plan) -> MBSPlan:
     raise TypeError(f"expected MBSPlan or MBSConfig, got {type(plan)!r}")
 
 
-class _ExecutorBase:
+class _ExecutorBase(Traceable):
     """Common machinery: the eager micro-batch loop and the update."""
     name = "base"
     fused = False  # raw micro losses, normalization fused into K1
@@ -236,6 +237,7 @@ class FlatFusedExecutor(_ExecutorBase):
     in place — no ``updates`` tree and no fresh optimizer-state trees."""
     name = "flat"
     fused = True
+    updates_in_place = True
 
     def prepare(self, params, opt_state, device=None) -> Tuple[Any, Any]:
         """Flat view trees of ``params`` and ``opt_state`` (one copy unless

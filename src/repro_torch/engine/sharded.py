@@ -75,6 +75,7 @@ from ..launch import mesh as mesh_lib
 from . import exec_core, faults, flat as flat_lib
 from .executors import EXECUTORS, _as_plan, _micro, get_executor
 from .plan import MBSPlan
+from .steptrace import Traceable
 
 _STATS: Dict[str, Any] = {}
 _SYNC_TIMING = [False]
@@ -120,12 +121,13 @@ def timed_call(x: torch.Tensor, fn) -> float:
     device synchronized before and after it under
     :func:`time_collectives`."""
     sync = _SYNC_TIMING[0] and x.is_cuda
+    # the syncs below run only under time_collectives (opt-in timing)
     if sync:
-        torch.cuda.synchronize(x.device)
+        torch.cuda.synchronize(x.device)  # repro: noqa(LINT001)
     t0 = time.perf_counter()
     fn()
     if sync:
-        torch.cuda.synchronize(x.device)
+        torch.cuda.synchronize(x.device)  # repro: noqa(LINT001)
     return time.perf_counter() - t0
 
 
@@ -256,13 +258,17 @@ def fault_slots(fault: bool, rank: int, world: int, device) -> torch.Tensor:
 
 def raise_agreed(slots: torch.Tensor) -> None:
     """After the reduction, on every rank alike: the agreed OOM
-    (``faults.agreed_oom``) when any rank's slot is set. One readback."""
-    bad = torch.nonzero(slots.detach().cpu() > 0).flatten().tolist()
+    (``faults.agreed_oom``) when any rank's slot is set. One readback a
+    step: every rank must raise before the update, so the agreement is
+    read here and cannot wait for the step's metrics."""
+    # the fault agreement's one read of the step, waived:
+    hit = slots.detach().cpu() > 0  # repro: noqa(LINT001, JX003)
+    bad = torch.nonzero(hit).flatten().tolist()  # repro: noqa(LINT001, JX003)
     if bad:
         raise faults.agreed_oom(bad, slots.numel())
 
 
-class ShardedExecutor:
+class ShardedExecutor(Traceable):
     """Data-parallel wrapper around an inner MBS executor (see the module
     doc). ``inner`` names the local accumulation strategy ("compiled" |
     "streaming" | "fused" | "flat").
@@ -316,6 +322,7 @@ class ShardedExecutor:
                 "and only supports inner='compiled'")
         self.inner_name = inner
         self.inner = get_executor(inner)(loss_fn, optimizer, self.plan)
+        self.updates_in_place = self.inner.updates_in_place
         self.device = mesh.device
         self._metrics = None  # the loss's metrics as meta tensors, once known
 

@@ -23,9 +23,12 @@
 
 A wrapper launches its kernel for CUDA tensors and raises when it cannot
 (no GPU, no Triton, no ``nvcc``); for CPU tensors it runs the plain
-version. Triton is imported, and a Triton kernel (K2–K5) compiled, at its
-first launch; a CUDA C++ kernel (K1, K6) is built by ``nvcc`` at its first
-launch (``_cuda``).
+version; for fake tensors (``FakeTensorMode``, a dry run) on the card it
+computes its output's shape and launches nothing. Each call runs in
+``_launch.kernel_scope``, through which a recorded step
+(``engine.steptrace``) sees it. Triton is imported, and a Triton kernel
+(K2–K5) compiled, at its first launch; a CUDA C++ kernel (K1, K6) is
+built by ``nvcc`` at its first launch (``_cuda``).
 """
 from . import cross_entropy as cross_entropy_kernels  # noqa: F401
 from . import flash_attention as flash_attention_kernels  # noqa: F401

@@ -10,6 +10,7 @@ heuristic keeps blocks small and lets the grid supply the parallelism.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
@@ -24,6 +25,36 @@ VARIANT_LAUNCHES: Dict[str, int] = {"wgmma_bf16": 0, "simt_fp32": 0}
 
 SMALL_N = 1 << 20  # below this, smaller blocks spread a buffer over more SMs
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+# A step trace in progress (``engine.steptrace.record``) observes every
+# wrapper's call here: the Triton and ctypes launches are invisible to a
+# dispatch mode, and a fake tensor's call launches nothing
+_KERNEL_OBSERVER: list = [None]
+
+
+def set_kernel_observer(obs: Optional[Callable]) -> None:
+    """Install (or clear, with None) the context-manager factory
+    ``obs(name, writes, reads)`` that :func:`kernel_scope` enters."""
+    _KERNEL_OBSERVER[0] = obs
+
+
+def kernel_scope(name: str, writes, reads=()):
+    """The context a wrapper runs its kernel (or its plain version) in:
+    a null context unless a trace observes the calls. ``writes`` are the
+    operands written in place (K5 and K6 write a new output: none),
+    ``reads`` the others."""
+    obs = _KERNEL_OBSERVER[0]
+    if obs is None:
+        return contextlib.nullcontext()
+    return obs(name, writes, reads)
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A fake tensor (``FakeTensorMode``): shapes and dtypes, no data, so
+    a wrapper computes its output's shape and launches nothing."""
+    from torch._subclasses.fake_tensor import is_fake as fake
+    return fake(t)
 
 
 def reset_launch_counts() -> None:

@@ -27,8 +27,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref
-from ._launch import (FLOAT_DTYPES, LAUNCHES, check_block,
-                      lookup_tuned_block)
+from ._launch import (FLOAT_DTYPES, LAUNCHES, check_block, is_fake,
+                      kernel_scope, lookup_tuned_block)
 
 # The port's own tiles (the TPU's 256 × 2048 was a VMEM size): a few rows
 # a program, so the grid spreads a few thousand rows over every SM, and a
@@ -117,15 +117,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     fp32, times ``scale``. A CUDA tensor launches K5; a CPU one takes the
     plain version (``ref.cross_entropy_ref · scale``)."""
     dev = _check(logits, labels)
+    with kernel_scope("cross_entropy", (), (logits, labels)):
+        return _cross_entropy(dev, logits, labels, scale, block_t, block_v)
+
+
+def _cross_entropy(dev, logits, labels, scale, block_t, block_v):
     bt, bv = launch_blocks(logits, block_t, block_v,
                            interpret=dev.type == "cpu")
     if dev.type == "cpu":
         return ref.cross_entropy_ref(logits, labels) * float(scale)
-    triton, kern = _kernel()
     T, V = logits.shape
     out = torch.empty(T, dtype=torch.float32, device=dev)
-    if T == 0:
+    if T == 0 or is_fake(logits):  # is_fake: shapes only
         return out
+    triton, kern = _kernel()
     with torch.cuda.device(dev):
         kern[(triton.cdiv(T, bt),)](logits, labels, out, T, V,
                                    logits.stride(0), float(scale),

@@ -43,7 +43,7 @@ import torch
 
 from . import _cuda, ref
 from ._launch import (FLOAT_DTYPES, LAUNCHES, VARIANT_LAUNCHES, check_block,
-                      lookup_tuned_block)
+                      is_fake, kernel_scope, lookup_tuned_block)
 
 HEAD_DIMS = (32, 64, 128, 256)
 # (block_q, block_k) of the one kernel instance for each (dtype, head dim)
@@ -175,6 +175,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype. A CUDA tensor launches K6 (bf16: the wgmma kernel, fp32: the
     SIMT kernel); a CPU one takes the plain version."""
     dev = _check(q, k, v)
+    with kernel_scope("flash_attention", (), (q, k, v)):
+        return _attention(dev, q, k, v, causal, window, softcap, block_q,
+                          block_k)
+
+
+def _attention(dev, q, k, v, causal, window, softcap, block_q, block_k):
     B, H, S, hd = q.shape
     bq, bk = launch_blocks(S, q.dtype, block_q, block_k,
                            interpret=dev.type == "cpu", hd=hd)
@@ -185,10 +191,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
-    fn, err_str = _entry()
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if out.numel() == 0 or is_fake(q):  # is_fake: shapes only
         return out
+    fn, err_str = _entry()
     if q.dtype == torch.bfloat16:
         check_aligned(q, k, v, out)
     with torch.cuda.device(dev):

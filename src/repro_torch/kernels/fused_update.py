@@ -40,7 +40,8 @@ import functools
 import torch
 
 from . import ref
-from ._launch import LAUNCHES, check_buffers, scalars, stream_geometry
+from ._launch import (LAUNCHES, check_buffers, is_fake, kernel_scope,
+                      scalars, stream_geometry)
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,37 +167,44 @@ def fused_sgd(params, grads, mom, lr, clip_scale=1.0, *,
         dev = _check("fused_sgd", params, grads)
     else:
         dev = _check("fused_sgd", params, grads, mom)
-    guard = ok is not None
-    s = scalars(dev, lr, clip_scale, *((ok,) if guard else ()))
-    if dev.type == "cpu":
-        new_p, new_m = ref.fused_sgd_ref(
-            params, grads, mom, s[0], s[1], momentum=momentum,
-            weight_decay=weight_decay, nesterov=nesterov,
-            ok=s[2] if guard else None)
-        params.copy_(new_p)
-        if mom is None:
-            return params
-        mom.copy_(new_m)
+    name = "fused_sgd" if mom is None else "fused_sgd_mom"
+    with kernel_scope(name, [t for t in (params, mom) if t is not None],
+                      (grads,)):
+        guard = ok is not None
+        s = scalars(dev, lr, clip_scale, *((ok,) if guard else ()))
+        if dev.type == "cpu":
+            new_p, new_m = ref.fused_sgd_ref(
+                params, grads, mom, s[0], s[1], momentum=momentum,
+                weight_decay=weight_decay, nesterov=nesterov,
+                ok=s[2] if guard else None)
+            params.copy_(new_p)
+            if mom is None:
+                return params
+            mom.copy_(new_m)
+            return params, mom
+        if is_fake(params):  # shapes only: nothing to launch
+            return params if mom is None else (params, mom)
+        triton, sgd_mom, sgd, _ = _kernels()
+        n = params.numel()
+        block, warps = stream_geometry("fused_update", params.dtype, n,
+                                       block)
+        grid = (triton.cdiv(n, block),)
+        wd = ref.weak(weight_decay, torch.float32)
+        with torch.cuda.device(dev):
+            if mom is None:
+                sgd[grid](params, grads, s, n, WD=wd,
+                          HAS_WD=bool(weight_decay), GUARD=guard,
+                          BLOCK=block, num_warps=warps,
+                          enable_fp_fusion=False)
+                LAUNCHES["fused_sgd"] += 1
+                return params
+            sgd_mom[grid](params, grads, mom, s, n,
+                          MU=ref.weak(momentum, mom.dtype), WD=wd,
+                          HAS_WD=bool(weight_decay), NESTEROV=bool(nesterov),
+                          GUARD=guard, BLOCK=block, num_warps=warps,
+                          enable_fp_fusion=False)
+        LAUNCHES["fused_sgd_mom"] += 1
         return params, mom
-    triton, sgd_mom, sgd, _ = _kernels()
-    n = params.numel()
-    block, warps = stream_geometry("fused_update", params.dtype, n, block)
-    grid = (triton.cdiv(n, block),)
-    wd = ref.weak(weight_decay, torch.float32)
-    with torch.cuda.device(dev):
-        if mom is None:
-            sgd[grid](params, grads, s, n, WD=wd, HAS_WD=bool(weight_decay),
-                      GUARD=guard, BLOCK=block, num_warps=warps,
-                      enable_fp_fusion=False)
-            LAUNCHES["fused_sgd"] += 1
-            return params
-        sgd_mom[grid](params, grads, mom, s, n,
-                      MU=ref.weak(momentum, mom.dtype), WD=wd,
-                      HAS_WD=bool(weight_decay), NESTEROV=bool(nesterov),
-                      GUARD=guard, BLOCK=block, num_warps=warps,
-                      enable_fp_fusion=False)
-    LAUNCHES["fused_sgd_mom"] += 1
-    return params, mom
 
 
 def fused_adam(params, grads, m, v, lr, bias_corr1, bias_corr2,
@@ -211,29 +219,32 @@ def fused_adam(params, grads, m, v, lr, bias_corr1, bias_corr2,
     them. CUDA tensors launch K4 (``block`` and ``ok`` as for
     :func:`fused_sgd`); CPU tensors take the plain version."""
     dev = _check("fused_adam", params, grads, m, v)
-    guard = ok is not None
-    s = scalars(dev, lr, clip_scale, bias_corr1, bias_corr2,
-                *((ok,) if guard else ()))
-    if dev.type == "cpu":
-        outs = ref.fused_adam_ref(
-            params, grads, m, v, s[0], s[2], s[3], s[1], b1=b1, b2=b2,
-            eps=eps, weight_decay=weight_decay, decoupled=decoupled,
-            ok=s[4] if guard else None)
-        for buf, new in zip((params, m, v), outs):
-            buf.copy_(new)
+    with kernel_scope("fused_adam", (params, m, v), (grads,)):
+        guard = ok is not None
+        s = scalars(dev, lr, clip_scale, bias_corr1, bias_corr2,
+                    *((ok,) if guard else ()))
+        if dev.type == "cpu":
+            outs = ref.fused_adam_ref(
+                params, grads, m, v, s[0], s[2], s[3], s[1], b1=b1, b2=b2,
+                eps=eps, weight_decay=weight_decay, decoupled=decoupled,
+                ok=s[4] if guard else None)
+            for buf, new in zip((params, m, v), outs):
+                buf.copy_(new)
+            return params, m, v
+        if is_fake(params):  # shapes only: nothing to launch
+            return params, m, v
+        triton, _, _, adam = _kernels()
+        n = params.numel()
+        block, warps = stream_geometry("fused_update", params.dtype, n,
+                                       block)
+        with torch.cuda.device(dev):
+            adam[(triton.cdiv(n, block),)](
+                params, grads, m, v, s, n,
+                B1=ref.weak(b1, m.dtype), OMB1=ref.weak(1 - b1, m.dtype),
+                B2=ref.weak(b2, v.dtype), OMB2=ref.weak(1 - b2, v.dtype),
+                EPS=float(eps), WD=float(weight_decay),
+                COUPLED_WD=bool(weight_decay) and not decoupled,
+                DECOUPLED_WD=bool(weight_decay) and decoupled, GUARD=guard,
+                BLOCK=block, num_warps=warps, enable_fp_fusion=False)
+        LAUNCHES["fused_adam"] += 1
         return params, m, v
-    triton, _, _, adam = _kernels()
-    n = params.numel()
-    block, warps = stream_geometry("fused_update", params.dtype, n, block)
-    with torch.cuda.device(dev):
-        adam[(triton.cdiv(n, block),)](
-            params, grads, m, v, s, n,
-            B1=ref.weak(b1, m.dtype), OMB1=ref.weak(1 - b1, m.dtype),
-            B2=ref.weak(b2, v.dtype), OMB2=ref.weak(1 - b2, v.dtype),
-            EPS=float(eps), WD=float(weight_decay),
-            COUPLED_WD=bool(weight_decay) and not decoupled,
-            DECOUPLED_WD=bool(weight_decay) and decoupled, GUARD=guard,
-            BLOCK=block, num_warps=warps, enable_fp_fusion=False)
-    LAUNCHES["fused_adam"] += 1
-    return params, m, v
-

@@ -26,8 +26,8 @@ import torch
 
 from .. import tree
 from . import _cuda, ref
-from ._launch import (FLOAT_DTYPES, LAUNCHES, check_buffers, scalars,
-                      stream_geometry)
+from ._launch import (FLOAT_DTYPES, LAUNCHES, check_buffers, is_fake,
+                      kernel_scope, scalars, stream_geometry)
 
 # pairs a launch takes: the source's kMaxEntries (it refuses more)
 MAX_ENTRIES = 128
@@ -130,6 +130,11 @@ def grad_accum_many(accs: Sequence[torch.Tensor],
     if not accs:
         return accs
     dev = _check_pairs(accs, grads)
+    with kernel_scope("grad_accum", accs, grads):
+        return _accumulate(dev, accs, grads, scale, block)
+
+
+def _accumulate(dev, accs, grads, scale, block) -> List[torch.Tensor]:
     s = scalars(dev, scale)
     for i, g in enumerate(grads):
         if not g.is_contiguous():
@@ -138,6 +143,8 @@ def grad_accum_many(accs: Sequence[torch.Tensor],
     if dev.type == "cpu":
         for a, g in zip(accs, grads):
             a.view(-1).copy_(ref.grad_accum_ref(a.view(-1), g.view(-1), s))
+        return accs
+    if is_fake(accs[0]):  # shapes only: nothing to launch
         return accs
     for idx in launch_groups(list(zip(accs, grads))):
         _launch([accs[i] for i in idx], [grads[i] for i in idx], s, block)

@@ -1,0 +1,471 @@
+"""Dry run of one (architecture × input shape) step: the step the launcher
+would run, built by ``launch.steps.build_step`` and run once under a
+``FakeTensorMode`` — shapes and dtypes only, so nothing is allocated on
+either device, full-size configurations included. The reference
+compiles the same step for its production mesh; the port runs it on one
+device (the production meshes are ROADMAP item 11).
+
+What it reports (one JSON line; the reference's keys where they carry a
+meaning):
+
+  * ``memory`` — the step's live-bytes peak (``engine.steptrace``: every
+    storage counted from its allocation to its release), split into the
+    arguments alive before the step and the temporaries above them, and
+    the state bytes the step updated in place — the counterpart of the
+    compiled step's ``memory_analysis()``;
+  * ``raw_cost_analysis`` — the step's FLOPs (``torch.utils.flop_counter.
+    FlopCounterMode``: matmuls, convolutions and attention) and the bytes
+    its ops read and write, the whole mini-batch's. ``corrected`` carries
+    the same totals under the reference's keys, with the FLOPs of one
+    period of the layer pattern from two one-micro-batch probes at 1 and
+    2 periods, and their linear extrapolation to the whole step beside
+    the total;
+  * ``per_device`` / ``oracle`` — the planner's report: the plan
+    (``plan_mbs``), ``memory_model.estimate`` at its micro size beside
+    the measured peak, ``max_minibatch_without_mbs``;
+  * ``pipeline`` — for a ``--mesh DATA:MODEL`` spec with MODEL > 1, the
+    closed-form 1F1B census and the per-stage bytes (the step itself runs
+    only on one device);
+  * ``contract`` (``--check``) — the analysis suite's checks over this
+    run (``analysis.check_bundle``).
+
+An eager step needs no trip counts: its micro-batch loop runs every
+micro-batch. But a fake tensor op costs about a fifth of a millisecond
+of host time, and a full-size step of N_Smu micro-batches runs hundreds
+of thousands of them, so by default the step runs its first one and its
+first two micro-batches (the plan's size) and the difference is carried
+to all N — exact, as the micro-batches repeat one another op for op:
+X(N) = X(1) + (N − 1) · (X(2) − X(1)) for the FLOPs, bytes, ops and
+kernel calls, and the peak is the second's (the live set after each
+micro-batch is the same from the first on). ``run_dryrun(...,
+unrolled=True)`` runs all N; the tests hold the two equal for every
+executor.
+
+Usage::
+
+  python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k \\
+      [--reduced] [--microbatches 8] [--executor flat] [--budget GB] \\
+      [--check] [--no-probe] [--device cuda|cpu] [--json] [--out DIR]
+
+Exit codes (shared with ``python -m repro_torch.analysis``): 0 ok, 1 tool
+error (a refused mesh; an op whose output shape depends on the data,
+which a fake tensor cannot run — named), 2 the peak over ``--budget``,
+3 contract findings (``--check``). The step runs for the card unless
+``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from .. import configs, engine, optim, tree
+from ..analysis.findings import (EXIT_BUDGET, EXIT_CONTRACT, EXIT_ERROR,
+                                 EXIT_OK)
+from ..core import memory_model
+from ..engine import steptrace
+from . import mesh as mesh_lib, steps
+
+#: the planner's budget on a device that has none of its own (the CPU):
+#: one H100's memory, the card the dry run stands in for
+CARD_BYTES = 80 * 10 ** 9
+
+
+class DataDependentOp(RuntimeError):
+    """The step reached an op whose output shape depends on tensor
+    values, which no fake tensor can run."""
+
+
+def _fakes(meta_tree, device):
+    """Fake tensors of ``meta_tree``'s shapes and dtypes on ``device``
+    (inside the caller's ``FakeTensorMode``)."""
+    return tree.map(lambda m: torch.empty(tuple(m.shape), dtype=m.dtype,
+                                          device=device)
+                    if isinstance(m, torch.Tensor) else m, meta_tree)
+
+
+def _fake_step(bundle, device, micros: Optional[int] = None):
+    """Run ``bundle``'s step once on fake arguments: (StepRun or trace,
+    FLOPs). A train bundle's state is first put in its executor's layout
+    (``prepare``), as the launcher does; ``micros`` cuts its split batch
+    to that many micro-batches of the plan's size."""
+    from torch._subclasses.fake_tensor import (DataDependentOutputException,
+                                               DynamicOutputShapeException,
+                                               FakeTensorMode)
+    from torch.utils.flop_counter import FlopCounterMode
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=False):
+            args = _fakes(bundle.arg_shapes, device)
+            if bundle.kind == "train":
+                ex = bundle.fn.__self__
+                prepare = getattr(ex, "prepare", None)
+                params, opt_state, batch = args
+                if micros is not None:
+                    batch = {k: v[:micros] for k, v in batch.items()}
+                if prepare is not None:
+                    params, opt_state = prepare(params, opt_state)
+                del args
+                with FlopCounterMode(display=False) as fc:
+                    run = steptrace.measure(bundle.fn, params, opt_state,
+                                            batch)
+                return run, fc.get_total_flops()
+            with FlopCounterMode(display=False) as fc:
+                trace = steptrace.record(bundle.fn, *args, device="cpu")
+            return trace, fc.get_total_flops()
+    except (DataDependentOutputException, DynamicOutputShapeException) as e:
+        raise DataDependentOp(
+            f"{bundle.kind} step of this config reaches an op whose output "
+            f"shape depends on the data, which a fake tensor cannot run: "
+            f"{e}") from None
+
+
+def _probe_cfg(cfg, periods: int):
+    kw = {"num_layers": cfg.pattern_len * periods}
+    if cfg.is_encdec:
+        kw["encoder_layers"] = (cfg.encoder_layers // cfg.num_periods
+                                ) * periods
+    return dataclasses.replace(cfg, **kw)
+
+
+def cost_probes(cfg, shape, num_microbatches: int, device, *,
+                step_kw) -> Dict[str, Any]:
+    """FLOPs of one period of the layer pattern in one micro-batch (the
+    planner's size): the difference of two fake steps of that
+    micro-batch at 1 and 2 periods."""
+    pshape = (dataclasses.replace(
+        shape, global_batch=-(-shape.global_batch // num_microbatches))
+        if shape.kind == "train" else shape)
+    flops = {}
+    for P in (1, 2):
+        bundle = steps.build_step(_probe_cfg(cfg, P), pshape,
+                                  num_microbatches=1, **step_kw)
+        _, flops[P] = _fake_step(bundle, device)
+    per_period = flops[2] - flops[1]
+    return {"flops_probe_1_period": flops[1],
+            "flops_probe_2_periods": flops[2],
+            "flops_per_period": per_period}
+
+
+def _kernel_calls(trace) -> Dict[str, int]:
+    """The step's calls of each kernel wrapper, by kernel."""
+    calls: Dict[str, int] = {}
+    for c in trace.kernels:
+        calls[c.name] = calls.get(c.name, 0) + 1
+    return calls
+
+
+def _refuse_mesh(multi_pod: bool, mesh_spec: Optional[str]) -> None:
+    if multi_pod or mesh_spec == "production":
+        mesh_lib.make_production_mesh(multi_pod=multi_pod)  # raises
+
+
+def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
+               num_microbatches: Optional[int] = 8,
+               reduced: bool = False, probe: bool = True,
+               verbose: bool = True, remat: bool = True,
+               remat_policy: Optional[str] = None,
+               cfg_overrides: Optional[dict] = None,
+               executor: str = "compiled",
+               budget_bytes: Optional[int] = None, check: bool = False,
+               mesh_spec: Optional[str] = None, device="cuda",
+               calibrate: str = "off", tuning_cache: Optional[str] = None,
+               unrolled: bool = False,
+               plan_budget_bytes: Optional[int] = None) -> Dict[str, Any]:
+    """Dry-run one combo and return its report (printed as one JSON line
+    when ``verbose``). ``budget_bytes`` is the over-budget gate (exit 2
+    in :func:`main`); the planner plans against ``plan_budget_bytes``,
+    by default the card's memory (on the CPU, ``CARD_BYTES``).
+    ``unrolled`` runs every micro-batch of the step instead of extending
+    the first two (see the module doc)."""
+    _refuse_mesh(multi_pod, mesh_spec)
+    device = torch.device(device)
+    cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    shape = configs.SHAPES[shape_name]
+    if not configs.supports_shape(arch, shape_name):
+        return {"arch": arch, "shape": shape_name, "skipped": True,
+                "reason": "long_500k requires sub-quadratic attention"}
+    dims = (1, 1)
+    if mesh_spec:
+        data, _, model = mesh_spec.partition(":")
+        dims = (int(data), int(model))
+    mesh = (mesh_lib.make_host_mesh(data=dims[0], model=dims[1])
+            if dims != (1, 1) else None)
+    pipelined = shape.kind == "train" and dims[1] > 1
+    plan_budget = plan_budget_bytes or (
+        memory_model.device_memory_bytes(device) if device.type == "cuda"
+        else CARD_BYTES)
+    pinned = (num_microbatches if num_microbatches is not None
+              and num_microbatches > 0 else None)
+    step_kw: Dict[str, Any] = {}
+    if shape.kind == "train":
+        step_kw = dict(remat=remat, remat_policy=remat_policy,
+                       executor=executor, budget_bytes=plan_budget,
+                       device=device, calibrate=calibrate,
+                       tuning_cache=tuning_cache)
+    t0 = time.perf_counter()
+    bundle = steps.build_step(cfg, shape, num_microbatches=pinned,
+                              **step_kw)
+    plan = bundle.plan
+    n_micro = plan.num_micro_batches if plan is not None else None
+    measured = n_micro
+    if plan is not None and not unrolled and n_micro > 2:
+        # the micro-batches of a step repeat exactly: run 1 and 2 of them
+        # and extend the difference to all N (see the module doc)
+        one, f1 = _fake_step(bundle, device, micros=1)
+        out, f2 = _fake_step(bundle, device, micros=2)
+        measured = 2
+        flops = f1 + (n_micro - 1) * (f2 - f1)
+        nbytes = one.trace.bytes_accessed + (n_micro - 1) * (
+            out.trace.bytes_accessed - one.trace.bytes_accessed)
+        n_ops = len(one.trace.ops) + (n_micro - 1) * (
+            len(out.trace.ops) - len(one.trace.ops))
+        k1, k2 = _kernel_calls(one.trace), _kernel_calls(out.trace)
+        kernel_calls = {k: k1.get(k, 0) + (n_micro - 1)
+                        * (k2.get(k, 0) - k1.get(k, 0))
+                        for k in sorted(set(k1) | set(k2))}
+        del one
+    else:
+        out, flops = _fake_step(bundle, device)
+    t_step = time.perf_counter() - t0
+    run = out if isinstance(out, steptrace.StepRun) else None
+    trace = run.trace if run is not None else out
+    if measured == n_micro:
+        nbytes, n_ops = trace.bytes_accessed, len(trace.ops)
+        kernel_calls = _kernel_calls(trace)
+    peak = trace.peak_live_bytes
+    state_bytes, kept = run.kept_bytes() if run is not None else (0, 0)
+
+    per_device = oracle = pipeline_rep = grad_sync = None
+    if plan is not None:
+        mm_kw = dict(remat_policy=plan.remat_policy, act_bytes=2,
+                     **optim.memory_model_kw(bundle.optimizer,
+                                             fused=executor == "flat"))
+        est = memory_model.estimate(cfg, shape.seq_len, **mm_kw)
+        micro = plan.micro_batch_size
+        without = memory_model.max_minibatch_without_mbs(
+            cfg, shape.seq_len, budget_bytes=plan_budget, **mm_kw)
+        per_device = {
+            "data_parallel": 1, "local_micro": micro,
+            "micro_batch_global": micro, "budget_bytes": plan_budget,
+            "analytic_bytes_at_local_micro": est.total(micro),
+            "params_bytes": est.params_bytes,
+            "activation_bytes_per_local_sample":
+                est.activation_bytes_per_sample,
+            "max_minibatch_without_mbs": without,
+            "plan": plan.describe()}
+        modeled = est.total(micro)
+        oracle = {"local_micro": micro, "modeled_bytes": modeled,
+                  "measured_bytes": peak,
+                  "model_error_pct": (round(100.0 * (modeled - peak) / peak,
+                                            2) if peak else None)}
+        census = trace.collective_census().get("all_reduce", {})
+        grad_sync = {"allreduce_ops": census.get("count", 0),
+                     "allreduce_bytes": census.get("bytes", 0),
+                     "num_microbatches": n_micro}
+        if mesh is not None:
+            mesh_plan = engine.plan_mbs(
+                shape.global_batch, num_microbatches=pinned, model_cfg=cfg,
+                seq_len=shape.seq_len, budget_bytes=plan_budget,
+                device=device, remat=remat,
+                remat_policy=plan.remat_policy, mesh=mesh,
+                fsdp_params=pipelined, pipeline=pipelined)
+            mest = memory_model.estimate(
+                cfg, shape.seq_len, mesh=mesh, fsdp_params=pipelined,
+                pipeline=pipelined, remat_policy=mesh_plan.remat_policy)
+            per_device.update({
+                "data_parallel": mesh_plan.data_parallel,
+                "local_micro": mesh_plan.local_micro,
+                "micro_batch_global": mesh_plan.micro_batch_size,
+                "analytic_bytes_at_local_micro":
+                    mest.total(mesh_plan.local_micro),
+                "mesh_plan": mesh_plan.describe()})
+            if pipelined:
+                stages, M = dims[1], mesh_plan.num_micro_batches
+                fwd, bwd, _, ticks = engine.schedule_1f1b(stages, M)
+                pipeline_rep = {
+                    "stages": stages, "data_parallel": dims[0],
+                    "periods_per_stage": cfg.num_periods // stages,
+                    "num_micro_batches": M, "ticks": int(ticks),
+                    "in_flight_micro_batches": min(stages, M),
+                    "per_stage": {
+                        "params_bytes": mest.params_bytes,
+                        "activation_bytes_per_sample":
+                            mest.activation_bytes_per_sample,
+                        "bytes_at_local_micro":
+                            mest.total(mesh_plan.local_micro)},
+                    "expected_collectives": {
+                        "p2p_by_stage": [engine.p2p_counts(stages, M, s)
+                                         for s in range(stages)],
+                        "all_reduce_data_axis": 1 if dims[0] > 1 else 0,
+                        "all_reduce_data_model": 1}}
+
+    over_budget = budget_bytes is not None and peak > budget_bytes
+    contract = None
+    if check:
+        from .. import analysis
+        contract = analysis.check_bundle(
+            bundle, run=run,
+            modeled_bytes=oracle["modeled_bytes"] if oracle else None
+        ).to_dict()
+
+    result = {
+        "arch": arch, "shape": shape_name, "mesh": list(dims),
+        "axes": [mesh_lib.DATA_AXIS, mesh_lib.MODEL_AXIS],
+        "kind": bundle.kind, "num_devices": 1, "device": device.type,
+        "num_microbatches": n_micro,
+        "remat_policy": plan.remat_policy if plan is not None else None,
+        "remat_policy_auto": plan.auto_policy if plan is not None else None,
+        "per_device": per_device,
+        "gradient_sync": grad_sync,
+        "pipeline": pipeline_rep,
+        "oracle": oracle,
+        "budget": ({"budget_bytes": budget_bytes,
+                    "measured_peak_bytes": peak,
+                    "over_budget": over_budget}
+                   if budget_bytes is not None else None),
+        "contract": contract,
+        "raw_cost_analysis": {"flops": float(flops),
+                              "bytes accessed": float(nbytes)},
+        "memory": {
+            "argument_bytes": trace.base_live_bytes,
+            "temp_bytes": peak - trace.base_live_bytes,
+            "alias_bytes": kept, "state_bytes": state_bytes,
+            "peak_bytes_est": peak, "source": "live tensor bytes"},
+        "collectives_raw_once": trace.collective_census(),
+        "ops": n_ops, "micro_batches_run": measured,
+        "kernel_calls": kernel_calls,
+        "step_s": round(t_step, 2),
+        "skipped": False,
+    }
+    if probe:
+        corr = cost_probes(cfg, shape, n_micro or 1, device,
+                           step_kw=step_kw)
+        corr.update({"flops_per_device": float(flops),
+                     "bytes_per_device": float(nbytes),
+                     "collectives": {}, "collective_bytes_total": 0})
+        result["corrected"] = corr
+    if verbose:
+        print(json.dumps(result))
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
+    ap.add_argument("--arch", required=True, choices=configs.ARCHS)
+    ap.add_argument("--shape", required=True, choices=list(configs.SHAPES))
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 production mesh: refused (ROADMAP "
+                         "item 11)")
+    ap.add_argument("--mesh", default=None, metavar="DATA:MODEL",
+                    help="report the mesh-aware plan (and, with MODEL > 1, "
+                         "the 1F1B census and per-stage bytes) for this "
+                         "host mesh; 'production' is refused (ROADMAP "
+                         "item 11)")
+    ap.add_argument("--microbatches", type=int, default=8,
+                    help="N_Smu for train shapes; 0 = auto micro-batch "
+                         "size from the memory model")
+    ap.add_argument("--executor", choices=sorted(engine.EXECUTORS),
+                    default="compiled")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (full width)")
+    ap.add_argument("--no-probe", action="store_true")
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--remat-policy",
+                    choices=["auto", "none", "dots", "period", "full"],
+                    default=None)
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="MoE capacity factor override")
+    ap.add_argument("--budget", type=float, default=None, metavar="GB",
+                    help="per-device budget in GiB; exits 2 when the "
+                         "step's peak exceeds it")
+    ap.add_argument("--hbm-budget-gb", type=float, default=None,
+                    help="the planner's per-device budget in GiB "
+                         "(default: the card's memory)")
+    ap.add_argument("--calibrate", choices=["off", "auto", "force"],
+                    default="off",
+                    help="the planner's memory oracle (on the card)")
+    ap.add_argument("--tuning-cache", default=None, metavar="PATH")
+    ap.add_argument("--check", action="store_true",
+                    help="run the contract checks "
+                         "(repro_torch.analysis.check_bundle) over this "
+                         "run's step; findings exit 3")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: the device the step's "
+                         "fake tensors stand on")
+    ap.add_argument("--json", action="store_true",
+                    help="print the JSON report to stdout also when "
+                         "--out is set")
+    ap.add_argument("--out", default=None, help="directory for the JSON "
+                                                "artifact")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type not in ("cuda", "cpu"):
+        ap.error(f"--device must be cuda or cpu, got {args.device!r}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error("--device cuda: no CUDA device is available here; pass "
+                 "--device cpu to run on the CPU")
+
+    overrides = {}
+    if args.layers is not None:
+        overrides["num_layers"] = args.layers
+    if args.capacity_factor is not None:
+        overrides["capacity_factor"] = args.capacity_factor
+    budget_bytes = (int(args.budget * 1024 ** 3)
+                    if args.budget is not None else None)
+    try:
+        res = run_dryrun(args.arch, args.shape, multi_pod=args.multi_pod,
+                         num_microbatches=args.microbatches,
+                         reduced=args.reduced, probe=not args.no_probe,
+                         verbose=args.out is None or args.json,
+                         remat=not args.no_remat,
+                         remat_policy=args.remat_policy,
+                         cfg_overrides=overrides or None,
+                         executor=args.executor, budget_bytes=budget_bytes,
+                         check=args.check, mesh_spec=args.mesh,
+                         device=device, calibrate=args.calibrate,
+                         tuning_cache=args.tuning_cache,
+                         plan_budget_bytes=(
+                             int(args.hbm_budget_gb * 1024 ** 3)
+                             if args.hbm_budget_gb else None))
+    except (NotImplementedError, DataDependentOp) as e:
+        print(f"dryrun: {args.arch} / {args.shape}: {e}", file=sys.stderr)
+        return EXIT_ERROR
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        path = os.path.join(args.out,
+                            f"{args.arch}__{args.shape}__single.json")
+        with open(path, "w") as f:
+            json.dump(res, f, indent=1)
+        print(f"wrote {path}")
+
+    # the exit-code contract shared with ``python -m repro_torch.analysis``
+    exit_code = EXIT_OK
+    b = res.get("budget")
+    if b and b["over_budget"]:
+        print(f"BUDGET EXCEEDED: peak "
+              f"{b['measured_peak_bytes'] / 1024 ** 3:.2f} GiB > budget "
+              f"{b['budget_bytes'] / 1024 ** 3:.2f} GiB "
+              f"({args.arch} / {args.shape}) — raise --budget or shrink the "
+              "micro-batch", file=sys.stderr)
+        exit_code = EXIT_BUDGET
+    contract = res.get("contract")
+    if contract and contract.get("findings"):
+        for f in contract["findings"]:
+            print(f"CONTRACT: [{f.get('rule')}] {f.get('message')}",
+                  file=sys.stderr)
+        if exit_code == EXIT_OK:
+            exit_code = EXIT_CONTRACT
+    return exit_code
+
+
+if __name__ == "__main__":
+    sys.exit(main())

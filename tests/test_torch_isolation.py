@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module and
-``chip_smoke`` loads neither JAX nor the JAX package, the launcher runs on
-the CPU when asked, and without a GPU the CUDA entry points fail loudly
-instead of running somewhere else."""
+``chip_smoke`` loads neither JAX nor the JAX package, the launchers, the
+contract checker and the dry run run on the CPU when asked, and without
+a GPU the CUDA entry points fail loudly instead of running somewhere
+else."""
 import os
 import shutil
 import subprocess
@@ -22,7 +23,9 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-assert "repro_torch.engine.pipelined" in sys.modules
+for name in ("repro_torch.engine.pipelined", "repro_torch.analysis.suite",
+             "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all"):
+    assert name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k.startswith("jax") or k == "repro" or k.startswith("repro."))
 print("LEAKED", bad)
@@ -45,6 +48,25 @@ bad = sorted(k for k in sys.modules
              if k.startswith("jax") or k == "repro" or k.startswith("repro."))
 print("BUILT", n, "LEAKED", bad)
 """
+
+
+CHECK_AND_DRYRUN = """
+import sys
+from repro_torch.analysis import __main__ as cli
+from repro_torch.launch import dryrun
+assert cli.main(["--device", "cpu", "--config", "qwen2_reduced",
+                 "--executor", "flat"]) == 0
+assert cli.main(["--device", "cpu", "--serve"]) == 0
+assert dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
+                    "--reduced", "--device", "cpu", "--no-probe"]) == 0
+bad = sorted(k for k in sys.modules
+             if k.startswith("jax") or k == "repro" or k.startswith("repro."))
+print("LEAKED", bad)
+"""
+ANALYSIS = [sys.executable, "-m", "repro_torch.analysis", "--config",
+            "qwen2_reduced"]
+DRYRUN = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+          "qwen2-1.5b", "--shape", "decode_32k", "--reduced", "--no-probe"]
 
 
 def _run(cmd, cwd=ROOT, timeout=300):
@@ -116,6 +138,34 @@ def test_serve_launcher_without_gpu_fails_clearly():
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
     assert "ServePlan" not in out.stdout
+
+
+def test_checker_and_dryrun_run_on_cpu_when_asked():
+    """``python -m repro_torch.analysis`` and the dry run on the CPU:
+    clean, and loading no JAX."""
+    out = _run([sys.executable, "-c", CHECK_AND_DRYRUN])
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LEAKED []" in out.stdout, out.stdout[-2000:]
+    assert "OK: 0 finding(s)" in out.stdout
+
+
+def test_checker_and_dryrun_without_gpu_fail_clearly(tmp_path):
+    """Their default device is the card: without one they refuse (the
+    lint alone runs no step and needs none); ``dryrun_all`` records each
+    combo's refusal."""
+    _no_gpu()
+    for cmd in (ANALYSIS, DRYRUN):
+        out = _run(cmd)
+        assert out.returncode != 0
+        assert "no CUDA device is available" in out.stderr
+        assert '"arch"' not in out.stdout and "OK:" not in out.stdout
+    assert _run(ANALYSIS[:3] + ["--lint-only"]).returncode == 0
+    out = _run([sys.executable, "-m", "repro_torch.launch.dryrun_all",
+                "--out", str(tmp_path), "--only-arch", "qwen2-1.5b",
+                "--only-shape", "decode_32k", "--only-mesh", "single"])
+    assert out.returncode != 0 and "FAIL" in out.stdout
+    with open(tmp_path / "qwen2-1.5b__decode_32k__single.json") as f:
+        assert "no CUDA device is available" in f.read()
 
 
 def test_chip_smoke_without_gpu_fails_and_prints_no_result(tmp_path):
