@@ -135,7 +135,7 @@ Phases (any failure exits non-zero before the last line is printed):
      the unguarded step's, and a step poisoned by ``faults.nan_at``
      leaving every buffer and the step counter ``torch.equal``; the
      supervised launcher with that NaN retried against the unfaulted
-     run (phase 8's rule), at GUARD_SUPERVISED_LAYERS = 4 layers (cut
+     run (phase 8's rule), at GUARD_SUPERVISED_LAYERS = 2 layers (cut
      for the run's time limit); then the four executors at 2 layers;
   13a. a real OOM at full width (``oom_ladder_phase``): the supervised
      launcher, ``flat``, mini-batch 16 in one micro-batch, remat
@@ -210,7 +210,7 @@ Phases (any failure exits non-zero before the last line is printed):
   16a. data parallelism through the launcher (``dp_main_path_phase``):
      ``torchrun --standalone --nproc_per_node 2 -m
      repro_torch.launch.train`` for qwen2-1.5b at full width, depth cut
-     to DP_LAYERS = 4 layers (``flat``, bf16 over fp32, seq 1024, mini-batch 16 = 8 ×
+     to DP_LAYERS = 2 layers (``flat``, bf16 over fp32, seq 1024, mini-batch 16 = 8 ×
      micro 2, local micro 1, 3 steps, ``--mesh 2:1``), both ranks on ``cuda:0`` over gloo, each capped at
      0.48 of the card (``launch.mesh.init_world``); the whole command is
      killed with its ranks past DP_TIMEOUT_S. Each rank's ``--report``:
@@ -269,7 +269,8 @@ Phases (any failure exits non-zero before the last line is printed):
 
   18a. the step builders at the reference's assigned shapes
      (``steps_train_phase``): ``launch.steps.build_step(qwen2-1.5b full
-     width, depth cut to 4 layers, SHAPES["train_4k"], num_microbatches=None, executor="flat",
+     width, depth cut to STEPS_TRAIN_LAYERS = 2 layers, SHAPES["train_4k"],
+     num_microbatches=None, executor="flat",
      remat_policy="auto", calibrate="force")`` at 60 GiB, bf16 over fp32,
      SGD-m; the bundle's ``fn`` runs one step over the whole 256 × 4096
      mini-batch: the plan, probes and fit, the loss finite and near
@@ -293,8 +294,8 @@ Phases (any failure exits non-zero before the last line is printed):
      ``torchrun --standalone --nproc_per_node 2 -m
      repro_torch.launch.train --arch qwen2-1.5b --mesh 1:2 --dtype
      bfloat16 --seq 1024 --mini-batch 16 --microbatches 8 --steps 3``:
-     full width at PP_LAYERS = 8 of 28 layers (cut for the run's time
-     limit), 4 a stage, SGD-m, both ranks on
+     full width at PP_LAYERS = 2 of 28 layers (cut for the run's time
+     limit), 1 a stage, SGD-m, both ranks on
      ``cuda:0`` over gloo, each capped at 0.48 of the card, the command
      killed whole past PP_TIMEOUT_S. Each rank's ``--report``: losses
      finite, the first near ln(vocab), equal on both ranks; the census of
@@ -306,7 +307,7 @@ Phases (any failure exits non-zero before the last line is printed):
      ``memory_model.estimate(..., pipeline=True)``; K1–K6 launched 0
      times (the reference's pipelined path runs no kernel);
   19b. the same with ``--mesh 2:2 --fsdp``: four ranks, each capped at
-     0.24 of the card, 8 layers (each rank's peak fits its share); the
+     0.24 of the card, PP_LAYERS layers (each rank's peak fits its share); the
      census adds one model-axis and two data-axis all-reduces a step and
      as many all-gathers as reduce-scatters, equal on every rank;
   19c. (``pp_check_phase``) ``LocalWorld``s of 2 and 4 ranks on the card,
@@ -326,15 +327,33 @@ Phases (any failure exits non-zero before the last line is printed):
   20b. seeded faults on the card: ``fused`` accumulating in bf16 under an
      fp32 contract fires JX001, an undonated KV pool SRV001;
   20c. (``dryrun_phase``) the dry run (``launch.dryrun``) of 18a's step —
-     full width at 4 layers, planned from 18a's tuning cache — on fake
+     full width at 18a's depth, planned from 18a's tuning cache — on fake
      CUDA tensors, allocating nothing: the plan 18a's, the predicted peak
      beside 18a's allocator peak and calibrated prediction, the FLOPs a
      step and 18a's TFLOP/s from them against the bf16 peak.
+  21a. (``gspmd_train_phase``) the GSPMD mesh: a ``LocalWorld`` of four
+     ranks sharing the card over gloo (each capped at 0.24 of it) on a
+     2 × 2 (data × model) mesh, qwen2-1.5b at full width and
+     GSPMD_LAYERS = 2 of 28 layers (cut for the run's time limit), bf16,
+     seq 1024, mini-batch 16 in 2 micro-batches, SGD-m, through
+     ``launch.steps.build_train_step(mesh=gspmd_mesh(...), executor=
+     "flat")``: every rank's losses finite and equal, the first near
+     ln(vocab); its parameter blocks the spec arithmetic; K1 steps × N_Smu
+     × buckets and K2 steps × buckets on every rank's blocks; the steady
+     step and tokens/s (the mean of the steps after the first, a
+     warm-up); the collectives of the second step by kind and axis; each
+     rank's peak beside ``estimate(mesh=, fsdp_params=True)``;
+  21b. the same mesh at 2 layers, fp32, TF32 off: 2 steps within phase
+     5's rtol / atol 1e-6 of one device's ``compiled``;
+  21c. (``gspmd_dryrun_phase``) 18a's step dry-run as rank 0 of the
+     16 × 16 production mesh (a fake world of 256, fake CUDA tensors):
+     the rank's parameter blocks (the spec arithmetic), peak, FLOPs and
+     collectives.
 
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
 ``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's,
-15's, 16's, 17's, 18's, 19's and 20's numbers)
+15's, 16's, 17's, 18's, 19's, 20's and 21's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2495,9 +2514,9 @@ def _same_run(what, ref_host, ref_losses, got_leaves, got_losses, redo):
     return {"bitwise": False, "max_diff": diff, "bound": bound}
 
 
-# 13c's supervised runs: depth cut to 4 of 28 layers for the run's time
+# 13c's supervised runs: depth cut to 2 of 28 layers for the run's time
 # limit (at 28 their two 12.3 GB host anchors a run took ~12 s)
-GUARD_SUPERVISED_LAYERS = 4
+GUARD_SUPERVISED_LAYERS = 2
 
 
 def guard_phase(dev) -> dict:
@@ -3693,9 +3712,9 @@ def family_phases(timed, dev) -> dict:
 # 16a: the launcher under torchrun, full qwen2-1.5b, the main path's
 # settings with 8 micro-batches of 2 (local micro 1 a rank)
 DP_RANKS = 2
-# (depth cut to 4 of 28 layers for the run's time limit: the all-reduce
+# (depth cut to 2 of 28 layers for the run's time limit: the all-reduce
 # of the whole model through gloo's host ring was 94 % of the step)
-DP_LAYERS = 4
+DP_LAYERS = 2
 DP_ARGV = ["--arch", "qwen2-1.5b", "--executor", "flat",
            "--dtype", "bfloat16", "--seq", "1024", "--mini-batch", "16",
            "--microbatches", "8", "--steps", "3", "--log-every", "1",
@@ -4168,13 +4187,14 @@ def fault_agreement_phase(dev) -> dict:
 # 19. pipeline parallelism: stages sharing the card over gloo
 # ---------------------------------------------------------------------------
 
-# 19a: the launcher under torchrun, full qwen2-1.5b width at PP_LAYERS (4
+# 19a: the launcher under torchrun, full qwen2-1.5b width at PP_LAYERS (1
 # a stage), bf16 over fp32, SGD-m, 8 micro-batches of 2, on a 1 x 2 mesh;
 # 19b the same on a 2 x 2 mesh with FSDP. Depth cut for the run's time
 # limit: with all 28 layers in 19a and 19b the whole script took 1,184 s
-# of its 1,200 on an H100 80GB HBM3 at 700 W; rank start-up, not depth,
-# is most of either phase
-PP_LAYERS = 8
+# of its 1,200 on an H100 80GB HBM3 at 700 W, and 1,197.7 s at 8 once
+# phase 21 came, and 1,206.7 s at 4; rank start-up, not depth, is most
+# of either phase
+PP_LAYERS = 2
 PP_ARGV = ["--arch", "qwen2-1.5b", "--dtype", "bfloat16", "--seq", "1024",
            "--mini-batch", "16", "--microbatches", "8", "--steps", "3",
            "--log-every", "1", "--layers", str(PP_LAYERS)]
@@ -4783,9 +4803,11 @@ def encdec_vlm_phases(timed, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 STEPS_ARCH = "qwen2-1.5b"
-# 18a's depth, cut to 4 of qwen2-1.5b's 28 layers for the run's time
-# limit: the width, the 256 x 4096 mini-batch and the calibration stay
-STEPS_TRAIN_LAYERS = 4
+# 18a's depth, cut to 2 of qwen2-1.5b's 28 layers for the run's time
+# limit (4 until phase 21 came: the whole run took 1,197.7 s of command
+# on an H100 80GB HBM3 at 700 W): the width, the 256 x 4096 mini-batch
+# and the calibration stay
+STEPS_TRAIN_LAYERS = 2
 # 18c: one card runs the data shard of the 16 x 16 mesh the reference
 # compiles prefill_32k and decode_32k for
 STEPS_DATA_SHARDS = 16
@@ -5315,6 +5337,309 @@ def dryrun_phase(dev, st_train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 21: the GSPMD mesh (tensor and FSDP sharding by the reference's
+# param_specs) on four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# 21a: full-width qwen2-1.5b cut in depth only. Every collective of a rank
+# sharing the card goes through the host over gloo (launch.mesh.
+# host_staged_collectives: 0.29 GB/s for a 256 MB all-gather of two ranks
+# in the probe), and the step re-gathers the weights each micro-batch, so
+# the depth, the micro-batch count and the steps are what the run's time
+# allows
+GSPMD_DIMS = (2, 2)
+GSPMD_LAYERS = 2
+GSPMD_SEQ = 1024
+GSPMD_MINI = 16  # the main path's mini-batch
+GSPMD_MICROBATCHES = 2
+GSPMD_STEPS = 3  # the first a warm-up (DTensor's propagation cache)
+GSPMD_CHECK_LAYERS = 2
+GSPMD_CHECK_STEPS = 2
+GSPMD_CHECK_SEQ = 128
+GSPMD_TIMEOUT_S = 400
+
+
+def _gspmd_spec_bytes(cfg, dims) -> int:
+    """Σ numel / shard_factor × 4 over the leaves of ``cfg``'s params under
+    the reference's ``param_specs`` on ``dims``."""
+    from repro_torch import tree
+    from repro_torch.core import memory_model
+    from repro_torch.launch import sharding
+    shapes = memory_model.param_shapes(cfg)
+    specs = sharding.spec_leaves(sharding.param_specs(shapes, dims))
+    return sum(x.numel() // sharding.shard_factor(sp, dims) * 4
+               for x, sp in zip(tree.leaves(shapes), specs))
+
+
+def gspmd_main_rank(mesh, layers: int, steps: int) -> dict:
+    """21a on one rank: full-width qwen2-1.5b at ``layers`` layers, bf16,
+    seq 1024, mini-batch 16 in GSPMD_MICROBATCHES micro-batches, SGD-m,
+    through ``launch.steps.build_train_step(mesh=gspmd_mesh(2, 2),
+    executor="flat")`` — the ``GspmdExecutor`` over ``flat``, K1 and K2
+    on this rank's blocks. The launch counters are zeroed before the first
+    step and read after the last; the first step is a warm-up (it fills
+    DTensor's propagation cache), the steps after it are the steady ones,
+    and the second runs under the collective census; the peak beside ``memory_model.estimate(mesh=, fsdp_params=True)``."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, engine, kernels, optim
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import memory_model
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+
+    dev = mesh.device
+    gm = mesh_lib.gspmd_mesh(mesh, *GSPMD_DIMS)
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=layers)
+    budget = int(memory_model.device_memory_bytes(dev)
+                 * mesh.memory_fraction)
+    bundle = steps_lib.build_train_step(
+        cfg, InputShape("21a", "train", GSPMD_SEQ, GSPMD_MINI),
+        num_microbatches=GSPMD_MICROBATCHES, executor="flat", mesh=gm,
+        budget_bytes=budget, device=dev)
+    ex, plan, opt = bundle.fn.__self__, bundle.plan, bundle.optimizer
+    t0 = time.perf_counter()
+    params = steps_lib.init_params(cfg, seed=0, device=dev)
+    p, s = ex.prepare(params, opt.init(params))
+    del params
+    prepare_s = time.perf_counter() - t0
+    local_bytes = ex.local_param_bytes(p)
+    ds = LMDataset(cfg.vocab_size, GSPMD_SEQ, seed=0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    losses, step_s, census = [], [], None
+    for i in range(steps):
+        split = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in ex.shard(plan.split(
+                     ds.batch(GSPMD_MINI, i))).items()}
+        t0 = time.perf_counter()
+        if i == 1:
+            with engine.CollectiveCensus(gm) as cc:
+                p, s, m = bundle.fn(p, s, split)
+            census = cc.summary()
+        else:
+            p, s, m = bundle.fn(p, s, split)
+        losses.append(float(m["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    est = memory_model.estimate(
+        cfg, GSPMD_SEQ, mesh=dict(gm), fsdp_params=True, act_bytes=2,
+        remat_policy=plan.remat_policy,
+        **optim.memory_model_kw(opt, fused=True)).total(plan.local_micro)
+    n_b = engine.FlatSpec.for_tree(p).num_buckets
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 engine.FlatSpec.for_tree(p).buffers_of(p))
+    return {"rank": mesh.rank, "coords": gm.coords(), "plan": plan.describe(),
+            "num_micro_batches": plan.num_micro_batches,
+            "local_micro": plan.local_micro, "losses": losses,
+            "step_s": step_s, "prepare_s": prepare_s, "census": census,
+            "counts": counts, "buckets": n_b, "params_finite": finite,
+            "local_param_bytes": local_bytes, "peak_bytes": peak,
+            "estimate_bytes": est, "memory_fraction": mesh.memory_fraction}
+
+
+def gspmd_check_rank(mesh, layers: int, steps: int) -> dict:
+    """21b on one rank: ``steps`` steps of the 2 × 2 GSPMD step (``flat``)
+    at ``layers`` layers of full qwen2-1.5b width, fp32, TF32 off,
+    against one device's ``compiled`` steps on the same global
+    mini-batches (computed on this rank's device): this rank's params and
+    momentum blocks against the same blocks of the reference's
+    (``prepare`` cuts them), within phase 5's rtol / atol 1e-6."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, engine, optim, tree
+    from repro_torch.data import LMDataset
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    gm = mesh_lib.gspmd_mesh(mesh, *GSPMD_DIMS)
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=layers)
+    sgd = lambda: optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)  # noqa
+    ds = LMDataset(cfg.vocab_size, GSPMD_CHECK_SEQ, seed=0)
+    batches = [ds.batch(8, i) for i in range(steps)]
+    loss_fn = steps_lib.make_loss_fn(cfg, dtype=torch.float32,
+                                     remat_policy="none")
+    one_plan = engine.plan_mbs(8, num_microbatches=2, remat_policy="none",
+                               device=dev)
+    one = engine.CompiledScanExecutor(loss_fn, sgd(), one_plan)
+    ref_p = steps_lib.init_params(cfg, seed=0, device=dev)
+    ref_s = sgd().init(ref_p)
+    ref_losses = []
+    for b in batches:
+        ref_p, ref_s, m = one.step_split(ref_p, ref_s,
+                                         one_plan.device_split(b, dev))
+        ref_losses.append(float(m["loss"]))
+    plan = engine.plan_mbs(8, num_microbatches=2, remat_policy="none",
+                           mesh=gm, device=dev)
+    ex = engine.GspmdExecutor(loss_fn, sgd(), plan, mesh=gm, inner="flat")
+    params = steps_lib.init_params(cfg, seed=0, device=dev)
+    p, s = ex.prepare(params, sgd().init(params))
+    del params
+    losses = []
+    for b in batches:
+        split = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in ex.shard(plan.split(b)).items()}
+        p, s, m = ex.step_split(p, s, split)
+        losses.append(float(m["loss"]))
+    want_p, want_s = ex.prepare(ref_p, ref_s)
+    worst, ok = 0.0, True
+    for x, y in zip(tree.leaves((p, s["mom"])),
+                    tree.leaves((want_p, want_s["mom"]))):
+        err, fine = max_violation(x, y)
+        worst, ok = max(worst, err), ok and fine
+    del ex, p, s, want_p, want_s, ref_p, ref_s, one
+    gc_collect()
+    return {"plan": plan.describe(), "losses": losses,
+            "ref_losses": ref_losses, "max_abs_err": worst, "within": ok}
+
+
+def gspmd_train_phase(dev) -> dict:
+    """21a and 21b in one ``LocalWorld`` of four ranks sharing the card
+    (gloo, each capped at 0.24 of its memory): see
+    :func:`gspmd_main_rank` and :func:`gspmd_check_rank`. Every rank's
+    losses finite and equal, the first near ln(vocab); its parameter
+    bytes the spec arithmetic; K1 launched steps × N_Smu × buckets and K2
+    steps × buckets on every rank."""
+    from repro_torch import configs
+    from repro_torch.launch.world import LocalWorld
+
+    gc_collect()
+    store = os.path.join(ROOT, "build", "gspmd")
+    os.makedirs(store, exist_ok=True)
+    card = card_line()
+    n = GSPMD_DIMS[0] * GSPMD_DIMS[1]
+    with LocalWorld(n, device="cuda", store_dir=store,
+                    timeout_s=GSPMD_TIMEOUT_S, threads=0) as world:
+        t0 = time.perf_counter()
+        res = world.run(gspmd_main_rank, GSPMD_LAYERS, GSPMD_STEPS)
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chk = world.run(gspmd_check_rank, GSPMD_CHECK_LAYERS,
+                        GSPMD_CHECK_STEPS)
+        check_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
+                              num_layers=GSPMD_LAYERS)
+    want_bytes = _gspmd_spec_bytes(cfg, dict(zip(("data", "model"),
+                                                 GSPMD_DIMS)))
+    r0 = res[0]
+    for r in res:
+        check(all(math.isfinite(x) for x in r["losses"]) and
+              r["params_finite"], f"21a rank {r['rank']}: losses "
+                                  f"{r['losses']} or params not finite")
+        check(r["losses"] == r0["losses"],
+              f"21a: rank {r['rank']}'s losses {r['losses']} differ from "
+              f"rank 0's {r0['losses']}")
+        check(r["local_param_bytes"] == want_bytes,
+              f"21a rank {r['rank']}: {r['local_param_bytes']} B of "
+              f"parameter blocks, the spec arithmetic says {want_bytes}")
+        k1 = GSPMD_STEPS * r["num_micro_batches"] * r["buckets"]
+        k2 = GSPMD_STEPS * r["buckets"]
+        check(r["counts"]["grad_accum"] == k1,
+              f"21a rank {r['rank']}: K1 launched "
+              f"{r['counts']['grad_accum']} times, expected {k1}")
+        check(r["counts"]["fused_sgd_mom"] == k2,
+              f"21a rank {r['rank']}: K2 launched "
+              f"{r['counts']['fused_sgd_mom']} times, expected {k2}")
+    check(abs(r0["losses"][0] - math.log(cfg.vocab_size)) < 1.0,
+          f"21a: first loss {r0['losses'][0]:.4f} is far from ln(vocab) "
+          f"{math.log(cfg.vocab_size):.4f}")
+    steady = r0["step_s"][1:]
+    step_s = sum(steady) / len(steady)
+    tokens = GSPMD_MINI * GSPMD_SEQ
+    for c in chk:
+        check(c["within"], f"21b: a rank's params/momentum differ from one "
+                           f"device's compiled by {c['max_abs_err']:.3e} "
+                           "(rtol 1e-6, atol 1e-6)")
+        for x, y in zip(c["losses"], c["ref_losses"]):
+            check(abs(x - y) <= 1e-5 * abs(y),
+                  f"21b: loss {x} vs one device's {y}")
+    out = {"card": card, "plan": r0["plan"], "losses": r0["losses"],
+           "step_s": r0["step_s"], "steady_step_s": step_s,
+           "tokens_per_s": tokens / step_s, "census": r0["census"],
+           "counts": {f"rank{r['rank']}": r["counts"] for r in res},
+           "local_param_bytes": want_bytes,
+           "peak_bytes": [r["peak_bytes"] for r in res],
+           "estimate_bytes": r0["estimate_bytes"],
+           "prepare_s": [r["prepare_s"] for r in res],
+           "train_s": train_s, "check_s": check_s,
+           "check": {"plan": chk[0]["plan"], "losses": chk[0]["losses"],
+                     "ref_losses": chk[0]["ref_losses"],
+                     "max_abs_err": max(c["max_abs_err"] for c in chk)}}
+    print(f"21a [{card}]: GSPMD {GSPMD_DIMS[0]}x{GSPMD_DIMS[1]} (data x "
+          f"model) on {n} ranks sharing the card over gloo, qwen2-1.5b at "
+          f"{GSPMD_LAYERS} of 28 layers, full width, bf16, seq "
+          f"{GSPMD_SEQ}: {r0['plan']}; losses {r0['losses']} on every rank;"
+          f" step seconds {r0['step_s']} (the first a warm-up, the second "
+          f"under the census), steady {step_s:.3f} s, "
+          f"{tokens / step_s:.1f} tokens/s; parameter blocks {want_bytes} B"
+          f" a rank (the spec arithmetic); peaks "
+          f"{[r['peak_bytes'] for r in res]} B beside the memory model's "
+          f"{r0['estimate_bytes']} B; collectives of the second step "
+          f"{r0['census']}; launches {out['counts']['rank0']} a rank; "
+          f"{train_s:.1f} s", flush=True)
+    print(f"21b [{card}]: GSPMD {GSPMD_DIMS[0]}x{GSPMD_DIMS[1]} flat == one "
+          f"device's compiled after {GSPMD_CHECK_STEPS} steps at qwen2-1.5b "
+          f"width, {GSPMD_CHECK_LAYERS} layers, fp32, TF32 off (losses "
+          f"{chk[0]['losses']} vs {chk[0]['ref_losses']}, max abs err "
+          f"{out['check']['max_abs_err']:.3e}); {check_s:.1f} s", flush=True)
+    return out
+
+
+def gspmd_dryrun_phase(dev, st_train: dict) -> dict:
+    """21c. The dry run of 18a's step (``train_4k`` at STEPS_TRAIN_LAYERS
+    layers, ``flat``, its N_Smu and remat policy pinned) as one rank of
+    the 16 × 16 production mesh: a fake world of 256 ranks in this
+    process, fake CUDA tensors (nothing allocated on the card): the
+    rank's peak, parameter bytes (the spec arithmetic) and FLOPs, and its
+    collectives by kind and axis."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    card = card_line()
+    gc_collect()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    res = dryrun.run_dryrun(
+        STEPS_ARCH, "train_4k", executor="flat",
+        num_microbatches=st_train["num_micro_batches"],
+        remat_policy=st_train["remat"],
+        cfg_overrides={"num_layers": STEPS_TRAIN_LAYERS},
+        plan_budget_bytes=CALIBRATION_BUDGET_GB * GIB, device=dev,
+        mesh_spec="production", probe=False, verbose=False)
+    wall = time.perf_counter() - t0
+    check(torch.cuda.memory_allocated(dev) == before,
+          "21c: the dry run allocated on the card")
+    g = res["gspmd"]
+    cfg = dataclasses.replace(configs.get(STEPS_ARCH),
+                              num_layers=STEPS_TRAIN_LAYERS)
+    want = _gspmd_spec_bytes(cfg, g["mesh"])
+    check(g["local_param_bytes"] == want,
+          f"21c: {g['local_param_bytes']} B of parameter blocks, the spec "
+          f"arithmetic says {want}")
+    check(g["collectives"]["calls"] > 0, "21c: no collective counted")
+    out = {"card": card, "plan": g["plan"], "world": g["world"],
+           "local_param_bytes": g["local_param_bytes"],
+           "peak_bytes": g["peak_bytes"], "flops": g["flops"],
+           "modeled_bytes": res["oracle"]["modeled_bytes"],
+           "collectives": g["collectives"], "dryrun_s": wall}
+    print(f"21c dry run of {STEPS_ARCH} train_4k at {STEPS_TRAIN_LAYERS} "
+          f"layers as rank 0 of the {g['world']}-rank production mesh "
+          f"{g['mesh']} [{card}]: {g['plan']}; parameter blocks "
+          f"{g['local_param_bytes']} B; peak {g['peak_bytes']} B "
+          f"({g['peak_bytes'] / GIB:.3f} GiB) beside the memory model's "
+          f"{res['oracle']['modeled_bytes']} B; {g['flops']:.6e} FLOPs a "
+          f"step; collectives {g['collectives']}; {wall:.1f} s", flush=True)
+    return out
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -5326,6 +5651,12 @@ def run() -> dict:
                            "drives the port on a GPU and has no CPU mode")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    # the LocalWorld ranks of 16b, 16c, 19c and 21 fork from a server that
+    # imports torch once; started now, its imports overlap phase 2's builds
+    import multiprocessing.forkserver
+    from repro_torch.launch import world as world_lib
+    world_lib.context()
+    multiprocessing.forkserver.ensure_running()
     card = card_line()
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5390,6 +5721,9 @@ def run() -> dict:
     checker = {"analysis": timed("20a/20b analysis", analysis_phase, dev),
                "dryrun": timed("20c dry run", dryrun_phase, dev,
                                st["train"])}
+    gspmd = {"train": timed("21a/21b GSPMD", gspmd_train_phase, dev),
+             "dryrun": timed("21c GSPMD dry run", gspmd_dryrun_phase, dev,
+                             st["train"])}
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
     # families' training paths (15a-15c, 17a, 17b), the data-parallel
@@ -5410,6 +5744,8 @@ def run() -> dict:
                 for label, r in pp["train"].items()
                 for k, c in r["counts"].items()},
              "analysis 20a": checker["analysis"]["counts"],
+             **{f"gspmd qwen2-1.5b {k}": c
+                for k, c in gspmd["train"]["counts"].items()},
              **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
@@ -5483,6 +5819,9 @@ def run() -> dict:
                                        if k != "counts"}
                                for label, r in pp["train"].items()},
                      "check": pp["check"]},
+        "gspmd": {"train": {k: v for k, v in gspmd["train"].items()
+                            if k != "counts"},
+                  "dryrun": gspmd["dryrun"]},
         "phase_s": phase_s,
         "total_s": sum(phase_s.values())}}),
         flush=True)

@@ -12,7 +12,9 @@ admission by ``plan_serve`` and the continuous-batching engine), and
 data parallelism (``sharded.py``: the ``ShardedExecutor``, one flat
 all-reduce per mini-batch over ``torch.distributed``) and pipeline
 parallelism (``pipelined.py``: the 1F1B ``PipelinedExecutor`` over a
-``(data, model)`` mesh, ``StagedLoss``, ``schedule_1f1b``), and the
+``(data, model)`` mesh, ``StagedLoss``, ``schedule_1f1b``) and the
+model split over a GSPMD mesh (``gspmd.py``: the ``GspmdExecutor``,
+tensor and FSDP sharding by the reference's ``param_specs``), and the
 recorded step (``steptrace.py``: every executor's ``trace_step`` /
 ``measure_step``, which ``repro_torch.analysis`` checks)."""
 from .plan import (MBSConfig, MBSPlan, num_micro_batches,  # noqa: F401
@@ -29,6 +31,7 @@ from .sharded import (ShardedExecutor, collective_stats,  # noqa: F401
                       psum_flat, reset_collective_stats, time_collectives)
 from .pipelined import (PipelinedExecutor, StagedLoss,  # noqa: F401
                         p2p_counts, schedule_1f1b)
+from .gspmd import CollectiveCensus, GspmdExecutor  # noqa: F401
 from .pipeline import Pipeline, PipelineStats  # noqa: F401
 from .trainer import Trainer  # noqa: F401
 from .supervisor import (FaultRecord, NaNCircuitBreaker, NaNHalt,  # noqa: F401

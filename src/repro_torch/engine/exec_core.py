@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from .. import tree
+from .. import optim, tree
 from ..kernels import (fused_adam, fused_sgd, grad_accum_many,
                        grad_accum_tree)
 from .flat import FlatSpec
@@ -159,7 +159,7 @@ def apply_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,
                             opt_state, params)
     gscale = 1.0
     if fs.clip_norm is not None:
-        norm = global_grad_norm(acc_buffers)
+        norm = global_grad_norm(acc_buffers, spec)
         gscale = torch.clamp(fs.clip_norm / (norm + 1e-12), max=1.0)
     step = opt_state["step"]
     lr_t = fs.schedule(step)
@@ -209,11 +209,20 @@ def _buffers(spec: FlatSpec, t):
     return bufs
 
 
-def global_grad_norm(grads) -> torch.Tensor:
+def global_grad_norm(grads, spec: FlatSpec = None) -> torch.Tensor:
     """sqrt(Σ g²) in fp32 over a tree or a list of flat buffers, without a
-    squared copy of any buffer."""
-    return torch.sqrt(sum(torch.square(torch.linalg.vector_norm(
-        g, dtype=torch.float32)) for g in tree.leaves(grads)))
+    squared copy of any buffer. Under ``optim.sharded_norm`` (a GSPMD
+    step: the leaves are this rank's blocks) the squares are taken leaf
+    by leaf — ``spec`` maps flat buffers back to their leaves — and
+    summed over the model by the reducer."""
+    reduce = optim.norm_reducer()
+    if reduce is None:
+        return torch.sqrt(sum(torch.square(torch.linalg.vector_norm(
+            g, dtype=torch.float32)) for g in tree.leaves(grads)))
+    if spec is not None:
+        grads = spec.unflatten(grads, cast=False)
+    return torch.sqrt(reduce([torch.square(torch.linalg.vector_norm(
+        g, dtype=torch.float32)) for g in tree.leaves(grads)]))
 
 
 # ---------------------------------------------------------------------------
@@ -284,13 +293,15 @@ def guarded_update_flat(optimizer, spec: FlatSpec, acc_buffers, opt_state,
 
 
 def finalize_metrics(metric_sum: Dict[str, Any], loss, grads, ok=None,
-                     grad_norm=None) -> Dict[str, Any]:
+                     grad_norm=None, spec: FlatSpec = None
+                     ) -> Dict[str, Any]:
     """The step's device-scalar metrics; under the guard also
     ``nonfinite`` (1.0 when the update was skipped). ``grad_norm``
-    overrides the norm of ``grads`` (a pipeline stage's part)."""
+    overrides the norm of ``grads`` (a pipeline stage's part); ``spec``
+    is the layout of flat ``grads`` (:func:`global_grad_norm`)."""
     out = dict(metric_sum)
     out["loss"] = loss  # Σ normalized micro losses == mini-batch mean loss
-    out["grad_norm"] = (global_grad_norm(grads) if grad_norm is None
+    out["grad_norm"] = (global_grad_norm(grads, spec) if grad_norm is None
                         else grad_norm)
     if ok is not None:
         out["nonfinite"] = 1.0 - ok.to(torch.float32)

@@ -71,15 +71,19 @@ class _ExecutorBase(Traceable):
     name = "base"
     fused = False  # raw micro losses, normalization fused into K1
 
-    def __init__(self, loss_fn, optimizer, plan, *, guard: bool = False):
+    def __init__(self, loss_fn, optimizer, plan, *, guard: bool = False,
+                 denominators=exec_core.denominators):
+        """``denominators`` gives (N_Sμ, N_B_valid) of a split batch (the
+        GSPMD step counts the valid samples of the global batch)."""
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.plan = _as_plan(plan)
         self.guard = guard
+        self.denominators = denominators
 
     def _accumulated(self, params, micro_batches, raw: bool = False):
         """(grads tree in accum_dtype, loss, metric_sum) over the split."""
-        n_s, total_valid = exec_core.denominators(micro_batches)
+        n_s, total_valid = self.denominators(micro_batches)
         return self._accumulate_over(
             params, (_micro(micro_batches, i) for i in range(n_s)), n_s,
             total_valid, raw=raw)
@@ -269,7 +273,7 @@ class FlatFusedExecutor(_ExecutorBase):
         shown its metrics; ``store`` is None without it."""
         plan = self.plan
         spec = flat.FlatSpec.for_tree(params)
-        n_s, total_valid = exec_core.denominators(micro_batches)
+        n_s, total_valid = self.denominators(micro_batches)
         norm = "exact" if raw else plan.normalization
         scale = (1.0 if raw else exec_core.deferred_scale(
             plan.normalization, n_s, total_valid))
@@ -319,7 +323,7 @@ class FlatFusedExecutor(_ExecutorBase):
             new_params, new_opt = exec_core.apply_update_flat(
                 self.optimizer, spec, acc, opt_state, params)
         return new_params, new_opt, exec_core.finalize_metrics(
-            metric_sum, loss, acc, ok)
+            metric_sum, loss, acc, ok, spec=spec)
 
 
 EXECUTORS: Dict[str, Type] = {

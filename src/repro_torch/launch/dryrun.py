@@ -3,7 +3,9 @@ would run, built by ``launch.steps.build_step`` and run once under a
 ``FakeTensorMode`` — shapes and dtypes only, so nothing is allocated on
 either device, full-size configurations included. The reference
 compiles the same step for its production mesh; the port runs it on one
-device (the production meshes are ROADMAP item 11).
+device, or with ``--mesh production`` (``--multi-pod``) as one rank of
+the production GSPMD mesh: a fake world of 256 (512) ranks in this
+process, the state cut to the rank's blocks (:func:`_production`).
 
 What it reports (one JSON line; the reference's keys where they carry a
 meaning):
@@ -160,9 +162,122 @@ def _kernel_calls(trace) -> Dict[str, int]:
     return calls
 
 
-def _refuse_mesh(multi_pod: bool, mesh_spec: Optional[str]) -> None:
-    if multi_pod or mesh_spec == "production":
-        mesh_lib.make_production_mesh(multi_pod=multi_pod)  # raises
+def _production(cfg, shape, *, multi_pod: bool, pinned, device,
+                step_kw) -> Dict[str, Any]:
+    """One rank's view of the train step on the production mesh: a fake
+    world of 256 (512 with the pod axis) ranks in this process (every
+    collective returns at once), the step built for the GSPMD mesh
+    (``fsdp_over_pod`` with the pod axis, as the reference's dry run),
+    its state cut to rank 0's blocks and run under a ``FakeTensorMode``
+    — nothing allocated. The census
+    (``engine.CollectiveCensus(local=True)``) counts the rank's local
+    FLOPs, the peak of its live local bytes and its collectives by kind
+    and axis; the first micro-batch and the first two are run and the
+    difference carried to all N, as for one device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if shape.kind != "train":
+        raise ValueError(
+            f"{shape.name} is a {shape.kind} shape: prefill and decode on "
+            "the production mesh are the serving half of ROADMAP.md queue "
+            "1 item 11 (cache_specs placement of the KV pool), not ported")
+    world = 512 if multi_pod else 256
+    mesh_lib.fake_world(world, rank=0)
+    try:
+        mesh = mesh_lib.make_production_mesh(
+            multi_pod=multi_pod, world_mesh=mesh_lib.Mesh(
+                {mesh_lib.DATA_AXIS: world, mesh_lib.MODEL_AXIS: 1},
+                device=device, backend="fake"))
+        bundle = steps.build_step(cfg, shape, num_microbatches=pinned,
+                                  mesh=mesh, fsdp_over_pod=multi_pod,
+                                  **step_kw)
+        ex, plan = bundle.fn.__self__, bundle.plan
+        runs = []
+        # DTensor's sharding propagation runs each new op once on fake
+        # tensors of the whole shape, which the census would count; a
+        # first step fills its cache and is not counted
+        for micros in [1] + sorted({1, min(2, plan.num_micro_batches)}):
+            with FakeTensorMode(allow_non_fake_inputs=False):
+                params, opt_state, batch = _fakes(bundle.arg_shapes, device)
+                batch = {k: v[:micros] for k, v in batch.items()}
+                params, opt_state = ex.prepare(params, opt_state)
+                local_bytes = ex.local_param_bytes(params)
+                census = engine.CollectiveCensus(mesh, local=True)
+                census.see(*tree.leaves((params, opt_state, batch)))
+                with census:
+                    bundle.fn(params, opt_state, batch)
+                runs.append(census)
+                del params, opt_state, batch
+        n = plan.num_micro_batches
+        runs = runs[1:]
+        one, two = runs[0], runs[-1]
+
+        def extend(a, b):
+            return a + (n - 1) * (b - a) if len(runs) > 1 else a
+
+        kinds = {}
+        for kind in set(one.counts) | set(two.counts):
+            axes = set(one.counts.get(kind, {})) | set(two.counts.get(kind,
+                                                                      {}))
+            kinds[kind] = {ax: extend(one.counts.get(kind, {}).get(ax, 0),
+                                      two.counts.get(kind, {}).get(ax, 0))
+                           for ax in sorted(axes)}
+        return {
+            "world": world, "mesh": dict(mesh), "rank": mesh.rank,
+            "coords": mesh.coords(), "fsdp_over_pod": multi_pod,
+            "local_param_bytes": local_bytes,
+            "flops": extend(one.flops, two.flops),
+            "peak_bytes": two.peak_bytes,
+            "collectives": {
+                "by_kind_and_axis": kinds,
+                "bytes_by_kind": {k: extend(one.bytes.get(k, 0),
+                                            two.bytes.get(k, 0))
+                                  for k in sorted(set(one.bytes)
+                                                  | set(two.bytes))},
+                "calls": sum(sum(v.values()) for v in kinds.values())},
+            "plan": plan.describe(), "num_micro_batches": n,
+            "local_micro": plan.local_micro,
+            "remat_policy": plan.remat_policy, "bundle": bundle}
+    finally:
+        mesh_lib.shutdown()
+
+
+def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
+                       plan_budget, executor, verbose):
+    bundle = g.pop("bundle")
+    plan = bundle.plan
+    mm_kw = dict(remat_policy=plan.remat_policy, act_bytes=2,
+                 **optim.memory_model_kw(bundle.optimizer,
+                                         fused=executor == "flat"))
+    est = memory_model.estimate(cfg, shape.seq_len, mesh=g["mesh"],
+                                fsdp_params=True, **mm_kw)
+    peak = g["peak_bytes"]
+    modeled = est.total(plan.local_micro)
+    result = {
+        "arch": arch, "shape": shape_name, "mesh": list(g["mesh"].values()),
+        "axes": list(g["mesh"]), "mesh_dims": list(g["mesh"].items()),
+        "kind": "train", "num_devices": g["world"], "device": device.type,
+        "num_microbatches": g["num_micro_batches"],
+        "remat_policy": plan.remat_policy,
+        "remat_policy_auto": plan.auto_policy,
+        "per_device": {
+            "data_parallel": plan.data_parallel,
+            "local_micro": plan.local_micro,
+            "micro_batch_global": plan.micro_batch_size,
+            "budget_bytes": plan_budget,
+            "analytic_bytes_at_local_micro": modeled,
+            "params_bytes": est.params_bytes, "plan": plan.describe()},
+        "oracle": {"local_micro": plan.local_micro,
+                   "modeled_bytes": modeled, "measured_bytes": peak,
+                   "model_error_pct": (round(100.0 * (modeled - peak) / peak,
+                                             2) if peak else None)},
+        "gspmd": g,
+        "raw_cost_analysis": {"flops": float(g["flops"])},
+        "memory": {"peak_bytes_est": peak,
+                   "source": "live local tensor bytes of one rank"},
+        "step_s": round(t_step, 2), "skipped": False}
+    if verbose:
+        print(json.dumps(result))
+    return result
 
 
 def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -182,8 +297,9 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     in :func:`main`); the planner plans against ``plan_budget_bytes``,
     by default the card's memory (on the CPU, ``CARD_BYTES``).
     ``unrolled`` runs every micro-batch of the step instead of extending
-    the first two (see the module doc)."""
-    _refuse_mesh(multi_pod, mesh_spec)
+    the first two (see the module doc). ``mesh_spec="production"`` (or
+    ``multi_pod``) dry-runs the train step on the production GSPMD mesh
+    (:func:`_production`)."""
     device = torch.device(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
     if cfg_overrides:
@@ -193,7 +309,8 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
         return {"arch": arch, "shape": shape_name, "skipped": True,
                 "reason": "long_500k requires sub-quadratic attention"}
     dims = (1, 1)
-    if mesh_spec:
+    production = multi_pod or mesh_spec == "production"
+    if mesh_spec and not production:
         data, _, model = mesh_spec.partition(":")
         dims = (int(data), int(model))
     mesh = (mesh_lib.make_host_mesh(data=dims[0], model=dims[1])
@@ -211,6 +328,12 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
                        device=device, calibrate=calibrate,
                        tuning_cache=tuning_cache)
     t0 = time.perf_counter()
+    if production:
+        g = _production(cfg, shape, multi_pod=multi_pod, pinned=pinned,
+                        device=device, step_kw=step_kw)
+        return _production_report(arch, shape_name, cfg, shape, g, device,
+                                  time.perf_counter() - t0, plan_budget,
+                                  executor, verbose)
     bundle = steps.build_step(cfg, shape, num_microbatches=pinned,
                               **step_kw)
     plan = bundle.plan
@@ -362,13 +485,13 @@ def main(argv=None):
     ap.add_argument("--arch", required=True, choices=configs.ARCHS)
     ap.add_argument("--shape", required=True, choices=list(configs.SHAPES))
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the 2x16x16 production mesh: refused (ROADMAP "
-                         "item 11)")
+                    help="the 2x16x16 production mesh (train shapes; "
+                         "FSDP over (pod, data))")
     ap.add_argument("--mesh", default=None, metavar="DATA:MODEL",
                     help="report the mesh-aware plan (and, with MODEL > 1, "
                          "the 1F1B census and per-stage bytes) for this "
-                         "host mesh; 'production' is refused (ROADMAP "
-                         "item 11)")
+                         "host mesh; 'production' runs the train step as "
+                         "one rank of the 16x16 GSPMD mesh")
     ap.add_argument("--microbatches", type=int, default=8,
                     help="N_Smu for train shapes; 0 = auto micro-batch "
                          "size from the memory model")
@@ -436,13 +559,15 @@ def main(argv=None):
                          plan_budget_bytes=(
                              int(args.hbm_budget_gb * 1024 ** 3)
                              if args.hbm_budget_gb else None))
-    except (NotImplementedError, DataDependentOp) as e:
+    except (NotImplementedError, ValueError, DataDependentOp) as e:
         print(f"dryrun: {args.arch} / {args.shape}: {e}", file=sys.stderr)
         return EXIT_ERROR
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+        tag = ("multi" if args.multi_pod else "production"
+               if args.mesh == "production" else "single")
         path = os.path.join(args.out,
-                            f"{args.arch}__{args.shape}__single.json")
+                            f"{args.arch}__{args.shape}__{tag}.json")
         with open(path, "w") as f:
             json.dump(res, f, indent=1)
         print(f"wrote {path}")

@@ -2,8 +2,10 @@
 ``configs.ARCHS`` × ``configs.SHAPES`` on one device, each combo in a
 subprocess of its own (a fresh process per combo keeps one combo's
 failure or memory out of the others), one JSON file per combo. The
-reference's second column, the 2-pod production mesh, is refused by
-name (ROADMAP item 11) and written as such.
+reference's second column, the 2-pod production mesh, runs the train
+shapes as one rank of the 2x16x16 GSPMD mesh (``dryrun --multi-pod``: a
+fake world of 512 ranks); its prefill and decode shapes are the serving
+half of ROADMAP item 11, refused by name and written as such.
 
   python -m repro_torch.launch.dryrun_all --out build/dryrun \\
       [--only-arch qwen2-1.5b] [--device cuda|cpu] [--timeout 600] \\
@@ -34,9 +36,9 @@ TRAIN_MICROBATCHES = {
     "grok-1-314b": 16, "mixtral-8x22b": 16, "qwen2-vl-72b": 16,
 }
 DEFAULT_MICROBATCHES = 8
-MULTI_POD_REFUSAL = ("the 2x16x16 production mesh shards params by tensor "
-                     "and FSDP parallelism under GSPMD: not ported "
-                     "(ROADMAP.md queue 1 item 11)")
+MULTI_POD_REFUSAL = ("prefill and decode on the 2x16x16 production mesh "
+                     "are the serving half of ROADMAP.md queue 1 item 11 "
+                     "(cache_specs placement of the KV pool): not ported")
 
 
 def combos():
@@ -63,13 +65,15 @@ def run_one(arch: str, shape: str, mesh: str, out_dir: str, *,
         return _write(path, {"arch": arch, "shape": shape, "mesh_tag": mesh,
                              "skipped": True, "reason": "long_500k requires "
                              "sub-quadratic attention"})
-    if mesh == "multi":
+    if mesh == "multi" and configs.SHAPES[shape].kind != "train":
         return _write(path, {"arch": arch, "shape": shape, "mesh_tag": mesh,
                              "refused": True, "reason": MULTI_POD_REFUSAL})
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
            "--shape", shape, "--microbatches",
            str(TRAIN_MICROBATCHES.get(arch, DEFAULT_MICROBATCHES)),
            "--device", device, "--out", out_dir]
+    if mesh == "multi":
+        cmd.append("--multi-pod")
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout)

@@ -14,9 +14,15 @@ model). On a ``(data, 1)`` mesh every rank holds the whole model
 (``engine.PipelinedExecutor``): rank ``r`` is stage ``r % model`` of data
 replica ``r // model`` (the reference's row-major device layout), and
 ``Mesh.groups`` holds the process groups of its two axis lines
-(:func:`axis_groups`). The reference's production GSPMD meshes (16×16 and
-2×16×16 TPU slices, tensor and FSDP sharding) are not ported
-(:func:`make_production_mesh`).
+(:func:`axis_groups`). A GSPMD mesh (:func:`gspmd_mesh`, and the
+reference's production meshes :func:`make_production_mesh`: 16×16, and
+2×16×16 with the pod axis) splits the model itself: parameters,
+gradients and optimizer state by the reference's ``param_specs`` (tensor
+parallel over ``model``, FSDP over ``data``), the activations by the
+model's shard hints (``models.nn``), through ``torch.distributed.tensor``
+over a ``DeviceMesh`` with the reference's axis names in its row-major
+order (``engine.GspmdExecutor``). ``Mesh.mode`` says which of the three a
+mesh is: ``"data"``, ``"pipeline"`` or ``"gspmd"``.
 
 :func:`init_world` starts or joins the process group from torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
@@ -26,7 +32,10 @@ every local rank and ``cuda:0`` when the ranks share one card (each then
 capped at an equal share of its memory); the CPU only when asked. The
 backend is NCCL when every rank has its own card, and gloo when ranks
 share a card (NCCL refuses two ranks on one device) or run on the CPU.
-There is no fallback from one to the other.
+There is no fallback from one to the other. A GSPMD mesh whose ranks
+share a card over gloo moves its collectives' CUDA tensors through the
+host explicitly (:func:`host_staged_collectives`), since gloo takes a
+CUDA tensor for few of the collectives DTensor issues.
 """
 from __future__ import annotations
 
@@ -57,12 +66,19 @@ class Mesh(Mapping):
     ``device``. ``memory_fraction`` is the share of the device's memory
     this rank may hold (below 1 when ranks share a card). ``groups`` maps
     an axis name to the process group of this rank's line along it (a
-    pipeline mesh's ``"data"`` and ``"model"``)."""
+    pipeline or GSPMD mesh's ``"data"`` and ``"model"``).
+
+    ``mode`` is ``"data"`` (every rank holds the whole model), ``"pipeline"``
+    (the model axis runs 1F1B stages) or ``"gspmd"`` (the model split by
+    ``param_specs``; ``device_mesh`` is its ``torch`` ``DeviceMesh``). By
+    default a mesh with a model axis above 1 is a pipeline, as a
+    ``DATA:MODEL`` spec on the launcher means."""
 
     def __init__(self, dims: Dict[str, int], *, rank: int = 0, group=None,
                  device="cpu", backend: Optional[str] = None,
                  memory_fraction: float = 1.0,
-                 groups: Optional[Dict[str, Any]] = None):
+                 groups: Optional[Dict[str, Any]] = None,
+                 mode: Optional[str] = None, device_mesh=None):
         self._dims = {str(k): int(v) for k, v in dict(dims).items()}
         self.rank = int(rank)
         self.group = group
@@ -70,6 +86,16 @@ class Mesh(Mapping):
         self.backend = backend
         self.memory_fraction = float(memory_fraction)
         self.groups = dict(groups or {})
+        if mode is None:
+            mode = ("pipeline" if self._dims.get(MODEL_AXIS, 1) > 1
+                    else "data")
+        if mode not in MODES:
+            raise ValueError(f"mesh mode must be one of {MODES}, got "
+                             f"{mode!r}")
+        if (mode == "gspmd") != (device_mesh is not None):
+            raise ValueError("a GSPMD mesh, and only it, has a device mesh")
+        self.mode = mode
+        self.device_mesh = device_mesh
 
     def __getitem__(self, name: str) -> int:
         return self._dims[name]
@@ -82,15 +108,125 @@ class Mesh(Mapping):
 
     def __repr__(self) -> str:
         return (f"Mesh({self._dims}, rank={self.rank}, device={self.device}"
-                f", backend={self.backend})")
+                f", backend={self.backend}, mode={self.mode})")
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on every axis: rank ``r`` of a row-major
+        ``(data, model)`` mesh sits at ``(r // model, r % model)``."""
+        out, r = {}, self.rank
+        for ax in reversed(list(self._dims)):
+            out[ax] = r % self._dims[ax]
+            r //= self._dims[ax]
+        return {ax: out[ax] for ax in self._dims}
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "the production meshes (16x16 data x model, 2x16x16 with --multi-pod"
-        ") shard params by tensor and FSDP parallelism under GSPMD; the "
-        "port runs data parallelism and 1F1B pipeline stages only "
-        "(ROADMAP.md queue 1 item 11, its production-mesh half)")
+MODES = ("data", "pipeline", "gspmd")
+PRODUCTION_DIMS = {False: {DATA_AXIS: 16, MODEL_AXIS: 16},
+                   True: {POD_AXIS: 2, DATA_AXIS: 16, MODEL_AXIS: 16}}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         world_mesh: Optional[Mesh] = None) -> Mesh:
+    """This rank's view of the reference's production mesh: GSPMD over
+    ``{data: 16, model: 16}`` (256 ranks), or ``{pod: 2, data: 16, model:
+    16}`` (512) with ``multi_pod``. The world must hold exactly that many
+    ranks (a fake process group stands in for them in the dry run);
+    ``world_mesh`` is this rank's world (:func:`init_world`), by default
+    a CPU rank of the process group already started."""
+    dims = PRODUCTION_DIMS[bool(multi_pod)]
+    need = math.prod(dims.values())
+    n = world_size()
+    if n != need:
+        flag = " --multi-pod" if multi_pod else ""
+        raise ValueError(
+            f"--mesh production{flag} is the {'x'.join(map(str, dims.values()))}"
+            f" GSPMD mesh: it needs a world of exactly {need} ranks, and "
+            f"this one has {n}")
+    return gspmd_mesh(world_mesh, **{k: v for k, v in dims.items()})
+
+
+def gspmd_mesh(world_mesh: Optional[Mesh], data: int, model: int,
+               pod: int = 0) -> Mesh:
+    """This rank's GSPMD mesh ``(data, model)`` or ``(pod, data, model)``
+    over the whole world: a ``DeviceMesh`` with the reference's axis names
+    in its row-major order and the process group of each axis line in
+    ``groups``. The production meshes are this at 16×16 and 2×16×16; the
+    tests and the card build it at 2×2. ``world_mesh`` (its rank, device,
+    backend and memory share) defaults to a CPU rank of the process group
+    already started. On CUDA over gloo the collectives move through the
+    host (:func:`host_staged_collectives`). Every rank of the world calls
+    it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dims = ({POD_AXIS: pod, DATA_AXIS: data, MODEL_AXIS: model} if pod
+            else {DATA_AXIS: data, MODEL_AXIS: model})
+    n = world_size()
+    if math.prod(dims.values()) != n or min(dims.values()) < 1:
+        raise ValueError(f"a GSPMD mesh {dims} needs {math.prod(dims.values())}"
+                         f" ranks; the world has {n}")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError("a GSPMD mesh spans a process group: start one "
+                         "first (init_world, or a fake world for a dry run)")
+    if world_mesh is None:
+        world_mesh = Mesh({DATA_AXIS: n, MODEL_AXIS: 1},
+                          rank=dist.get_rank(), device="cpu",
+                          backend=dist.get_backend())
+    device = world_mesh.device
+    if device.type == "cuda" and world_mesh.backend == "gloo":
+        host_staged_collectives()
+    dm = init_device_mesh(device.type, tuple(dims.values()),
+                          mesh_dim_names=tuple(dims))
+    return Mesh(dims, rank=world_mesh.rank, group=world_mesh.group,
+                device=device, backend=world_mesh.backend,
+                memory_fraction=world_mesh.memory_fraction,
+                groups={ax: dm.get_group(ax) for ax in dims},
+                mode="gspmd", device_mesh=dm)
+
+
+# the CUDA kernels of the functional collectives, once replaced
+_HOST_STAGED: Dict[str, Any] = {}
+STAGED_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor",
+              "all_reduce", "all_to_all_single")
+
+
+def host_staged_collectives() -> None:
+    """Route the functional collectives (``torch.ops._c10d_functional``,
+    the ones DTensor issues) on CUDA tensors through the host: the input
+    is copied to the CPU, the collective runs there on the process
+    group's gloo backend, and the result is copied back to the input's
+    device. Ranks that share one card run over gloo (NCCL refuses two
+    ranks on a device), and gloo takes CUDA tensors for few collectives;
+    this makes the copy explicit for all of them, so none is refused and
+    none moves to the CPU unseen. Process-wide, made once; only a GSPMD
+    mesh on CUDA over gloo calls it."""
+    if _HOST_STAGED:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    ops = torch.ops._c10d_functional
+
+    def staged(op):
+        def impl(inp, *rest):
+            out = ops.wait_tensor(op(inp.cpu(), *rest))
+            return out.to(inp.device)
+        return impl
+
+    for name in STAGED_OPS:
+        lib.impl(name, staged(getattr(ops, name).default), "CUDA")
+    _HOST_STAGED["lib"] = lib
+
+
+def fake_world(world: int, rank: int = 0) -> None:
+    """Start a fake process group of ``world`` ranks in this one process
+    (``torch``'s fake backend: every collective returns at once, moving
+    nothing) — one rank's view of a production mesh for the dry run.
+    :func:`shutdown` leaves it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running in this "
+                           "process; a fake world needs its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0, *,

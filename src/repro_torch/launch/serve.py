@@ -85,8 +85,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     if mesh_lib.world_size() > 1:
         raise SystemExit(
             f"the serve launcher runs one process; this world has "
-            f"{mesh_lib.world_size()} ranks (serving across ranks is not "
-            "ported: ROADMAP.md queue 1 item 11, its serving half)")
+            f"{mesh_lib.world_size()} ranks (serving across ranks — the "
+            "KV pool placed by cache_specs, prefill and decode on a GSPMD "
+            "mesh — is not ported: ROADMAP.md queue 1 item 11, its serving "
+            "half)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is available here; pass "

@@ -2,11 +2,13 @@
 
 A spec (:class:`PartitionSpec`, a tuple) has one entry per dim of a
 leaf: an axis name, a tuple of axis names, or None (replicated on that
-dim) — what JAX's ``PartitionSpec`` holds, without GSPMD to act on it.
-The port runs pure data parallelism, where every rank holds the whole
-model; the specs serve
-the memory model (``core.memory_model.param_shard_ratio``) and the batch
-and cache layouts (the sample dim over the batch axes).
+dim) — what JAX's ``PartitionSpec`` holds. On a GSPMD mesh
+(``launch.mesh.gspmd_mesh``) a spec becomes ``torch.distributed.tensor``
+placements (:func:`placements`), and a tree of whole tensors this rank's
+blocks (:func:`shard_tree`) and back (:func:`gather_tree`) — the
+counterparts of the reference's ``named`` / ``with_sharding``. The specs
+also serve the memory model (``core.memory_model.param_shard_ratio``)
+and the batch and cache layouts (the sample dim over the batch axes).
 
 Parameters: tensor-parallel over ``model`` on the last divisible dim,
 FSDP over ``data`` on the first remaining divisible dim (leaves of two or
@@ -17,7 +19,9 @@ replicated.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
 
 from . import mesh as mesh_lib
 
@@ -172,3 +176,125 @@ def shard_factor(spec, mesh) -> int:
         for ax in (entry if isinstance(entry, tuple) else (entry,)):
             f *= mesh[ax]
     return f
+
+
+# ---------------------------------------------------------------------------
+# specs on a GSPMD mesh: placements, local shards, and back
+# ---------------------------------------------------------------------------
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec) -> set:
+    """The mesh axes a spec splits its leaf over."""
+    return {ax for entry in spec for ax in _axes_of(entry)}
+
+
+def filter_spec(spec, mesh) -> PartitionSpec:
+    """``spec`` with the axis names ``mesh`` does not have dropped (the
+    reference's ``shard_hint`` filter): an entry left with no axis is
+    None, one with one axis that name."""
+    out = []
+    for entry in spec:
+        present = tuple(a for a in _axes_of(entry) if a in mesh)
+        out.append(None if not present else
+                   present if len(present) > 1 else present[0])
+    return P(*out)
+
+
+def placements(spec, mesh) -> list:
+    """The ``torch.distributed.tensor`` placements of ``spec`` on
+    ``mesh``, one per mesh axis in the mesh's order: ``Shard(i)`` on an
+    axis that names dim ``i``, ``Replicate()`` on one no dim names. A
+    dim over two axes (``("pod", "data")``) is split over the first, then
+    each part over the second — JAX's major-to-minor order, which is
+    DTensor's left-to-right."""
+    from torch.distributed.tensor import Replicate, Shard
+    where = {}
+    for i, entry in enumerate(spec):
+        for ax in _axes_of(entry):
+            if ax in where:
+                raise ValueError(f"spec {spec!r} names axis {ax!r} twice")
+            where[ax] = i
+    return [Shard(where[ax]) if ax in where else Replicate() for ax in mesh]
+
+
+def local_slices(shape, spec, mesh, coords: Dict[str, int]) -> tuple:
+    """The index (a tuple of slices) of the block of a leaf of ``shape``
+    that the rank at ``coords`` holds under ``spec``. Every sharded dim
+    must divide (the policy shards only those)."""
+    idx = []
+    for i, n in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = _axes_of(entry)
+        if not axes:
+            idx.append(slice(None))
+            continue
+        parts, pos = 1, 0
+        for ax in axes:  # major to minor
+            parts *= mesh[ax]
+            pos = pos * mesh[ax] + coords[ax]
+        if n % parts:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not divide "
+                             f"{parts} ways (spec {spec!r})")
+        size = n // parts
+        idx.append(slice(pos * size, (pos + 1) * size))
+    return tuple(idx)
+
+
+def shard_tree(t, specs, mesh, device=None):
+    """This rank's blocks of a tree of whole tensors (the reference
+    format, every rank holding the same values): each leaf sliced at the
+    rank's coordinates by its spec (``spec_leaves`` order), copied (to
+    ``device`` when given) so that the whole leaf can be freed."""
+    from .. import tree as tree_lib
+    coords = mesh.coords()
+    leaves, treedef = tree_lib.flatten(t)
+    sl = spec_leaves(specs)
+    if len(sl) != len(leaves):
+        raise ValueError(f"{len(sl)} specs for {len(leaves)} leaves")
+    out = []
+    for leaf, spec in zip(leaves, sl):
+        block = leaf[local_slices(leaf.shape, spec, mesh, coords)]
+        out.append(block.to(device=device if device is not None
+                            else block.device, copy=True).contiguous())
+    return tree_lib.unflatten(treedef, out)
+
+
+def as_dtensor(local: "torch.Tensor", spec, mesh):
+    """The DTensor whose block on this rank is ``local`` under ``spec``
+    (differentiable: the gradient of the DTensor reaches ``local`` in the
+    same placements)."""
+    from torch.distributed.tensor import DTensor
+    shape = [n for n in local.shape]
+    for i in range(len(shape)):
+        for ax in _axes_of(spec[i] if i < len(spec) else None):
+            shape[i] *= mesh[ax]
+    return DTensor.from_local(local, mesh.device_mesh,
+                              placements(spec, mesh), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def gather_tree(t, specs, mesh):
+    """The whole tensors of a tree of this rank's blocks, on every rank
+    (an all-gather over each leaf's sharded axes; a collective every rank
+    calls)."""
+    from .. import tree as tree_lib
+    leaves, treedef = tree_lib.flatten(t)
+    sl = spec_leaves(specs)
+    return tree_lib.unflatten(treedef, [
+        as_dtensor(leaf, spec, mesh).full_tensor()
+        if any(e is not None for e in spec) else leaf
+        for leaf, spec in zip(leaves, sl)])

@@ -232,7 +232,8 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
                      remat_policy: Optional[str] = None,
                      normalization: str = "paper",
                      executor: str = "compiled", mesh=None,
-                     fsdp: bool = False, calibrate: str = "off",
+                     fsdp: bool = False, fsdp_over_pod: bool = False,
+                     calibrate: str = "off",
                      budget_bytes: Optional[int] = None,
                      tuning_cache: Optional[str] = None,
                      device="cuda") -> StepBundle:
@@ -256,11 +257,21 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
     axis it is ignored, as in the reference). ``executor`` is then
     "pipelined", the bundle's ``fn`` its ``step_split`` (call the
     executor's ``prepare`` on the reference-format state first) and the
-    abstract state the reference-format trees."""
+    abstract state the reference-format trees.
+
+    A GSPMD mesh (``launch.mesh.gspmd_mesh``, ``make_production_mesh``)
+    places the step as the reference's dry run does: params and optimizer
+    state by ``param_specs`` (always FSDP over ``data``, the reference's
+    default; ``fsdp`` is the pipeline's; ``fsdp_over_pod`` with a pod
+    axis), the batch by ``batch_specs`` — ``plan_mbs(mesh=,
+    fsdp_params=True)`` plans it — and :class:`engine.GspmdExecutor`
+    runs ``executor`` on each rank's blocks. ``executor`` is then
+    "gspmd"; ``fn.__self__.prepare`` cuts the reference-format state."""
     optimizer = optimizer or make_optimizer(cfg)
-    model_axis = (mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS)
-                  if mesh is not None else 1)
-    pipeline = model_axis > 1
+    mode = getattr(mesh, "mode", None)
+    pipeline = mode == "pipeline" and mesh_lib.axis_size(
+        mesh, mesh_lib.MODEL_AXIS) > 1
+    gspmd = mode == "gspmd"
     dp = mesh_lib.data_parallel_size(mesh) if mesh is not None else 1
     plan = engine.plan_mbs(
         shape.global_batch, num_microbatches=num_microbatches,
@@ -268,15 +279,22 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
         device=device, normalization=normalization,
         act_bytes=torch.empty((), dtype=dtype).element_size(), remat=remat,
         remat_policy=remat_policy,
-        mesh=mesh if dp > 1 or pipeline else None,
-        fsdp_params=dp < 2 or pipeline, calibrate=calibrate,
-        tuning_cache=tuning_cache, executor=executor, pipeline=pipeline,
+        mesh=mesh if dp > 1 or pipeline or gspmd else None,
+        fsdp_params=gspmd or dp < 2 or pipeline,
+        calibrate=calibrate, tuning_cache=tuning_cache, executor=executor,
+        pipeline=pipeline,
         **optim.memory_model_kw(optimizer, fused=executor == "flat"))
     if pipeline:
         staged = make_staged_loss(cfg, dtype, remat_policy=plan.remat_policy)
         ex = engine.PipelinedExecutor(staged, optimizer, plan, mesh=mesh,
                                       fsdp=fsdp)
         executor, loss_fn = "pipelined", None
+    elif gspmd:
+        loss_fn = make_loss_fn(cfg, dtype, remat_policy=plan.remat_policy)
+        ex = engine.GspmdExecutor(loss_fn, optimizer, plan, mesh=mesh,
+                                  inner=executor,
+                                  fsdp_over_pod=fsdp_over_pod)
+        executor = "gspmd"
     else:
         loss_fn = make_loss_fn(cfg, dtype, remat_policy=plan.remat_policy)
         if dp > 1:

@@ -80,9 +80,19 @@ launcher feeds it: no patch embeddings, plain RoPE. An encoder-decoder
 allocated: its loss reads frames, which ``LMDataset`` does not make (the
 reference's launcher fails on the same batch).
 
-Not ported: ``--mesh production`` and ``--multi-pod`` (the TPU GSPMD
-meshes with tensor and FSDP sharding; ROADMAP.md queue 1 item 11, its
-production-mesh half), and ``--no-donate``. The
+The production meshes: ``--mesh production`` (``--multi-pod``) on a
+world of exactly 256 (512) ranks is the reference's GSPMD mesh, 16×16
+(2×16×16): params, gradients and optimizer state split by its
+``param_specs`` (tensor-parallel over ``model``, FSDP over ``data``;
+over ``(pod, data)`` with ``--multi-pod``), the activations by the
+model's shard hints, ``--executor`` (``compiled``, ``fused`` or
+``flat``; ``streaming`` is refused, as the reference refuses it) run on
+each rank's blocks by :class:`engine.GspmdExecutor`. At any other world
+size it exits naming the size it needs. ``--supervise`` on it is refused
+(ROADMAP.md queue 1 item 11: the finite guard and the OOM agreement are
+not ported for a GSPMD mesh); checkpoints are the reference's format.
+
+Not ported: ``--no-donate``. The
 launcher keeps no reference to the initial params and optimizer state
 once the Trainer (or the Supervisor) has them, so an executor whose
 update makes new trees (``compiled``, ``fused``, ``streaming``) frees
@@ -186,12 +196,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'host' (every rank of the world on the data "
                          "axis) or an explicit 'DATA:MODEL' axis spec such "
                          "as '2:1' (MODEL > 1: 1F1B pipeline stages); "
-                         "'production' is not ported")
+                         "'production': the 16x16 GSPMD mesh (256 ranks)")
     ap.add_argument("--fsdp", action="store_true",
                     help="shard params over the data axis of a pipelined "
                          "'DATA:MODEL' mesh (MODEL > 1)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the 2-pod production mesh (not ported)")
+                    help="the 2x16x16 production mesh (512 ranks; FSDP "
+                         "over (pod, data))")
     ap.add_argument("--report", default=None, metavar="PATH",
                     help="write this rank's run report (JSON) to "
                          "PATH.rank<r>.json (PATH on one process), with the "
@@ -236,7 +247,26 @@ def build_mesh(args, device_type: str):
     the ROADMAP item that holds it, ``--fsdp`` off a pipeline mesh, and a
     spec that does not cover the world."""
     if args.mesh == "production" or args.multi_pod:
-        mesh_lib.make_production_mesh(multi_pod=args.multi_pod)  # raises
+        if args.fsdp:
+            raise ValueError(FSDP_NOTE)
+        if args.executor == "streaming":
+            raise ValueError(
+                "--executor streaming supports single-device and "
+                "data-parallel host meshes (via the ShardedExecutor); "
+                "production/multi-pod/pipelined meshes need a compiled "
+                "executor")
+        if args.supervise:
+            raise ValueError(
+                "--supervise on the production GSPMD mesh is not ported "
+                "(ROADMAP.md queue 1 item 11: the finite guard and the OOM "
+                "agreement span the data-parallel and pipeline meshes "
+                "only); drop --supervise")
+        need = 512 if args.multi_pod else 256
+        if mesh_lib.world_size() != need:
+            mesh_lib.make_production_mesh(multi_pod=args.multi_pod)  # raises
+        return mesh_lib.make_production_mesh(
+            multi_pod=args.multi_pod,
+            world_mesh=mesh_lib.init_world(device_type))
     world = mesh_lib.world_size()
     data, model = (world, 1) if args.mesh == "host" else \
         mesh_lib.parse_mesh_spec(args.mesh, world)
@@ -252,17 +282,23 @@ def build_mesh(args, device_type: str):
 
 
 def _data_parallel(mesh) -> bool:
-    return mesh is not None and mesh_lib.data_parallel_size(mesh) > 1
+    return (mesh is not None and mesh.mode == "data"
+            and mesh_lib.data_parallel_size(mesh) > 1)
 
 
 def _pipelined(mesh) -> bool:
-    return mesh is not None and mesh_lib.axis_size(
-        mesh, mesh_lib.MODEL_AXIS) > 1
+    return mesh is not None and mesh.mode == "pipeline" and \
+        mesh_lib.axis_size(mesh, mesh_lib.MODEL_AXIS) > 1
+
+
+def _gspmd(mesh) -> bool:
+    return mesh is not None and mesh.mode == "gspmd"
 
 
 def _on_mesh(mesh) -> bool:
-    """A plan for this mesh is per device (data-parallel or pipelined)."""
-    return _data_parallel(mesh) or _pipelined(mesh)
+    """A plan for this mesh is per device (data-parallel, pipelined or
+    GSPMD)."""
+    return _data_parallel(mesh) or _pipelined(mesh) or _gspmd(mesh)
 
 
 def plan_budget(args, device, mesh=None) -> Optional[int]:
@@ -284,7 +320,8 @@ def build_plan(cfg, args, optimizer, device, mesh=None) -> engine.MBSPlan:
     On a data-parallel or pipeline ``mesh`` the plan is per device with
     params not FSDP-sharded (``fsdp_params=False``, the reference
     launcher's host-mesh plan); a pipeline mesh plans with
-    ``pipeline=True``."""
+    ``pipeline=True``; a GSPMD mesh with the params split
+    (``fsdp_params=True``)."""
     on = _on_mesh(mesh)
     return engine.plan_mbs(
         args.mini_batch, num_microbatches=args.microbatches,
@@ -293,7 +330,7 @@ def build_plan(cfg, args, optimizer, device, mesh=None) -> engine.MBSPlan:
         normalization=args.normalization, remat_policy=args.remat_policy,
         calibrate=args.calibrate, tuning_cache=args.tuning_cache,
         executor=args.executor, mesh=mesh if on else None,
-        fsdp_params=not on, pipeline=_pipelined(mesh),
+        fsdp_params=not on or _gspmd(mesh), pipeline=_pipelined(mesh),
         **memory_kw(args, optimizer))
 
 
@@ -315,6 +352,10 @@ def build_executor(cfg, plan, args, optimizer, guard: bool = False,
     if _data_parallel(mesh):
         return engine.ShardedExecutor(loss_fn, optimizer, plan, mesh=mesh,
                                       inner=args.executor, guard=guard)
+    if _gspmd(mesh):
+        return engine.GspmdExecutor(loss_fn, optimizer, plan, mesh=mesh,
+                                    inner=args.executor, guard=guard,
+                                    fsdp_over_pod=args.multi_pod)
     return engine.get_executor(args.executor)(loss_fn, optimizer, plan,
                                               guard=guard)
 
@@ -441,7 +482,7 @@ def write_report(path: str, mesh, plan, cfg, args, history, base: dict,
     on = _on_mesh(mesh)
     est = memory_model.estimate(
         cfg, args.seq, remat_policy=plan.remat_policy,
-        mesh=mesh if on else None, fsdp_params=not on,
+        mesh=mesh if on else None, fsdp_params=not on or _gspmd(mesh),
         pipeline=_pipelined(mesh),
         **memory_kw(args, default_optimizer(args)))
     stats = engine.collective_stats()
@@ -512,7 +553,8 @@ def _run(args, device, mesh) -> Dict[str, object]:
     rank0 = mesh is None or mesh.rank == 0
     if mesh is not None and rank0:
         where = ("as data x model pipeline stages" if _pipelined(mesh)
-                 else "on the data axis")
+                 else "as a GSPMD mesh (tensor and FSDP sharding)"
+                 if _gspmd(mesh) else "on the data axis")
         print(f"[mesh] {mesh_lib.world_size()} ranks {where} "
               f"({dict(mesh)}), backend {mesh.backend}, rank 0 on {device}"
               + (f", ranks sharing the card, each capped at "
@@ -574,7 +616,7 @@ def _run(args, device, mesh) -> Dict[str, object]:
                                  ckpt_keep=args.ckpt_keep,
                                  log_every=args.log_every, writer=rank0,
                                  layout=(executor if _pipelined(mesh)
-                                         else None), **log)
+                                         or _gspmd(mesh) else None), **log)
         params, opt_state, _ = run_trainer(trainer, state, args,
                                            quiet=not rank0)
         history = trainer.history

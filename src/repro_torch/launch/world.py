@@ -1,7 +1,9 @@
-"""A data-parallel world of ranks in spawned processes on this host.
+"""A data-parallel world of ranks in processes of their own on this host.
 
-:class:`LocalWorld` starts ``n`` processes (the ``spawn`` start method: a
-parent that has loaded other frameworks hands none of them down), each of
+:class:`LocalWorld` starts ``n`` processes (the ``forkserver`` start
+method, :func:`context`: a parent that has loaded other frameworks hands
+none of them down, and a rank forks from a server that imported torch
+once instead of importing it again), each of
 which joins one ``torch.distributed`` world through a file rendezvous
 (``launch.mesh.init_world``) and then serves calls: :meth:`LocalWorld.run`
 sends ``fn`` and its arguments to every rank, each rank calls
@@ -27,6 +29,19 @@ import tempfile
 import time
 import traceback
 from typing import Any, Callable, List, Optional
+
+
+#: what the fork server imports once for every rank it starts
+_PRELOAD = ["torch", "torch.distributed", "repro_torch.launch.mesh"]
+
+
+def context():
+    """The ranks' start method: a fork server (started at the first world,
+    or ahead of it by ``multiprocessing.forkserver.ensure_running()``)
+    that has imported :data:`_PRELOAD` and nothing of the parent's."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
+    return ctx
 
 
 def _serve(rank: int, n: int, device: str, store: str, threads: int,
@@ -75,7 +90,7 @@ class LocalWorld:
             store_dir = self._tmp.name
         store = os.path.join(store_dir, f"rendezvous-{os.getpid()}-"
                                         f"{time.monotonic_ns()}")
-        ctx = mp.get_context("spawn")
+        ctx = context()
         self._in = [ctx.Queue() for _ in range(n)]
         self._out = ctx.Queue()
         self._procs = [ctx.Process(
@@ -120,12 +135,23 @@ class LocalWorld:
     def run(self, fn: Callable, *args, timeout_s: Optional[float] = None
             ) -> List[Any]:
         """``fn(mesh, *args)`` on every rank; the results by rank."""
+        self.submit(fn, *args)
+        return self.collect(fn.__name__, timeout_s=timeout_s)
+
+    def submit(self, fn: Callable, *args) -> None:
+        """Start ``fn(mesh, *args)`` on every rank and return at once; the
+        caller works meanwhile and then takes the results with
+        :meth:`collect` (one call in flight at a time)."""
         if self._broken is not None:
             raise RuntimeError(f"local world is broken ({self._broken})")
         for q in self._in:
             q.put((fn, args))
+
+    def collect(self, what: str = "call", *,
+                timeout_s: Optional[float] = None) -> List[Any]:
+        """The results by rank of the call :meth:`submit` started."""
         try:
-            return self._collect(timeout_s or self.timeout_s, fn.__name__)
+            return self._collect(timeout_s or self.timeout_s, what)
         except BaseException:
             self.close()
             raise

@@ -109,9 +109,10 @@ def attn_block(p, cfg: ModelConfig, x, positions, *, window=None,
     the mask always reads). Returns (out (B, S, D), (k, v))."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = nn.dense(p["wq"], x, compute_dtype).reshape(B, S, H, hd)
-    k = nn.dense(p["wk"], x, compute_dtype).reshape(B, S, K, hd)
-    v = nn.dense(p["wv"], x, compute_dtype).reshape(B, S, K, hd)
+    x = nn.seq_gathered(x)  # all-gather at the TP boundary
+    q = _split_heads(nn.dense(p["wq"], x, compute_dtype), H, hd)
+    k = _split_heads(nn.dense(p["wk"], x, compute_dtype), K, hd)
+    v = _split_heads(nn.dense(p["wv"], x, compute_dtype), K, hd)
     if cfg.use_qk_norm:
         q = nn.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = nn.rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -122,10 +123,108 @@ def attn_block(p, cfg: ModelConfig, x, positions, *, window=None,
     else:
         q = nn.apply_rope(q, positions, theta)
         k = nn.apply_rope(k, positions, theta)
-    out = chunked_attention(q, k, v, q_pos=positions, k_pos=positions,
-                            window=window, softcap=cfg.attn_softcap)
+    q, k, v, out_spec = _head_hints(q, k, v, H, K, S)
+    if nn._is_dtensor(q):
+        out = _local_attention(q, k, v, positions, window, cfg.attn_softcap,
+                               H // K)
+    else:
+        out = chunked_attention(q, k, v, q_pos=positions, k_pos=positions,
+                                window=window, softcap=cfg.attn_softcap)
+    out = nn.shard_hint(out, *out_spec)
     out = nn.dense(p["wo"], out.reshape(B, S, H * hd), compute_dtype)
-    return out, (k, v)
+    return nn.seq_sharded(out), (k, v)  # reduce-scatter back to S-shards
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: the attention's
+    gradients come out of permuted products, and DTensor views the
+    gradient of the head split back to (B, S, H·hd), which a strided
+    block cannot be viewed as."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _local_attention(q, k, v, positions, window, softcap, G: int):
+    """The attention of DTensors laid out by :func:`_head_hints`, run on
+    each rank's blocks (it is independent per sample, per head and per
+    query row): q split over the batch axes and over ``model`` on its
+    heads (or, context-parallel, its rows), k / v over the batch axes
+    and on their heads where those divide ``model``. A rank whose q heads
+    are not a whole set of kv groups takes each q head's kv head (G = q
+    heads per kv head); context-parallel rows attend to every key,
+    unchunked (the mask reads their positions). The gradient of a kv
+    block read by more than one rank is a partial sum over ``model``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    qp = q.placements[mi] if mi is not None else Replicate()
+    kp = k.placements[mi] if mi is not None else Replicate()
+    kv_grad = list(k.placements)
+    if mi is not None and kp == Replicate() and qp != Replicate():
+        kv_grad[mi] = Partial()
+    q_l = _ContiguousGrad.apply(q.to_local())
+    k_l = _ContiguousGrad.apply(k.to_local(grad_placements=kv_grad))
+    v_l = _ContiguousGrad.apply(v.to_local(grad_placements=kv_grad))
+    pos = positions.to_local() if nn._is_dtensor(positions) else positions
+    r = mesh.get_local_rank("model") if mi is not None else 0
+    if qp == Shard(2) and kp != Shard(2):  # q heads split, kv heads whole
+        h = torch.arange(r * q_l.shape[2], (r + 1) * q_l.shape[2],
+                         device=q_l.device)
+        k_l, v_l = k_l[:, :, h // G], v_l[:, :, h // G]
+    if qp == Shard(1):  # context-parallel: this rank's query rows
+        rows = q_l.shape[1]
+        out = multihead_attention(
+            q_l, k_l, v_l, q_pos=pos[:, r * rows:(r + 1) * rows], k_pos=pos,
+            window=window, softcap=softcap)
+    else:
+        out = chunked_attention(q_l, k_l, v_l, q_pos=pos, k_pos=pos,
+                                window=window, softcap=softcap)
+    return DTensor.from_local(out.contiguous(), mesh, q.placements,
+                              run_check=False)
+
+
+def _split_heads(y, n: int, hd: int):
+    """(B, S, n·hd) → (B, S, n, hd). On a mesh, a projection split over
+    an axis that does not divide the head count is gathered over it
+    first (DTensor cannot view a dim split unevenly; the head hints that
+    follow choose the layout)."""
+    B, S = y.shape[:2]
+    if nn._is_dtensor(y):
+        from torch.distributed.tensor import Replicate, Shard
+        last = y.dim() - 1
+        pl = [Replicate() if p in (Shard(last), Shard(-1))
+              and n % y.device_mesh.size(i) else p
+              for i, p in enumerate(y.placements)]
+        if pl != list(y.placements):
+            y = y.redistribute(y.device_mesh, pl)
+    return y.reshape(B, S, n, hd)
+
+
+def _head_hints(q, k, v, H: int, K: int, S: int):
+    """The reference's attention layout on a mesh: head-sharded over
+    ``model`` when the head count divides it; otherwise context-parallel
+    (the query ROWS over ``model``, keys and values replicated — cheap
+    under GQA) rather than the whole attention on every rank. Returns
+    (q, k, v, the spec of the attention's output)."""
+    msize = nn.mesh_axis_size("model")
+    heads_div = msize > 1 and H % msize == 0
+    qax = "model" if heads_div else None
+    kax = "model" if msize > 1 and K % msize == 0 else None
+    sax = None
+    if not heads_div and msize > 1 and S % msize == 0 and S >= msize:
+        sax = "model"  # context parallelism
+    batch = ("pod", "data")
+    q = nn.shard_hint(q, batch, sax, qax, None)
+    k = nn.shard_hint(k, batch, None, kax, None)
+    v = nn.shard_hint(v, batch, None, kax, None)
+    return q, k, v, (batch, sax, qax, None)
 
 
 def cross_attn_block(p, cfg: ModelConfig, x, kv_src=None, kv_cache=None,

@@ -11,7 +11,7 @@ nothing. Includes the load-balance auxiliary loss (Switch / GShard).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,11 +41,27 @@ def moe_init(gen, cfg: ModelConfig, lead=(), device=None):
     return p
 
 
-def _expert_ffn(p, x, kind: str):
+def _hints(num_experts: int):
+    """Specs of the expert tensors on a mesh: expert-parallel when E
+    divides the ``model`` axis; otherwise capacity-parallel (the token
+    slot dim C over ``model``: the expert products are then independent
+    per rank, where contracting a sharded d_ff would gather the (E, C,
+    F) hidden). Returns (hidden spec, output spec)."""
+    msize = nn.mesh_axis_size("model")
+    if msize > 1 and num_experts % msize == 0:
+        return ("model", None, None), ("model", None, None)
+    return (None, "model", None), (None, "model", None)
+
+
+def _expert_ffn(p, x, kind: str, num_experts: Optional[int] = None):
     """x: (E, C, D) -> (E, C, D), one batched product per weight; the
     gated ``swiglu`` / ``geglu`` experts or plain ``gelu`` ones (tanh
-    GELU, as ``jax.nn.gelu``)."""
-    up = torch.bmm(x, p["w_up"].to(x.dtype))
+    GELU, as ``jax.nn.gelu``). ``num_experts`` (default E) picks the
+    hints' layout on a mesh."""
+    hid_spec, out_spec = _hints(x.shape[0] if num_experts is None
+                                else num_experts)
+    x = nn.shard_hint(x, *out_spec)
+    up = nn.shard_hint(torch.bmm(x, p["w_up"].to(x.dtype)), *hid_spec)
     if kind == "swiglu":
         h = F.silu(torch.bmm(x, p["w_gate"].to(x.dtype))) * up
     elif kind == "geglu":
@@ -53,7 +69,8 @@ def _expert_ffn(p, x, kind: str):
                    approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return torch.bmm(h, p["w_down"].to(x.dtype))
+    h = nn.shard_hint(h, *hid_spec)
+    return nn.shard_hint(torch.bmm(h, p["w_down"].to(x.dtype)), *out_spec)
 
 
 def top_k(probs, k: int):
@@ -96,6 +113,7 @@ def moe_block(p, cfg: ModelConfig, x, compute_dtype=None,
 
 
 def _moe_block(p, cfg: ModelConfig, x, compute_dtype=None):
+    x = nn.seq_gathered(x)  # full-S tokens for routing and dispatch
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     xt = x.reshape(B * S, D)
@@ -104,10 +122,10 @@ def _moe_block(p, cfg: ModelConfig, x, compute_dtype=None):
     _, topv, keep, idx, C, aux = route(p, cfg, xt)
     xs = xt.repeat_interleave(k, dim=0)  # (T·k, D)
     buf = xt.new_zeros((E * C + 1, D)).index_add(0, idx, xs)
-    eout = _expert_ffn(p, buf[:E * C].reshape(E, C, D), cfg.ffn_kind)
+    eout = _expert_ffn(p, buf[:E * C].reshape(E, C, D), cfg.ffn_kind, E)
     back = torch.cat([eout.reshape(E * C, D), eout.new_zeros((1, D))])[idx]
     w = torch.where(keep, topv.reshape(-1), 0.0).to(xt.dtype)
     out = (back * w[:, None]).reshape(-1, k, D).sum(1)  # (T, D)
     if cfg.num_shared_experts:
         out = out + nn.ffn(p["shared"], xt, cfg.ffn_kind, compute_dtype)
-    return out.reshape(B, S, D).to(x.dtype), aux.float()
+    return nn.seq_sharded(out.reshape(B, S, D).to(x.dtype)), aux.float()

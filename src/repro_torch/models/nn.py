@@ -4,14 +4,138 @@ layer is an ``init_*`` plus a pure apply function.
 Master parameters are fp32; the compute dtype is configurable (bf16 on the
 card). Layouts follow the JAX package: ``dense`` keeps ``(in, out)``
 weights and computes ``x @ w``, so no weight is ever transposed.
+
+The shard hints are the reference's: inside :func:`use_mesh` (the port's
+``with mesh:``) on a GSPMD mesh, :func:`shard_hint` redistributes a
+``torch.distributed.tensor.DTensor`` to the placements of its spec — the
+counterpart of ``with_sharding_constraint`` — and the model code calls it
+where the reference does. Outside a mesh, or on a plain tensor, every
+hint returns its input unchanged, so the same code runs on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import sys
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# the mesh context and the shard hints
+# ---------------------------------------------------------------------------
+
+# the GSPMD mesh entered (process-wide, as the reference's mesh context:
+# a checkpointed block recomputed in the backward, which may run on
+# autograd's device thread, sees the mesh of the step that runs it)
+_MESH = {"mesh": None}
+_SEQ_STATE = {"enabled": None}  # per-forward override (set by forward())
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """The port's ``with mesh:`` for a GSPMD ``launch.mesh.Mesh``: the
+    hints act on DTensors on it while inside (the step's forward and
+    backward run there). Leaving it clears the sequence-sharding
+    override."""
+    if getattr(mesh, "mode", None) != "gspmd":
+        raise ValueError(f"use_mesh takes a GSPMD mesh, got {mesh!r}")
+    outer = _MESH["mesh"]
+    _MESH["mesh"] = mesh
+    try:
+        yield mesh
+    finally:
+        _MESH["mesh"] = outer
+        _SEQ_STATE["enabled"] = None
+
+
+def current_mesh():
+    """The GSPMD mesh of the enclosing :func:`use_mesh` (or None)."""
+    return _MESH["mesh"]
+
+
+def _is_dtensor(x) -> bool:
+    # no DTensor exists before torch.distributed.tensor is imported (a
+    # GSPMD mesh imports it), so a one-device run never pays its import
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def shard_hint(x, *axes):
+    """Best-effort ``with_sharding_constraint``: inside a mesh, a DTensor
+    ``x`` is redistributed to the placements of the spec ``axes`` (one
+    entry per dim: an axis name, a tuple of them, or None); axis names
+    absent from the mesh are dropped from the spec, so the same model code
+    runs on any mesh or none at all. A plain tensor passes unchanged."""
+    mesh = current_mesh()
+    if mesh is None or not _is_dtensor(x):
+        return x
+    from ..launch import sharding  # deferred: launch imports the models
+    spec = sharding.filter_spec(tuple(axes) + (None,) * (x.dim() - len(axes)),
+                                mesh)
+    return x.redistribute(mesh.device_mesh, sharding.placements(spec, mesh))
+
+
+def replicated_like(t, x):
+    """``t``, a tensor every rank computes alike (positions, a mask),
+    made a replicated DTensor on the mesh of DTensor ``x`` so the two
+    combine; unchanged beside a plain ``x``."""
+    if not _is_dtensor(x) or _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, x.device_mesh,
+                              [Replicate()] * x.device_mesh.ndim,
+                              run_check=False)
+
+
+def mesh_axis_size(name: str) -> int:
+    mesh = current_mesh()
+    if mesh is None or name not in mesh:
+        return 1
+    return mesh[name]
+
+
+def set_seq_shard(enabled):
+    """Override of sequence parallelism for the forward that sets it (None
+    = the ``REPRO_SEQ_SHARD`` default). The reference measured it a win
+    for dense/hybrid/ssm stacks and a regression for MoE stacks (dispatch
+    reshard churn), so ``transformer.forward`` gates it by family. It
+    holds until the next forward sets it or the mesh is left, so a
+    checkpointed block recomputed in the backward shards as its forward
+    did."""
+    _SEQ_STATE["enabled"] = enabled
+
+
+def _seq_shard_on() -> bool:
+    if _SEQ_STATE["enabled"] is not None:
+        return _SEQ_STATE["enabled"]
+    return os.environ.get("REPRO_SEQ_SHARD", "1") != "0"
+
+
+def _seq_ok(x) -> bool:
+    m = mesh_axis_size("model")
+    return (_seq_shard_on() and m > 1 and x.dim() >= 3
+            and x.shape[1] % m == 0 and x.shape[1] >= m)
+
+
+def seq_sharded(x):
+    """Sequence-parallel residual stream (Korthikanti et al.): between
+    blocks the activations are sharded over ``model`` on the SEQUENCE dim
+    (a partial sum is reduce-scattered there). No-op when S does not
+    divide (decode, S = 1)."""
+    if not _seq_ok(x):
+        return x
+    return shard_hint(x, ("pod", "data"), "model", *([None] * (x.dim() - 2)))
+
+
+def seq_gathered(x):
+    """Gather the sequence dim before cross-token or TP-weight matmuls."""
+    if not _seq_ok(x):
+        return x
+    return shard_hint(x, ("pod", "data"), *([None] * (x.dim() - 1)))
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
@@ -26,15 +150,56 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
     return p
 
 
+def _fsdp_placements(w):
+    """A DTensor's placements gathered over every axis but ``model``."""
+    from torch.distributed.tensor import Replicate
+    return [p if ax == "model" else Replicate()
+            for ax, p in zip(w.device_mesh.mesh_dim_names, w.placements)]
+
+
+def _fsdp_gather(w):
+    """A DTensor weight inside a mesh, gathered over every axis but
+    ``model`` (FSDP's just-in-time gather; the backward reduce-scatters
+    its gradient). Left to itself DTensor may move the activations
+    instead — partial sums of (B, S, d_ff) hiddens over ``data`` — which
+    at full width cost far more than the weight."""
+    if not _is_dtensor(w) or current_mesh() is None:
+        return w
+    want = _fsdp_placements(w)
+    return w if want == list(w.placements) else w.redistribute(
+        w.device_mesh, want)
+
+
 def dense(p, x, compute_dtype=None):
+    if _is_dtensor(x) and x.dim() > 2:
+        x = _one_leading_shard(x)
     w = p["w"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
+    w = _fsdp_gather(w)
     y = x @ w
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def _one_leading_shard(x):
+    """A DTensor ``x`` whose leading dims (all but the last) are split on
+    more than one dim — batch over ``data`` and rows over ``model`` after
+    context-parallel attention — gathered on all but the first of them:
+    the product flattens the leading dims, and DTensor cannot multiply a
+    flattened dim split twice."""
+    from torch.distributed.tensor import Replicate, Shard
+    lead = [i for i, p in enumerate(x.placements) if isinstance(p, Shard)
+            and p.dim % x.dim() < x.dim() - 1]
+    dims = {x.placements[i].dim % x.dim() for i in lead}
+    if len(dims) < 2:
+        return x
+    keep = min(dims)
+    pl = [Replicate() if i in lead and x.placements[i].dim % x.dim() != keep
+          else p for i, p in enumerate(x.placements)]
+    return x.redistribute(x.device_mesh, pl)
 
 
 def rmsnorm_init(dim: int, lead: Tuple[int, ...] = (), device=None):
@@ -87,7 +252,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (B, S) int."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    freqs = replicated_like(rope_freqs(hd, theta, x.device), positions)
     ang = positions[..., None].float() * freqs  # (B, S, hd/2)
     return _rotate(x, ang)
 
@@ -95,7 +260,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 def _rotate(x, ang):
     """Rotate the split halves of x (B, S, H, hd) by angles (B, S, hd/2),
     in fp32, cast back to x's dtype."""
-    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    cos = replicated_like(torch.cos(ang)[:, :, None, :], x)
+    sin = replicated_like(torch.sin(ang)[:, :, None, :], x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -131,9 +297,19 @@ def ffn_init(gen, d_model: int, d_ff: int, kind: str,
     return p
 
 
+def _ffn_spec(ndim: int, last):
+    spec = [None] * ndim
+    spec[0] = ("pod", "data")
+    spec[-1] = last
+    return spec
+
+
 def ffn(p, x, kind: str, compute_dtype=None):
     """The gated ``swiglu`` / ``geglu`` FFN or the plain ``gelu`` one. GELU
-    is the tanh approximation, the default of ``jax.nn.gelu``."""
+    is the tanh approximation, the default of ``jax.nn.gelu``. On a mesh
+    the hidden stays sharded over ``model`` on d_ff and the output goes
+    back to the sequence-sharded stream."""
+    x = seq_gathered(x)
     up = dense(p["w_up"], x, compute_dtype)
     if kind == "swiglu":
         h = F.silu(dense(p["w_gate"], x, compute_dtype)) * up
@@ -144,7 +320,8 @@ def ffn(p, x, kind: str, compute_dtype=None):
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(kind)
-    return dense(p["w_down"], h, compute_dtype)
+    h = shard_hint(h, *_ffn_spec(h.dim(), "model"))
+    return seq_sharded(dense(p["w_down"], h, compute_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +335,10 @@ def embed_init(gen, vocab: int, d_model: int, device=None):
 
 def embed(p, tokens, compute_dtype=None, scale: bool = False):
     """``scale`` multiplies by sqrt(d_model) rounded to the compute dtype
-    first, as the JAX package does (in bf16, sqrt(3584) is 59.75)."""
+    first, as the JAX package does (in bf16, sqrt(3584) is 59.75). A
+    DTensor table inside a mesh is looked up by :func:`_sharded_embed`."""
+    if current_mesh() is not None and _is_dtensor(p["table"]):
+        return _sharded_embed(p["table"], tokens, compute_dtype, scale)
     # gather first, then cast: the same values as the JAX package's
     # cast-then-gather without a compute-dtype copy of the whole table
     x = F.embedding(tokens, p["table"])
@@ -169,9 +349,71 @@ def embed(p, tokens, compute_dtype=None, scale: bool = False):
     return x
 
 
+def _sharded_embed(table, tokens, compute_dtype, scale: bool):
+    """The lookup of a DTensor table, gathered over every axis but
+    ``model`` (:func:`_fsdp_gather`; the tied table the forward gathered
+    for the head too is taken as it is) and looked up on each rank's
+    block. With the vocab split over ``model`` (the reference's policy
+    when it divides) each rank looks up the tokens of its vocab slice,
+    zero elsewhere, and the rows are a partial sum over ``model`` that the
+    caller's ``seq_sharded`` reduce-scatters (Megatron's vocab-parallel
+    embedding); with d_model split over it, each rank looks up its
+    columns of every row. ``tokens`` (a DTensor, or a plain tensor
+    replicated on every rank) keep their batch placement."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = current_mesh()
+    axes = list(mesh)
+    mi = axes.index("model") if "model" in axes else None
+    want = _fsdp_placements(table)
+    if want != list(table.placements):
+        if compute_dtype is not None:  # cast, then gather (the reference's
+            table = table.to(compute_dtype)  # order): half the bytes in bf16
+        table = table.redistribute(mesh.device_mesh, want)
+    split = want[mi] if mi is not None else Replicate()
+    if _is_dtensor(tokens):
+        tok_pl = list(tokens.placements)
+        tok = tokens.to_local()
+    else:
+        tok_pl, tok = [Replicate()] * len(axes), tokens
+    if split != Replicate() and tok_pl[mi] != Replicate():
+        raise ValueError(f"a table split over 'model' looks up tokens "
+                         f"whole on that axis, got {tok_pl}")
+    # each rank looks rows up for its own tokens: the table's gradient is
+    # a partial sum over the axes the tokens are split over, whole on the
+    # axes they are replicated over, and split as the table on ``model``
+    grad_pl = [Partial() if isinstance(pl, Shard) else Replicate()
+               for pl in tok_pl]
+    if split != Replicate():
+        grad_pl[mi] = split
+    t = table.to_local(grad_placements=grad_pl)
+    if compute_dtype is not None:
+        # the gathered tied table is cast here, on the local block: a cast
+        # of the DTensor would all-reduce its partial gradient
+        t = t.to(compute_dtype)
+    if split == Shard(0):
+        lo = mesh.coords()["model"] * t.shape[0]
+        hit = (tok >= lo) & (tok < lo + t.shape[0])
+        x = F.embedding(torch.where(hit, tok - lo, 0), t)
+        x = x * hit[..., None].to(x.dtype)
+        tok_pl[mi] = Partial()
+    else:
+        x = F.embedding(tok, t)
+        if split != Replicate():  # d_model's columns
+            tok_pl[mi] = Shard(x.dim() - 1)
+    if scale:
+        x = x * torch.tensor(math.sqrt(table.shape[-1]), dtype=x.dtype)
+    return DTensor.from_local(x, mesh.device_mesh, tok_pl, run_check=False)
+
+
 def unembed(p, x, compute_dtype=None):
+    """x @ tableᵀ. On a mesh the table is gathered over every axis but
+    ``model`` (:func:`_fsdp_gather`), so the logits come out split over
+    the vocab with nothing to reduce (the product over a data-split
+    d_model would be a partial sum of full-vocab logits)."""
     t = p["table"]
     if compute_dtype is not None:
         t = t.to(compute_dtype)
         x = x.to(compute_dtype)
-    return x @ t.T
+    if _is_dtensor(x) and x.dim() > 2:
+        x = _one_leading_shard(x)
+    return x @ _fsdp_gather(t).T

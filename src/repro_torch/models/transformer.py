@@ -121,16 +121,19 @@ def _apply_slot(p, cfg: ModelConfig, kind: str, x, positions, *, dtype,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":  # the state blocks checkpoint themselves
         h = nn.rmsnorm(p["pre_norm"], x, cfg.norm_eps)
-        h, entry = ssm.ssm_block(p["ssm"], cfg, h, compute_dtype=dtype,
+        h, entry = ssm.ssm_block(p["ssm"], cfg, nn.seq_gathered(h),
+                                 compute_dtype=dtype,
                                  return_cache=want_cache,
                                  remat_policy=policy)
-        return x + h, aux, (entry if want_cache else None)
+        return x + nn.seq_sharded(h), aux, (entry if want_cache else None)
     if kind == "recurrent":
         h = nn.rmsnorm(p["pre_norm"], x, cfg.norm_eps)
-        h, entry = recurrent.recurrent_block(p["rec"], cfg, h,
+        h, entry = recurrent.recurrent_block(p["rec"], cfg,
+                                             nn.seq_gathered(h),
                                              compute_dtype=dtype,
                                              return_cache=want_cache,
                                              remat_policy=policy)
+        h = nn.seq_sharded(h)
         entry = entry if want_cache else None
     else:
         window = _window_for(cfg, kind, global_window)
@@ -198,11 +201,18 @@ def _check_mrope(mrope_positions, B: int, S: int) -> None:
 
 
 def _lm_head(params, cfg: ModelConfig, x):
-    """fp32 logits: the tied embedding, or the untied ``unembed``."""
+    """fp32 logits: the tied embedding, or the untied ``unembed``. On a
+    mesh they are vocab-sharded over ``model`` (batch over the data
+    axes), so the loss reduces over the vocab shards and no rank holds
+    the full-vocab logits."""
     if cfg.tie_embeddings:
         logits = nn.unembed(params["embed"], x, torch.float32)
     else:
         logits = nn.dense(params["unembed"], x, torch.float32)
+    spec = [None] * logits.dim()
+    spec[0] = ("pod", "data")
+    spec[-1] = "model"
+    logits = nn.shard_hint(logits, *spec)
     return nn.softcap(logits, cfg.final_softcap)
 
 
@@ -212,6 +222,21 @@ def _periods(blocks):
     per_period = [torch.unbind(leaf, 0) for leaf in leaves]
     return [tree.unflatten(treedef, [u[i] for u in per_period])
             for i in range(len(per_period[0]))]
+
+
+def _positions(tokens):
+    """The standard positions (B, S) of a token batch; beside DTensor
+    tokens (a GSPMD step) a DTensor of their placements, so each rank
+    builds the masks and rotations of its own samples only."""
+    B, S = tokens.shape[:2]
+    if not nn._is_dtensor(tokens):
+        return torch.arange(S, device=tokens.device)[None].expand(B, S)
+    from torch.distributed.tensor import DTensor
+    local = tokens.to_local()
+    pos = torch.arange(S, device=local.device)[None].expand(
+        local.shape[0], S)
+    return DTensor.from_local(pos, tokens.device_mesh, tokens.placements,
+                              run_check=False)
 
 
 def forward(params, cfg: ModelConfig, tokens, *, positions=None,
@@ -230,8 +255,18 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     B, S = tokens.shape[:2]
     _check_mrope(mrope_positions, B, S)
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed_inputs(params, cfg, tokens, vision_embeds, dtype)
+        positions = _positions(tokens)
+    # sequence parallelism on a mesh: the reference measured it a win for
+    # dense/hybrid/ssm stacks and a regression for MoE — gate by family
+    nn.set_seq_shard(False if cfg.is_moe else None)
+    if cfg.tie_embeddings and not return_hidden:
+        # on a mesh, one FSDP gather of the tied table serves the lookup
+        # and the head, and their summed gradient is reduce-scattered once
+        params = {**params, "embed": {
+            **params["embed"], "table": nn._fsdp_gather(
+                params["embed"]["table"])}}
+    x = nn.seq_sharded(_embed_inputs(params, cfg, tokens, vision_embeds,
+                                     dtype))
 
     def period_fn(x, slot_params):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)

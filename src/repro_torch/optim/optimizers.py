@@ -11,9 +11,10 @@ device tensor, so the learning rate never round-trips through the host.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -173,13 +174,38 @@ def memory_model_kw(optimizer: Optimizer, *, fused: bool = False) -> dict:
             "fused_update": fused and optimizer.fused is not None}
 
 
+# the reducer of squared gradient norms inside ``sharded_norm`` (None: the
+# leaves are whole tensors)
+_NORM = {"reduce": None}
+
+
+@contextlib.contextmanager
+def sharded_norm(reduce: Callable[[List[torch.Tensor]], torch.Tensor]):
+    """Inside it the leaves of a gradient are one rank's blocks of a split
+    model: a global norm passes the squared norm of every leaf, in tree
+    order, to ``reduce``, which returns their sum over the whole model
+    (each leaf counted once, however many ranks hold a replica of it)."""
+    outer = _NORM["reduce"]
+    _NORM["reduce"] = reduce
+    try:
+        yield
+    finally:
+        _NORM["reduce"] = outer
+
+
+def norm_reducer():
+    """The reducer of the enclosing :func:`sharded_norm` (or None)."""
+    return _NORM["reduce"]
+
+
 def clip_by_global_norm(optimizer: Optimizer, max_norm: float) -> Optimizer:
     """Scale gradients so their global norm is at most ``max_norm``. The
     fused flat path carries ``clip_norm`` in the :class:`FusedUpdateSpec`
     and applies the scale inside the update kernel instead."""
     def update(grads, state, params):
-        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                              for g in tree.leaves(grads)))
+        sq = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
+        reduce = norm_reducer()
+        norm = torch.sqrt(sum(sq) if reduce is None else reduce(sq))
         scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
         grads = tree.map(lambda g: g * scale.to(g.dtype), grads)
         return optimizer.update(grads, state, params)

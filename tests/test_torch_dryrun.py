@@ -4,12 +4,13 @@ reference's.
 The reference's ``tests/test_dryrun_reduced.py`` compiles reduced
 qwen2-1.5b ``train_4k`` and mamba2-780m ``decode_32k`` for its 256- and
 512-device production meshes; all three of its cases fail under jax
-0.9.0 (ROADMAP.md queue 3), and the production meshes are not ported
-(item 11). The twins here dry-run the same two combos on one device —
+0.9.0 (ROADMAP.md queue 3: ``jax.make_mesh``'s Explicit axes). The
+twins here dry-run the same two combos on one device —
 the port's step under a ``FakeTensorMode`` — and hold what is arithmetic
 to the reference: the plan, the memory model's bytes at its micro size
 and the step's argument bytes (the reference's abstract arguments). The
-multi-pod case's twin is the refusal naming item 11.
+production-mesh dry run is ``tests/test_torch_gspmd.py``'s; a serving
+shape there is refused naming item 11.
 
 The FLOPs are held to the closed form — 6 · (matmul params) · tokens
 plus the chunked attention's QK and PV products, three times their
@@ -181,7 +182,8 @@ def test_full_width_dryrun_allocates_nothing():
 def test_exit_codes(monkeypatch, capsys):
     """0 clean, 2 over ``--budget``, 3 with ``--check`` on a seeded fault
     (an executor that accumulates in bf16 under an fp32 plan: JX001), 1
-    for a refused mesh, naming item 11. (64 micro-batches of 4: at 8 of
+    for a refused mesh: a serving shape on the production mesh, naming
+    item 11's serving half. (64 micro-batches of 4: at 8 of
     32 the eager step's peak is 32x the memory model's, and HLO003 fires
     on the clean step.)"""
     base = ["--arch", "qwen2-1.5b", "--shape", "train_4k", "--reduced",
@@ -198,8 +200,10 @@ def test_exit_codes(monkeypatch, capsys):
     assert "CONTRACT: [JX001]" in capsys.readouterr().err
     monkeypatch.undo()
 
+    serve = ["--arch", "qwen2-1.5b", "--shape", "decode_32k", "--reduced",
+             "--device", "cpu", "--no-probe"]
     for extra in (["--multi-pod"], ["--mesh", "production"]):
-        assert dryrun.main(base + extra) == F.EXIT_ERROR
+        assert dryrun.main(serve + extra) == F.EXIT_ERROR
         assert "item 11" in capsys.readouterr().err
 
 
@@ -231,12 +235,13 @@ def test_mesh_spec_reports_the_closed_form_census():
 
 
 def test_dryrun_all_skips_and_refuses(tmp_path):
-    """The matrix runner: an unassigned combo is skipped, the multi-pod
-    column refused naming item 11, both without a subprocess."""
+    """The matrix runner: an unassigned combo is skipped, a serving shape
+    of the multi-pod column refused naming item 11 (its serving half),
+    both without a subprocess."""
     skip = dryrun_all.run_one("qwen2-1.5b", "long_500k", "single",
                               str(tmp_path))
     assert skip["skipped"]
-    ref = dryrun_all.run_one("qwen2-1.5b", "train_4k", "multi",
+    ref = dryrun_all.run_one("qwen2-1.5b", "decode_32k", "multi",
                              str(tmp_path))
     assert ref["refused"] and "item 11" in ref["reason"]
     assert len(list(dryrun_all.combos())) == 2 * len(configs.ARCHS) * len(

@@ -24,7 +24,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("repro_torch.engine.pipelined", "repro_torch.analysis.suite",
-             "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all"):
+             "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all",
+             "repro_torch.engine.gspmd", "repro_torch.launch.sharding"):
     assert name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k.startswith("jax") or k == "repro" or k.startswith("repro."))

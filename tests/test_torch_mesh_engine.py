@@ -461,7 +461,7 @@ def test_parse_mesh_spec_matches_reference(spec):
         assert str(got.value) == str(e)
     else:
         assert mesh_lib.parse_mesh_spec(spec, 8) == want
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="exactly 256 ranks"):
         mesh_lib.make_production_mesh()
 
 
@@ -555,12 +555,15 @@ def test_launcher_on_two_gloo_ranks_matches_reference(tmp_path):
 
 
 def test_launcher_refuses_what_is_not_ported(capsys):
-    """The production meshes are refused naming their ROADMAP item; a spec
-    larger than the world, and --fsdp off a pipelined mesh, with the
-    reference's words (its parse-time --fsdp error)."""
+    """The production meshes at a world of the wrong size are refused
+    naming the size they need, --supervise on them naming their ROADMAP
+    item; a spec larger than the world, and --fsdp off a pipelined mesh,
+    with the reference's words (its parse-time --fsdp error)."""
     from repro_torch.launch import train
-    for argv, words in [(["--mesh", "production"], "item 11"),
-                        (["--multi-pod"], "item 11"),
+    for argv, words in [(["--mesh", "production"], "exactly 256 ranks"),
+                        (["--multi-pod"], "exactly 512 ranks"),
+                        (["--mesh", "production", "--supervise"],
+                         "item 11"),
                         (["--mesh", "2:1"], "needs 2 devices but only 1"),
                         (["--mesh", "1:1", "--fsdp"],
                          "--fsdp applies to the pipelined path: pass an "
