@@ -219,7 +219,8 @@ Phases (any failure exits non-zero before the last line is printed):
      seconds with the device synchronized around it and its share of the
      steady step; K1 steps × N_Sμ and K2 steps launches a rank; the peak
      beside the per-device estimate; the backend the launcher printed;
-  16b. two ranks sharing the card in a ``launch.world.LocalWorld``, full
+  16b. two ranks sharing the card in a ``launch.world.LocalWorld`` (run
+     with phase 19's, after phase 20), full
      width at 2 layers, fp32, TF32 off (``dp_check_phase``): 2 steps of
      ``ShardedExecutor`` over ``flat``, ``fused``, ``compiled`` and
      ``streaming`` (its host-mini-batch ``step``) against one device's
@@ -290,14 +291,17 @@ Phases (any failure exits non-zero before the last line is printed):
      the abstract params, optimizer state and cache trees equal the real
      ones in paths, shapes and dtypes.
 
+  Phases 16b, 16c, 19, 21 and 22 run in two ``LocalWorld``s
+  (``world_phases``, after phase 20), each started once: two ranks for
+  16b, 16c, 19a and 19c's two-rank cells, four for 19b, 19c's four-rank
+  cells, 21a / 21b, 22a and 22b.
   19a. pipeline parallelism through the launcher (``pp_launcher_phase``):
-     ``torchrun --standalone --nproc_per_node 2 -m
-     repro_torch.launch.train --arch qwen2-1.5b --mesh 1:2 --dtype
-     bfloat16 --seq 1024 --mini-batch 16 --microbatches 8 --steps 3``:
-     full width at PP_LAYERS = 2 of 28 layers (cut for the run's time
-     limit), 1 a stage, SGD-m, both ranks on
-     ``cuda:0`` over gloo, each capped at 0.48 of the card, the command
-     killed whole past PP_TIMEOUT_S. Each rank's ``--report``: losses
+     ``repro_torch.launch.train.main`` on both ranks of the world with
+     ``--arch qwen2-1.5b --mesh 1:2 --dtype bfloat16 --seq 1024
+     --mini-batch 16 --microbatches 8 --steps 3``: full width at
+     PP_LAYERS = 2 of 28 layers (cut for the run's time limit), 1 a
+     stage, SGD-m, both ranks on ``cuda:0`` over gloo, each capped at
+     0.48 of the card. Each rank's ``--report``: losses
      finite, the first near ln(vocab), equal on both ranks; the census of
      the schedule's closed form (``engine.p2p_counts``: 8 sends and 8
      receives a step in each direction a stage has), one (data+model)
@@ -310,7 +314,7 @@ Phases (any failure exits non-zero before the last line is printed):
      0.24 of the card, PP_LAYERS layers (each rank's peak fits its share); the
      census adds one model-axis and two data-axis all-reduces a step and
      as many all-gathers as reduce-scatters, equal on every rank;
-  19c. (``pp_check_phase``) ``LocalWorld``s of 2 and 4 ranks on the card,
+  19c. (``pp_check_cells``) the worlds of 2 and 4 ranks on the card,
      4 layers of full width, seq 128, fp32, TF32 off: (stages, dp) ∈ {(2, 1),
      (2, 2), (4, 1)} and FSDP at (2, 2), 2 steps of the
      ``PipelinedExecutor`` against one device's ``compiled`` on the same
@@ -331,7 +335,7 @@ Phases (any failure exits non-zero before the last line is printed):
      CUDA tensors, allocating nothing: the plan 18a's, the predicted peak
      beside 18a's allocator peak and calibrated prediction, the FLOPs a
      step and 18a's TFLOP/s from them against the bf16 peak.
-  21a. (``gspmd_train_phase``) the GSPMD mesh: a ``LocalWorld`` of four
+  21a. (``gspmd_train_phase``) the GSPMD mesh: the world of four
      ranks sharing the card over gloo (each capped at 0.24 of it) on a
      2 × 2 (data × model) mesh, qwen2-1.5b at full width and
      GSPMD_LAYERS = 2 of 28 layers (cut for the run's time limit), bf16,
@@ -349,11 +353,25 @@ Phases (any failure exits non-zero before the last line is printed):
      16 × 16 production mesh (a fake world of 256, fake CUDA tensors):
      the rank's parameter blocks (the spec arithmetic), peak, FLOPs and
      collectives.
+  22a. (``gspmd_supervised_phase``) ``--supervise`` on the GSPMD world:
+     ``engine.Supervisor`` over ``GspmdExecutor(guard=True)`` at 21b's
+     size for SUP_STEPS = 4 steps, a NaN in one data block at step 1
+     (retried clean; the state bit-identical across the NaN step) and an
+     out-of-memory error raised on rank 1 alone inside its forward at
+     step 2 (``attention.attn_block`` wrapped there), agreed by every
+     rank over groups started anew: equal records, losses and final
+     state on every rank, the run on the degraded plan, K1 and K2's
+     ``GUARD`` variant launched on every rank;
+  22b. (``serve_world_phase``) the serve launcher on the same four ranks
+     (its groups the re-formed ones) at 14a's traffic: a data-parallel
+     plan, every request finished on one rank, the gathered report on
+     every rank, each rank's allocator peak beside the modeled per-device
+     peak and the budget, no kernel launched.
 
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
 ``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's,
-15's, 16's, 17's, 18's, 19's, 20's and 21's numbers)
+15's, 16's, 17's, 18's, 19's, 20's, 21's and 22's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -367,6 +385,7 @@ import re
 import subprocess
 import sys
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -3937,9 +3956,10 @@ def dp_check_rank(mesh, steps: int) -> dict:
     return out
 
 
-def dp_check_phase(dev) -> dict:
-    """16b. Two ranks sharing the card (``launch.world.LocalWorld`` on
-    CUDA: gloo, each capped at its share), full qwen2-1.5b width at 2
+def dp_check_phase(world) -> dict:
+    """16b. Two ranks sharing the card (``world``, a ``launch.world.
+    LocalWorld`` on CUDA: gloo, each capped at its share), full qwen2-1.5b
+    width at 2
     layers, fp32, TF32 off (phase 5's size, in fp32: the two sides'
     GEMMs have other shapes): DP_CHECK_STEPS steps of ``ShardedExecutor``
     with each inner against one device's ``compiled`` steps on the same
@@ -3947,15 +3967,11 @@ def dp_check_phase(dev) -> dict:
     atol 1e-6, one all-reduce a step, the ranks bit-identical; the
     ``defer_sync=False`` baseline's N_Sμ all-reduces; a NaN in rank 0's
     block only leaves both ranks' state ``torch.equal`` with
-    ``nonfinite`` 1 on both. The world is stopped whatever happens."""
-    from repro_torch.launch.world import LocalWorld
-
+    ``nonfinite`` 1 on both."""
     gc_collect()
-    store = os.path.join(ROOT, "build", "dp")
-    os.makedirs(store, exist_ok=True)
-    with LocalWorld(DP_RANKS, device="cuda", store_dir=store,
-                    timeout_s=300, threads=0) as world:
-        res = world.run(dp_check_rank, DP_CHECK_STEPS)
+    check(world.n == DP_RANKS, f"16b runs on {DP_RANKS} ranks, the world "
+                               f"has {world.n}")
+    res = world.run(dp_check_rank, DP_CHECK_STEPS)
     card = card_line()
     n_s = 4
     out = {"card": card, "plan": res[0]["plan"], "inners": {},
@@ -4111,73 +4127,67 @@ def fault_agreement_rank(mesh, case: str) -> dict:
     return out
 
 
-def fault_agreement_phase(dev) -> dict:
-    """16c. Two ranks sharing the card (``LocalWorld`` on CUDA, gloo),
+def fault_agreement_phase(world) -> dict:
+    """16c. Two ranks sharing the card (``world``, on CUDA, gloo),
     full qwen2-1.5b width at 2 layers, the supervised ``ShardedExecutor``
     over ``flat`` (FAULT_ARGS): an OOM injected on rank 1 alone at step 1,
     then a real OOM of rank 1 alone (a ballast on rank 1 only). In both:
     both ranks record the fault at the same step, degrade to the same
     plan, resume from the same step and end bit-identical, every step
     agreed within seconds — the process group would time out after
-    300 s, and no rank waits for it."""
-    from repro_torch.launch.world import LocalWorld
-
+    WORLD_TIMEOUT_S, and no rank waits for it."""
     gc_collect()
-    store = os.path.join(ROOT, "build", "pp")
-    os.makedirs(store, exist_ok=True)
     card = card_line()
     out = {"card": card}
-    with LocalWorld(2, device="cuda", store_dir=store, timeout_s=300,
-                    threads=0) as world:
-        for case in ("injected", "real"):
-            t0 = time.perf_counter()
-            res = world.run(fault_agreement_rank, case)
-            wall = time.perf_counter() - t0
-            a, b = res
-            check(a["records"] and a["records"] == b["records"],
-                  f"16c {case}: the ranks' records differ: {a['records']} "
-                  f"vs {b['records']}")
-            kind, step, action, lost, detail = a["records"][0]
-            check(kind == "oom" and "rank(s) [1] of 2" in detail,
-                  f"16c {case}: {a['records']}")
-            check(a["final_plan"] == b["final_plan"] == a["degraded"],
-                  f"16c {case}: plans {a['final_plan']} / "
-                  f"{b['final_plan']}, expected {a['degraded']}")
-            check(a["state_sha256"] == b["state_sha256"]
-                  and a["history"] == b["history"],
-                  f"16c {case}: the ranks' final states differ")
-            check(sorted(a["history"]) == list(range(FAULT_ARGS["steps"])),
-                  f"16c {case}: completed steps {sorted(a['history'])}")
-            check(all(math.isfinite(x) for x in a["history"].values()),
-                  f"16c {case}: losses {a['history']}")
-            check(max(a["seconds"], b["seconds"]) < 120,
-                  f"16c {case}: the run took {a['seconds']:.1f} / "
-                  f"{b['seconds']:.1f}s")
-            fired = [r["fired"] for r in res]
-            if case == "injected":
-                check(fired == [[], [("oom", 1)]],
-                      f"16c injected: fired {fired}")
-            out[case] = {
-                "records": a["records"], "plan": a["plan"],
-                "final_plan": a["final_plan"], "losses": a["history"],
-                "seconds": [r["seconds"] for r in res], "wall_s": wall,
-                "recovery_s": [r["recovery_s"] for r in res],
-                "peaks_at_failure": [r["peaks_at_failure"] for r in res],
-                "peak_allocated": [r["peak_allocated"] for r in res],
-                "state_sha256": a["state_sha256"],
-                **{k: [r.get(k) for r in res]
-                   for k in ("peaks_reserved", "cap_bytes", "ballast_bytes")
-                   if case == "real"}}
-            print(f"16c {case} [{card}]: {a['records'][0][:4]} on both "
-                  f"ranks ({detail}); {a['plan']} -> {a['final_plan']}; "
-                  f"losses {a['history']}; supervised run "
-                  f"{a['seconds']:.2f} / {b['seconds']:.2f}s, recovery "
-                  f"{out[case]['recovery_s']}; final state sha256 "
-                  f"{a['state_sha256'][:16]} on both"
-                  + (f"; reserved peaks {a['peaks_reserved']}, cap "
-                     f"{a['cap_bytes']}, rank 1 ballast "
-                     f"{b['ballast_bytes']} B" if case == "real" else ""),
-                  flush=True)
+    for case in ("injected", "real"):
+        t0 = time.perf_counter()
+        res = world.run(fault_agreement_rank, case)
+        wall = time.perf_counter() - t0
+        a, b = res
+        check(a["records"] and a["records"] == b["records"],
+              f"16c {case}: the ranks' records differ: {a['records']} "
+              f"vs {b['records']}")
+        kind, step, action, lost, detail = a["records"][0]
+        check(kind == "oom" and "rank(s) [1] of 2" in detail,
+              f"16c {case}: {a['records']}")
+        check(a["final_plan"] == b["final_plan"] == a["degraded"],
+              f"16c {case}: plans {a['final_plan']} / "
+              f"{b['final_plan']}, expected {a['degraded']}")
+        check(a["state_sha256"] == b["state_sha256"]
+              and a["history"] == b["history"],
+              f"16c {case}: the ranks' final states differ")
+        check(sorted(a["history"]) == list(range(FAULT_ARGS["steps"])),
+              f"16c {case}: completed steps {sorted(a['history'])}")
+        check(all(math.isfinite(x) for x in a["history"].values()),
+              f"16c {case}: losses {a['history']}")
+        check(max(a["seconds"], b["seconds"]) < 120,
+              f"16c {case}: the run took {a['seconds']:.1f} / "
+              f"{b['seconds']:.1f}s")
+        fired = [r["fired"] for r in res]
+        if case == "injected":
+            check(fired == [[], [("oom", 1)]],
+                  f"16c injected: fired {fired}")
+        out[case] = {
+            "records": a["records"], "plan": a["plan"],
+            "final_plan": a["final_plan"], "losses": a["history"],
+            "seconds": [r["seconds"] for r in res], "wall_s": wall,
+            "recovery_s": [r["recovery_s"] for r in res],
+            "peaks_at_failure": [r["peaks_at_failure"] for r in res],
+            "peak_allocated": [r["peak_allocated"] for r in res],
+            "state_sha256": a["state_sha256"],
+            **{k: [r.get(k) for r in res]
+               for k in ("peaks_reserved", "cap_bytes", "ballast_bytes")
+               if case == "real"}}
+        print(f"16c {case} [{card}]: {a['records'][0][:4]} on both "
+              f"ranks ({detail}); {a['plan']} -> {a['final_plan']}; "
+              f"losses {a['history']}; supervised run "
+              f"{a['seconds']:.2f} / {b['seconds']:.2f}s, recovery "
+              f"{out[case]['recovery_s']}; final state sha256 "
+              f"{a['state_sha256'][:16]} on both"
+              + (f"; reserved peaks {a['peaks_reserved']}, cap "
+                 f"{a['cap_bytes']}, rank 1 ballast "
+                 f"{b['ballast_bytes']} B" if case == "real" else ""),
+              flush=True)
     out["same_final_state"] = (out["injected"]["state_sha256"]
                                == out["real"]["state_sha256"])
     return out
@@ -4187,20 +4197,23 @@ def fault_agreement_phase(dev) -> dict:
 # 19. pipeline parallelism: stages sharing the card over gloo
 # ---------------------------------------------------------------------------
 
-# 19a: the launcher under torchrun, full qwen2-1.5b width at PP_LAYERS (1
-# a stage), bf16 over fp32, SGD-m, 8 micro-batches of 2, on a 1 x 2 mesh;
-# 19b the same on a 2 x 2 mesh with FSDP. Depth cut for the run's time
-# limit: with all 28 layers in 19a and 19b the whole script took 1,184 s
-# of its 1,200 on an H100 80GB HBM3 at 700 W, and 1,197.7 s at 8 once
-# phase 21 came, and 1,206.7 s at 4; rank start-up, not depth, is most
-# of either phase
+# 19a: the launcher's main on the ranks of a LocalWorld, full qwen2-1.5b
+# width at PP_LAYERS (1 a stage), bf16 over fp32, SGD-m, 8 micro-batches
+# of 2, on a 1 x 2 mesh; 19b the same on a 2 x 2 mesh with FSDP. Depth cut
+# for the run's time limit: with all 28 layers in 19a and 19b the whole
+# script took 1,184 s of its 1,200 on an H100 80GB HBM3 at 700 W, and
+# 1,197.7 s at 8 once phase 21 came, and 1,206.7 s at 4; rank start-up,
+# not depth, was most of either phase under torchrun, so since phase 22
+# came their ranks fork from the LocalWorld server (16a keeps torchrun)
 PP_LAYERS = 2
 PP_ARGV = ["--arch", "qwen2-1.5b", "--dtype", "bfloat16", "--seq", "1024",
            "--mini-batch", "16", "--microbatches", "8", "--steps", "3",
            "--log-every", "1", "--layers", str(PP_LAYERS)]
 PP_RUNS = {"19a pipeline 1:2": (2, ["--mesh", "1:2"]),
            "19b pipeline 2:2 fsdp": (4, ["--mesh", "2:2", "--fsdp"])}
-PP_TIMEOUT_S = 400  # the whole torchrun command
+# every call of the worlds of phases 16b, 16c, 19, 21 and 22, and their
+# process groups' timeout
+WORLD_TIMEOUT_S = 400
 # 19c: 4 layers of full width, fp32, mini-batch 8 = 4 micro-batches of 2
 # of 128 tokens
 PP_CHECK_STEPS = 2
@@ -4208,11 +4221,28 @@ PP_CHECK_SEQ = 128
 PP_CHECK_CELLS = [(2, 1, False), (2, 2, False), (4, 1, False), (2, 2, True)]
 
 
-def pp_launcher_phase(dev, label: str) -> dict:
-    """19a / 19b. ``torchrun --nproc_per_node N -m repro_torch.launch.train``
-    with PP_ARGV and the run's mesh: every rank on ``cuda:0`` over gloo,
-    each capped at 0.96 / N of the card; the command killed whole past
-    PP_TIMEOUT_S. Each rank's ``--report``: losses finite, the first near
+def pp_launcher_rank(mesh, argv) -> dict:
+    """19a / 19b on one rank: ``repro_torch.launch.train.main(argv)`` (the
+    rank has joined the world; the launcher takes it), its standard
+    output and its ``--report``."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train.main(argv)
+    with open(res["report"]) as f:
+        rep = json.load(f)
+    del res
+    gc_collect()
+    return {"log": buf.getvalue(), "report": rep}
+
+
+def pp_launcher_phase(world, label: str) -> dict:
+    """19a / 19b. ``repro_torch.launch.train.main`` with PP_ARGV and the
+    run's mesh on every rank of ``world`` (a ``LocalWorld`` of as many
+    ranks, every rank on ``cuda:0`` over gloo, each capped at 0.96 / N of
+    the card). Each rank's ``--report``: losses finite, the first near
     ln(vocab), equal on every rank; the census of every step — the
     schedule's closed form of sends and receives by direction
     (``engine.p2p_counts``), one (data+model) all-reduce, one data-axis
@@ -4228,33 +4258,24 @@ def pp_launcher_phase(dev, label: str) -> dict:
     accumulates with a plain add and updates with ``apply_update``)."""
     from repro_torch import engine
     ranks, mesh_argv = PP_RUNS[label]
+    check(world.n == ranks, f"{label} runs on {ranks} ranks, the world has "
+                            f"{world.n}")
     tag = label.split()[0]
     out_dir = os.path.join(ROOT, "build", "pp", tag)
     os.makedirs(out_dir, exist_ok=True)
     report = os.path.join(out_dir, "run.json")
-    for r in range(ranks):
-        path = os.path.join(out_dir, f"run.rank{r}.json")
-        if os.path.exists(path):
-            os.remove(path)
     gc_collect()
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(ranks), "-m", "repro_torch.launch.train",
-           *PP_ARGV, *mesh_argv, "--report", report]
     t0 = time.perf_counter()
-    rc, log = _run_group(cmd, env, PP_TIMEOUT_S)
+    res = world.run(pp_launcher_rank, [*PP_ARGV, *mesh_argv, "--report",
+                                       report])
     wall = time.perf_counter() - t0
+    log = res[0]["log"]
     with open(os.path.join(out_dir, "launcher.log"), "w") as f:
         f.write(log)
-    check(rc == 0, f"{tag}: torchrun exited {rc}:\n{log[-4000:]}")
     check("pipeline stages" in log and "backend gloo" in log,
           f"{tag}: the launcher did not say it pipelines over gloo:\n"
           f"{log[-2000:]}")
-    reps = []
-    for r in range(ranks):
-        with open(os.path.join(out_dir, f"run.rank{r}.json")) as f:
-            reps.append(json.load(f))
+    reps = [r["report"] for r in res]
     vocab = 151936
     losses = [[h["loss"] for h in rep["history"]] for rep in reps]
     steps, n_s = len(losses[0]), reps[0]["num_micro_batches"]
@@ -4273,7 +4294,11 @@ def pp_launcher_phase(dev, label: str) -> dict:
     for rep in reps:
         r, mesh = rep["rank"], rep["mesh"]
         dp, S = mesh["data"], mesh["model"]
-        census = rep["all_reduce"]
+        # the counts since the launcher began (a world's ranks may have
+        # counted collectives of other kinds before: those read 0)
+        census = {k: ({a: n for a, n in v.items() if n}
+                      if k in ("by_axis", "p2p") else v)
+                  for k, v in rep["all_reduce"].items()}
         want_p2p = {k: steps * v for k, v in
                     engine.p2p_counts(S, n_s, r % S).items() if v}
         check(census["p2p"] == want_p2p,
@@ -4330,8 +4355,8 @@ def pp_launcher_phase(dev, label: str) -> dict:
     if fsdp:
         check(len(gathers) == 1, f"{tag}: the ranks' all-gathers differ: "
                                  f"{gathers}")
-    print(f"{tag}: {reps[0]['plan']}; torchrun wall {wall:.1f}s incl. "
-          f"start and init", flush=True)
+    print(f"{tag}: {reps[0]['plan']}; the launcher's main on the world's "
+          f"ranks in {wall:.1f}s", flush=True)
     out["counts"] = {f"rank{rep['rank']}": rep["launches"] for rep in reps}
     return out
 
@@ -4426,69 +4451,103 @@ def pp_check_rank(mesh, stages: int, dp: int, fsdp: bool,
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
-def pp_check_phase(dev) -> dict:
-    """19c. ``LocalWorld``s of 2 and 4 ranks sharing the card (gloo),
-    4 layers of full qwen2-1.5b width, fp32, TF32 off: (stages, dp) ∈
-    {(2, 1), (2, 2), (4, 1)} and FSDP at (2, 2), PP_CHECK_STEPS steps of
-    the ``PipelinedExecutor`` against one device's ``compiled`` on the
-    same global mini-batches — each rank's params and momentum within
-    phase 5's rtol / atol 1e-6 of the same slice of the reference's, the
-    shared leaves bit-identical across the ranks that hold them (under
-    FSDP, across the stages of a replica), the losses within 1e-5
-    relative."""
-    from repro_torch.launch.world import LocalWorld
-
+def pp_check_cells(world) -> dict:
+    """19c on ``world`` (a ``LocalWorld`` of 2 or 4 ranks sharing the card,
+    gloo): the PP_CHECK_CELLS of that many ranks, 4 layers of full
+    qwen2-1.5b width, fp32, TF32 off — (stages, dp) ∈ {(2, 1), (2, 2),
+    (4, 1)} and FSDP at (2, 2), PP_CHECK_STEPS steps of the
+    ``PipelinedExecutor`` against one device's ``compiled`` on the same
+    global mini-batches — each rank's params and momentum within phase
+    5's rtol / atol 1e-6 of the same slice of the reference's, the shared
+    leaves bit-identical across the ranks that hold them (under FSDP,
+    across the stages of a replica), the losses within 1e-5 relative.
+    The ranks drop their reference state after the last cell."""
     gc_collect()
-    store = os.path.join(ROOT, "build", "pp")
-    os.makedirs(store, exist_ok=True)
     card = card_line()
-    out = {"card": card, "cells": {}}
-    for world_n in (2, 4):
-        cells = [c for c in PP_CHECK_CELLS if c[0] * c[1] == world_n]
-        with LocalWorld(world_n, device="cuda", store_dir=store,
-                        timeout_s=300, threads=0) as world:
-            for stages, dp, fsdp in cells:
-                name = f"{stages}x{dp}" + (" fsdp" if fsdp else "")
-                res = world.run(pp_check_rank, stages, dp, fsdp,
-                                PP_CHECK_STEPS)
-                for r in res:
-                    check(r["within"], f"19c {name}: params/momentum differ "
-                                       f"from one device's compiled by "
-                                       f"{r['max_abs_err']:.3e} (rtol 1e-6, "
-                                       "atol 1e-6)")
-                    for x, y in zip(r["losses"], r["ref_losses"]):
-                        check(abs(x - y) <= 1e-5 * abs(y),
-                              f"19c {name}: loss {x} vs one device's {y}")
-                # every rank holds the shared leaves whole; under FSDP
-                # the stages of a replica hold the same shard of them
-                groups = {}
-                for r in res:
-                    groups.setdefault(r["replica"] if fsdp else 0,
-                                      set()).add(r["shared_sha256"])
-                check(all(len(h) == 1 for h in groups.values()),
-                      f"19c {name}: the shared leaves differ across ranks")
-                check(all(r["losses"] == res[0]["losses"] for r in res),
-                      f"19c {name}: the ranks' losses differ")
-                out["cells"][name] = {
-                    "plan": res[0]["plan"], "losses": res[0]["losses"],
-                    "ref_losses": res[0]["ref_losses"],
-                    "max_abs_err": max(r["max_abs_err"] for r in res),
-                    "census": [r["census"] for r in res],
-                    "peak_bytes": [r["peak_bytes"] for r in res]}
-                print(f"19c [{card}]: pipelined {name} (stages x data) == "
-                      f"one device's compiled after {PP_CHECK_STEPS} steps "
-                      f"at qwen2-1.5b width, 4 layers, fp32 (losses "
-                      f"{res[0]['losses']}, max abs err "
-                      f"{out['cells'][name]['max_abs_err']:.3e}); shared "
-                      f"leaves bit-identical on {world_n} ranks; census of "
-                      f"rank 0's last step {res[0]['census']}", flush=True)
+    out = {}
+    cells = [c for c in PP_CHECK_CELLS if c[0] * c[1] == world.n]
+    for stages, dp, fsdp in cells:
+        name = f"{stages}x{dp}" + (" fsdp" if fsdp else "")
+        res = world.run(pp_check_rank, stages, dp, fsdp, PP_CHECK_STEPS)
+        for r in res:
+            check(r["within"], f"19c {name}: params/momentum differ "
+                               f"from one device's compiled by "
+                               f"{r['max_abs_err']:.3e} (rtol 1e-6, "
+                               "atol 1e-6)")
+            for x, y in zip(r["losses"], r["ref_losses"]):
+                check(abs(x - y) <= 1e-5 * abs(y),
+                      f"19c {name}: loss {x} vs one device's {y}")
+        # every rank holds the shared leaves whole; under FSDP the stages
+        # of a replica hold the same shard of them
+        groups = {}
+        for r in res:
+            groups.setdefault(r["replica"] if fsdp else 0,
+                              set()).add(r["shared_sha256"])
+        check(all(len(h) == 1 for h in groups.values()),
+              f"19c {name}: the shared leaves differ across ranks")
+        check(all(r["losses"] == res[0]["losses"] for r in res),
+              f"19c {name}: the ranks' losses differ")
+        out[name] = {
+            "card": card, "plan": res[0]["plan"],
+            "losses": res[0]["losses"], "ref_losses": res[0]["ref_losses"],
+            "max_abs_err": max(r["max_abs_err"] for r in res),
+            "census": [r["census"] for r in res],
+            "peak_bytes": [r["peak_bytes"] for r in res]}
+        print(f"19c [{card}]: pipelined {name} (stages x data) == one "
+              f"device's compiled after {PP_CHECK_STEPS} steps at qwen2-1.5b "
+              f"width, 4 layers, fp32 (losses {res[0]['losses']}, max abs "
+              f"err {out[name]['max_abs_err']:.3e}); shared leaves "
+              f"bit-identical on {world.n} ranks; census of rank 0's last "
+              f"step {res[0]['census']}", flush=True)
+    world.run(_drop_pp_reference)
     return out
 
 
-def pipeline_phases(timed, dev) -> dict:
-    return {"train": {label: timed(label, pp_launcher_phase, dev, label)
-                      for label in PP_RUNS},
-            "check": timed("19c pipeline check", pp_check_phase, dev)}
+def _drop_pp_reference(mesh) -> None:
+    _PP_REFERENCE.clear()
+    gc_collect()
+
+
+def _world(n: int):
+    from repro_torch.launch.world import LocalWorld
+    store = os.path.join(ROOT, "build", "worlds")
+    os.makedirs(store, exist_ok=True)
+    gc_collect()
+    return LocalWorld(n, device="cuda", store_dir=store,
+                      timeout_s=WORLD_TIMEOUT_S, threads=0)
+
+
+def world_phases(timed, dev, st_train=None) -> dict:
+    """Phases 16b, 16c, 19, 21 and 22 in two ``LocalWorld``s sharing the
+    card, each started once (its ranks fork from the server that
+    imported torch and the port): two ranks for 16b, 16c, 19a and 19c's
+    two-rank cells; four for 19b, 19c's four-rank cells, 21a / 21b, 22a
+    and 22b, whose groups 22a's fault starts anew. 21c (``st_train``:
+    18a's numbers; None skips it) runs in this process meanwhile. Returns
+    the phases' results: "dp_check", "fault", "pipeline", "gspmd"."""
+    pp = {"train": {}, "check": {}}
+    labels = list(PP_RUNS)
+    with timed("world of 2", _world, 2) as w2:
+        dp_check = timed("16b data-parallel check", dp_check_phase, w2)
+        fault = timed("16c fault agreement", fault_agreement_phase, w2)
+        pp["train"][labels[0]] = timed(labels[0], pp_launcher_phase, w2,
+                                       labels[0])
+        pp["check"].update(timed("19c pipeline check, 2 ranks",
+                                 pp_check_cells, w2))
+    with timed("world of 4", _world, 4) as w4:
+        pp["train"][labels[1]] = timed(labels[1], pp_launcher_phase, w4,
+                                       labels[1])
+        pp["check"].update(timed("19c pipeline check, 4 ranks",
+                                 pp_check_cells, w4))
+        gspmd = {"train": timed("21a/21b GSPMD", gspmd_train_phase, w4)}
+        if st_train is not None:
+            gspmd["dryrun"] = timed("21c GSPMD dry run", gspmd_dryrun_phase,
+                                    dev, st_train)
+        gspmd["supervised"] = timed("22a GSPMD supervised",
+                                    gspmd_supervised_phase, w4)
+        gspmd["serve"] = timed("22b serve on 4 ranks", serve_world_phase, w4)
+    return {"dp_check": dp_check, "fault": fault, "pipeline": pp,
+            "gspmd": gspmd}
 
 # ---------------------------------------------------------------------------
 # 17. the last two families: the encoder-decoder and the VLM backbone
@@ -5357,7 +5416,6 @@ GSPMD_STEPS = 3  # the first a warm-up (DTensor's propagation cache)
 GSPMD_CHECK_LAYERS = 2
 GSPMD_CHECK_STEPS = 2
 GSPMD_CHECK_SEQ = 128
-GSPMD_TIMEOUT_S = 400
 
 
 def _gspmd_spec_bytes(cfg, dims) -> int:
@@ -5500,30 +5558,25 @@ def gspmd_check_rank(mesh, layers: int, steps: int) -> dict:
             "ref_losses": ref_losses, "max_abs_err": worst, "within": ok}
 
 
-def gspmd_train_phase(dev) -> dict:
-    """21a and 21b in one ``LocalWorld`` of four ranks sharing the card
-    (gloo, each capped at 0.24 of its memory): see
+def gspmd_train_phase(world) -> dict:
+    """21a and 21b on ``world``, a ``LocalWorld`` of four ranks sharing
+    the card (gloo, each capped at 0.24 of its memory): see
     :func:`gspmd_main_rank` and :func:`gspmd_check_rank`. Every rank's
     losses finite and equal, the first near ln(vocab); its parameter
     bytes the spec arithmetic; K1 launched steps × N_Smu × buckets and K2
     steps × buckets on every rank."""
     from repro_torch import configs
-    from repro_torch.launch.world import LocalWorld
 
     gc_collect()
-    store = os.path.join(ROOT, "build", "gspmd")
-    os.makedirs(store, exist_ok=True)
     card = card_line()
     n = GSPMD_DIMS[0] * GSPMD_DIMS[1]
-    with LocalWorld(n, device="cuda", store_dir=store,
-                    timeout_s=GSPMD_TIMEOUT_S, threads=0) as world:
-        t0 = time.perf_counter()
-        res = world.run(gspmd_main_rank, GSPMD_LAYERS, GSPMD_STEPS)
-        train_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        chk = world.run(gspmd_check_rank, GSPMD_CHECK_LAYERS,
-                        GSPMD_CHECK_STEPS)
-        check_s = time.perf_counter() - t0
+    check(world.n == n, f"21 runs on {n} ranks, the world has {world.n}")
+    t0 = time.perf_counter()
+    res = world.run(gspmd_main_rank, GSPMD_LAYERS, GSPMD_STEPS)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chk = world.run(gspmd_check_rank, GSPMD_CHECK_LAYERS, GSPMD_CHECK_STEPS)
+    check_s = time.perf_counter() - t0
     cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
                               num_layers=GSPMD_LAYERS)
     want_bytes = _gspmd_spec_bytes(cfg, dict(zip(("data", "model"),
@@ -5640,6 +5693,324 @@ def gspmd_dryrun_phase(dev, st_train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 22: the runtime on the GSPMD world: --supervise and the serve launcher
+# ---------------------------------------------------------------------------
+
+# 22a: 21b's size (full qwen2-1.5b width, GSPMD_CHECK_LAYERS layers, fp32,
+# seq GSPMD_CHECK_SEQ, mini-batch 8 in 2 micro-batches, `flat`) under the
+# supervisor for SUP_STEPS steps: a NaN in one data block at step
+# SUP_NAN_STEP (retried clean), and an out-of-memory error raised on rank
+# SUP_OOM_RANK alone inside its forward at step SUP_OOM_STEP, before its
+# second layer's attention: after the first layer's collectives, before
+# the second's. No checkpoint is written, so every rank anchors its own
+# blocks (a host copy, no collective) every SUP_ANCHOR_EVERY steps, and the
+# recovery resumes from the anchor at SUP_OOM_STEP
+SUP_STEPS = 4
+SUP_ANCHOR_EVERY = 2
+SUP_NAN_STEP = 1
+SUP_OOM_STEP = 2
+SUP_OOM_RANK = 1
+# step_fn calls (the NaN step is retried once): the NaN step's, the OOM's
+SUP_NAN_CALL = SUP_NAN_STEP + 1
+SUP_OOM_CALL = SUP_OOM_STEP + 2
+# 22b: phase 14a's traffic through the serve launcher on the four ranks
+SERVE_WORLD_ARGV = SERVE_ARGV["qwen2-1.5b"]
+
+
+def gspmd_supervised_rank(mesh, layers: int, steps: int) -> dict:
+    """22a on one rank: ``engine.Supervisor`` over ``GspmdExecutor(
+    guard=True)`` (``flat``) on the 2 × 2 mesh, ``fit`` of ``steps`` steps
+    under ``faults.nan_at(SUP_NAN_STEP)``, anchoring the rank's blocks
+    every SUP_ANCHOR_EVERY steps, with ``attention.attn_block`` wrapped on
+    this rank to raise the OOM on SUP_OOM_RANK (the degrade has no plan
+    context: remat one rung up). The records, recovery seconds, losses,
+    final plan, whether the NaN step left the rank's blocks
+    bit-identical, K1 / K2 launches and K2's guarded calls, the anchors,
+    and a CRC32 of each block of the final state (params and momentum)
+    keyed by the leaf and the block's place in the whole tensor: the
+    phase puts the whole state's hash together from every rank's, with
+    no gather."""
+    import torch
+    from repro_torch import configs, engine, kernels, optim, tree
+    from repro_torch.data import LMDataset
+    from repro_torch.engine import exec_core, faults
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    gm = mesh_lib.gspmd_mesh(mesh, *GSPMD_DIMS)
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=layers)
+    sgd = lambda: optim.sgd(0.05, momentum=0.9, weight_decay=5e-4)  # noqa
+    ds = LMDataset(cfg.vocab_size, GSPMD_CHECK_SEQ, seed=0)
+    seen = {"step": 0, "attn": 0, "guarded": 0, "nan_kept": None}
+    attn_block, fused_sgd = attention.attn_block, exec_core.fused_sgd
+
+    def attn_in_forward(*a, **kw):
+        seen["attn"] += 1
+        if (mesh.rank == SUP_OOM_RANK and seen["step"] == SUP_OOM_CALL
+                and seen["attn"] == 2):
+            raise faults.injected_oom("inside the forward, before the "
+                                      "second layer's attention")
+        return attn_block(*a, **kw)
+
+    def counted_sgd(*a, ok=None, **kw):
+        seen["guarded"] += ok is not None
+        return fused_sgd(*a, ok=ok, **kw)
+
+    def build(plan):
+        loss_fn = steps_lib.make_loss_fn(cfg, dtype=torch.float32,
+                                         remat_policy=plan.remat_policy)
+        ex = engine.GspmdExecutor(loss_fn, sgd(), plan, mesh=gm,
+                                  inner="flat", guard=True)
+
+        def step_fn(p, s, batch):
+            seen["step"] += 1
+            seen["attn"] = 0
+            before = None
+            if seen["step"] == SUP_NAN_CALL:
+                before = [t.clone() for t in tree.leaves((p, s))]
+            p, s, m = ex.step_split(p, s, batch)
+            if before is not None:
+                seen["nan_kept"] = all(torch.equal(x, y) for x, y in zip(
+                    before, tree.leaves((p, s))))
+            return p, s, m
+        return ex, step_fn, engine.Pipeline(ds, plan, prefetch=0, device=dev,
+                                            sharding=ex.shard)
+
+    attention.attn_block, exec_core.fused_sgd = attn_in_forward, counted_sgd
+    try:
+        plan = engine.plan_mbs(8, num_microbatches=2, remat_policy="none",
+                               mesh=gm, device=dev)
+        sup = engine.Supervisor(build, plan, log_fn=None,
+                                writer=mesh.rank == 0,
+                                ckpt_every=SUP_ANCHOR_EVERY)
+        params = steps_lib.init_params(cfg, seed=0, device=dev)
+        p, s = sup.executor.prepare(params, sgd().init(params))
+        del params
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with faults.inject(faults.FaultPlan(faults.nan_at(SUP_NAN_STEP))
+                           ) as fp:
+            p, s, _ = sup.fit(p, s, steps)
+        torch.cuda.synchronize(dev)
+        fit_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        attention.attn_block, exec_core.fused_sgd = attn_block, fused_sgd
+    buckets = engine.FlatSpec.for_tree(p).num_buckets
+    (bp, bs), (full_p, full_s) = sup.executor.local_state(p, s)
+    specs = sharding.spec_leaves(sup.executor.param_specs(full_p))
+    blocks = {}
+    for part, (blk, full) in enumerate(((bp, full_p),
+                                        (bs["mom"], full_s["mom"]))):
+        for i, (b, f, spec) in enumerate(zip(tree.leaves(blk),
+                                             tree.leaves(full), specs)):
+            where = sharding.local_slices(tuple(f.shape), spec, gm,
+                                          gm.coords())
+            key = (part, i, tuple(sl.indices(n)[:2]
+                                  for sl, n in zip(where, f.shape)))
+            blocks[key] = zlib.crc32(b.contiguous().reshape(-1)
+                                     .view(torch.uint8).numpy())
+    out = {"rank": mesh.rank,
+           "records": [(r.kind, r.step, r.action, r.steps_lost, r.detail)
+                       for r in sup.records],
+           "recovery_s": [r.recovery_s for r in sup.records],
+           "fired": list(fp.fired), "plan": plan.describe(),
+           "final_plan": sup.plan.describe(),
+           "history": dict(sup.history), "nan_kept": seen["nan_kept"],
+           "counts": counts, "guarded_k2": seen["guarded"],
+           "buckets": buckets, "blocks_crc32": blocks,
+           "anchors": sup.report()["anchors"], "fit_s": fit_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del sup, p, s, bp, bs
+    gc_collect()
+    return out
+
+
+def gspmd_supervised_phase(world) -> dict:
+    """22a. ``--supervise`` on the GSPMD world (:func:`gspmd_supervised_rank`
+    on every rank of 21's world): every rank's records equal — the NaN
+    step retried clean, the OOM agreed at SUP_OOM_STEP naming rank
+    SUP_OOM_RANK, the groups started anew — the run finished on the
+    degraded plan with every rank's losses equal, every block of the final
+    state equal on the ranks that hold it (the whole state's CRC32 put
+    together from them), the NaN step's state bit-identical to the state
+    before it, and K1 and
+    K2's ``GUARD`` variant launched on every rank (K2 once a bucket for
+    each step run to its update, and only guarded)."""
+    card = card_line()
+    gc_collect()
+    t0 = time.perf_counter()
+    res = world.run(gspmd_supervised_rank, GSPMD_CHECK_LAYERS, SUP_STEPS)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    kinds = [(k, st, act, lost) for k, st, act, lost, _ in r0["records"]]
+    check(kinds == [("nonfinite", SUP_NAN_STEP, "retried ok (attempt 1)",
+                     0),
+                    ("oom", SUP_OOM_STEP, "remat none->dots",
+                     SUP_OOM_STEP % SUP_ANCHOR_EVERY)],
+          f"22a: records {r0['records']}")
+    check(f"rank(s) [{SUP_OOM_RANK}] of {world.n}" in r0["records"][1][4]
+          and "started anew" in r0["records"][1][4],
+          f"22a: the OOM record does not name rank {SUP_OOM_RANK}'s fault "
+          f"agreed over new groups: {r0['records'][1][4]}")
+    check("remat dots" in r0["final_plan"],
+          f"22a: final plan {r0['final_plan']}")
+    check(sorted(r0["history"]) == list(range(SUP_STEPS)) and all(
+        math.isfinite(x) for x in r0["history"].values()),
+        f"22a: losses {r0['history']}")
+    # steps run to their update: those before the OOM step, the NaN step's
+    # retry, then from the anchor before the OOM step to the end
+    resume = SUP_OOM_STEP - SUP_OOM_STEP % SUP_ANCHOR_EVERY
+    updates = SUP_OOM_STEP + 1 + SUP_STEPS - resume
+    blocks = {}
+    for r in res:
+        for key, crc in r["blocks_crc32"].items():
+            check(blocks.setdefault(key, crc) == crc,
+                  f"22a rank {r['rank']}: block {key} differs from another "
+                  "rank's copy of it")
+    state_crc = zlib.crc32(repr(sorted(blocks.items())).encode())
+    for r in res:
+        for key in ("records", "final_plan", "history"):
+            check(r[key] == r0[key], f"22a rank {r['rank']}: {key} "
+                                     f"{r[key]} differs from rank 0's "
+                                     f"{r0[key]}")
+        check(r["nan_kept"] is True, f"22a rank {r['rank']}: the NaN step "
+                                     "changed the rank's blocks")
+        k2 = updates * r["buckets"]
+        check(r["counts"]["fused_sgd_mom"] == r["guarded_k2"] == k2,
+              f"22a rank {r['rank']}: K2 launched "
+              f"{r['counts']['fused_sgd_mom']} times, {r['guarded_k2']} "
+              f"guarded, expected {k2}")
+        check(r["counts"]["grad_accum"] >= updates * 2 * r["buckets"],
+              f"22a rank {r['rank']}: K1 launched "
+              f"{r['counts']['grad_accum']} times")
+    out = {"card": card, "plan": r0["plan"], "final_plan": r0["final_plan"],
+           "records": r0["records"],
+           "recovery_s": {f"rank{r['rank']}": r["recovery_s"] for r in res},
+           "losses": r0["history"], "state_crc32": state_crc,
+           "blocks": len(blocks),
+           "counts": {f"rank{r['rank']}": r["counts"] for r in res},
+           "fit_s": [r["fit_s"] for r in res], "anchors": r0["anchors"],
+           "peak_bytes": [r["peak_bytes"] for r in res], "wall_s": wall}
+    print(f"22a [{card}]: --supervise on the GSPMD {GSPMD_DIMS[0]}x"
+          f"{GSPMD_DIMS[1]} world, qwen2-1.5b at {GSPMD_CHECK_LAYERS} layers, "
+          f"full width, fp32, seq {GSPMD_CHECK_SEQ}: {r0['plan']} -> "
+          f"{r0['final_plan']}; records {r0['records']} on every rank; "
+          f"recovery seconds {out['recovery_s']}; losses {r0['history']}; "
+          f"final state CRC32 {state_crc:#010x} over its {len(blocks)} "
+          f"distinct blocks, each equal on every rank holding it; the NaN "
+          f"step left every rank's blocks bit-identical; launches "
+          f"{out['counts']['rank0']} a rank (K2 guarded {r0['guarded_k2']});"
+          f" anchors (rank 0's blocks) {r0['anchors']}; fit {out['fit_s']} "
+          f"s; peaks "
+          f"{out['peak_bytes']} B; {wall:.1f} s", flush=True)
+    return out
+
+
+def serve_world_rank(mesh, argv) -> dict:
+    """22b on one rank: ``repro_torch.launch.serve.main(argv)`` (the rank
+    has joined the world; the launcher serves every rank's share of the
+    stream and gathers the report), with the launch counters zeroed
+    before and read after; what this rank served and its allocator's
+    peak beside what was allocated before."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.engine import serving
+    from repro_torch.launch import serve
+    gc_collect()
+    before = torch.cuda.memory_allocated(mesh.device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    plan, cfg, eng = out["plan"], out["config"], out["engine"]
+    res = {"rank": mesh.rank, "plan": plan.describe(),
+           "modeled_peak_bytes": plan.modeled_peak_bytes(),
+           "budget_bytes": plan.budget_bytes, "report": out["report"],
+           "ranks": out["ranks"],
+           "allocated_before": before, "counts": counts, "wall_s": wall,
+           "pool_free": (eng.pool.free_count == plan.local_slots
+                         and not eng._by_slot),
+           "tokens_in_vocab": all(0 <= t < cfg.vocab_size
+                                  for r in out["requests"]
+                                  for t in r.tokens),
+           "all_finished": all(r.state == serving.FINISHED
+                               for r in out["requests"])}
+    del out, eng
+    gc_collect()
+    return res
+
+
+def serve_world_phase(world) -> dict:
+    """22b. The serve launcher on the four ranks of 21's world (its groups
+    started anew by 22a), at phase 14a's traffic (SERVE_ARGV): the plan
+    data-parallel (``local_slots`` a rank at the per-device budget),
+    every request of the stream finished on exactly one rank, its tokens
+    inside the vocabulary, every rank's pool free at the end and the
+    gathered report equal on every rank; each rank's allocator peak (above
+    what it held before) beside the plan's modeled per-device peak and
+    the budget; no kernel launched (serving runs none, as in the
+    reference)."""
+    from repro_torch.launch import serve
+    card = card_line()
+    args = serve.build_parser().parse_args(SERVE_WORLD_ARGV)
+    t0 = time.perf_counter()
+    res = world.run(serve_world_rank, SERVE_WORLD_ARGV)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    ids = sorted(i for r in r0["ranks"] for i in r["finished"])
+    check(ids == list(range(args.requests)),
+          f"22b: finished request ids {ids}, expected each of "
+          f"0..{args.requests - 1} once")
+    rep = r0["report"]
+    check(rep["requests"]["finished"] == args.requests,
+          f"22b: {rep['requests']} of {args.requests}")
+    peaks = {}
+    for r in res:
+        check(r["report"] == rep and r["ranks"] == r0["ranks"],
+              f"22b rank {r['rank']}: the gathered report differs")
+        check(r["all_finished"] and r["pool_free"] and r["tokens_in_vocab"],
+              f"22b rank {r['rank']}: a request unfinished, a slot held or "
+              "a token outside the vocabulary")
+        check(not any(r["counts"].values()),
+              f"22b rank {r['rank']}: kernel launches {r['counts']}")
+        peak = next(x["peak_allocated_bytes"] for x in r0["ranks"]
+                    if x["rank"] == r["rank"])
+        peaks[r["rank"]] = peak - r["allocated_before"]
+        check(peaks[r["rank"]] <= r["budget_bytes"],
+              f"22b rank {r['rank']}: allocator peak {peaks[r['rank']]} B "
+              f"above what it held, over the {r['budget_bytes']} B budget")
+    dec = rep["decode"]
+    out = {"card": card, "plan": r0["plan"], "report": rep,
+           "ranks": r0["ranks"], "peak_above_before_bytes": peaks,
+           "modeled_peak_bytes": r0["modeled_peak_bytes"],
+           "budget_bytes": r0["budget_bytes"],
+           "counts": {f"rank{r['rank']}": r["counts"] for r in res},
+           "wall_s": wall}
+    print(f"22b [{card}]: the serve launcher on {world.n} ranks sharing the "
+          f"card (groups started anew by 22a): {r0['plan']}; "
+          f"{rep['requests']['finished']} of {args.requests} requests "
+          f"finished, each on one rank; decode {dec['tokens']} tokens, "
+          f"{dec['tokens_per_s']:.1f} tokens/s summed over the ranks; ITL "
+          f"p50 {dec['itl_s']['p50'] * 1e3:.2f} ms p99 "
+          f"{dec['itl_s']['p99'] * 1e3:.2f} ms; TTFT p50 "
+          f"{rep['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+          f"{rep['ttft_s']['p99'] * 1e3:.1f} ms; peak concurrency "
+          f"{rep['slots']['max_concurrent']} of "
+          f"{rep['slots']['planned']} planned; allocator peaks above what "
+          f"each rank held {peaks} B beside the modeled "
+          f"{r0['modeled_peak_bytes']} B and budget {r0['budget_bytes']} B "
+          f"a device; K1-K6 launches 0; {wall:.1f} s", flush=True)
+    return out
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -5651,7 +6022,7 @@ def run() -> dict:
                            "drives the port on a GPU and has no CPU mode")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    # the LocalWorld ranks of 16b, 16c, 19c and 21 fork from a server that
+    # the LocalWorld ranks of 16b, 16c and 19-22 fork from a server that
     # imports torch once; started now, its imports overlap phase 2's builds
     import multiprocessing.forkserver
     from repro_torch.launch import world as world_lib
@@ -5712,18 +6083,15 @@ def run() -> dict:
     serve_check = {a: timed(f"14c serve check {a}", serve_correctness_phase,
                             dev, a) for a in ("qwen2-1.5b", "gemma2-9b")}
     fam = family_phases(timed, dev)
-    dp = {"train": timed("16a data parallel", dp_main_path_phase, dev),
-          "check": timed("16b data-parallel check", dp_check_phase, dev)}
-    fault = timed("16c fault agreement", fault_agreement_phase, dev)
+    dp = {"train": timed("16a data parallel", dp_main_path_phase, dev)}
     fam17 = encdec_vlm_phases(timed, dev)
     st = steps_phases(timed, dev)
-    pp = pipeline_phases(timed, dev)
     checker = {"analysis": timed("20a/20b analysis", analysis_phase, dev),
                "dryrun": timed("20c dry run", dryrun_phase, dev,
                                st["train"])}
-    gspmd = {"train": timed("21a/21b GSPMD", gspmd_train_phase, dev),
-             "dryrun": timed("21c GSPMD dry run", gspmd_dryrun_phase, dev,
-                             st["train"])}
+    worlds = world_phases(timed, dev, st["train"])
+    dp["check"], fault = worlds["dp_check"], worlds["fault"]
+    pp, gspmd = worlds["pipeline"], worlds["gspmd"]
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
     # families' training paths (15a-15c, 17a, 17b), the data-parallel
@@ -5746,6 +6114,10 @@ def run() -> dict:
              "analysis 20a": checker["analysis"]["counts"],
              **{f"gspmd qwen2-1.5b {k}": c
                 for k, c in gspmd["train"]["counts"].items()},
+             **{f"gspmd supervised qwen2-1.5b {k}": c
+                for k, c in gspmd["supervised"]["counts"].items()},
+             **{f"serve world qwen2-1.5b {k}": c
+                for k, c in gspmd["serve"]["counts"].items()},
              **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
@@ -5821,7 +6193,12 @@ def run() -> dict:
                      "check": pp["check"]},
         "gspmd": {"train": {k: v for k, v in gspmd["train"].items()
                             if k != "counts"},
-                  "dryrun": gspmd["dryrun"]},
+                  "dryrun": gspmd["dryrun"],
+                  "supervised": {k: v for k, v in
+                                 gspmd["supervised"].items()
+                                 if k != "counts"},
+                  "serve": {k: v for k, v in gspmd["serve"].items()
+                            if k != "counts"}},
         "phase_s": phase_s,
         "total_s": sum(phase_s.values())}}),
         flush=True)

@@ -29,7 +29,8 @@ from .findings import (EXIT_BUDGET, EXIT_CONTRACT, EXIT_ERROR,  # noqa: F401
                        EXIT_OK, Finding, Report, RULES,
                        SEVERITY_ERROR, SEVERITY_WARNING)
 from .trace_checks import (accumulator_writes, check_accum_dtype,  # noqa: F401
-                           check_collectives, check_host_reads,
+                           check_collectives, check_gspmd_collectives,
+                           check_host_reads,
                            check_pipeline_collectives, check_pipelined_step,
                            check_remat_policy, check_train_step,
                            pipeline_census, remat_census)
@@ -41,7 +42,7 @@ from .step_checks import (allreduce_count, check_aliasing,  # noqa: F401
 from .lint import (category_for, lint_paths, lint_repo,  # noqa: F401
                    lint_source)
 from .suite import (MEMORY_TOLERANCE, TARGETS, check_bundle,  # noqa: F401
-                    check_step, run_suite)
+                    check_gspmd_rank, check_step, run_suite)
 from .serve_checks import (SERVE_TARGETS, build_decode,  # noqa: F401
                            check_decode_aliasing, check_decode_memory,
                            measure_decode, run_serve_suite)

@@ -37,8 +37,9 @@ def _parse(argv):
                          "--ranks spawned ranks on the data axis: the "
                          "sharded deferred-sync contract), or 'DATA:MODEL' "
                          "(e.g. '1:2': MODEL > 1 runs the pipelined 1F1B "
-                         "contracts JX005/HLO005); 'production' is refused "
-                         "(ROADMAP item 11, the suite's production mesh)")
+                         "contracts JX005/HLO005); the reference's suite "
+                         "has no 'production' mesh: its gate is "
+                         "launch.dryrun --mesh production --check")
     ap.add_argument("--ranks", type=int, default=2, metavar="N",
                     help="ranks of the --mesh host world (default 2)")
     ap.add_argument("--remat-policy", default=None,

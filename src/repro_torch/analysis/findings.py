@@ -57,7 +57,10 @@ RULES: Dict[str, Dict[str, str]] = {
     "JX004": {"layer": "trace",
               "contract": "collective census: exactly one gradient "
                           "all-reduce per mini-batch when deferred, >= "
-                          "N_Smu otherwise, no collective without a mesh"},
+                          "N_Smu otherwise, no collective without a mesh; "
+                          "on a GSPMD rank, collectives over the mesh's "
+                          "axes only and the gradients reduce-scattered "
+                          "over the batch axes"},
     "JX005": {"layer": "trace",
               "contract": "pipelined (1F1B) census: the point-to-point "
                           "calls match the closed-form schedule exactly "

@@ -152,12 +152,13 @@ def run_serve_suite(arch: str = "qwen2-1.5b", *, mesh: Any = None,
                     tolerance: float = SERVE_MEMORY_TOLERANCE,
                     device="cpu") -> Report:
     """Build one serving engine, run one decode step and check both
-    contracts. A serving engine across ranks is not ported (ROADMAP
-    queue 1 item 11)."""
+    contracts. The suite on a mesh (the reference checks its data-parallel
+    serve plan) is not ported (ROADMAP.md queue 1, item 11's serve
+    suite)."""
     if mesh not in (None, "single"):
         raise NotImplementedError(
-            "serving across ranks is not ported (ROADMAP.md queue 1 item "
-            "11): the serve suite runs on one device")
+            "the serve suite on a mesh is not ported (ROADMAP.md queue 1, "
+            "item 11's serve suite): it runs on one device")
     built = build_decode(arch, donate=donate, budget_bytes=budget_bytes,
                          max_len=max_len, device=device)
     plan: serving.ServePlan = built["plan"]

@@ -144,11 +144,10 @@ def resolve_mesh(mesh: Any, ranks: int = 2):
     if isinstance(mesh, str):
         if mesh == "production":
             raise ValueError(
-                "the contract suite on the production mesh is not ported: "
-                "its rules read the recorded step of one process, not a "
-                "GSPMD rank's DTensor step (ROADMAP.md queue 1 item 11, "
-                "the suite's production mesh); the dry run covers that "
-                "mesh (launch.dryrun --mesh production)")
+                "the contract suite has no production mesh: the "
+                "reference's resolve_mesh takes 'single', 'host' and "
+                "'DATA:MODEL' only; the production mesh's contract gate is "
+                "the dry run's (launch.dryrun --mesh production --check)")
         data, _, model = mesh.partition(":")
         if not (data.isdigit() and model.isdigit()):
             raise ValueError(f"bad mesh spec {mesh!r}: 'single', 'host' "
@@ -341,4 +340,34 @@ def check_bundle(bundle, *, run=None, modeled_bytes: Optional[int] = None,
             context=bundle.kind), "HLO003")
     if lint:
         report.extend(lint_mod.lint_repo(), "LINT")
+    return report
+
+
+#: the rules one rank of a production dry run cannot feed, and why
+GSPMD_REFUSED = {
+    rule: ("it reads the recorded op trace of one process's step; a "
+           "production rank's step runs as DTensor ops on a fake world, "
+           "which the recorder (engine.steptrace) does not follow")
+    for rule in ("JX001", "JX002", "JX003")}
+GSPMD_REFUSED["HLO001"] = (
+    "it reads the state's storages across a recorded step, which a "
+    "production rank's DTensor step does not give")
+
+
+def check_gspmd_rank(collectives: Dict[str, Any], mesh, *, peak_bytes: int,
+                     modeled_bytes: Optional[int],
+                     memory_tolerance: float = MEMORY_TOLERANCE) -> Report:
+    """``dryrun --check`` on the production mesh, over what one rank's
+    run gives: its census of collectives (JX004's GSPMD form,
+    ``trace_checks.check_gspmd_collectives``) and its peak against
+    ``memory_model.estimate(mesh=, fsdp_params=True)`` (HLO003). The
+    rules it cannot feed are named in ``context["refused"]``, never
+    passed."""
+    report = Report(context={"kind": "train", "mesh": dict(mesh),
+                             "refused": dict(GSPMD_REFUSED)})
+    report.extend(trace_checks.check_gspmd_collectives(collectives, mesh),
+                  "JX004")
+    report.extend(step_checks.check_memory_model(
+        int(peak_bytes), modeled_bytes, tolerance=memory_tolerance,
+        context="train"), "HLO003")
     return report

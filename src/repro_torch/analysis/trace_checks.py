@@ -9,7 +9,7 @@ once per micro-batch and needs no trip count.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -238,6 +238,34 @@ def check_collectives(trace, params, *, n_micro: int,
             f"per-micro baseline expected >= {n_micro} gradient "
             f"all-reduces per mini-batch, found {len(grad_syncs)}",
             details=details))
+    return out
+
+
+def check_gspmd_collectives(census: Dict[str, Any], mesh
+                            ) -> List[Finding]:
+    """JX004 on one rank of a GSPMD mesh, from its census
+    (``engine.CollectiveCensus.summary``): every collective runs over the
+    mesh's own axes (a group of none of them is a finding), and with a
+    batch axis above one rank the gradients are reduce-scattered over it
+    (FSDP: a step without a reduce-scatter is a finding)."""
+    out: List[Finding] = []
+    by = census.get("by_kind_and_axis", {})
+    axes = set(mesh) | {"+".join(mesh)}
+    stray = {k: ax for k, v in by.items() for ax in v if ax not in axes}
+    if stray:
+        out.append(Finding(
+            "JX004", SEVERITY_ERROR,
+            f"collectives over groups outside the mesh's axes {sorted(axes)}"
+            f": {stray}", details={"by_kind_and_axis": by}))
+    dp = 1
+    for ax in ("pod", "data"):
+        dp *= mesh.get(ax, 1)
+    if dp > 1 and not by.get("reduce_scatter"):
+        out.append(Finding(
+            "JX004", SEVERITY_ERROR,
+            f"no reduce-scatter in a GSPMD step over {dp} batch ranks: the "
+            "gradients are not FSDP-reduced",
+            details={"by_kind_and_axis": by}))
     return out
 
 

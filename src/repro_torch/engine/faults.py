@@ -138,14 +138,16 @@ def injected_oom(detail: str = "") -> torch.OutOfMemoryError:
         + (f": {detail}" if detail else ""))
 
 
-def agreed_oom(ranks, world: int) -> torch.OutOfMemoryError:
-    """The error every rank of a world raises once the step's all-reduce
-    has shown that ``ranks`` ran out of memory: one message on every rank,
-    so every rank's supervisor records the same fault."""
+def agreed_oom(ranks, world: int, by: str = "the step's all-reduce"
+               ) -> torch.OutOfMemoryError:
+    """The error every rank of a world raises once a reduction (``by``,
+    the step's all-reduce by default) has shown that ``ranks`` ran out of
+    memory: one message on every rank, so every rank's supervisor records
+    the same fault."""
     return torch.OutOfMemoryError(
         f"RESOURCE_EXHAUSTED: out of memory on rank(s) "
         f"{sorted(int(r) for r in ranks)} of {world}, agreed across the "
-        "world by the step's all-reduce")
+        f"world by {by}")
 
 
 # ---------------------------------------------------------------------------

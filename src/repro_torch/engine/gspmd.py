@@ -31,6 +31,30 @@ The port is SPMD over ``torch.distributed.tensor``:
     over an axis counts on that axis's first rank only — and the squares
     are summed over the world).
 
+``guard=True`` (``--supervise``) puts step ❺ behind the finite check of
+the whole accumulator, as the reference's guarded GSPMD step does
+(``lax.cond`` on ``finite_all``). A rank sees only its blocks, so its
+flag (1 when one of its blocks is not finite) rides the step's one
+global reduction, the gradient norm's, as one more fp32 element (the
+census gains no collective); a replicated leaf's blocks are equal on its
+replicas, so the sum is 0 exactly when the reference's check passes. The update runs behind the flag
+(K2's or K4's ``GUARD`` variant for ``flat``), so every rank skips alike
+and keeps its state as it was. A one-rank out-of-memory error is agreed
+too:
+
+  * at dispatch (``faults.on_dispatch``, before any collective) the
+    rank runs its share of the step's collectives as its peers do and
+    sets its fault slot in the same reduction; every rank then raises
+    the same ``faults.agreed_oom`` before the update;
+  * inside the forward or backward, between two of the collectives
+    DTensor issues, the rank posts the fault and drops its connections
+    (``launch.mesh.post_fault``), its peers' collectives fail, they find
+    the fault posted and drop theirs, every rank starts the world's
+    groups anew (``launch.mesh.reform``, written into the mesh) and one
+    reduction of the fault slots over them names the faulting ranks in
+    the same ``agreed_oom`` on every rank. A failure with no fault
+    posted propagates unchanged.
+
 :class:`CollectiveCensus` counts the collectives that DTensor and the
 loss issue, by kind and mesh axis. A world whose ranks share one card
 over gloo moves them through the host (``launch.mesh.
@@ -38,6 +62,7 @@ host_staged_collectives``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -47,8 +72,10 @@ from .. import optim, tree
 from ..launch import mesh as mesh_lib
 from ..launch import sharding
 from ..models import nn
+from . import exec_core, faults
 from .executors import _as_plan, get_executor
 from .pipelined import _over_state
+from .sharded import _oom_of, fault_slots, raise_agreed
 from .steptrace import Traceable
 
 #: the batch leaf whose sample dim is not its first (a VLM's streams)
@@ -77,13 +104,8 @@ class GspmdExecutor(Traceable):
                 "the streaming executor stages host micro-batches for one "
                 "device; the GSPMD step takes its batch already sharded — "
                 "use --executor compiled, fused or flat on a GSPMD mesh")
-        if guard:
-            raise ValueError(
-                "the finite guard (--supervise) is not ported for a GSPMD "
-                "mesh: its flag and the OOM agreement span the pipeline's "
-                "and data-parallel's collectives only (ROADMAP.md queue 1 "
-                "item 11, --supervise on a GSPMD mesh)")
         self.mesh = mesh
+        self.guard = guard
         self.plan = _as_plan(plan)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -142,6 +164,28 @@ class GspmdExecutor(Traceable):
             opt_state, params, lambda v: full,
             lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
                                   device="meta"))
+
+    def local_state(self, params, opt_state):
+        """Host copies of this rank's ``(params, opt_state)`` blocks and the
+        reference-format template they are cut from (meta tensors): a
+        supervisor's anchor when no checkpoint is written. No collective,
+        and a rank's host holds its share only (the whole state of a
+        16 × 16 mesh would not fit one host)."""
+        host = tree.map(lambda t: t.detach().to("cpu", copy=True),
+                        (params, opt_state))
+        return host, self.full_template(params, opt_state)
+
+    def place_local(self, params, opt_state, template, device=None):
+        """Blocks from :meth:`local_state` on ``device`` (default: the
+        mesh's), in the inner executor's layout; the layout is learnt from
+        ``template``."""
+        device = self.mesh.device if device is None else torch.device(device)
+        self._learn(template[0])
+        prepare = getattr(self.inner, "prepare", None)
+        if prepare is not None:
+            return prepare(params, opt_state, device=device)
+        return tree.map(lambda t: t.to(device, copy=True),
+                        (params, opt_state))
 
     def gather_tree(self, t):
         """The whole tensors of a local params-shaped tree, on the host of
@@ -224,26 +268,94 @@ class GspmdExecutor(Traceable):
         return _replicated(loss), {k: _replicated(v)
                                    for k, v in metrics.items()}
 
-    def _sq_reduce(self, sq: List[torch.Tensor]) -> torch.Tensor:
-        """Σ of squared leaf norms over the whole model: each rank adds
-        the leaves it owns and the sum runs over the world."""
-        from torch.distributed.tensor import DTensor, Partial
+    def _owned_sq(self, sq: List[torch.Tensor]) -> torch.Tensor:
+        """This rank's share of Σ of squared leaf norms: the leaves it
+        owns."""
         if len(sq) != len(self._owned):
             raise ValueError(f"{len(sq)} squared norms for "
                              f"{len(self._owned)} leaves")
         local = sum(s for s, own in zip(sq, self._owned) if own)
         if not torch.is_tensor(local):
             local = torch.zeros((), device=self.mesh.device)
+        return local.reshape(1)
+
+    def _world_sum(self, local: torch.Tensor) -> torch.Tensor:
+        """A 1-D fp32 vector summed over the world (the step's global
+        reduction)."""
+        from torch.distributed.tensor import DTensor, Partial
         return DTensor.from_local(
-            local.reshape(1), self.mesh.device_mesh,
-            [Partial()] * len(self.mesh), run_check=False
-        ).full_tensor().reshape(())
+            local, self.mesh.device_mesh, [Partial()] * len(self.mesh),
+            run_check=False).full_tensor()
+
+    def _sq_reduce(self, sq: List[torch.Tensor]) -> torch.Tensor:
+        """Σ of squared leaf norms over the whole model: each rank adds
+        the leaves it owns and the sum runs over the world."""
+        return self._world_sum(self._owned_sq(sq)).reshape(())
 
     def step_split(self, params, opt_state, micro_batches):
         """One mini-batch on this rank's blocks (see the module doc):
         ``(params, opt_state, metrics)``, metrics replicated."""
         with nn.use_mesh(self.mesh), optim.sharded_norm(self._sq_reduce):
+            if self.guard:
+                return self._guarded_step(params, opt_state, micro_batches)
             return self.inner.step_split(params, opt_state, micro_batches)
+
+    def _guarded_step(self, params, opt_state, micro_batches):
+        """The step under the guard (see the module doc): steps ❷–❹ by
+        the inner executor on this rank's blocks, then one reduction over
+        the world of the owned squared norms, the ranks' non-finite flags
+        and the fault slots, then step ❺ behind the flag."""
+        _, fault = _oom_of(faults.on_dispatch, self.plan, self.mesh.rank)
+        inner, flat = self.inner, self.inner_name == "flat"
+        if flat:
+            params, opt_state = inner.prepare(params, opt_state)
+        lost = None
+        try:
+            if flat:
+                spec, acc, loss, metric_sum, _ = inner._accumulated_flat(
+                    params, micro_batches)
+                leaves = tree.leaves(spec.unflatten(acc, cast=False))
+            else:
+                spec = None
+                acc, loss, metric_sum = inner._accumulated(params,
+                                                           micro_batches)
+                leaves = tree.leaves(acc)
+        except Exception as exc:  # noqa: BLE001 (re-raised unless agreed)
+            lost = faults.is_oom(exc)
+            if not mesh_lib.post_fault(self.mesh, lost):
+                raise
+        if lost is not None:  # the failed step's tensors are gone with it
+            self._agree_lost_step(lost)
+        world = math.prod(self.mesh.values())
+        sq = [torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
+              for g in leaves]
+        bad = (~exec_core.finite_all(acc)).to(torch.float32).reshape(1)
+        total = self._world_sum(torch.cat([
+            self._owned_sq(sq), bad.to(self.mesh.device),
+            fault_slots(fault, self.mesh.rank, world, self.mesh.device)]))
+        raise_agreed(total[2:])
+        ok = total[1] == 0
+        if flat and getattr(self.optimizer, "fused", None) is not None:
+            new_params, new_opt = exec_core.apply_update_flat(
+                self.optimizer, spec, acc, opt_state, params, ok=ok)
+        else:
+            grads = spec.unflatten(acc, cast=False) if flat else acc
+            new_params, new_opt, _ = exec_core.guarded_update(
+                self.optimizer, grads, opt_state, params, ok=ok)
+        return new_params, new_opt, exec_core.finalize_metrics(
+            metric_sum, loss, acc, ok, grad_norm=torch.sqrt(total[0]))
+
+    def _agree_lost_step(self, fault: bool) -> None:
+        """After a step lost inside its collectives (``post_fault`` true
+        on every rank): the world's groups anew, then one reduction of the
+        fault slots over them, and the agreed error on every rank."""
+        mesh_lib.reform(self.mesh)
+        world = math.prod(self.mesh.values())
+        slots = fault_slots(fault, self.mesh.rank, world, self.mesh.device)
+        raise_agreed(self._world_sum(slots),
+                     by="the world's groups started anew")
+        raise RuntimeError("a fault was posted on the store, but no rank "
+                           "reports one")
 
 
 def _replicated(x):

@@ -161,11 +161,10 @@ def plan_serve(cfg: ModelConfig, *, budget_bytes: int, max_len: int,
     activations would leave fewer slots than the micro-batch itself.
     ``mesh`` reads ``budget_bytes`` as PER-DEVICE bytes (params discounted
     by the sharding ratio; ``fsdp_params=False`` models the replicating
-    data-parallel replica) and plans ``local_slots`` per worker — the
-    arithmetic only: the port's ``ServingEngine`` runs on one device
-    (serving across ranks is ROADMAP.md queue 1 item 11's open half).
-    ``slot_cap`` bounds the pool so a huge budget on a tiny config cannot
-    plan an absurd batch dimension."""
+    data-parallel replica) and plans ``local_slots`` per worker: one
+    :class:`ServingEngine` a rank holds that many (``launch/serve.py`` on
+    a world of ranks). ``slot_cap`` bounds the pool so a huge budget on a
+    tiny config cannot plan an absurd batch dimension."""
     check_servable(cfg)
     if max_len < 2:
         raise ValueError(f"max_len must be >= 2 (prompt + one token), "
@@ -263,12 +262,13 @@ def _percentiles(xs: Sequence[float]) -> Dict[str, float]:
 class ServingEngine:
     """Continuous-batching scheduler over a :class:`KVPool`.
 
-    One engine is one device pool of ``plan.max_decode_slots`` slots and
-    one decode step over the whole pool. The current tokens and positions
-    of every slot stay on the device; a step samples (greedy at
-    ``temperature == 0``, else at ``temperature``) on the device and
-    reads back only the (S,) next tokens, which is also the step's
-    latency fence."""
+    One engine is one device pool of ``plan.local_slots`` slots (all of
+    ``plan.max_decode_slots`` on one device; a data-parallel plan's share
+    of one worker) and one decode step over the whole pool. The current
+    tokens and positions of every slot stay on the device; a step samples
+    (greedy at ``temperature == 0``, else at ``temperature``) on the
+    device and reads back only the (S,) next tokens, which is also the
+    step's latency fence."""
 
     def __init__(self, params, cfg: ModelConfig, plan: ServePlan, *,
                  dtype=torch.float32, cache_dtype=None,
@@ -286,10 +286,10 @@ class ServingEngine:
         if cache_dtype is None:
             cache_dtype = (torch.bfloat16 if plan.cache_bytes == 2
                            else torch.float32)
-        self.pool = KVPool(cfg, plan.max_decode_slots, plan.max_len,
+        self.pool = KVPool(cfg, plan.local_slots, plan.max_len,
                            dtype=cache_dtype, global_window=plan.global_window,
                            donate=donate, device=self.device)
-        S = plan.max_decode_slots
+        S = plan.local_slots
         self._tok = torch.zeros((S, 1), dtype=torch.long, device=self.device)
         self._pos = torch.zeros((S,), dtype=torch.int32, device=self.device)
         self._by_slot: Dict[int, Request] = {}
@@ -531,7 +531,7 @@ class ServingEngine:
                 "itl_s": _percentiles(itl),
             },
             "slots": {
-                "planned": self.plan.max_decode_slots,
+                "planned": self.plan.local_slots,
                 "max_concurrent": m["max_concurrent"],
                 "mean_active_per_step": occupancy["mean"],
             },
@@ -541,10 +541,59 @@ class ServingEngine:
     def finished_report(self, requests: Sequence[Request]) -> Dict[str, Any]:
         """report() plus TTFT percentiles over a finished request list."""
         rep = self.report()
-        ttfts = [r.first_token_s - r.arrival_s for r in requests
-                 if r.first_token_s is not None]
-        rep["ttft_s"] = _percentiles(ttfts)
+        rep["ttft_s"] = _percentiles(_ttfts(requests))
         return rep
+
+    def samples(self, requests: Sequence[Request]) -> Dict[str, List[float]]:
+        """The samples the report's percentiles are taken over (prefill
+        latencies, ITL weighted by the tokens of each step, TTFT of
+        ``requests``), for a report over several engines
+        (:func:`merge_reports`)."""
+        m = self.metrics
+        return {"prefill_latency_s": list(m["prefill_latency_s"]),
+                "itl_s": [dt for dt, n in m["decode_step_s"]
+                          for _ in range(n)],
+                "ttft_s": _ttfts(requests)}
+
+
+def _ttfts(requests: Sequence[Request]) -> List[float]:
+    return [r.first_token_s - r.arrival_s for r in requests
+            if r.first_token_s is not None]
+
+
+def merge_reports(reports: Sequence[Dict[str, Any]],
+                  samples: Sequence[Dict[str, List[float]]],
+                  plan: ServePlan) -> Dict[str, Any]:
+    """One report over the engines of a world (one a rank, each its
+    ``finished_report`` and :meth:`ServingEngine.samples`), in the
+    reference's keys: requests, prefill batches and tokens, decode steps
+    and tokens summed; decode tokens/s summed over the engines (each over
+    its own decode time; ``time_s`` is the longest); latency, ITL and
+    TTFT percentiles over every engine's samples; peak concurrency and
+    mean active slots summed; the plan's slots over all workers."""
+    def pooled(key):
+        return _percentiles([x for s in samples for x in s[key]])
+
+    def total(section, key):
+        return sum(r[section][key] for r in reports)
+    return {
+        "warmup_s": max(r["warmup_s"] for r in reports),
+        "requests": {k: total("requests", k)
+                     for k in ("admitted", "finished")},
+        "prefill": {"batches": total("prefill", "batches"),
+                    "prompt_tokens": total("prefill", "prompt_tokens"),
+                    "latency_s": pooled("prefill_latency_s")},
+        "decode": {"steps": total("decode", "steps"),
+                   "tokens": total("decode", "tokens"),
+                   "time_s": max(r["decode"]["time_s"] for r in reports),
+                   "tokens_per_s": total("decode", "tokens_per_s"),
+                   "itl_s": pooled("itl_s")},
+        "slots": {"planned": plan.max_decode_slots,
+                  "max_concurrent": total("slots", "max_concurrent"),
+                  "mean_active_per_step": total("slots",
+                                                "mean_active_per_step")},
+        "ttft_s": pooled("ttft_s"),
+        "engines": len(reports)}
 
 
 def synthetic_traffic(n_requests: int, *, rate_rps: float,

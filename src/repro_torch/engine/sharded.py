@@ -256,16 +256,18 @@ def fault_slots(fault: bool, rank: int, world: int, device) -> torch.Tensor:
     return slots
 
 
-def raise_agreed(slots: torch.Tensor) -> None:
+def raise_agreed(slots: torch.Tensor, by: str = "the step's all-reduce"
+                 ) -> None:
     """After the reduction, on every rank alike: the agreed OOM
-    (``faults.agreed_oom``) when any rank's slot is set. One readback a
-    step: every rank must raise before the update, so the agreement is
-    read here and cannot wait for the step's metrics."""
+    (``faults.agreed_oom``, agreed ``by`` that reduction) when any rank's
+    slot is set. One readback a step: every rank must raise before the
+    update, so the agreement is read here and cannot wait for the step's
+    metrics."""
     # the fault agreement's one read of the step, waived:
     hit = slots.detach().cpu() > 0  # repro: noqa(LINT001, JX003)
     bad = torch.nonzero(hit).flatten().tolist()  # repro: noqa(LINT001, JX003)
     if bad:
-        raise faults.agreed_oom(bad, slots.numel())
+        raise faults.agreed_oom(bad, slots.numel(), by=by)
 
 
 class ShardedExecutor(Traceable):

@@ -71,7 +71,12 @@ allocator's peaks in the record stay each rank's own. Only a ``writer``
 reference-format state, which ``PipelinedExecutor.gather_state`` puts
 together on every rank (a collective, at the same steps on every rank),
 and each rank restores its own slice through the executor's
-``prepare``.
+``prepare``. A GSPMD run (``engine.GspmdExecutor``) that writes no
+checkpoint anchors each rank's own blocks instead (``local_state``: no
+collective, and a rank's host holds its share only) and restores them
+through ``place_local``; with a checkpoint directory it anchors and
+checkpoints the gathered reference-format state, as the pipelined run
+does.
 """
 from __future__ import annotations
 
@@ -301,6 +306,7 @@ class Supervisor:
         self.anchor_log: List[Dict[str, float]] = []
         self._rng = _random.Random(self.config.seed ^ 0x0F0F)
         self._snapshot: Optional[Tuple[Any, Any, int]] = None
+        self._local_template = None  # set while the anchor is local blocks
 
     # -- state anchoring / restore ------------------------------------------
 
@@ -309,11 +315,18 @@ class Supervisor:
         source of last resort (``flat`` overwrites its buffers at the next
         step, the tree executors free the old trees; a pipelined
         executor's is the reference-format state it gathers). Refreshed
-        at the checkpoint cadence, so its cost amortizes like a save."""
+        at the checkpoint cadence, so its cost amortizes like a save. A
+        GSPMD executor's, when no checkpoint is written, is its own blocks
+        (``local_state``)."""
         t0 = time.perf_counter()
-        self._snapshot = None  # the old copy goes before the new is made
+        self._snapshot = self._local_template = None  # the old copy goes
+        local = (None if self.ckpt_dir
+                 else getattr(self.executor, "local_state", None))
         gather = getattr(self.executor, "gather_state", None)
-        if gather is not None:
+        if local is not None:
+            (params, opt_state), self._local_template = local(params,
+                                                              opt_state)
+        elif gather is not None:
             params, opt_state = gather(params, opt_state)
         else:
             params, opt_state = tree.map(
@@ -388,6 +401,10 @@ class Supervisor:
         if only is not None and only != step:
             raise RuntimeError(f"rank 0 resumes from step {only}, which "
                                f"this rank cannot load (anchor at {step})")
+        if self._local_template is not None:
+            return (*self.executor.place_local(
+                params, opt_state, self._local_template,
+                device=self.device), step)
         return (*self._place(params, opt_state), step)
 
     def restore(self, params, opt_state):

@@ -29,7 +29,9 @@ meaning):
     closed-form 1F1B census and the per-stage bytes (the step itself runs
     only on one device);
   * ``contract`` (``--check``) — the analysis suite's checks over this
-    run (``analysis.check_bundle``).
+    run (``analysis.check_bundle``; on the production mesh
+    ``analysis.check_gspmd_rank``: the census's collectives and HLO003,
+    the rules that read one process's op trace refused by name).
 
 An eager step needs no trip counts: its micro-batch loop runs every
 micro-batch. But a fake tensor op costs about a fifth of a millisecond
@@ -51,8 +53,10 @@ Usage::
 
 Exit codes (shared with ``python -m repro_torch.analysis``): 0 ok, 1 tool
 error (a refused mesh; an op whose output shape depends on the data,
-which a fake tensor cannot run — named), 2 the peak over ``--budget``,
-3 contract findings (``--check``). The step runs for the card unless
+which a fake tensor cannot run — named; ``--check`` rules the run
+cannot feed, named), 2 the peak over ``--budget``, 3 contract findings
+(``--check``). The production mesh is gated as one device is: its
+budget on the rank's peak. The step runs for the card unless
 ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -242,7 +246,12 @@ def _production(cfg, shape, *, multi_pod: bool, pinned, device,
 
 
 def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
-                       plan_budget, executor, verbose):
+                       plan_budget, executor, verbose, budget_bytes=None,
+                       check=False):
+    """The production run's report: the one-device report's keys where
+    one rank gives them, its ``budget`` gate on the rank's peak and, with
+    ``check``, ``analysis.check_gspmd_rank`` over the rank's census and
+    peak against ``estimate(mesh=, fsdp_params=True)``."""
     bundle = g.pop("bundle")
     plan = bundle.plan
     mm_kw = dict(remat_policy=plan.remat_policy, act_bytes=2,
@@ -252,6 +261,12 @@ def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
                                 fsdp_params=True, **mm_kw)
     peak = g["peak_bytes"]
     modeled = est.total(plan.local_micro)
+    contract = None
+    if check:
+        from .. import analysis
+        contract = analysis.check_gspmd_rank(
+            g["collectives"], g["mesh"], peak_bytes=peak,
+            modeled_bytes=modeled).to_dict()
     result = {
         "arch": arch, "shape": shape_name, "mesh": list(g["mesh"].values()),
         "axes": list(g["mesh"]), "mesh_dims": list(g["mesh"].items()),
@@ -271,6 +286,11 @@ def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
                    "model_error_pct": (round(100.0 * (modeled - peak) / peak,
                                              2) if peak else None)},
         "gspmd": g,
+        "budget": ({"budget_bytes": budget_bytes,
+                    "measured_peak_bytes": peak,
+                    "over_budget": peak > budget_bytes}
+                   if budget_bytes is not None else None),
+        "contract": contract,
         "raw_cost_analysis": {"flops": float(g["flops"])},
         "memory": {"peak_bytes_est": peak,
                    "source": "live local tensor bytes of one rank"},
@@ -333,7 +353,8 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
                         device=device, step_kw=step_kw)
         return _production_report(arch, shape_name, cfg, shape, g, device,
                                   time.perf_counter() - t0, plan_budget,
-                                  executor, verbose)
+                                  executor, verbose,
+                                  budget_bytes=budget_bytes, check=check)
     bundle = steps.build_step(cfg, shape, num_microbatches=pinned,
                               **step_kw)
     plan = bundle.plan
@@ -589,6 +610,13 @@ def main(argv=None):
                   file=sys.stderr)
         if exit_code == EXIT_OK:
             exit_code = EXIT_CONTRACT
+    refused = (contract or {}).get("context", {}).get("refused")
+    if refused:
+        for rule, why in refused.items():
+            print(f"CONTRACT: [{rule}] not checked on this mesh: {why}",
+                  file=sys.stderr)
+        if exit_code == EXIT_OK:
+            exit_code = EXIT_ERROR
     return exit_code
 
 

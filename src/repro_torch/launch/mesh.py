@@ -36,12 +36,26 @@ There is no fallback from one to the other. A GSPMD mesh whose ranks
 share a card over gloo moves its collectives' CUDA tensors through the
 host explicitly (:func:`host_staged_collectives`), since gloo takes a
 CUDA tensor for few of the collectives DTensor issues.
+
+A GSPMD step issues collectives inside the model, so a rank that fails
+between two of them leaves its peers blocked in the next. The reference
+has one controller and cannot meet this. Here the failing rank posts its
+fault to the world's rendezvous store and drops its connections
+(:func:`post_fault`): its peers' pending collectives then fail at once,
+and each of them, finding the fault posted, drops its own. Then every
+rank leaves the broken process groups and starts the world's anew on
+the same store, each under its old name (:func:`reform`), so the world
+agrees on the fault over them and every ``DeviceMesh`` made before runs
+on. gloo's own ``abort`` leaves a peer's pending receive waiting out the
+timeout: dropping a rank's connections means shutting down its TCP
+sockets, all but the store's.
 """
 from __future__ import annotations
 
 import datetime
 import math
 import os
+import socket
 from collections.abc import Mapping
 from typing import Any, Dict, Iterator, Optional, Tuple
 
@@ -72,19 +86,24 @@ class Mesh(Mapping):
     (the model axis runs 1F1B stages) or ``"gspmd"`` (the model split by
     ``param_specs``; ``device_mesh`` is its ``torch`` ``DeviceMesh``). By
     default a mesh with a model axis above 1 is a pipeline, as a
-    ``DATA:MODEL`` spec on the launcher means."""
+    ``DATA:MODEL`` spec on the launcher means. ``timeout_s`` is its
+    collectives' timeout; a GSPMD mesh also keeps the world's rendezvous
+    ``store``, on which :func:`reform` starts its groups anew."""
 
     def __init__(self, dims: Dict[str, int], *, rank: int = 0, group=None,
                  device="cpu", backend: Optional[str] = None,
                  memory_fraction: float = 1.0,
                  groups: Optional[Dict[str, Any]] = None,
-                 mode: Optional[str] = None, device_mesh=None):
+                 mode: Optional[str] = None, device_mesh=None,
+                 timeout_s: float = DEFAULT_TIMEOUT_S, store=None):
         self._dims = {str(k): int(v) for k, v in dict(dims).items()}
         self.rank = int(rank)
         self.group = group
         self.device = torch.device(device)
         self.backend = backend
         self.memory_fraction = float(memory_fraction)
+        self.timeout_s = float(timeout_s)
+        self.store = store
         self.groups = dict(groups or {})
         if mode is None:
             mode = ("pipeline" if self._dims.get(MODEL_AXIS, 1) > 1
@@ -180,7 +199,9 @@ def gspmd_mesh(world_mesh: Optional[Mesh], data: int, model: int,
                 device=device, backend=world_mesh.backend,
                 memory_fraction=world_mesh.memory_fraction,
                 groups={ax: dm.get_group(ax) for ax in dims},
-                mode="gspmd", device_mesh=dm)
+                mode="gspmd", device_mesh=dm,
+                timeout_s=world_mesh.timeout_s,
+                store=dist.distributed_c10d._get_default_store())
 
 
 # the CUDA kernels of the functional collectives, once replaced
@@ -365,6 +386,7 @@ def init_world(device_type: str = "cuda", *,
     mesh = make_host_mesh(data=world, model=1, rank=rank, device=device,
                           backend=backend if world > 1 else None,
                           memory_fraction=fraction)
+    mesh.timeout_s = float(timeout_s)
     if model > 1:
         return pipeline_mesh(mesh, world // model, model,
                              timeout_s=timeout_s)
@@ -431,6 +453,110 @@ def broadcast_object(obj, mesh: Optional[Mesh], src: int = 0):
                                device=(mesh.device if mesh.backend == "nccl"
                                        else None))
     return box[0]
+
+
+# ---------------------------------------------------------------------------
+# a fault inside a GSPMD step: agreed over groups started anew
+# ---------------------------------------------------------------------------
+
+# groups started anew in this process, the same count on every rank of a
+# world: each round's keys on the store are its own
+_REFORMS = [0]
+
+
+def post_fault(mesh: Mesh, fault: bool) -> bool:
+    """Called where this rank's GSPMD step failed: posts the fault to the
+    world's rendezvous store when it is this rank's own (``fault``: it ran
+    out of memory), and says whether any rank posted one this round. Then
+    the failure is the world's to agree on, and this rank drops its
+    connections (:func:`_drop_connections`), so that every peer still
+    waiting on a collective with it fails at once. A failure with nothing
+    posted is the caller's to raise."""
+    key = f"repro_torch/fault/{_REFORMS[0]}"
+    if fault:
+        mesh.store.set(key, str(mesh.rank))
+    if not mesh.store.check([key]):
+        return False
+    _drop_connections(mesh)
+    return True
+
+
+def _store_ports(store) -> set:
+    ports = set()
+    while store is not None:
+        port = getattr(store, "port", None)
+        if port:
+            ports.add(port)
+        store = getattr(store, "underlying_store", None)
+    return ports
+
+
+def _drop_connections(mesh: Mesh) -> None:
+    """Make every collective pending with this rank fail on its peers:
+    NCCL aborts its communicators; over gloo, whose ``abort`` leaves a
+    peer's receive waiting, the rank's connected TCP sockets are shut
+    down, all but the rendezvous store's (its port, as server or
+    client)."""
+    import torch.distributed as dist
+    if mesh.backend == "nccl":
+        dist.distributed_c10d._abort_process_group()
+        return
+    keep = _store_ports(mesh.store)
+    for name in os.listdir("/proc/self/fd"):
+        try:
+            if not os.readlink(f"/proc/self/fd/{name}").startswith(
+                    "socket:"):
+                continue
+            sock = socket.socket(fileno=os.dup(int(name)))
+        except OSError:  # gone meanwhile, or not ours to read
+            continue
+        try:
+            if sock.family in (socket.AF_INET, socket.AF_INET6) and \
+                    sock.type == socket.SOCK_STREAM:
+                try:
+                    peer = sock.getpeername()[1]
+                except OSError:  # listening, not connected
+                    continue
+                if peer not in keep and sock.getsockname()[1] not in keep:
+                    sock.shutdown(socket.SHUT_RDWR)
+        finally:
+            sock.close()
+
+
+def reform(mesh: Mesh) -> None:
+    """After :func:`post_fault` on every rank: leave the broken process
+    groups and start the world's anew on its rendezvous store, then every
+    group the old world had, under its old name and over the same ranks,
+    and write the mesh's axis groups into ``mesh``. A ``DeviceMesh``
+    finds its groups by name, so every one made before — the mesh's own,
+    and those DTensor keeps in its layout caches (a cached layout carries
+    the first ``DeviceMesh`` it met that equals the current one) — runs
+    on the new groups. Every rank of the world calls it."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+    world = math.prod(mesh.values())
+    mine = {pg.group_name: sorted(ranks, key=ranks.get)
+            for pg, ranks in c10d._world.pg_group_ranks.items()
+            if isinstance(pg, dist.ProcessGroup)
+            and pg is not c10d._get_default_group()}
+    names = {ax: g.group_name for ax, g in mesh.groups.items()}
+    dist.destroy_process_group()
+    _AXIS_GROUPS.clear()
+    _REFORMS[0] += 1
+    timeout = datetime.timedelta(seconds=mesh.timeout_s)
+    dist.init_process_group(
+        mesh.backend, store=dist.PrefixStore(
+            f"repro_torch/world/{_REFORMS[0]}", mesh.store),
+        rank=mesh.rank, world_size=world, timeout=timeout)
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    old = {name: ranks for part in every for name, ranks in part.items()}
+    made = {}
+    for name in sorted(old, key=int):  # names are the world's group count
+        c10d._world.group_count = int(name)
+        made[name] = dist.new_group(old[name], timeout=timeout)
+    mesh.groups = {ax: made[name] for ax, name in names.items()}
+    mesh.group = None
 
 
 def shutdown() -> None:

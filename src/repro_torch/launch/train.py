@@ -88,9 +88,12 @@ over ``(pod, data)`` with ``--multi-pod``), the activations by the
 model's shard hints, ``--executor`` (``compiled``, ``fused`` or
 ``flat``; ``streaming`` is refused, as the reference refuses it) run on
 each rank's blocks by :class:`engine.GspmdExecutor`. At any other world
-size it exits naming the size it needs. ``--supervise`` on it is refused
-(ROADMAP.md queue 1 item 11: the finite guard and the OOM agreement are
-not ported for a GSPMD mesh); checkpoints are the reference's format.
+size it exits naming the size it needs. ``--supervise`` composes with it
+as with the other meshes: the finite flag is reduced over the whole
+mesh before the update, and a one-rank out-of-memory error is agreed by
+every rank, also one raised between two of the model's collectives
+(``engine.GspmdExecutor``'s module doc); checkpoints are the reference's
+format.
 
 Not ported: ``--no-donate``. The
 launcher keeps no reference to the initial params and optimizer state
@@ -255,12 +258,6 @@ def build_mesh(args, device_type: str):
                 "data-parallel host meshes (via the ShardedExecutor); "
                 "production/multi-pod/pipelined meshes need a compiled "
                 "executor")
-        if args.supervise:
-            raise ValueError(
-                "--supervise on the production GSPMD mesh is not ported "
-                "(ROADMAP.md queue 1 item 11: the finite guard and the OOM "
-                "agreement span the data-parallel and pipeline meshes "
-                "only); drop --supervise")
         need = 512 if args.multi_pod else 256
         if mesh_lib.world_size() != need:
             mesh_lib.make_production_mesh(multi_pod=args.multi_pod)  # raises
@@ -392,7 +389,8 @@ def make_plan_ctx(cfg, args, optimizer, device, mesh=None
                       else None),
         device=device, executor=args.executor, mesh=mesh if on else None,
         tuning_cache=args.tuning_cache,
-        mm_kw=dict(memory_kw(args, optimizer), fsdp_params=not on,
+        mm_kw=dict(memory_kw(args, optimizer),
+                   fsdp_params=not on or _gspmd(mesh),
                    pipeline=_pipelined(mesh)))
 
 

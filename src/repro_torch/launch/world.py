@@ -31,8 +31,12 @@ import traceback
 from typing import Any, Callable, List, Optional
 
 
-#: what the fork server imports once for every rank it starts
-_PRELOAD = ["torch", "torch.distributed", "repro_torch.launch.mesh"]
+#: what the fork server imports once for every rank it starts: torch,
+#: DTensor and the port's engine and launchers (none starts a thread or
+#: touches a device)
+_PRELOAD = ["torch", "torch.distributed", "torch.distributed.tensor",
+            "repro_torch.launch.mesh", "repro_torch.engine",
+            "repro_torch.launch.train", "repro_torch.launch.serve"]
 
 
 def context():

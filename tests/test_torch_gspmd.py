@@ -445,14 +445,21 @@ def test_rank_module_imports_no_jax(world):
 
 
 def test_supervise_on_a_gspmd_mesh_is_refused():
-    """The finite guard of ``--supervise`` is not ported for a GSPMD mesh
-    and is refused by name (ROADMAP item 11), not run unsupervised."""
+    """``--supervise`` on a GSPMD mesh is ported: the executor takes
+    ``guard=True`` (``tests/test_torch_gspmd_guard.py`` runs it), and what
+    is still refused is the reference's refusal (``streaming``) and, on
+    the launcher, a world of the wrong size for the production mesh,
+    named as without ``--supervise`` (exit 2)."""
     from repro_torch import engine
     m = mesh_lib.Mesh({"data": 2, "model": 2}, mode="gspmd",
                       device_mesh=object())
-    with pytest.raises(ValueError, match="--supervise on a GSPMD mesh"):
-        engine.GspmdExecutor(None, None, engine.plan_mbs(4), mesh=m,
-                             guard=True)
+    ex = engine.GspmdExecutor(None, None, engine.plan_mbs(4), mesh=m,
+                              guard=True)
+    assert ex.guard
     with pytest.raises(ValueError, match="streaming"):
         engine.GspmdExecutor(None, None, engine.plan_mbs(4), mesh=m,
-                             inner="streaming")
+                             inner="streaming", guard=True)
+    with pytest.raises(SystemExit) as e:
+        train.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+                    "--mesh", "production", "--steps", "1", "--supervise"])
+    assert e.value.code == 2

@@ -556,14 +556,15 @@ def test_launcher_on_two_gloo_ranks_matches_reference(tmp_path):
 
 def test_launcher_refuses_what_is_not_ported(capsys):
     """The production meshes at a world of the wrong size are refused
-    naming the size they need, --supervise on them naming their ROADMAP
-    item; a spec larger than the world, and --fsdp off a pipelined mesh,
-    with the reference's words (its parse-time --fsdp error)."""
+    naming the size they need, with --supervise too (ported on a GSPMD
+    mesh: the size is what is refused); a spec larger than the world, and
+    --fsdp off a pipelined mesh, with the reference's words (its
+    parse-time --fsdp error)."""
     from repro_torch.launch import train
     for argv, words in [(["--mesh", "production"], "exactly 256 ranks"),
                         (["--multi-pod"], "exactly 512 ranks"),
                         (["--mesh", "production", "--supervise"],
-                         "item 11"),
+                         "exactly 256 ranks"),
                         (["--mesh", "2:1"], "needs 2 devices but only 1"),
                         (["--mesh", "1:1", "--fsdp"],
                          "--fsdp applies to the pipelined path: pass an "

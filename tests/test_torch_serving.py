@@ -601,19 +601,20 @@ def test_mixed_patterns_match_one_request_at_a_time(pattern):
             (pattern, r.rid)
 
 
-def test_plan_serve_on_a_mesh_names_item_11(monkeypatch):
-    """``plan_serve(mesh=...)`` is ported (the arithmetic below); what
-    still names item 11 is a serving engine across ranks: the serve
-    launcher under a world of more than one rank refuses to start."""
-    from repro_torch.launch import serve
+def test_plan_serve_on_a_mesh_names_item_11():
+    """``plan_serve(mesh=...)`` plans data-parallel workers, and the engine
+    of one worker (one rank of the serve launcher's world,
+    ``tests/test_torch_serve_world.py``) holds its ``local_slots``, not
+    the plan's slots over all workers; its report plans those."""
     cfg = configs.get_reduced("qwen2-1.5b")
     plan = serving.plan_serve(cfg, budget_bytes=1 << 30, max_len=32,
                               mesh={"data": 2, "model": 1})
     assert plan.data_parallel == 2
     assert plan.max_decode_slots == 2 * plan.local_slots
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="item 11"):
-        serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu"])
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    eng = serving.ServingEngine(params, cfg, plan, dtype=F32)
+    assert eng.pool.max_slots == plan.local_slots
+    assert eng.report()["slots"]["planned"] == plan.local_slots
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-9b", "mamba2-780m",

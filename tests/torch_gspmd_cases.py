@@ -174,11 +174,12 @@ def production_layout(world_size, rank, multi_pod, arch):
         mesh_lib.shutdown()
 
 
-def _tiny_executor(world, dims, p_np):
+def _tiny_executor(world, dims, p_np, guard=False):
     mesh = gspmd(world, dims)
     plan = engine.plan_mbs(8, micro_batch_size=4, mesh=mesh)
     opt = make_opt(TINY_OPT)
-    ex = engine.GspmdExecutor(t_loss_fn, opt, plan, mesh=mesh, inner="flat")
+    ex = engine.GspmdExecutor(t_loss_fn, opt, plan, mesh=mesh, inner="flat",
+                              guard=guard)
     params = weights.from_reference(p_np, "cpu")
     return ex, plan, params, opt
 
@@ -225,3 +226,149 @@ def production_dryrun():
     return dryrun.run_dryrun("qwen2-1.5b", "train_4k", reduced=True,
                              mesh_spec="production", num_microbatches=1,
                              device="cpu", probe=False, verbose=False)
+
+
+# ---------------------------------------------------------------------------
+# the guard and the fault agreement on a GSPMD mesh
+# ---------------------------------------------------------------------------
+
+def guarded_lm(world, dims, arch, inner, params_np, splits_np, seq, batch,
+               n_micro):
+    """The guarded GSPMD step (``GspmdExecutor(guard=True)``) of reduced
+    ``arch`` (fp32), one step a split batch: each step's loss and
+    ``nonfinite``, whether it left this rank's blocks bit-identical, and
+    the gathered params and momentum after it."""
+    mesh = gspmd(world, dims)
+    cfg = configs.get_reduced(arch)
+    opt = steps.make_optimizer(cfg)
+    bundle = steps.build_train_step(
+        cfg, InputShape("gspmd_guard", "train", seq, batch),
+        num_microbatches=n_micro, optimizer=opt, dtype=torch.float32,
+        executor=inner, mesh=mesh, budget_bytes=1 << 34, device="cpu")
+    ex = engine.GspmdExecutor(bundle.loss_fn, opt, bundle.plan, mesh=mesh,
+                              inner=inner, guard=True)
+    params = weights.from_reference(params_np, "cpu")
+    p, s = ex.prepare(params, opt.init(params))
+    out = {"losses": [], "nonfinite": [], "unchanged": [], "params": [],
+           "mom": []}
+    for split_np in splits_np:
+        before = [t.clone() for t in tree.leaves((p, s))]
+        split = {k: torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in split_np.items()}
+        p, s, m = ex.step_split(p, s, ex.shard(split))
+        out["unchanged"].append(all(torch.equal(a, b) for a, b in zip(
+            before, tree.leaves((p, s)))))
+        out["losses"].append(float(m["loss"]))
+        out["nonfinite"].append(float(m["nonfinite"]))
+        full_p, full_s = ex.gather_state(p, s)
+        out["params"].append(to_np(full_p))
+        out["mom"].append(to_np(full_s["mom"]))
+    return out
+
+
+def world_flag(world, dims, p_np, bad_rank):
+    """The guard's flag of a tiny-MLP step where one element of
+    ``bad_rank``'s accumulator blocks alone is made NaN after step ❹:
+    every rank's ``nonfinite`` and whether its blocks stayed
+    bit-identical."""
+    ex, plan, params, opt = _tiny_executor(world, dims, p_np, guard=True)
+    p, s = ex.prepare(params, opt.init(params))
+    accumulated = ex.inner._accumulated_flat
+
+    def poisoned(*a, **kw):
+        out = accumulated(*a, **kw)
+        if world.rank == bad_rank:
+            out[1][0].view(-1)[0] = float("nan")
+        return out
+    ex.inner._accumulated_flat = poisoned
+    before = [t.clone() for t in tree.leaves((p, s))]
+    split = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+             plan.split(ToyDataset().batch(8, 0)).items()}
+    p, s, m = ex.step_split(p, s, ex.shard(split))
+    return {"nonfinite": float(m["nonfinite"]),
+            "unchanged": all(torch.equal(a, b) for a, b in zip(
+                before, tree.leaves((p, s))))}
+
+
+def supervised(world, dims, p_np, specs, in_forward, steps_n,
+               ckpt_dir=None):
+    """A supervised run of the guarded tiny-MLP GSPMD step (``flat``)
+    under the fault plan ``specs``; with ``in_forward=(rank, call)`` that
+    rank alone raises an out-of-memory error at that call of its loss,
+    after the first layer and before the second (and the loss's
+    collectives). Without ``ckpt_dir`` the supervisor anchors each
+    rank's blocks; with it, the gathered state every step, which rank 0
+    checkpoints there. Every rank's records, the faults fired, the final
+    plan, the losses, the gathered final state, the anchors' bytes, the
+    seconds and the calls of the loss."""
+    import time
+    from repro_torch.core import losses
+    from repro_torch.engine import faults
+    mesh = gspmd(world, dims)
+    calls = [0]
+
+    def loss_fn(p, mb, exact_denom=None):
+        h = torch.tanh(mb["x"] @ p["w1"])
+        calls[0] += 1
+        if in_forward is not None and (world.rank, calls[0]) == in_forward:
+            raise faults.injected_oom("inside the forward")
+        return losses.cross_entropy(
+            h @ p["w2"], mb["y"], sample_weight=mb.get("sample_weight"),
+            exact_denom=exact_denom), {}
+
+    ds = ToyDataset()
+
+    def build(plan):
+        ex = engine.GspmdExecutor(loss_fn, make_opt(TINY_OPT), plan,
+                                  mesh=mesh, inner="flat", guard=True)
+        return ex, ex.step_split, engine.Pipeline(
+            ds, plan, prefetch=0, device="cpu", sharding=ex.shard)
+
+    plan = engine.plan_mbs(8, micro_batch_size=4, mesh=mesh)
+    sup = engine.Supervisor(build, plan, log_fn=None,
+                            writer=world.rank == 0, ckpt_dir=ckpt_dir,
+                            ckpt_every=1 if ckpt_dir else 0)
+    params = weights.from_reference(p_np, "cpu")
+    params, state = sup.executor.prepare(params,
+                                         make_opt(TINY_OPT).init(params))
+    t0 = time.perf_counter()
+    with faults.inject(faults.FaultPlan(*specs)) as fp:
+        params, state, _ = sup.fit(params, state, steps_n)
+    seconds = time.perf_counter() - t0
+    full_p, full_s = sup.executor.gather_state(params, state)
+    return {"records": [(r.kind, r.step, r.action, r.steps_lost)
+                        for r in sup.records],
+            "details": [r.detail for r in sup.records],
+            "fired": list(fp.fired), "plan": sup.plan.describe(),
+            "history": dict(sup.history), "params": to_np(full_p),
+            "mom": to_np(full_s["mom"]), "seconds": seconds,
+            "anchor_bytes": [a["bytes"] for a in sup.anchor_log],
+            "calls": calls[0]}
+
+
+def serve_world(world, argv):
+    """The serve launcher's ``main(argv)`` on this rank of the world: the
+    plan's fields, the report over every rank, each rank's finished
+    request ids, and this rank's requests' tokens by id."""
+    from repro_torch.engine import serving
+    from repro_torch.launch import serve
+    out = serve.main(argv)
+    return {"plan": dataclasses.asdict(out["plan"]),
+            "report": out["report"], "ranks": out["ranks"],
+            "tokens": {r.rid: list(r.tokens) for r in out["requests"]},
+            "states": sorted({r.state for r in out["requests"]}),
+            "finished": serving.FINISHED}
+
+
+def dryrun_exit(argv):
+    """In a fresh process: ``launch.dryrun.main(argv)``'s exit code, its
+    report (the last JSON line of its output) and its standard error."""
+    import contextlib
+    import io
+    import json
+    from repro_torch.launch import dryrun
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = dryrun.main(argv)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1]), \
+        err.getvalue()
