@@ -157,7 +157,7 @@ Phases (any failure exits non-zero before the last line is printed):
   14a. serving full qwen2-1.5b (28 layers; fp32 weights, bf16 compute
      and cache) through ``repro_torch.launch.serve.main`` at a 10 GiB
      budget, max_len 2048, 64 Poisson requests at 32/s, prompts
-     128/512/1024, 64 or 256 new tokens, greedy (``serve_phase``): the
+     128/512/1024, 32 to 128 new tokens, greedy (``serve_phase``): the
      plan the reference's arithmetic gives (51 slots, prefill micro 8)
      and the memory model's largest fit, every request finished with its
      clamped token count, the pool all free; prefill latency, decode
@@ -168,8 +168,8 @@ Phases (any failure exits non-zero before the last line is printed):
      calls (1: the next tokens' readback);
   14b. the same for full gemma2-9b (42 layers, window 4096, soft-caps
      50 / 30) at 64 GiB, max_len 8192, 8 requests at 4/s, prompts 1024
-     and 4608 (the 4608-token prompts wrap the local rings in prefill and
-     in decode): 8 slots, prefill micro 4;
+     and 4608, 16 to 64 new tokens (the 4608-token prompts wrap the local
+     rings in prefill and in decode): 8 slots, prefill micro 4;
   14c. at 2 layers of each width, fp32, TF32 off
      (``serve_correctness_phase``): prefill + teacher-forced decode
      against ``forward`` (past gemma2's window), ragged against exact
@@ -247,7 +247,7 @@ Phases (any failure exits non-zero before the last line is printed):
      ``run_executor``: the launcher's ``LMDataset`` has no frames, so
      the ``flat`` executor is driven directly on
      ``launch.steps.family_batch``'s frames and target tokens): 4096
-     frames, 1024 target tokens, mini-batch 8, SGD-m, bf16 over fp32, 3
+     frames, 1024 target tokens, mini-batch 4, SGD-m, bf16 over fp32, 3
      steps, calibrated as 15a–15c (a probe OOM climbs the lattice, the
      least budget up to 72 GiB): losses finite, the first near
      ln(vocab), K1 steps × N_Sμ × launch groups and K2 steps × buckets,
@@ -366,7 +366,25 @@ Phases (any failure exits non-zero before the last line is printed):
      (its groups the re-formed ones) at 14a's traffic: a data-parallel
      plan, every request finished on one rank, the gathered report on
      every rank, each rank's allocator peak beside the modeled per-device
-     peak and the budget, no kernel launched.
+     peak and the budget, no kernel launched;
+  21d. (``gspmd_serve_dryrun_phase``) ``prefill_32k`` and ``decode_32k``
+     of full-width qwen2-1.5b at 18a's depth (STEPS_TRAIN_LAYERS) dry-run
+     as rank 0 of the 16 × 16 production mesh (fake CUDA tensors, nothing
+     allocated on the card): the params placed by ``param_specs``, the
+     cache and tokens by ``cache_specs``; the rank's peak, FLOPs, census,
+     parameter and cache blocks, and a decode step's collectives under
+     one block of one layer's ring (the ring is never gathered);
+  22c. (``gspmd_serve_phase``) on the four ranks of 21 (2 × 2), a GSPMD
+     prefill of SERVE_PROMPTS prompts × SERVE_PROMPT_LEN tokens into a
+     cache of SERVE_MAX_LEN, then SERVE_DECODE_STEPS decode steps, of
+     full-width qwen2-1.5b at GSPMD_LAYERS layers in bf16: the logits of
+     every step and the gathered ring within SERVE_BF16_RTOL of one
+     device's ``prefill`` / ``decode_step`` on the same weights and
+     tokens (rank 0 computes it), the ring's positions and the greedy
+     tokens equal; the
+     collectives of a decode step by kind and axis, seconds a decode step
+     (the steps after the first), each rank's allocator peak; no kernel
+     launched.
 
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
@@ -3004,26 +3022,27 @@ def calibration_miss_phase(dev, calibration: dict) -> dict:
 
 # the serve launcher's arguments per model, and what the JAX package's
 # arithmetic admits for them: (slots, prefill micro, slot bytes, prefill
-# bytes per sample)
+# bytes per sample). The new-token counts set the decode steps, which set
+# the phases' seconds (14a, 14b, 15d, 22b): 32 to 128 (gemma2 16 to 64)
 SERVE_ARGV = {
     "qwen2-1.5b": ["--arch", "qwen2-1.5b", "--dtype", "bfloat16",
                    "--budget", "10", "--max-len", "2048", "--requests", "64",
                    "--rate", "32", "--prompt-lens", "128,512,1024",
-                   "--new-tokens", "64,256", "--temperature", "0"],
+                   "--new-tokens", "32,128", "--temperature", "0"],
     "gemma2-9b": ["--arch", "gemma2-9b", "--dtype", "bfloat16",
                   "--budget", "64", "--max-len", "8192", "--requests", "8",
                   "--rate", "4", "--prompt-lens", "1024,4608",
-                  "--new-tokens", "32,128", "--temperature", "0"],
+                  "--new-tokens", "16,64", "--temperature", "0"],
     # 15d: the state and MoE families, exact-length prefill groups
     "mamba2-780m": ["--arch", "mamba2-780m", "--dtype", "bfloat16",
                     "--budget", "10", "--max-len", "2048", "--requests",
                     "64", "--rate", "32", "--prompt-lens", "128,512,1024",
-                    "--new-tokens", "64,256", "--temperature", "0"],
+                    "--new-tokens", "32,128", "--temperature", "0"],
     "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", "--dtype",
                           "bfloat16", "--budget", "24", "--max-len", "4096",
                           "--requests", "64", "--rate", "32",
                           "--prompt-lens", "128,512,1024", "--new-tokens",
-                          "64,256", "--temperature", "0"],
+                          "32,128", "--temperature", "0"],
     "moonshot-v1-16b-a3b": ["--arch", "moonshot-v1-16b-a3b", "--layers", "4",
                             "--dtype", "bfloat16", "--budget", "32",
                             "--max-len", "2048", "--requests", "16",
@@ -4543,9 +4562,13 @@ def world_phases(timed, dev, st_train=None) -> dict:
         if st_train is not None:
             gspmd["dryrun"] = timed("21c GSPMD dry run", gspmd_dryrun_phase,
                                     dev, st_train)
+        gspmd["serve_dryrun"] = timed("21d GSPMD serving dry run",
+                                      gspmd_serve_dryrun_phase, dev)
         gspmd["supervised"] = timed("22a GSPMD supervised",
                                     gspmd_supervised_phase, w4)
         gspmd["serve"] = timed("22b serve on 4 ranks", serve_world_phase, w4)
+        gspmd["prefill_decode"] = timed("22c GSPMD prefill and decode",
+                                        gspmd_serve_phase, w4)
     return {"dp_check": dp_check, "fault": fault, "pipeline": pp,
             "gspmd": gspmd}
 
@@ -4554,9 +4577,10 @@ def world_phases(timed, dev, st_train=None) -> dict:
 # ---------------------------------------------------------------------------
 
 # 17a: seamless-m4t-medium at full width (12 + 12 layers, d 1024, vocab
-# 256,206) at the reference's train_4k: 4096 frames, 1024 target tokens
+# 256,206) at the reference's train_4k: 4096 frames, 1024 target tokens;
+# the mini-batch cut from 8 to 4 for the run's time limit
 ENCDEC_ARCH = "seamless-m4t-medium"
-ENCDEC_TRAIN = ["--seq", "4096", "--mini-batch", "8"]
+ENCDEC_TRAIN = ["--seq", "4096", "--mini-batch", "4"]
 # 17b: qwen2-vl-72b at full width (d 8192, d_ff 29,568, vocab 152,064,
 # untied head), depth cut to 1 of its 80 layers: one layer is 3.37 G
 # params, 50.2 GiB of flat state (params, momentum, accumulator and one
@@ -5012,7 +5036,7 @@ def steps_train_phase(dev) -> dict:
         cfg, seq, 1 << 20, budget, (a, b), **mm_kw) or 0
     params = steps.init_params(cfg, seed=0, device=dev)
     state = opt.init(params)
-    ex = bundle.fn.__self__  # the bundle's executor: its flat layout
+    ex = bundle.runner  # the bundle's executor: its flat layout
     params, state = ex.prepare(params, state)
     split = steps.device_split(plan, steps.family_batch(cfg, seq, mini),
                                dev, torch.bfloat16)
@@ -5170,7 +5194,7 @@ def steps_check_phase(dev) -> dict:
         plan)
     batch = LMDataset(cfg.vocab_size, 256, seed=4).batch(8, 0)
     res = {}
-    for name, fn, ex in (("bundle", bundle.fn, bundle.fn.__self__),
+    for name, fn, ex in (("bundle", bundle.fn, bundle.runner),
                          ("hand", hand.step_split, hand)):
         params = steps.init_params(cfg, seed=0, device=dev)
         params, state = ex.prepare(params, ex.optimizer.init(params))
@@ -5457,7 +5481,7 @@ def gspmd_main_rank(mesh, layers: int, steps: int) -> dict:
         cfg, InputShape("21a", "train", GSPMD_SEQ, GSPMD_MINI),
         num_microbatches=GSPMD_MICROBATCHES, executor="flat", mesh=gm,
         budget_bytes=budget, device=dev)
-    ex, plan, opt = bundle.fn.__self__, bundle.plan, bundle.optimizer
+    ex, plan, opt = bundle.runner, bundle.plan, bundle.optimizer
     t0 = time.perf_counter()
     params = steps_lib.init_params(cfg, seed=0, device=dev)
     p, s = ex.prepare(params, opt.init(params))
@@ -6011,6 +6035,247 @@ def serve_world_phase(world) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 21d / 22c: prefill and decode on the GSPMD mesh
+# ---------------------------------------------------------------------------
+
+# 22c: full-width qwen2-1.5b at GSPMD_LAYERS layers, bf16, on 21's 2 x 2
+# world: a prefill of SERVE_PROMPTS x SERVE_PROMPT_LEN tokens into a cache
+# of SERVE_MAX_LEN slots (its rings split over ``model`` on the slots, 128
+# a rank), then SERVE_DECODE_STEPS decode steps. Each step gathers the
+# tied table's blocks over ``data`` (0.47 GB a rank in fp32) through the
+# host, which sets the steps' seconds, so the steps are few
+SERVE_PROMPTS = 4
+SERVE_PROMPT_LEN = 128
+SERVE_MAX_LEN = 256
+SERVE_DECODE_STEPS = 8
+# bf16: the mesh's split products and split softmax round in other orders
+# than one device's, so logits and ring entries agree to this share of
+# the largest magnitude (about four bf16 steps at the top of the range)
+SERVE_BF16_RTOL = 3e-2
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 for two zero tensors)."""
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    return float((got - want).abs().max()) / top if top else float(
+        (got - want).abs().max())
+
+
+def gspmd_serve_dryrun_phase(dev) -> dict:
+    """21d. ``prefill_32k`` and ``decode_32k`` of full-width qwen2-1.5b at
+    STEPS_TRAIN_LAYERS layers dry-run as rank 0 of the 16 × 16 production
+    mesh (a fake world of 256, fake CUDA tensors, nothing allocated on
+    the card): the params placed by ``param_specs`` (their blocks the
+    spec arithmetic), the cache and the tokens by ``cache_specs``; the
+    rank's peak, FLOPs, collectives and cache blocks; no collective of a
+    decode step as large as one block of one layer's keys (the ring is
+    never gathered)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    card = card_line()
+    gc_collect()
+    cfg = dataclasses.replace(configs.get(STEPS_ARCH),
+                              num_layers=STEPS_TRAIN_LAYERS)
+    before = torch.cuda.memory_allocated(dev)
+    out = {"card": card}
+    for shape in ("prefill_32k", "decode_32k"):
+        t0 = time.perf_counter()
+        res = dryrun.run_dryrun(
+            STEPS_ARCH, shape, mesh_spec="production", device=dev,
+            cfg_overrides={"num_layers": STEPS_TRAIN_LAYERS}, probe=False,
+            verbose=False)
+        wall = time.perf_counter() - t0
+        check(torch.cuda.memory_allocated(dev) == before,
+              f"21d {shape}: the dry run allocated on the card")
+        g = res["gspmd"]
+        want = _gspmd_spec_bytes(cfg, g["mesh"])
+        check(res["num_devices"] == 256 and g["kind"] == shape[:-4],
+              f"21d {shape}: {res['num_devices']} ranks, kind {g['kind']}")
+        check(g["local_param_bytes"] == want,
+              f"21d {shape}: {g['local_param_bytes']} B of parameter "
+              f"blocks, the spec arithmetic says {want}")
+        check(g["flops"] > 0 and g["collectives"]["calls"] > 0,
+              f"21d {shape}: no FLOPs or no collective counted")
+        # one layer's key block: 128 / 16 rows, 32768 / 16 slots, bf16
+        block = (128 // 16) * (32768 // 16) * cfg.num_kv_heads \
+            * cfg.head_dim * 2
+        largest = max(g["collectives"]["largest_by_kind"].values())
+        if shape == "decode_32k":
+            check(largest < block,
+                  f"21d decode: a collective of {largest} B, a key block "
+                  f"is {block} B: the ring was gathered")
+        out[shape] = {"peak_bytes": g["peak_bytes"], "flops": g["flops"],
+                      "local_param_bytes": g["local_param_bytes"],
+                      "local_cache_bytes": g["local_cache_bytes"],
+                      "logits_local_shape": g["logits_local_shape"],
+                      "collectives": g["collectives"], "dryrun_s": wall}
+        print(f"21d dry run of {STEPS_ARCH} {shape} at {STEPS_TRAIN_LAYERS} "
+              f"layers as rank 0 of the {g['world']}-rank production mesh "
+              f"{g['mesh']} [{card}]: parameter blocks "
+              f"{g['local_param_bytes']} B, cache blocks "
+              f"{g['local_cache_bytes']} B, logits block "
+              f"{g['logits_local_shape']}; peak {g['peak_bytes']} B "
+              f"({g['peak_bytes'] / GIB:.3f} GiB); {g['flops']:.6e} FLOPs; "
+              f"collectives {g['collectives']} (a key block {block} B); "
+              f"{wall:.1f} s", flush=True)
+    return out
+
+
+def gspmd_serve_rank(mesh, layers: int) -> dict:
+    """22c on one rank: the prefill and decode steps of full-width
+    qwen2-1.5b at ``layers`` layers, bf16, on the 2 × 2 GSPMD mesh
+    (``launch.steps.GspmdServe``: params by ``param_specs``, the cache
+    and tokens by ``cache_specs``), the launch counters zeroed before the
+    prefill and read after the last step; the gathered logits of every
+    step and the gathered ring; a decode step's collectives (the last,
+    under the census), each step's seconds and the allocator's peak
+    above what the rank held. Rank 0 then runs one device's ``prefill``
+    / ``decode_step`` on the same weights and tokens and compares."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, engine, kernels
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer
+
+    dev = mesh.device
+    gm = mesh_lib.gspmd_mesh(mesh, *GSPMD_DIMS)
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"), num_layers=layers)
+    bf16 = torch.bfloat16
+    P, B, n = SERVE_PROMPT_LEN, SERVE_PROMPTS, SERVE_DECODE_STEPS
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P + n)).astype(np.int32)).to(dev)
+    pre = steps_lib.GspmdServe("prefill", lambda p, t: transformer.prefill(
+        p, cfg, t, SERVE_MAX_LEN, dtype=bf16), gm)
+    dec = steps_lib.GspmdServe(
+        "decode", lambda p, t, c, pos: transformer.decode_step(
+            p, cfg, t, c, pos, dtype=bf16), gm)
+    params = steps_lib.init_params(cfg, seed=0, device=dev)
+    placed = pre.place_params(params)
+    if mesh.rank != 0:
+        del params
+    gc_collect()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = pre.step(placed, pre.place(toks[:, :P]))
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    got = [pre.gather(logits).cpu()]
+    step_s, census = [], None
+    for j in range(n):
+        tok = dec.place(toks[:, P + j:P + j + 1])
+        pos = dec.place(torch.full((B,), P + j, dtype=torch.int32,
+                                   device=dev))
+        t0 = time.perf_counter()
+        if j == n - 1:
+            with engine.CollectiveCensus(gm) as cc:
+                logits, cache = dec.step(placed, tok, cache, pos)
+            census = cc.summary()
+        else:
+            logits, cache = dec.step(placed, tok, cache, pos)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        got.append(dec.gather(logits).cpu())
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    layout = {k: (str(v.placements), list(v.to_local().shape))
+              for k, v in cache[0].items()}
+    cache_bytes = sharding.local_bytes(cache)
+    ring = {k: v.cpu() for k, v in dec.gather(cache)[0].items()}
+    del cache, placed, logits, tok, pos
+    gc_collect()
+    res = {"rank": mesh.rank, "coords": gm.coords(), "prefill_s": prefill_s,
+           "step_s": step_s, "census": census, "counts": counts,
+           "peak_bytes": peak, "layout": layout, "cache_bytes": cache_bytes}
+    if mesh.rank == 0:  # one device, on the same weights and tokens
+        want_logits, want_cache = transformer.prefill(
+            params, cfg, toks[:, :P], SERVE_MAX_LEN, dtype=bf16)
+        want = [want_logits.cpu()]
+        for j in range(n):
+            lg, want_cache = transformer.decode_step(
+                params, cfg, toks[:, P + j:P + j + 1], want_cache,
+                torch.full((B,), P + j, dtype=torch.int32, device=dev),
+                dtype=bf16)
+            want.append(lg.cpu())
+        res["logits_rel_err"] = [_rel_err(g, w) for g, w in zip(got, want)]
+        res["ring_rel_err"] = {k: _rel_err(ring[k], want_cache[0][k].cpu())
+                               for k in ("k", "v")}
+        res["ring_pos_equal"] = bool(torch.equal(
+            ring["pos"], want_cache[0]["pos"].cpu()))
+        res["greedy_equal"] = [bool(torch.equal(g.argmax(-1), w.argmax(-1)))
+                               for g, w in zip(got, want)]
+        del params, want_cache
+        gc_collect()
+    return res
+
+
+def gspmd_serve_phase(world) -> dict:
+    """22c. Prefill and decode on the GSPMD world (:func:`gspmd_serve_rank`
+    on every rank): rank 0's comparison with one device within
+    SERVE_BF16_RTOL, the ring's positions and every step's greedy tokens
+    equal; the ring split over
+    ``model`` on its slots; no kernel launched on any rank (serving runs
+    none, as in the reference)."""
+    card = card_line()
+    gc_collect()
+    t0 = time.perf_counter()
+    res = world.run(gspmd_serve_rank, GSPMD_LAYERS)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    worst = max(r0["logits_rel_err"])
+    check(worst <= SERVE_BF16_RTOL,
+          f"22c: logits {r0['logits_rel_err']} of the largest apart from one "
+          f"device's (at most {SERVE_BF16_RTOL})")
+    check(all(r0["greedy_equal"]),
+          f"22c: the greedy tokens differ from one device's at the steps "
+          f"{[i for i, e in enumerate(r0['greedy_equal']) if not e]} "
+          f"(0 the prefill)")
+    check(max(r0["ring_rel_err"].values()) <= SERVE_BF16_RTOL
+          and r0["ring_pos_equal"],
+          f"22c: the gathered ring differs from one device's "
+          f"{r0['ring_rel_err']}, positions equal {r0['ring_pos_equal']}")
+    for r in res:
+        check(not any(r["counts"].values()),
+              f"22c rank {r['rank']}: kernel launches {r['counts']}")
+        check(r["layout"]["k"][1][2] == SERVE_MAX_LEN // GSPMD_DIMS[1],
+              f"22c rank {r['rank']}: ring block {r['layout']['k']}")
+    steady = r0["step_s"][1:-1]
+    step_s = sum(steady) / len(steady)
+    out = {"card": card, "prefill_s": r0["prefill_s"],
+           "step_s": r0["step_s"], "steady_step_s": step_s,
+           "census": r0["census"], "logits_rel_err": r0["logits_rel_err"],
+           "ring_rel_err": r0["ring_rel_err"],
+           "greedy_equal": r0["greedy_equal"],
+           "layout": r0["layout"], "cache_bytes": r0["cache_bytes"],
+           "peak_bytes": [r["peak_bytes"] for r in res],
+           "counts": {f"rank{r['rank']}": r["counts"] for r in res},
+           "wall_s": wall}
+    print(f"22c [{card}]: GSPMD {GSPMD_DIMS[0]}x{GSPMD_DIMS[1]} prefill of "
+          f"{SERVE_PROMPTS} x {SERVE_PROMPT_LEN} tokens into "
+          f"{SERVE_MAX_LEN} slots, then {SERVE_DECODE_STEPS} decode steps, "
+          f"qwen2-1.5b at {GSPMD_LAYERS} of 28 layers, full width, bf16, "
+          f"on {world.n} ranks sharing the card: prefill "
+          f"{r0['prefill_s']:.3f} s (the first, DTensor's propagation "
+          f"included), decode step seconds {r0['step_s']} (steady "
+          f"{step_s:.3f} s, the last under the census); logits within "
+          f"{worst:.3e} of the largest of one device's (greedy equal "
+          f"{r0['greedy_equal']}), ring k/v {r0['ring_rel_err']}, "
+          f"positions equal; ring block {r0['layout']['k']} a rank, cache "
+          f"blocks {r0['cache_bytes']} B; collectives of a decode step "
+          f"{r0['census']}; allocator peaks above what each rank held "
+          f"{out['peak_bytes']} B; K1-K6 launches 0; {wall:.1f} s",
+          flush=True)
+    return out
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -6118,6 +6383,8 @@ def run() -> dict:
                 for k, c in gspmd["supervised"]["counts"].items()},
              **{f"serve world qwen2-1.5b {k}": c
                 for k, c in gspmd["serve"]["counts"].items()},
+             **{f"gspmd serve qwen2-1.5b {k}": c
+                for k, c in gspmd["prefill_decode"]["counts"].items()},
              **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
@@ -6198,7 +6465,11 @@ def run() -> dict:
                                  gspmd["supervised"].items()
                                  if k != "counts"},
                   "serve": {k: v for k, v in gspmd["serve"].items()
-                            if k != "counts"}},
+                            if k != "counts"},
+                  "serve_dryrun": gspmd["serve_dryrun"],
+                  "prefill_decode": {k: v for k, v in
+                                     gspmd["prefill_decode"].items()
+                                     if k != "counts"}},
         "phase_s": phase_s,
         "total_s": sum(phase_s.values())}}),
         flush=True)

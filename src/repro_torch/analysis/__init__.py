@@ -42,7 +42,8 @@ from .step_checks import (allreduce_count, check_aliasing,  # noqa: F401
 from .lint import (category_for, lint_paths, lint_repo,  # noqa: F401
                    lint_source)
 from .suite import (MEMORY_TOLERANCE, TARGETS, check_bundle,  # noqa: F401
-                    check_gspmd_rank, check_step, run_suite)
+                    check_gspmd_rank, check_gspmd_serve_rank, check_step,
+                    run_suite)
 from .serve_checks import (SERVE_TARGETS, build_decode,  # noqa: F401
                            check_decode_aliasing, check_decode_memory,
                            measure_decode, run_serve_suite)

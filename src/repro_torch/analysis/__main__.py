@@ -12,7 +12,8 @@ Examples::
         --executor flat --executor compiled --mesh host --ranks 2
     python -m repro_torch.analysis --device cpu --config qwen2_reduced \\
         --mesh 1:2
-    python -m repro_torch.analysis --device cpu --serve [--no-donate]
+    python -m repro_torch.analysis --device cpu --serve [--no-donate] \
+        [--mesh host|2:1]
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ def _parse(argv):
                          "--ranks spawned ranks on the data axis: the "
                          "sharded deferred-sync contract), or 'DATA:MODEL' "
                          "(e.g. '1:2': MODEL > 1 runs the pipelined 1F1B "
-                         "contracts JX005/HLO005); the reference's suite "
-                         "has no 'production' mesh: its gate is "
-                         "launch.dryrun --mesh production --check")
+                         "contracts JX005/HLO005; with --serve, the "
+                         "data-parallel serve plan and one rank's decode); "
+                         "the reference's suite has no 'production' mesh: "
+                         "its gate is launch.dryrun --mesh production "
+                         "--check")
     ap.add_argument("--ranks", type=int, default=2, metavar="N",
                     help="ranks of the --mesh host world (default 2)")
     ap.add_argument("--remat-policy", default=None,
@@ -100,7 +103,7 @@ def main(argv=None) -> int:
                     kw["tolerance"] = args.memory_tolerance
                 reports.append(serve_checks.run_serve_suite(
                     arch, mesh=args.mesh, donate=not args.no_donate,
-                    device=args.device, **kw))
+                    device=args.device, ranks=args.ranks, **kw))
             except Exception:  # one combo crashing is exit 1, not a hang
                 traceback.print_exc()
                 print(f"ERROR: serve suite crashed on {arch} (see above)",

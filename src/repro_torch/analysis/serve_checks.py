@@ -26,7 +26,7 @@ import torch
 
 from .. import configs, tree
 from ..engine import serving, steptrace
-from ..launch import steps
+from ..launch import mesh as mesh_lib, steps
 from .findings import Finding, Report, SEVERITY_ERROR
 
 #: the serve matrix: one pure-attention stack (ragged prefill, ring KV)
@@ -45,18 +45,24 @@ SERVE_MEMORY_TOLERANCE = 16.0
 SERVE_SLACK_BYTES = 256 << 20
 
 
-def build_decode(arch: str, *, donate: bool = True,
+def build_decode(arch: str, *, mesh=None, donate: bool = True,
                  budget_bytes: int = ANALYSIS_BUDGET,
                  max_len: int = ANALYSIS_MAX_LEN,
                  max_slots: Optional[int] = ANALYSIS_SLOTS,
                  prefill_micro: Optional[int] = ANALYSIS_PREFILL,
                  device="cpu") -> Dict[str, Any]:
     """Plan and build one serving engine of ``arch`` (reduced) as the
-    serve launcher does, with the pool donated or not."""
+    serve launcher does, with the pool donated or not. On a ``mesh`` (the
+    ``(data, model)`` sizes of a data-parallel serve world) the plan is
+    ``plan_serve(mesh=)``'s and the engine one rank's: ``local_slots``
+    (the launcher's world path serves each rank's requests with such an
+    engine, and no decode step talks to another rank)."""
     cfg = configs.get_reduced(arch)
+    if mesh is not None:
+        mesh = mesh_lib.make_host_mesh(data=mesh[0], model=mesh[1])
     plan = serving.plan_serve(cfg, budget_bytes=budget_bytes,
                               max_len=max_len, max_slots=max_slots,
-                              prefill_micro=prefill_micro)
+                              prefill_micro=prefill_micro, mesh=mesh)
     params = steps.init_params(cfg, seed=0, device=device)
     eng = serving.ServingEngine(params, cfg, plan, donate=donate)
     return dict(cfg=cfg, plan=plan, engine=eng,
@@ -109,6 +115,18 @@ def check_decode_aliasing(run: steptrace.StepRun, cache_bytes: int, *,
     return []
 
 
+def check_cache_kept(kept: bool, *, context: str = "") -> List[Finding]:
+    """SRV001 over a decode step whose cache is placed on a GSPMD mesh:
+    ``kept`` says every block of the rank's cache kept its storage."""
+    if kept:
+        return []
+    return [Finding(
+        "SRV001", SEVERITY_ERROR,
+        "decode step replaced blocks of the rank's cache — the pool is "
+        "not updated in place (two full KV copies live per step)",
+        location=context)]
+
+
 # ---------------------------------------------------------------------------
 # SRV002 — decode peak vs serve memory model vs budget
 # ---------------------------------------------------------------------------
@@ -150,20 +168,22 @@ def run_serve_suite(arch: str = "qwen2-1.5b", *, mesh: Any = None,
                     budget_bytes: int = ANALYSIS_BUDGET,
                     max_len: int = ANALYSIS_MAX_LEN,
                     tolerance: float = SERVE_MEMORY_TOLERANCE,
-                    device="cpu") -> Report:
+                    device="cpu", ranks: int = 2) -> Report:
     """Build one serving engine, run one decode step and check both
-    contracts. The suite on a mesh (the reference checks its data-parallel
-    serve plan) is not ported (ROADMAP.md queue 1, item 11's serve
-    suite)."""
-    if mesh not in (None, "single"):
-        raise NotImplementedError(
-            "the serve suite on a mesh is not ported (ROADMAP.md queue 1, "
-            "item 11's serve suite): it runs on one device")
-    built = build_decode(arch, donate=donate, budget_bytes=budget_bytes,
-                         max_len=max_len, device=device)
+    contracts. ``mesh`` as the contract suite's (``suite.resolve_mesh``:
+    "single", "host" — ``ranks`` ranks on the data axis — or
+    "DATA:MODEL"): the data-parallel serve plan, one rank's engine of
+    ``local_slots`` and its decode step (:func:`build_decode`)."""
+    from .suite import resolve_mesh
+    dims = resolve_mesh(mesh, ranks)
+    built = build_decode(arch, mesh=dims, donate=donate,
+                         budget_bytes=budget_bytes, max_len=max_len,
+                         device=device)
     plan: serving.ServePlan = built["plan"]
     report = Report(context={
-        "target": arch, "mode": "serve-decode", "mesh": "single",
+        "target": arch, "mode": "serve-decode",
+        "mesh": (f"dp={plan.data_parallel}" if plan.data_parallel > 1
+                 else "single"),
         "slots": plan.local_slots, "max_len": plan.max_len,
         "donate": donate})
     run = measure_decode(built["engine"])

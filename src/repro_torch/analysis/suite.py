@@ -328,7 +328,7 @@ def check_bundle(bundle, *, run=None, modeled_bytes: Optional[int] = None,
     report = Report(context={"kind": bundle.kind,
                              "executor": bundle.executor or "?"})
     if bundle.kind == "train" and bundle.plan is not None and run is not None:
-        ex = getattr(bundle.fn, "__self__", None)
+        ex = bundle.runner
         report.merge(trace_checks.check_train_step(
             run.trace, bundle.plan, bundle.arg_shapes[0], expect_sync="none"))
         report.extend(step_checks.check_aliasing(
@@ -370,4 +370,34 @@ def check_gspmd_rank(collectives: Dict[str, Any], mesh, *, peak_bytes: int,
     report.extend(step_checks.check_memory_model(
         int(peak_bytes), modeled_bytes, tolerance=memory_tolerance,
         context="train"), "HLO003")
+    return report
+
+
+#: the rules one prefill or decode rank of a production dry run cannot
+#: feed, and why
+GSPMD_SERVE_REFUSED = {
+    **{rule: GSPMD_REFUSED[rule] for rule in ("JX001", "JX002", "JX003")},
+    "SRV002": ("the serve memory model (memory_model.serve_estimate) "
+               "plans data-parallel slots of a whole model, not a rank's "
+               "blocks of a cache split over the production mesh")}
+
+
+def check_gspmd_serve_rank(collectives: Dict[str, Any], mesh, *, kind: str,
+                           cache_kept: Optional[bool]) -> Report:
+    """``dryrun --check`` of a prefill or decode rank on the production
+    mesh: JX004's GSPMD form over its census (collectives on the mesh's
+    axes only; no gradients, so no reduce-scatter is asked for) and, for
+    decode, SRV001 over its cache (every block written in place). The
+    rules it cannot feed are named in ``context["refused"]``."""
+    from . import serve_checks
+    report = Report(context={"kind": kind, "mesh": dict(mesh),
+                             "refused": dict(GSPMD_SERVE_REFUSED)})
+    report.extend(trace_checks.check_gspmd_collectives(
+        collectives, mesh, train=False), "JX004")
+    if kind == "decode":
+        report.extend(serve_checks.check_cache_kept(
+            bool(cache_kept), context="decode"), "SRV001")
+    else:
+        report.context["refused"]["SRV001"] = (
+            "a prefill builds its cache; there is no pool to keep")
     return report

@@ -241,13 +241,14 @@ def check_collectives(trace, params, *, n_micro: int,
     return out
 
 
-def check_gspmd_collectives(census: Dict[str, Any], mesh
-                            ) -> List[Finding]:
+def check_gspmd_collectives(census: Dict[str, Any], mesh,
+                            train: bool = True) -> List[Finding]:
     """JX004 on one rank of a GSPMD mesh, from its census
     (``engine.CollectiveCensus.summary``): every collective runs over the
-    mesh's own axes (a group of none of them is a finding), and with a
-    batch axis above one rank the gradients are reduce-scattered over it
-    (FSDP: a step without a reduce-scatter is a finding)."""
+    mesh's own axes (a group of none of them is a finding), and in a
+    ``train`` step with a batch axis above one rank the gradients are
+    reduce-scattered over it (FSDP: a step without a reduce-scatter is a
+    finding)."""
     out: List[Finding] = []
     by = census.get("by_kind_and_axis", {})
     axes = set(mesh) | {"+".join(mesh)}
@@ -260,7 +261,7 @@ def check_gspmd_collectives(census: Dict[str, Any], mesh
     dp = 1
     for ax in ("pod", "data"):
         dp *= mesh.get(ax, 1)
-    if dp > 1 and not by.get("reduce_scatter"):
+    if train and dp > 1 and not by.get("reduce_scatter"):
         out.append(Finding(
             "JX004", SEVERITY_ERROR,
             f"no reduce-scatter in a GSPMD step over {dp} batch ranks: the "

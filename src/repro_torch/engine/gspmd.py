@@ -377,9 +377,9 @@ class CollectiveCensus(TorchDispatchMode):
     """Counts the functional collectives run inside it — DTensor's
     redistributions and the loss's reductions — by kind and by the mesh
     axes of their process group (``"data"``, ``"model"``, ``"data+model"``
-    …), with the bytes each moved (its input's). An op on DTensors is
-    handed back to DTensor first (``NotImplemented``), so the collectives
-    it runs on the local blocks come through here.
+    …), with the bytes each moved (its input's) and the largest one's. An
+    op on DTensors is handed back to DTensor first (``NotImplemented``),
+    so the collectives it runs on the local blocks come through here.
 
     ``local=True`` also counts what one rank computes: the FLOPs of its
     local matmuls (``torch.utils.flop_counter``'s formulas) and the peak
@@ -391,6 +391,7 @@ class CollectiveCensus(TorchDispatchMode):
         self.mesh = mesh
         self.counts: Dict[str, Dict[str, int]] = {}
         self.bytes: Dict[str, int] = {}
+        self.largest: Dict[str, int] = {}
         self._axis_of = self._axes(mesh)
         self.flops = 0
         self._live = None
@@ -410,6 +411,9 @@ class CollectiveCensus(TorchDispatchMode):
 
     @staticmethod
     def _axes(mesh) -> Dict[str, str]:
+        """Process group name → axis, for this mesh's groups; a group of
+        another name (an equal ``DeviceMesh`` made earlier, whose layouts
+        DTensor's caches keep) is told by its ranks (:meth:`_axis`)."""
         out = {}
         names = list(mesh)
         dm = mesh.device_mesh
@@ -419,6 +423,27 @@ class CollectiveCensus(TorchDispatchMode):
             import torch.distributed as dist
             out[dist.group.WORLD.group_name] = "+".join(names)
         return out
+
+    def _axis(self, group_name: str) -> str:
+        """The mesh axis of a process group: by name, else by its ranks
+        (those of this rank's line along an axis, or the whole world);
+        "other" for none of them."""
+        if group_name not in self._axis_of:
+            import torch.distributed as dist
+            from torch.distributed.distributed_c10d import (
+                _resolve_process_group)
+            dm = self.mesh.device_mesh
+            by_ranks = {tuple(sorted(dist.get_process_group_ranks(
+                dm.get_group(ax)))): ax for ax in self.mesh}
+            by_ranks.setdefault(tuple(range(dist.get_world_size())),
+                                "+".join(self.mesh))
+            try:
+                ranks = tuple(sorted(dist.get_process_group_ranks(
+                    _resolve_process_group(group_name))))
+            except (KeyError, RuntimeError, ValueError):
+                ranks = None
+            self._axis_of[group_name] = by_ranks.get(ranks, "other")
+        return self._axis_of[group_name]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -441,16 +466,18 @@ class CollectiveCensus(TorchDispatchMode):
             kind = _KINDS[name]
             group = args[-1] if isinstance(args[-1], str) else kwargs.get(
                 "group_name", "")
-            axis = self._axis_of.get(group, "other")
+            axis = self._axis(group)
             by = self.counts.setdefault(kind, {})
             by[axis] = by.get(axis, 0) + 1
             inp = args[0]
-            self.bytes[kind] = self.bytes.get(kind, 0) + (
-                inp.numel() * inp.element_size())
+            n = inp.numel() * inp.element_size()
+            self.bytes[kind] = self.bytes.get(kind, 0) + n
+            self.largest[kind] = max(self.largest.get(kind, 0), n)
         return out
 
     def summary(self) -> Dict[str, Any]:
         return {"by_kind_and_axis": {k: dict(v) for k, v in
                                      sorted(self.counts.items())},
                 "bytes_by_kind": dict(sorted(self.bytes.items())),
+                "largest_by_kind": dict(sorted(self.largest.items())),
                 "calls": sum(sum(v.values()) for v in self.counts.values())}

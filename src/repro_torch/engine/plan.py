@@ -365,11 +365,15 @@ def plan_mbs(mini_batch_size: int, *,
         if calibrate != "off":
             # the analytic search picked the policy; calibration refines
             # the micro size for that policy only — or, when its probe
-            # does not fit the card, for the next policy that fits
+            # does not fit the card, walks the rungs above it by the
+            # joint search's rule (``suggest_remat_policy_and_micro``):
+            # the first whose micro reaches the local mini-batch, else
+            # the one admitting the largest, ties to the cheaper
             from . import autotune
             order = memory_model.POLICY_ORDER
             ladder = (order[order.index(policy):] if auto_policy_requested
                       else (policy,))
+            chosen = best = None
             for i, pol in enumerate(ladder):
                 last = i + 1 == len(ladder)
                 try:
@@ -379,7 +383,7 @@ def plan_mbs(mini_batch_size: int, *,
                         mode=calibrate, cache_path=tuning_cache,
                         device=device, strict=not last, **mm_kw)
                 except autotune.ProbeOutOfMemory as e:
-                    if not last:
+                    if not last or best is not None:
                         continue
                     raise ValueError(f"{e} — " + (
                         f"no policy from {ladder[0]!r} up fits the card"
@@ -388,6 +392,21 @@ def plan_mbs(mini_batch_size: int, *,
                         '"auto"')) from None
                 if cal_local is None and corr is not None and not last:
                     continue  # measured over the budget even at micro 1
+                admits = (0 if cal_local is None and corr is not None
+                          else cal_local if cal_local is not None else
+                          memory_model.suggest_micro_batch_size(
+                              model_cfg, seq_len, local_mini,
+                              budget_bytes=budget(), remat_policy=pol,
+                              **mm_kw) or 0)
+                if pol == policy or admits >= local_mini:
+                    chosen = (pol, cal_local, corr)
+                    break
+                if best is None or admits > best[0]:
+                    best = (admits, (pol, cal_local, corr))
+            if chosen is None and best is not None:
+                chosen = best[1]
+            if chosen is not None:
+                pol, cal_local, corr = chosen
                 if pol != policy:
                     policy = pol
                     local = memory_model.suggest_micro_batch_size(
@@ -398,7 +417,6 @@ def plan_mbs(mini_batch_size: int, *,
                     local = cal_local
                     calibrated = True
                     correction = (float(corr[0]), float(corr[1]))
-                break
         micro = (local or 1) * dp
         auto = True
     else:

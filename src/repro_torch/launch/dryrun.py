@@ -5,7 +5,10 @@ either device, full-size configurations included. The reference
 compiles the same step for its production mesh; the port runs it on one
 device, or with ``--mesh production`` (``--multi-pod``) as one rank of
 the production GSPMD mesh: a fake world of 256 (512) ranks in this
-process, the state cut to the rank's blocks (:func:`_production`).
+process, the state cut to the rank's blocks (:func:`_production`) — a
+train step, or a prefill or decode step placed as the reference's dry
+run places it (the params by ``param_specs``, the cache and the tokens
+by ``cache_specs``; :func:`_production_serve`).
 
 What it reports (one JSON line; the reference's keys where they carry a
 meaning):
@@ -76,7 +79,7 @@ from ..analysis.findings import (EXIT_BUDGET, EXIT_CONTRACT, EXIT_ERROR,
                                  EXIT_OK)
 from ..core import memory_model
 from ..engine import steptrace
-from . import mesh as mesh_lib, steps
+from . import mesh as mesh_lib, sharding, steps
 
 #: the planner's budget on a device that has none of its own (the CPU):
 #: one H100's memory, the card the dry run stands in for
@@ -109,8 +112,7 @@ def _fake_step(bundle, device, micros: Optional[int] = None):
         with FakeTensorMode(allow_non_fake_inputs=False):
             args = _fakes(bundle.arg_shapes, device)
             if bundle.kind == "train":
-                ex = bundle.fn.__self__
-                prepare = getattr(ex, "prepare", None)
+                prepare = getattr(bundle.runner, "prepare", None)
                 params, opt_state, batch = args
                 if micros is not None:
                     batch = {k: v[:micros] for k, v in batch.items()}
@@ -168,22 +170,18 @@ def _kernel_calls(trace) -> Dict[str, int]:
 
 def _production(cfg, shape, *, multi_pod: bool, pinned, device,
                 step_kw) -> Dict[str, Any]:
-    """One rank's view of the train step on the production mesh: a fake
+    """One rank's view of the step on the production mesh: a fake
     world of 256 (512 with the pod axis) ranks in this process (every
     collective returns at once), the step built for the GSPMD mesh
     (``fsdp_over_pod`` with the pod axis, as the reference's dry run),
     its state cut to rank 0's blocks and run under a ``FakeTensorMode``
-    — nothing allocated. The census
+    — nothing allocated. A prefill or decode shape goes to
+    :func:`_production_serve`. The census
     (``engine.CollectiveCensus(local=True)``) counts the rank's local
     FLOPs, the peak of its live local bytes and its collectives by kind
     and axis; the first micro-batch and the first two are run and the
     difference carried to all N, as for one device."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    if shape.kind != "train":
-        raise ValueError(
-            f"{shape.name} is a {shape.kind} shape: prefill and decode on "
-            "the production mesh are the serving half of ROADMAP.md queue "
-            "1 item 11 (cache_specs placement of the KV pool), not ported")
     world = 512 if multi_pod else 256
     mesh_lib.fake_world(world, rank=0)
     try:
@@ -191,10 +189,13 @@ def _production(cfg, shape, *, multi_pod: bool, pinned, device,
             multi_pod=multi_pod, world_mesh=mesh_lib.Mesh(
                 {mesh_lib.DATA_AXIS: world, mesh_lib.MODEL_AXIS: 1},
                 device=device, backend="fake"))
+        if shape.kind != "train":
+            return _production_serve(cfg, shape, mesh, world, device,
+                                     step_kw)
         bundle = steps.build_step(cfg, shape, num_microbatches=pinned,
                                   mesh=mesh, fsdp_over_pod=multi_pod,
                                   **step_kw)
-        ex, plan = bundle.fn.__self__, bundle.plan
+        ex, plan = bundle.runner, bundle.plan
         runs = []
         # DTensor's sharding propagation runs each new op once on fake
         # tensors of the whole shape, which the census would count; a
@@ -212,37 +213,92 @@ def _production(cfg, shape, *, multi_pod: bool, pinned, device,
                 runs.append(census)
                 del params, opt_state, batch
         n = plan.num_micro_batches
-        runs = runs[1:]
-        one, two = runs[0], runs[-1]
-
-        def extend(a, b):
-            return a + (n - 1) * (b - a) if len(runs) > 1 else a
-
-        kinds = {}
-        for kind in set(one.counts) | set(two.counts):
-            axes = set(one.counts.get(kind, {})) | set(two.counts.get(kind,
-                                                                      {}))
-            kinds[kind] = {ax: extend(one.counts.get(kind, {}).get(ax, 0),
-                                      two.counts.get(kind, {}).get(ax, 0))
-                           for ax in sorted(axes)}
+        one, two = runs[1], runs[-1]
+        collectives = _census_report(one, two, n)
         return {
             "world": world, "mesh": dict(mesh), "rank": mesh.rank,
-            "coords": mesh.coords(), "fsdp_over_pod": multi_pod,
-            "local_param_bytes": local_bytes,
-            "flops": extend(one.flops, two.flops),
-            "peak_bytes": two.peak_bytes,
-            "collectives": {
-                "by_kind_and_axis": kinds,
-                "bytes_by_kind": {k: extend(one.bytes.get(k, 0),
-                                            two.bytes.get(k, 0))
-                                  for k in sorted(set(one.bytes)
-                                                  | set(two.bytes))},
-                "calls": sum(sum(v.values()) for v in kinds.values())},
+            "coords": mesh.coords(), "kind": "train",
+            "fsdp_over_pod": multi_pod, "local_param_bytes": local_bytes,
+            "flops": (one.flops + (n - 1) * (two.flops - one.flops)
+                      if two is not one else one.flops),
+            "peak_bytes": two.peak_bytes, "collectives": collectives,
             "plan": plan.describe(), "num_micro_batches": n,
             "local_micro": plan.local_micro,
             "remat_policy": plan.remat_policy, "bundle": bundle}
     finally:
         mesh_lib.shutdown()
+
+
+def _census_report(one, two, n: int) -> Dict[str, Any]:
+    """The collectives of ``n`` repeats from a census of the first
+    (``one``) and of the first two (``two``; ``one`` again for n = 1)."""
+    def extend(a, b):
+        return a + (n - 1) * (b - a) if two is not one else a
+
+    kinds = {}
+    for kind in set(one.counts) | set(two.counts):
+        axes = set(one.counts.get(kind, {})) | set(two.counts.get(kind, {}))
+        kinds[kind] = {ax: extend(one.counts.get(kind, {}).get(ax, 0),
+                                  two.counts.get(kind, {}).get(ax, 0))
+                       for ax in sorted(axes)}
+    return {"by_kind_and_axis": kinds,
+            "bytes_by_kind": {k: extend(one.bytes.get(k, 0),
+                                        two.bytes.get(k, 0))
+                              for k in sorted(set(one.bytes)
+                                              | set(two.bytes))},
+            "largest_by_kind": {k: max(one.largest.get(k, 0),
+                                       two.largest.get(k, 0))
+                                for k in sorted(set(one.largest)
+                                                | set(two.largest))},
+            "calls": sum(sum(v.values()) for v in kinds.values())}
+
+
+def _production_serve(cfg, shape, mesh, world: int, device, step_kw
+                      ) -> Dict[str, Any]:
+    """One rank's prefill or decode on the production mesh
+    (``steps.GspmdServe``: the params placed by ``param_specs``, the
+    cache and the tokens by ``cache_specs``, as the reference's dry
+    run places them), run twice under a ``FakeTensorMode``: the first
+    fills DTensor's propagation cache, the second runs under the census
+    (its FLOPs, the peak of its live local bytes, its collectives by kind
+    and axis). The local bytes of the params and of the cache (a decode's
+    input, a prefill's output) are the rank's blocks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    bundle = steps.build_step(cfg, shape, mesh=mesh,
+                              remat_policy=step_kw.get("remat_policy"))
+    serve = bundle.runner
+    census = None
+    for counted in (False, True):
+        with FakeTensorMode(allow_non_fake_inputs=False):
+            placed = serve.prepare(*_fakes(bundle.arg_shapes, device))
+            param_bytes = sharding.local_bytes(placed[0])
+            run = engine.CollectiveCensus(mesh, local=counted)
+            run.see(*[x.to_local() for x in tree.leaves(placed)])
+            before = steptrace.state_storages(
+                [x.to_local() for x in tree.leaves(placed[2])]
+                if bundle.kind == "decode" else [])
+            with run:
+                out = bundle.fn(*placed)
+            if counted:
+                census = run
+            cache = (out[1] if isinstance(out, tuple) else None)
+            cache_bytes = (sharding.local_bytes(cache)
+                           if cache is not None else 0)
+            kept = (steptrace.state_storages(
+                [x.to_local() for x in tree.leaves(cache)]) == before
+                if bundle.kind == "decode" else None)
+            logits = out[0] if isinstance(out, tuple) else out
+            logits_local = tuple(logits.to_local().shape)
+            del placed, out, cache, logits
+    return {
+        "world": world, "mesh": dict(mesh), "rank": mesh.rank,
+        "coords": mesh.coords(), "kind": bundle.kind,
+        "fsdp_over_pod": False, "local_param_bytes": param_bytes,
+        "local_cache_bytes": cache_bytes, "cache_kept": kept,
+        "logits_local_shape": list(logits_local),
+        "flops": census.flops, "peak_bytes": census.peak_bytes,
+        "collectives": _census_report(census, census, 1),
+        "bundle": bundle}
 
 
 def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
@@ -251,7 +307,11 @@ def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
     """The production run's report: the one-device report's keys where
     one rank gives them, its ``budget`` gate on the rank's peak and, with
     ``check``, ``analysis.check_gspmd_rank`` over the rank's census and
-    peak against ``estimate(mesh=, fsdp_params=True)``."""
+    peak against ``estimate(mesh=, fsdp_params=True)``. A prefill or
+    decode rank's report is :func:`_production_serve_report`'s."""
+    if g["kind"] != "train":
+        return _production_serve_report(arch, shape_name, g, device, t_step,
+                                         verbose, budget_bytes, check)
     bundle = g.pop("bundle")
     plan = bundle.plan
     mm_kw = dict(remat_policy=plan.remat_policy, act_bytes=2,
@@ -300,6 +360,41 @@ def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
     return result
 
 
+def _production_serve_report(arch, shape_name, g, device, t_step,
+                             verbose, budget_bytes=None, check=False):
+    """A prefill or decode rank's report: the one-device report's keys
+    where one rank gives them, the ``budget`` gate on the rank's peak
+    and, with ``check``, ``analysis.check_gspmd_serve_rank`` over its
+    census and its cache's storages."""
+    g.pop("bundle")
+    peak = g["peak_bytes"]
+    contract = None
+    if check:
+        from .. import analysis
+        contract = analysis.check_gspmd_serve_rank(
+            g["collectives"], g["mesh"], kind=g["kind"],
+            cache_kept=g["cache_kept"]).to_dict()
+    result = {
+        "arch": arch, "shape": shape_name, "mesh": list(g["mesh"].values()),
+        "axes": list(g["mesh"]), "mesh_dims": list(g["mesh"].items()),
+        "kind": g["kind"], "num_devices": g["world"], "device": device.type,
+        "per_device": {"params_bytes": g["local_param_bytes"],
+                       "cache_bytes": g["local_cache_bytes"]},
+        "gspmd": g,
+        "budget": ({"budget_bytes": budget_bytes,
+                    "measured_peak_bytes": peak,
+                    "over_budget": peak > budget_bytes}
+                   if budget_bytes is not None else None),
+        "contract": contract,
+        "raw_cost_analysis": {"flops": float(g["flops"])},
+        "memory": {"peak_bytes_est": peak,
+                   "source": "live local tensor bytes of one rank"},
+        "step_s": round(t_step, 2), "skipped": False}
+    if verbose:
+        print(json.dumps(result))
+    return result
+
+
 def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
                num_microbatches: Optional[int] = 8,
                reduced: bool = False, probe: bool = True,
@@ -318,7 +413,7 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     by default the card's memory (on the CPU, ``CARD_BYTES``).
     ``unrolled`` runs every micro-batch of the step instead of extending
     the first two (see the module doc). ``mesh_spec="production"`` (or
-    ``multi_pod``) dry-runs the train step on the production GSPMD mesh
+    ``multi_pod``) dry-runs the step on the production GSPMD mesh
     (:func:`_production`)."""
     device = torch.device(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
@@ -506,13 +601,13 @@ def main(argv=None):
     ap.add_argument("--arch", required=True, choices=configs.ARCHS)
     ap.add_argument("--shape", required=True, choices=list(configs.SHAPES))
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the 2x16x16 production mesh (train shapes; "
+                    help="the 2x16x16 production mesh (a train step's "
                          "FSDP over (pod, data))")
     ap.add_argument("--mesh", default=None, metavar="DATA:MODEL",
                     help="report the mesh-aware plan (and, with MODEL > 1, "
                          "the 1F1B census and per-stage bytes) for this "
-                         "host mesh; 'production' runs the train step as "
-                         "one rank of the 16x16 GSPMD mesh")
+                         "host mesh; 'production' runs the step as one "
+                         "rank of the 16x16 GSPMD mesh")
     ap.add_argument("--microbatches", type=int, default=8,
                     help="N_Smu for train shapes; 0 = auto micro-batch "
                          "size from the memory model")

@@ -2,10 +2,10 @@
 ``configs.ARCHS`` × ``configs.SHAPES`` on one device, each combo in a
 subprocess of its own (a fresh process per combo keeps one combo's
 failure or memory out of the others), one JSON file per combo. The
-reference's second column, the 2-pod production mesh, runs the train
-shapes as one rank of the 2x16x16 GSPMD mesh (``dryrun --multi-pod``: a
-fake world of 512 ranks); its prefill and decode shapes are the serving
-half of ROADMAP item 11, refused by name and written as such.
+reference's second column, the 2-pod production mesh, runs every shape
+as one rank of the 2x16x16 GSPMD mesh (``dryrun --multi-pod``: a fake
+world of 512 ranks); ``long_500k`` is skipped where the reference does
+not assign it.
 
   python -m repro_torch.launch.dryrun_all --out build/dryrun \\
       [--only-arch qwen2-1.5b] [--device cuda|cpu] [--timeout 600] \\
@@ -14,7 +14,8 @@ half of ROADMAP item 11, refused by name and written as such.
 A combo whose JSON exists is read, not run again. ``--jobs`` runs that
 many combos at once (each is one host process; a fake step allocates
 nothing on the card). The run ends with a table of every combo: the
-predicted peak on one device, the FLOPs a step, the plan, and whether
+predicted peak on one device (on one rank of the multi-pod mesh), the
+FLOPs a step, the plan (a train step's) or the step's kind, and whether
 the peak fits ``CARD_BYTES`` (one H100's 80 GB).
 """
 from __future__ import annotations
@@ -36,9 +37,6 @@ TRAIN_MICROBATCHES = {
     "grok-1-314b": 16, "mixtral-8x22b": 16, "qwen2-vl-72b": 16,
 }
 DEFAULT_MICROBATCHES = 8
-MULTI_POD_REFUSAL = ("prefill and decode on the 2x16x16 production mesh "
-                     "are the serving half of ROADMAP.md queue 1 item 11 "
-                     "(cache_specs placement of the KV pool): not ported")
 
 
 def combos():
@@ -65,9 +63,6 @@ def run_one(arch: str, shape: str, mesh: str, out_dir: str, *,
         return _write(path, {"arch": arch, "shape": shape, "mesh_tag": mesh,
                              "skipped": True, "reason": "long_500k requires "
                              "sub-quadratic attention"})
-    if mesh == "multi" and configs.SHAPES[shape].kind != "train":
-        return _write(path, {"arch": arch, "shape": shape, "mesh_tag": mesh,
-                             "refused": True, "reason": MULTI_POD_REFUSAL})
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
            "--shape", shape, "--microbatches",
            str(TRAIN_MICROBATCHES.get(arch, DEFAULT_MICROBATCHES)),
@@ -91,15 +86,14 @@ def run_one(arch: str, shape: str, mesh: str, out_dir: str, *,
 def summary_line(res: dict) -> str:
     """One combo's row of the table (see the module doc)."""
     head = f"{res['arch']:20s} {res['shape']:11s}"
-    if res.get("skipped") or res.get("refused") or res.get("failed"):
-        why = ("skipped" if res.get("skipped") else "refused (item 11)"
-               if res.get("refused") else "failed: " + res.get(
-                   "stderr_tail", "").strip().splitlines()[-1][:80])
+    if res.get("skipped") or res.get("failed"):
+        why = ("skipped" if res.get("skipped") else "failed: " + res.get(
+            "stderr_tail", "").strip().splitlines()[-1][:80])
         return f"{head} {why}"
     peak = res["memory"]["peak_bytes_est"]
     plan = (f"{res['num_microbatches']} x micro "
             f"{res['per_device']['local_micro']} {res['remat_policy']}"
-            if res.get("per_device") else res["kind"])
+            if res["kind"] == "train" else res["kind"])
     return (f"{head} peak {peak / 2 ** 30:10.2f} GiB  "
             f"{res['raw_cost_analysis']['flops']:.4e} FLOPs  {plan:22s} "
             f"{'fits' if peak <= CARD_BYTES else 'does not fit'} 80 GB")
@@ -131,7 +125,6 @@ def main(argv=None) -> int:
             res = run_one(*combo, args.out, device=args.device,
                           timeout=args.timeout)
             status = ("SKIP" if res.get("skipped") else
-                      "REFUSED" if res.get("refused") else
                       "FAIL" if res.get("failed") else "ok")
         except subprocess.TimeoutExpired:
             status = "TIMEOUT"
@@ -147,10 +140,9 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out, f"{arch}__{shape}__{mesh}.json")
                   ) as f:
             print(summary_line(json.load(f)), flush=True)
-    n = {s: results.count(s) for s in ("ok", "SKIP", "REFUSED")}
-    print(f"\n{n['ok']} ok / {n['SKIP']} skipped / {n['REFUSED']} refused "
-          f"(item 11) / {len(results) - sum(n.values())} failed of "
-          f"{len(results)}")
+    n = {s: results.count(s) for s in ("ok", "SKIP")}
+    print(f"\n{n['ok']} ok / {n['SKIP']} skipped / "
+          f"{len(results) - sum(n.values())} failed of {len(results)}")
     return 0 if all(s in n for s in results) else 1
 
 

@@ -298,3 +298,63 @@ def gather_tree(t, specs, mesh):
         as_dtensor(leaf, spec, mesh).full_tensor()
         if any(e is not None for e in spec) else leaf
         for leaf, spec in zip(leaves, sl)])
+
+
+# ---------------------------------------------------------------------------
+# placed trees: DTensors on a GSPMD mesh (the reference's in_shardings)
+# ---------------------------------------------------------------------------
+
+def place_tree(t, specs, mesh, device=None):
+    """The DTensors of a tree of whole tensors (every rank holding the
+    same values) under ``specs``: each rank keeps its block only
+    (:func:`shard_tree`, on ``device`` when given)."""
+    from .. import tree as tree_lib
+    leaves, treedef = tree_lib.flatten(shard_tree(t, specs, mesh, device))
+    return tree_lib.unflatten(treedef, [
+        as_dtensor(x, spec, mesh)
+        for x, spec in zip(leaves, spec_leaves(specs))])
+
+
+def placed_cache(meta_cache, mesh, device):
+    """An empty decode cache on a GSPMD mesh: the leaves of ``meta_cache``
+    (meta tensors of the whole cache, ``transformer.init_cache(...,
+    device="meta")``'s tree) as DTensors placed by
+    ``cache_specs(stacked=True)``, each rank allocating its own block
+    only, filled as ``init_cache`` fills them: zeros, and -1 in a ring's
+    slot positions (``pos``)."""
+    from .. import tree as tree_lib
+    leaves, treedef = tree_lib.flatten(meta_cache)
+    names = tree_lib.leaves(_map_with_keys(lambda keys, _: keys[-1],
+                                           meta_cache))
+    specs = spec_leaves(cache_specs(meta_cache, mesh, stacked=True))
+    coords = mesh.coords()
+    out = []
+    for leaf, name, spec in zip(leaves, names, specs):
+        idx = local_slices(leaf.shape, spec, mesh, coords)
+        shape = [len(range(*s.indices(n))) for s, n in zip(idx, leaf.shape)]
+        block = torch.full(shape, -1 if name == "pos" else 0,
+                           dtype=leaf.dtype, device=device)
+        out.append(as_dtensor(block, spec, mesh))
+    return tree_lib.unflatten(treedef, out)
+
+
+def full_tree(t):
+    """The whole tensors of a tree of DTensors, on every rank (an
+    all-gather over each leaf's split axes; a collective every rank
+    calls). Plain leaves pass unchanged."""
+    from torch.distributed.tensor import DTensor
+
+    from .. import tree as tree_lib
+    return tree_lib.map(lambda x: x.full_tensor()
+                        if isinstance(x, DTensor) else x, t)
+
+
+def local_bytes(t) -> int:
+    """The bytes this rank holds of a tree of DTensors (their blocks) or
+    plain tensors."""
+    from .. import tree as tree_lib
+    total = 0
+    for x in tree_lib.leaves(t):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        total += x.numel() * x.element_size()
+    return total

@@ -29,7 +29,7 @@ from ..data import LMDataset
 from ..models import encdec, nn, transformer
 from ..models import remat as remat_lib
 from ..models.config import ModelConfig
-from . import mesh as mesh_lib
+from . import mesh as mesh_lib, sharding
 
 N_VISION_TOKENS = 256  # stubbed patch embeddings a sample (qwen2-vl)
 AUDIO_TGT_FRACTION = 4  # enc-dec training: decoder length = seq / 4
@@ -162,7 +162,13 @@ class StepBundle:
     state that replaces its params and optimizer state (``flat`` writes
     them in place) and the split batch is spent after it; a decode step
     writes its cache in place and returns it. A caller drops its own
-    references to those arguments."""
+    references to those arguments.
+
+    ``runner`` is the object ``fn`` is a method of: a train bundle's
+    executor (its ``prepare``, where it has one, cuts the
+    reference-format state), a :class:`GspmdServe` for a prefill or
+    decode on a GSPMD mesh (its ``prepare`` places the whole arguments);
+    None for a prefill or decode on one device."""
     kind: str
     fn: Callable
     arg_shapes: Tuple[Any, ...]
@@ -171,6 +177,7 @@ class StepBundle:
     optimizer: Optional[Any] = None
     loss_fn: Optional[Callable] = None
     executor: Optional[str] = None
+    runner: Optional[Any] = None
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -266,7 +273,7 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
     axis), the batch by ``batch_specs`` — ``plan_mbs(mesh=,
     fsdp_params=True)`` plans it — and :class:`engine.GspmdExecutor`
     runs ``executor`` on each rank's blocks. ``executor`` is then
-    "gspmd"; ``fn.__self__.prepare`` cuts the reference-format state."""
+    "gspmd"; ``runner.prepare`` cuts the reference-format state."""
     optimizer = optimizer or make_optimizer(cfg)
     mode = getattr(mesh, "mode", None)
     pipeline = mode == "pipeline" and mesh_lib.axis_size(
@@ -308,7 +315,7 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
         (params, abstract_opt_state(optimizer, params),
          abstract_train_batch(cfg, shape.seq_len, plan, dtype=dtype)),
         donate_argnums=(0, 1, 2), plan=plan, optimizer=optimizer,
-        loss_fn=loss_fn, executor=executor)
+        loss_fn=loss_fn, executor=executor, runner=ex)
 
 
 # ---------------------------------------------------------------------------
@@ -320,41 +327,104 @@ def _global_window(cfg: ModelConfig, shape: InputShape) -> Optional[int]:
             else None)
 
 
+class GspmdServe:
+    """A prefill or decode step on a GSPMD mesh, placed as the reference's
+    dry run places it (``_in_specs`` / ``_out_specs``): the params by
+    ``param_specs`` (FSDP over ``data``), a decode cache by
+    ``cache_specs(stacked=True)``, the tokens, positions, frames and
+    patches by ``cache_specs(stacked=False)``; the logits come out split
+    as ``cache_specs(stacked=False)`` splits them (vocab over ``model``,
+    batch over the batch axes) and a prefill's cache as the decode cache.
+
+    :meth:`prepare` turns the step's whole arguments (every rank holding
+    the same values; meta or fake tensors in a dry run) into this rank's
+    DTensors; :meth:`step` (the bundle's ``fn``) runs the step on them
+    inside ``models.nn.use_mesh``; :meth:`gather` brings an output back
+    whole."""
+
+    def __init__(self, kind: str, fn: Callable, mesh):
+        if getattr(mesh, "mode", None) != "gspmd":
+            raise ValueError(f"GspmdServe runs on a GSPMD mesh "
+                             f"(launch.mesh.gspmd_mesh), got {mesh!r}")
+        self.kind, self._fn, self.mesh = kind, fn, mesh
+
+    def place_params(self, params, device=None):
+        """This rank's DTensors of whole ``params`` (``param_specs``)."""
+        return sharding.place_tree(
+            params, sharding.param_specs(params, self.mesh), self.mesh,
+            self.mesh.device if device is None else torch.device(device))
+
+    def place(self, x, *, stacked: bool = False, device=None):
+        """This rank's DTensors of a whole tree of inputs or a cache
+        (``cache_specs``: ``stacked`` for a cache's period-stacked
+        leaves)."""
+        if x is None:
+            return None
+        return sharding.place_tree(
+            x, sharding.cache_specs(x, self.mesh, stacked=stacked),
+            self.mesh,
+            self.mesh.device if device is None else torch.device(device))
+
+    def prepare(self, params, *args, device=None):
+        """This rank's DTensors of ``(params, *args)`` (the bundle's
+        arguments, whole), on ``device`` (default: the mesh's)."""
+        return (self.place_params(params, device),) + tuple(
+            self.place(a, stacked=self.kind == "decode" and i == 1,
+                       device=device)  # a decode's cache
+            for i, a in enumerate(args))
+
+    def step(self, *placed):
+        """The step on :meth:`prepare`'s DTensors."""
+        with nn.use_mesh(self.mesh):
+            return self._fn(*placed)
+
+    @staticmethod
+    def gather(t):
+        """The whole tensors of an output tree, on every rank (a
+        collective every rank calls)."""
+        return sharding.full_tree(t)
+
+
 def build_prefill_step(cfg: ModelConfig, shape: InputShape, *,
-                       dtype=torch.bfloat16,
-                       remat_policy: str = "none") -> StepBundle:
+                       dtype=torch.bfloat16, remat_policy: str = "none",
+                       mesh=None) -> StepBundle:
     """The prefill: ``transformer.prefill`` (last-token logits and the
     decode cache; ``long_500k`` under ``cfg.long_context_global_window``)
     — an enc-dec config's encoder and teacher-forced decoder, returning
     the last position's logits. ``remat_policy`` reaches the enc-dec
-    forward (the reference's default "none": forward only)."""
+    forward (the reference's default "none": forward only). A GSPMD
+    ``mesh`` makes ``fn`` a :class:`GspmdServe`'s ``step``; the
+    arguments stay the whole (meta) ones, which its ``prepare`` places."""
     s, b = shape.seq_len, shape.global_batch
     i32 = torch.int32
     if cfg.is_encdec:
-        @torch.inference_mode()
+        @nn.serving_mode
         def fn(params, frames, tokens):
             logits, _ = encdec.forward(params, cfg, frames, tokens,
                                        dtype=dtype,
                                        remat_policy=remat_policy)
             return logits[:, -1]
 
-        return StepBundle("prefill", fn, (
-            abstract_params(cfg), _meta((b, s, cfg.d_model), dtype),
-            _meta((b, s // AUDIO_TGT_FRACTION), i32)))
+        args = (abstract_params(cfg), _meta((b, s, cfg.d_model), dtype),
+                _meta((b, s // AUDIO_TGT_FRACTION), i32))
+    else:
+        gw = _global_window(cfg, shape)
 
-    gw = _global_window(cfg, shape)
+        def fn(params, tokens, vision_embeds=None, mrope_positions=None):
+            return transformer.prefill(params, cfg, tokens, max_len=s,
+                                       vision_embeds=vision_embeds,
+                                       mrope_positions=mrope_positions,
+                                       dtype=dtype, global_window=gw)
 
-    def fn(params, tokens, vision_embeds=None, mrope_positions=None):
-        return transformer.prefill(params, cfg, tokens, max_len=s,
-                                   vision_embeds=vision_embeds,
-                                   mrope_positions=mrope_positions,
-                                   dtype=dtype, global_window=gw)
-
-    args = [abstract_params(cfg), _meta((b, s), i32)]
-    if cfg.is_vlm:
-        args += [_meta((b, N_VISION_TOKENS, transformer.VISION_EMBED_DIM),
-                       dtype), _meta((3, b, s), i32)]
-    return StepBundle("prefill", fn, tuple(args))
+        args = [abstract_params(cfg), _meta((b, s), i32)]
+        if cfg.is_vlm:
+            args += [_meta((b, N_VISION_TOKENS,
+                            transformer.VISION_EMBED_DIM), dtype),
+                     _meta((3, b, s), i32)]
+        args = tuple(args)
+    serve = GspmdServe("prefill", fn, mesh) if mesh is not None else None
+    return StepBundle("prefill", serve.step if serve else fn, args,
+                      runner=serve)
 
 
 def abstract_cache(cfg: ModelConfig, shape: InputShape,
@@ -378,9 +448,11 @@ def abstract_cache(cfg: ModelConfig, shape: InputShape,
 
 
 def build_decode_step(cfg: ModelConfig, shape: InputShape, *,
-                      dtype=torch.bfloat16) -> StepBundle:
+                      dtype=torch.bfloat16, mesh=None) -> StepBundle:
     """One decode step, ``fn(params, token (B, 1), cache, pos (B,))`` →
-    (logits, cache), the cache written in place."""
+    (logits, cache), the cache written in place. A GSPMD ``mesh`` makes
+    ``fn`` a :class:`GspmdServe`'s ``step`` (see
+    :func:`build_prefill_step`)."""
     b = shape.global_batch
     if cfg.is_encdec:
         def fn(params, token, cache, pos):
@@ -393,9 +465,11 @@ def build_decode_step(cfg: ModelConfig, shape: InputShape, *,
             return transformer.decode_step(params, cfg, token, cache, pos,
                                            dtype=dtype, global_window=gw)
 
+    serve = GspmdServe("decode", fn, mesh) if mesh is not None else None
     args = (abstract_params(cfg), _meta((b, 1), torch.int32),
             abstract_cache(cfg, shape, dtype), _meta((b,), torch.int32))
-    return StepBundle("decode", fn, args, donate_argnums=(2,))
+    return StepBundle("decode", serve.step if serve else fn, args,
+                      donate_argnums=(2,), runner=serve)
 
 
 def build_step(cfg: ModelConfig, shape: InputShape, *,
@@ -403,16 +477,22 @@ def build_step(cfg: ModelConfig, shape: InputShape, *,
                **kw) -> StepBundle:
     """The shape's step: train (``kw`` to :func:`build_train_step`),
     prefill (under ``kw``'s ``remat_policy``, "none" for "auto": there is
-    no planner to choose) or decode."""
+    no planner to choose) or decode. A GSPMD ``mesh`` in ``kw`` places a
+    prefill or decode step on it (:class:`GspmdServe`); serving takes no
+    other mesh."""
     if shape.kind == "train":
         return build_train_step(cfg, shape, num_microbatches=num_microbatches,
                                 dtype=dtype, **kw)
+    mesh = kw.get("mesh")
+    if mesh is not None and getattr(mesh, "mode", None) != "gspmd":
+        raise ValueError(f"a {shape.kind} step is placed on a GSPMD mesh "
+                         f"only, got {mesh!r}")
     if shape.kind == "prefill":
         policy = kw.get("remat_policy") or "none"
         return build_prefill_step(
             cfg, shape, dtype=dtype,
-            remat_policy="none" if policy == "auto" else policy)
-    return build_decode_step(cfg, shape, dtype=dtype)
+            remat_policy="none" if policy == "auto" else policy, mesh=mesh)
+    return build_decode_step(cfg, shape, dtype=dtype, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

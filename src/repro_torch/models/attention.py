@@ -63,11 +63,13 @@ def multihead_attention(q, k, v, *, q_pos, k_pos, window=None, causal=True,
     qf = q.float().reshape(B, S, K, G, hd)
     logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / math.sqrt(hd)
     logits = nn.softcap(logits, softcap)
-    bias = _mask_bias(q_pos, k_pos, window, causal)  # (B, S, T)
+    bias = nn.replicated_like(_mask_bias(q_pos, k_pos, window, causal),
+                              logits)  # (B, S, T)
     while bias.dim() < logits.dim():
         bias = bias[:, None]
     logits = logits + bias
     if k_valid is not None:
+        k_valid = nn.replicated_like(k_valid, logits)
         logits = logits.masked_fill(~k_valid[:, None, None, None, :], -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
@@ -150,7 +152,8 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def _local_attention(q, k, v, positions, window, softcap, G: int):
+def _local_attention(q, k, v, positions, window, softcap, G: int, *,
+                     k_pos=None, causal: bool = True, k_valid=None):
     """The attention of DTensors laid out by :func:`_head_hints`, run on
     each rank's blocks (it is independent per sample, per head and per
     query row): q split over the batch axes and over ``model`` on its
@@ -159,7 +162,10 @@ def _local_attention(q, k, v, positions, window, softcap, G: int):
     are not a whole set of kv groups takes each q head's kv head (G = q
     heads per kv head); context-parallel rows attend to every key,
     unchunked (the mask reads their positions). The gradient of a kv
-    block read by more than one rank is a partial sum over ``model``."""
+    block read by more than one rank is a partial sum over ``model``.
+    ``positions`` are the queries' and, unless ``k_pos`` is given, the
+    keys'; ``k_valid`` (B, T) marks the keys that may be attended (the
+    attention then runs unchunked)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = q.device_mesh
     names = list(mesh.mesh_dim_names)
@@ -172,20 +178,35 @@ def _local_attention(q, k, v, positions, window, softcap, G: int):
     q_l = _ContiguousGrad.apply(q.to_local())
     k_l = _ContiguousGrad.apply(k.to_local(grad_placements=kv_grad))
     v_l = _ContiguousGrad.apply(v.to_local(grad_placements=kv_grad))
-    pos = positions.to_local() if nn._is_dtensor(positions) else positions
+    rows = [p if isinstance(p, Shard) and p.dim % q.dim() == 0
+            else Replicate() for p in q.placements]
+
+    def local_rows(t):
+        if t is None:
+            return None
+        return nn.replicated_like(t, q).redistribute(mesh, rows).to_local()
+
+    pos = local_rows(positions)
+    kpos = pos if k_pos is None else local_rows(k_pos)
+    valid = local_rows(k_valid)
     r = mesh.get_local_rank("model") if mi is not None else 0
     if qp == Shard(2) and kp != Shard(2):  # q heads split, kv heads whole
         h = torch.arange(r * q_l.shape[2], (r + 1) * q_l.shape[2],
                          device=q_l.device)
         k_l, v_l = k_l[:, :, h // G], v_l[:, :, h // G]
     if qp == Shard(1):  # context-parallel: this rank's query rows
-        rows = q_l.shape[1]
+        n = q_l.shape[1]
         out = multihead_attention(
-            q_l, k_l, v_l, q_pos=pos[:, r * rows:(r + 1) * rows], k_pos=pos,
-            window=window, softcap=softcap)
+            q_l, k_l, v_l, q_pos=pos[:, r * n:(r + 1) * n], k_pos=kpos,
+            window=window, causal=causal, softcap=softcap, k_valid=valid)
+    elif valid is not None:
+        out = multihead_attention(q_l, k_l, v_l, q_pos=pos, k_pos=kpos,
+                                  window=window, causal=causal,
+                                  softcap=softcap, k_valid=valid)
     else:
-        out = chunked_attention(q_l, k_l, v_l, q_pos=pos, k_pos=pos,
-                                window=window, softcap=softcap)
+        out = chunked_attention(q_l, k_l, v_l, q_pos=pos, k_pos=kpos,
+                                window=window, causal=causal,
+                                softcap=softcap)
     return DTensor.from_local(out.contiguous(), mesh, q.placements,
                               run_check=False)
 
@@ -204,7 +225,7 @@ def _split_heads(y, n: int, hd: int):
               for i, p in enumerate(y.placements)]
         if pl != list(y.placements):
             y = y.redistribute(y.device_mesh, pl)
-    return y.reshape(B, S, n, hd)
+    return nn.grad_as_forward(y.reshape(B, S, n, hd))
 
 
 def _head_hints(q, k, v, H: int, K: int, S: int):
@@ -236,19 +257,29 @@ def cross_attn_block(p, cfg: ModelConfig, x, kv_src=None, kv_cache=None,
     the frames that may be attended. Returns (out (B, S, D), (k, v))."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = nn.dense(p["wq"], x, compute_dtype).reshape(B, S, H, hd)
+    q = _split_heads(nn.dense(p["wq"], x, compute_dtype), H, hd)
     if kv_cache is None:
         T = kv_src.shape[1]
-        k = nn.dense(p["wk"], kv_src, compute_dtype).reshape(B, T, K, hd)
-        v = nn.dense(p["wv"], kv_src, compute_dtype).reshape(B, T, K, hd)
+        k = _split_heads(nn.dense(p["wk"], kv_src, compute_dtype), K, hd)
+        v = _split_heads(nn.dense(p["wv"], kv_src, compute_dtype), K, hd)
     else:
         k, v = kv_cache
         T = k.shape[1]
     zeros = torch.zeros((), dtype=torch.int32, device=x.device)
-    out = multihead_attention(q, k, v, q_pos=zeros.expand(B, S),
-                              k_pos=zeros.expand(B, T), causal=False,
-                              softcap=cfg.attn_softcap, k_valid=src_valid)
-    out = nn.dense(p["wo"], out.reshape(B, S, H * hd), compute_dtype)
+    q_pos, k_pos = zeros.expand(B, S), zeros.expand(B, T)
+    if kv_cache is not None and nn._is_dtensor(k):  # a placed decode cache
+        out = _blocks_decode(q, k, v, cfg.attn_softcap, k_valid=src_valid)
+    elif nn._is_dtensor(q):
+        q, k2, v2, out_spec = _head_hints(q, k, v, H, K, S)
+        out = nn.shard_hint(_local_attention(
+            q, k2, v2, q_pos, None, cfg.attn_softcap, H // K, k_pos=k_pos,
+            causal=False, k_valid=src_valid), *out_spec)
+    else:
+        out = multihead_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                                  causal=False, softcap=cfg.attn_softcap,
+                                  k_valid=src_valid)
+    out = nn.dense(p["wo"], nn.mergeable(out, 2, 3).reshape(B, S, H * hd),
+                   compute_dtype)
     return out, (k, v)
 
 
@@ -284,7 +315,14 @@ def ring_cache_from_full(k, v, positions, window, max_len: int,
     ``b``'s ring holds its last ``min(lengths[b], W)`` real tokens and
     every other slot is empty, so padding never evicts a real key from a
     window. That is a per-row gather. ``%`` is Python's (floor) modulo,
-    as ``jnp``'s: ``torch.remainder``, not ``fmod``."""
+    as ``jnp``'s: ``torch.remainder``, not ``fmod``.
+
+    DTensor keys and values (a GSPMD prefill) are laid out on each rank's
+    block, their sequence whole: the ring is built there and comes back
+    split as they were (``transformer.prefill`` places it as the
+    cache)."""
+    if nn._is_dtensor(k):
+        return _ring_from_blocks(k, v, positions, window, max_len, lengths)
     B, S, K, hd = k.shape
     W = ring_len(max_len, window)
     if lengths is not None:
@@ -307,6 +345,27 @@ def ring_cache_from_full(k, v, positions, window, max_len: int,
             "pos": positions.index_select(1, src).to(torch.int32)}
 
 
+def _ring_from_blocks(k, v, positions, window, max_len: int, lengths):
+    """:func:`ring_cache_from_full` of DTensor keys and values: each
+    rank's ring from its own samples and heads (the sequence gathered
+    first where it is split), as DTensors of the same layout."""
+    from torch.distributed.tensor import Replicate, Shard
+    if lengths is not None:
+        raise ValueError("a ragged (right-padded) prefill on a GSPMD mesh "
+                         "is not ported: prefill equal-length prompts")
+    dm = k.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim % k.dim() == 1
+          else p for p in k.placements]
+    k, v = k.redistribute(dm, pl), v.redistribute(dm, pl)
+    rows = [p if isinstance(p, Shard) and p.dim % k.dim() == 0
+            else Replicate() for p in pl]
+    pos = nn.replicated_like(positions, k).redistribute(dm, rows)
+    shape = (k.shape[0], ring_len(max_len, window)) + tuple(k.shape[2:])
+    return nn.on_blocks(
+        lambda *a: ring_cache_from_full(*a, window, max_len), k, v, pos,
+        out={"k": (pl, shape), "v": (pl, shape), "pos": (rows, shape[:2])})
+
+
 def attn_decode_step(p, cfg: ModelConfig, x, cache, cur_pos, *, window=None,
                      rope_theta=None, compute_dtype=None):
     """One-token decode. x: (B, 1, D); cur_pos: (B,) absolute positions;
@@ -317,14 +376,15 @@ def attn_decode_step(p, cfg: ModelConfig, x, cache, cur_pos, *, window=None,
     and the older entries converted to it; the cache stores the current
     token rounded to the cache dtype. When the two dtypes differ the
     attention reads a compute-dtype copy of this layer's ring, so the
-    current token is not rounded before it is attended. Returns
-    (out (B, 1, D), cache)."""
+    current token is not rounded before it is attended. A ring of
+    DTensors (a cache placed on a GSPMD mesh) is decoded on each rank's
+    block (:func:`_ring_decode`). Returns (out (B, 1, D), cache)."""
     B = x.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     W = cache["k"].shape[1]
-    q = nn.dense(p["wq"], x, compute_dtype).reshape(B, 1, H, hd)
-    k = nn.dense(p["wk"], x, compute_dtype).reshape(B, 1, K, hd)
-    v = nn.dense(p["wv"], x, compute_dtype).reshape(B, 1, K, hd)
+    q = _split_heads(nn.dense(p["wq"], x, compute_dtype), H, hd)
+    k = _split_heads(nn.dense(p["wk"], x, compute_dtype), K, hd)
+    v = _split_heads(nn.dense(p["wv"], x, compute_dtype), K, hd)
     if cfg.use_qk_norm:
         q = nn.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = nn.rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -332,6 +392,11 @@ def attn_decode_step(p, cfg: ModelConfig, x, cache, cur_pos, *, window=None,
     pos2d = cur_pos[:, None]
     q = nn.apply_rope(q, pos2d, theta)
     k = nn.apply_rope(k, pos2d, theta)
+    if nn._is_dtensor(cache["k"]):
+        out = _ring_decode(q, k, v, cache, cur_pos, window, cfg.attn_softcap)
+        out = nn.dense(p["wo"], nn.mergeable(out, 2, 3).reshape(
+            B, 1, H * hd), compute_dtype)
+        return out, cache
 
     slot = torch.remainder(cur_pos, W).long()
     bidx = torch.arange(B, device=x.device)
@@ -355,3 +420,175 @@ def attn_decode_step(p, cfg: ModelConfig, x, cache, cur_pos, *, window=None,
                               softcap=cfg.attn_softcap, k_valid=k_valid)
     out = nn.dense(p["wo"], out.reshape(B, 1, H * hd), compute_dtype)
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# decode on a GSPMD mesh: the ring split by cache_specs
+# ---------------------------------------------------------------------------
+
+def _split_dims(t):
+    """{dim: the mesh dims that split it, in the mesh's order} of a
+    DTensor."""
+    from torch.distributed.tensor import Shard
+    out = {}
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard):
+            out.setdefault(p.dim % t.dim(), []).append(i)
+    return out
+
+
+def _block_start(t, dim: int, split) -> int:
+    """Where this rank's block of DTensor ``t`` starts along ``dim``
+    (split over ``split[dim]``, major to minor, in equal parts)."""
+    coord = t.device_mesh.get_coordinate()
+    idx = 0
+    for i in split.get(dim, ()):
+        idx = idx * t.device_mesh.size(i) + coord[i]
+    return idx * t.to_local().shape[dim]
+
+
+def _all_reduce(x, op: str, mesh_dims, dm):
+    """``x`` reduced (``"sum"`` / ``"max"``) over the process group of
+    each of ``mesh_dims`` in turn: functional collectives, which the
+    census counts and a card shared over gloo stages through the host."""
+    ops = torch.ops._c10d_functional
+    for i in mesh_dims:
+        x = ops.wait_tensor(ops.all_reduce(
+            x.contiguous(), op, dm.get_group(i).group_name))
+    return x
+
+
+def _write_slot(block, start: int, slot, value) -> None:
+    """``block[b, slot[b] - start] = value[b]`` for the rows whose slot
+    lies in this block (``start`` … ``start + W_block``); the other rows
+    keep their entry. No shape depends on the data."""
+    w = block.shape[1]
+    rel = slot - start
+    hit = (rel >= 0) & (rel < w)
+    idx = rel.clamp(0, w - 1)
+    b = torch.arange(block.shape[0], device=block.device)
+    old = block[b, idx]
+    hit = hit.reshape((-1,) + (1,) * (old.dim() - 1))
+    block[b, idx] = torch.where(hit, value.to(block.dtype), old)
+
+
+def _ring_decode(q, k, v, cache, cur_pos, window, softcap):
+    """One-token attention against a ring of DTensors placed by the
+    reference's ``cache_specs``, run on each rank's block with no gather
+    of the ring (:func:`_blocks_decode`). The ring (B, W, K, hd) may be
+    split on its batch (the batch axes), its slots W, its kv heads K or
+    its head dim hd. The new (k, v) and position are written into the
+    block of the rank that owns slot ``cur_pos % W``, at its offset there
+    (every rank computes the slot; a rank that does not own it keeps its
+    entry). Positions (B, W) may be split otherwise than the keys (a
+    window shorter than the head dim); they are then gathered for the
+    read."""
+    ring, ring_v, ring_pos = cache["k"], cache["v"], cache["pos"]
+    W = ring.shape[1]
+    split, pos_split = _split_dims(ring), _split_dims(ring_pos)
+    if split.get(0) != pos_split.get(0):
+        raise ValueError("a ring's keys and positions split their batch "
+                         "differently")
+    k_l, v_l = _rows(k, ring, split), _rows(v, ring, split)
+    cur = _rows(cur_pos, ring, split).long()
+    slot = torch.remainder(cur, W)
+    k0, hd0 = _block_start(ring, 2, split), _block_start(ring, 3, split)
+    ck, cv = ring.to_local(), ring_v.to_local()
+    nk, nh = ck.shape[2], ck.shape[3]
+    k_new = k_l[:, 0, k0:k0 + nk, hd0:hd0 + nh]
+    v_new = v_l[:, 0, k0:k0 + nk, hd0:hd0 + nh]
+    cp = ring_pos.to_local()
+    _write_slot(cp, _block_start(ring_pos, 1, pos_split), slot,
+                cur.to(torch.int32))
+    w0 = _block_start(ring, 1, split)
+    if ck.dtype == k_new.dtype:
+        _write_slot(ck, w0, slot, k_new)
+        _write_slot(cv, w0, slot, v_new)
+        keys, values = ck, cv
+    else:
+        keys, values = ck.to(k_new.dtype), cv.to(v_new.dtype)
+        _write_slot(keys, w0, slot, k_new)
+        _write_slot(values, w0, slot, v_new)
+        _write_slot(ck, w0, slot, k_new)
+        _write_slot(cv, w0, slot, v_new)
+    if pos_split.get(1) == split.get(1):
+        k_pos = cp
+    else:  # the positions of this rank's slots, from the whole rows
+        k_pos = _rows(ring_pos, ring, split)[:, w0:w0 + ck.shape[1]]
+    k_valid = k_pos >= 0
+    if window is not None:
+        k_valid &= k_pos > (cur[:, None] - window)
+    bias = _mask_bias(cur[:, None], k_pos, None, True)  # (B, 1, W)
+    return _blocks_decode(q, ring, ring_v, softcap, keys=keys, values=values,
+                          bias=bias, valid=k_valid)
+
+
+def _rows(t, ring, split):
+    """This rank's samples of ``t`` (a DTensor, or a plain tensor every
+    rank holds alike), laid out as the ring's batch, every other dim
+    whole: a plain tensor."""
+    from torch.distributed.tensor import Replicate, Shard
+    dm = ring.device_mesh
+    batch = [Shard(0) if i in split.get(0, ()) else Replicate()
+             for i in range(dm.ndim)]
+    return nn.replicated_like(t, ring).redistribute(dm, batch).to_local()
+
+
+def _blocks_decode(q, ring, ring_v, softcap, *, keys=None, values=None,
+                   bias=None, valid=None, k_valid=None):
+    """One query a sample (q (B, 1, H, hd)) against keys and values of
+    DTensors (B, T, K, hd) split by the reference's ``cache_specs`` — a
+    decode ring, an encoder's cross cache — run on each rank's blocks
+    (``keys`` / ``values`` in the compute dtype when given, else the
+    blocks as they are). Each rank takes the query heads of its kv heads
+    and its part of the head dim; a split head dim sums the logits over
+    its axes; over split keys the softmax is split: each rank's max is
+    all-reduced (max), then one all-reduce (sum) of each rank's sum of
+    exponentials and weighted values, and the output is their quotient.
+    ``bias`` (B, 1, T) and ``valid`` (B, T) are this rank's blocks of an
+    additive mask and of the keys that may be attended; ``k_valid`` a
+    whole (B, T) one. Returns the output (B, 1, H, hd), a DTensor whose
+    heads and head dim are split as the keys' kv heads and head dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    dm = ring.device_mesh
+    B, T, K, hd = ring.shape
+    H = q.shape[2]
+    G = H // K
+    split = _split_dims(ring)
+    q_l = _rows(q, ring, split)
+    keys = ring.to_local() if keys is None else keys
+    values = ring_v.to_local() if values is None else values
+    nk, nh = keys.shape[2], keys.shape[3]
+    k0, hd0 = _block_start(ring, 2, split), _block_start(ring, 3, split)
+    if k_valid is not None:  # this rank's samples and keys of the mask
+        blk = [Shard(0) if i in split.get(0, ()) else
+               Shard(1) if i in split.get(1, ()) else Replicate()
+               for i in range(dm.ndim)]
+        valid = nn.replicated_like(k_valid, ring).redistribute(
+            dm, blk).to_local()
+    qf = q_l.float().reshape(q_l.shape[0], 1, K, G, hd)
+    qf = qf[:, :, k0:k0 + nk, :, hd0:hd0 + nh]
+    logits = torch.einsum("bskgd,btkd->bkgst", qf, keys.float())
+    logits = _all_reduce(logits, "sum", split.get(3, ()), dm) / math.sqrt(hd)
+    logits = nn.softcap(logits, softcap)
+    if bias is not None:
+        logits = logits + bias[:, None, None]
+    if valid is not None:
+        logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
+    top = _all_reduce(logits.amax(-1, keepdim=True), "max",
+                      split.get(1, ()), dm)
+    e = torch.exp(logits - top)
+    num = torch.einsum("bkgst,btkd->bskgd", e, values.float())
+    den = e.sum(-1)  # (B, K, G, 1)
+    both = _all_reduce(torch.cat([num.reshape(num.shape[0], -1),
+                                  den.reshape(den.shape[0], -1)], 1),
+                       "sum", split.get(1, ()), dm)
+    num = both[:, :num[0].numel()].reshape(num.shape)
+    den = both[:, num[0].numel():].reshape(den.shape)
+    out = num / den.permute(0, 3, 1, 2)[..., None]  # (B, 1, K, G, hd)
+    out = out.reshape(out.shape[0], 1, nk * G, nh).to(q_l.dtype)
+    pl = [Shard(0) if i in split.get(0, ()) else
+          Shard(2) if i in split.get(2, ()) else
+          Shard(3) if i in split.get(3, ()) else Replicate()
+          for i in range(dm.ndim)]
+    return nn.from_blocks(out.contiguous(), dm, pl, (B, 1, H, hd))

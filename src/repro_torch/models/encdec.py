@@ -79,15 +79,25 @@ def encode(params, cfg: ModelConfig, frames, *, dtype=torch.bfloat16,
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def attn_part(p, h):
-        q = nn.dense(p["attn"]["wq"], h, dtype).reshape(B, S, H, hd)
-        k = nn.dense(p["attn"]["wk"], h, dtype).reshape(B, S, K, hd)
-        v = nn.dense(p["attn"]["wv"], h, dtype).reshape(B, S, K, hd)
+        q = attention._split_heads(
+            nn.dense(p["attn"]["wq"], h, dtype), H, hd)
+        k = attention._split_heads(
+            nn.dense(p["attn"]["wk"], h, dtype), K, hd)
+        v = attention._split_heads(
+            nn.dense(p["attn"]["wv"], h, dtype), K, hd)
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
-        o = attention.multihead_attention(q, k, v, q_pos=positions,
-                                          k_pos=positions, causal=False,
-                                          softcap=cfg.attn_softcap)
-        return nn.dense(p["attn"]["wo"], o.reshape(B, S, H * hd), dtype)
+        if nn._is_dtensor(q):  # on a mesh: the heads' (or rows') blocks
+            q, k, v, out_spec = attention._head_hints(q, k, v, H, K, S)
+            o = nn.shard_hint(attention._local_attention(
+                q, k, v, positions, None, cfg.attn_softcap, H // K,
+                causal=False), *out_spec)
+        else:
+            o = attention.multihead_attention(q, k, v, q_pos=positions,
+                                              k_pos=positions, causal=False,
+                                              softcap=cfg.attn_softcap)
+        return nn.dense(p["attn"]["wo"], nn.mergeable(o, 2, 3).reshape(
+            B, S, H * hd), dtype)
 
     def layer(x, p):
         h = nn.rmsnorm(p["pre_norm"], x, cfg.norm_eps)
@@ -150,7 +160,7 @@ def forward(params, cfg: ModelConfig, frames, tgt_tokens, *,
 # serving
 # ---------------------------------------------------------------------------
 
-@torch.inference_mode()
+@nn.serving_mode
 def init_decode_cache(params, cfg: ModelConfig, frames, max_len: int,
                       dtype=torch.bfloat16):
     """Runs the encoder, projects every decoder layer's cross-attention
@@ -173,17 +183,19 @@ def init_decode_cache(params, cfg: ModelConfig, frames, max_len: int,
             "cross": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
-@torch.inference_mode()
+@nn.serving_mode
 def decode_step(params, cfg: ModelConfig, token, cache, cur_pos, *,
                 dtype=torch.bfloat16):
     """One decoder token. token: (B, 1) int; cur_pos: (B,) absolute
     position. Returns (logits (B, 1, V) fp32, cache); each layer writes
     its self-attention ring slot in place (the JAX package carries the
-    cache through a ``fori_loop`` for the same single copy)."""
+    cache through a ``fori_loop`` for the same single copy). A cache of
+    DTensors (placed by the reference's ``cache_specs`` on a GSPMD mesh,
+    inside ``nn.use_mesh``) is read and written on each rank's blocks."""
     x = nn.embed(params["embed"], token, dtype, scale=cfg.embed_scale)
     cross = cache["cross"]
     for i, p in enumerate(_periods(params["dec_layers"])):
-        ring = {k: leaf[i] for k, leaf in cache["self"].items()}
+        ring = {k: nn.period(leaf, i) for k, leaf in cache["self"].items()}
         h = nn.rmsnorm(p["pre_norm"], x, cfg.norm_eps)
         h, _ = attention.attn_decode_step(p["self_attn"], cfg, h, ring,
                                           cur_pos, compute_dtype=dtype)
@@ -191,7 +203,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_pos, *,
         h = nn.rmsnorm(p["cross_norm"], x, cfg.norm_eps)
         h, _ = attention.cross_attn_block(
             p["cross_attn"], cfg, h,
-            kv_cache=(cross["k"][i], cross["v"][i]), compute_dtype=dtype)
+            kv_cache=(nn.period(cross["k"], i), nn.period(cross["v"], i)),
+            compute_dtype=dtype)
         x = x + h
         h = nn.rmsnorm(p["pre_ffn_norm"], x, cfg.norm_eps)
         x = x + nn.ffn(p["ffn"], h, cfg.ffn_kind, dtype)

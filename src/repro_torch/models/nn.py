@@ -15,6 +15,7 @@ hint returns its input unchanged, so the same code runs on one device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 import sys
@@ -55,6 +56,20 @@ def use_mesh(mesh):
 def current_mesh():
     """The GSPMD mesh of the enclosing :func:`use_mesh` (or None)."""
     return _MESH["mesh"]
+
+
+def serving_mode(fn):
+    """``torch.inference_mode`` around a serving function (prefill,
+    decode), or ``torch.no_grad`` inside a GSPMD mesh: DTensor's views
+    (the period unbinding, a cache's blocks) set version counters, which
+    inference tensors do not have."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        mode = (torch.no_grad() if current_mesh() is not None
+                else torch.inference_mode())
+        with mode:
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def _is_dtensor(x) -> bool:
@@ -138,6 +153,163 @@ def seq_gathered(x):
     return shard_hint(x, ("pod", "data"), *([None] * (x.dim() - 1)))
 
 
+def last_row(x):
+    """``x[:, -1:]``. Of a DTensor split on its sequence dim (the
+    sequence-parallel stream) only each rank's last row is gathered —
+    the (B, ranks, D) rows of the shards, whose last is the sequence's —
+    never the whole sequence."""
+    if not _is_dtensor(x):
+        return x[:, -1:]
+    from torch.distributed.tensor import Shard
+    seq = [i for i, p in enumerate(x.placements)
+           if isinstance(p, Shard) and p.dim % x.dim() == 1]
+    if not seq:
+        return x[:, -1:]
+    rows = math.prod(x.device_mesh.size(i) for i in seq)
+    shape = (x.shape[0], rows) + tuple(x.shape[2:])
+    ends = on_blocks(lambda t: t[:, -1:].contiguous(), x,
+                     out=(x.placements, shape))
+    return ends[:, -1:]
+
+
+def on_channels(fn, x, *others):
+    """``fn(x, *others)`` for a function that treats the last dim of x
+    (B, S, C) channel by channel (a depthwise convolution, a scan along
+    the sequence). On a DTensor ``x`` it runs on each rank's blocks: x
+    and every other argument of its rank laid out with their samples over
+    the batch axes, their sequence whole and their channels over
+    ``model`` where C divides it, a lower-rank argument (a weight (...,
+    C)) split on its channels alike; the result is a DTensor of x's
+    layout. A plain x runs ``fn`` as it is."""
+    if not _is_dtensor(x):
+        return fn(x, *others)
+    ch = "model" if x.shape[-1] % mesh_axis_size("model") == 0 else None
+    x = shard_hint(x, ("pod", "data"), *([None] * (x.dim() - 2)), ch)
+    others = [shard_hint(replicated_like(t, x), *(
+        [("pod", "data")] + [None] * (t.dim() - 2) if t.dim() == x.dim()
+        else [None] * (t.dim() - 1)), ch) for t in others]
+    return on_blocks(fn, x, *others, out=(x.placements, x.shape))
+
+
+class _GradAsForward(torch.autograd.Function):
+    """Identity whose gradient is laid out as its input was (a DTensor's
+    placements): DTensor may hand a view's backward a gradient split on a
+    dim the view merges, which it cannot flatten."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        # the gradient of a partial sum is whole on its axis
+        ctx.layout = (x.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placements = ctx.layout
+        if _is_dtensor(g) and tuple(g.placements) != placements:
+            g = g.redistribute(mesh, placements)
+        return g
+
+
+def grad_as_forward(x):
+    """``x``, its gradient laid out as ``x`` is (:class:`_GradAsForward`);
+    a plain tensor passes."""
+    return _GradAsForward.apply(x) if _is_dtensor(x) else x
+
+
+def whole(x):
+    """This rank's copy of the whole of a DTensor ``x`` (gathered over
+    every axis; differentiable), a plain tensor; a plain ``x`` passes."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh,
+                          [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def mergeable(x, first: int, last: int):
+    """``x`` ready for a reshape that merges its dims ``first`` …
+    ``last``: a DTensor split on any of them but the first is gathered
+    there (DTensor would keep the merged dim in a strided split, which a
+    fake tensor cannot gather later); a plain tensor passes."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard)
+          and first < p.dim % x.dim() <= last else p for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def from_blocks(block, mesh, placements, shape):
+    """The DTensor of whole ``shape`` on ``mesh`` (a ``DeviceMesh``), laid
+    out by ``placements``, whose block on this rank is ``block``, taken
+    as it is (a view stays one: writes to it reach its base)."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(block, mesh, placements, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def on_blocks(fn, *args, out):
+    """``fn`` on this rank's blocks: each DTensor of ``args`` (laid out by
+    the caller) passed as its block, anything else as it is. Each output
+    becomes the DTensor :func:`from_blocks` makes of it for its
+    ``(placements, shape)`` in ``out``: one pair for one output, a list
+    of pairs for a tuple of outputs, a dict for a dict. Nothing here
+    communicates: each rank computes its own blocks."""
+    mesh = next(a.device_mesh for a in args if _is_dtensor(a))
+    res = fn(*[a.to_local() if _is_dtensor(a) else a for a in args])
+    if isinstance(out, dict):
+        return {k: from_blocks(res[k], mesh, *o) for k, o in out.items()}
+    if isinstance(out, list):
+        return tuple(from_blocks(r, mesh, *o) for r, o in zip(res, out))
+    return from_blocks(res, mesh, *out)
+
+
+def period(leaf, i: int):
+    """Period ``i`` of a stacked cache leaf, a view that writes reach the
+    leaf through. A DTensor leaf (a cache placed on a GSPMD mesh; its
+    period dim is never split) gives the DTensor of its block's period
+    ``i``, split as the leaf one dim down."""
+    if not _is_dtensor(leaf):
+        return leaf[i]
+    from torch.distributed.tensor import Shard
+    pl = []
+    for p in leaf.placements:
+        if isinstance(p, Shard):
+            if p.dim % leaf.dim() == 0:
+                raise ValueError("a cache leaf split on its period dim")
+            p = Shard(p.dim % leaf.dim() - 1)
+        pl.append(p)
+    return on_blocks(lambda t: t[i], leaf, out=(pl, leaf.shape[1:]))
+
+
+def write_period(leaf, i: int, new) -> None:
+    """Copy ``new`` over period ``i`` of a stacked cache leaf, in place.
+    On a GSPMD mesh ``new`` is first laid out as the leaf's block (a
+    plain ``new`` is taken as replicated), and each rank writes its own
+    block."""
+    if not _is_dtensor(leaf):
+        leaf[i].copy_(new)
+        return
+    view = period(leaf, i)
+    new = replicated_like(new, view)
+    if list(new.placements) != list(view.placements):
+        new = new.redistribute(view.device_mesh, view.placements)
+    view.to_local().copy_(new.to_local())
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
                bias: bool = False, scale: Optional[float] = None,
                lead: Tuple[int, ...] = (), device=None):
@@ -178,7 +350,10 @@ def dense(p, x, compute_dtype=None):
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
     w = _fsdp_gather(w)
-    y = x @ w
+    # the product's gradient laid out as its output: a gradient split on
+    # the sequence (the stream's layout after the block) cannot be
+    # flattened with the batch for the weight's gradient
+    y = grad_as_forward(x @ w)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -277,7 +452,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if sum(sections) * 2 != hd:
         raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
                          f"head_dim/2 = {hd // 2}")
-    freqs = torch.split(rope_freqs(hd, theta, x.device), list(sections))
+    freqs = torch.split(replicated_like(rope_freqs(hd, theta, x.device),
+                                        positions), list(sections))
     ang = torch.cat([positions[i].float()[..., None] * f
                      for i, f in enumerate(freqs)], dim=-1)  # (B, S, hd/2)
     return _rotate(x, ang)
@@ -372,12 +548,13 @@ def _sharded_embed(table, tokens, compute_dtype, scale: bool):
     split = want[mi] if mi is not None else Replicate()
     if _is_dtensor(tokens):
         tok_pl = list(tokens.placements)
+        if split != Replicate() and tok_pl[mi] != Replicate():
+            # a table split over 'model' looks up tokens whole on it
+            tok_pl[mi] = Replicate()
+            tokens = tokens.redistribute(mesh.device_mesh, tok_pl)
         tok = tokens.to_local()
     else:
         tok_pl, tok = [Replicate()] * len(axes), tokens
-    if split != Replicate() and tok_pl[mi] != Replicate():
-        raise ValueError(f"a table split over 'model' looks up tokens "
-                         f"whole on that axis, got {tok_pl}")
     # each rank looks rows up for its own tokens: the table's gradient is
     # a partial sum over the axes the tokens are split over, whole on the
     # axes they are replicated over, and split as the table on ``model``

@@ -53,6 +53,12 @@ def _rg_lru_coeffs(p, x):
 
 
 def _causal_conv(x, conv_w, conv_b):
+    """Depthwise causal conv (B, S, w); on a mesh on each rank's channels
+    (``nn.on_channels``)."""
+    return nn.on_channels(_causal_conv_plain, x, conv_w, conv_b)
+
+
+def _causal_conv_plain(x, conv_w, conv_b):
     W, S = conv_w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, W - 1, 0))
     out = sum(pad[:, i:i + S, :] * conv_w[i].to(x.dtype) for i in range(W))
@@ -96,7 +102,7 @@ def _recurrent_block(p, cfg: ModelConfig, x, compute_dtype=None,
     if init_state is not None:  # the initial state as a leading step
         a = torch.cat([torch.zeros_like(a[:, :1]), a], dim=1)
         b = torch.cat([init_state.float()[:, None], b], dim=1)
-    h = linear_scan(a, b)
+    h = nn.on_channels(linear_scan, a, b)  # a scan along S, per channel
     if init_state is not None:
         h = h[:, 1:]
     h = h.to(xb.dtype)

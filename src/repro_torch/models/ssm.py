@@ -53,7 +53,12 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
 
 
 def _causal_conv(xBC, conv_w, conv_b):
-    """Depthwise causal conv of width W as W shifted sums. xBC: (B, S, C)."""
+    """Depthwise causal conv of width W as W shifted sums. xBC: (B, S, C);
+    on a mesh on each rank's channels (``nn.on_channels``)."""
+    return nn.on_channels(_causal_conv_plain, xBC, conv_w, conv_b)
+
+
+def _causal_conv_plain(xBC, conv_w, conv_b):
     W, S = conv_w.shape[0], xBC.shape[1]
     pad = F.pad(xBC, (0, 0, W - 1, 0))
     out = sum(pad[:, i:i + S, :] * conv_w[i].to(xBC.dtype) for i in range(W))
@@ -63,6 +68,8 @@ def _causal_conv(xBC, conv_w, conv_b):
 def _conv_tail(x_raw, W: int):
     """The last W-1 pre-conv inputs, left-padded with zeros when S < W-1."""
     tail = x_raw[:, -(W - 1):, :]
+    if tail.shape[1] == W - 1:
+        return tail
     return F.pad(tail, (0, 0, W - 1 - tail.shape[1], 0))
 
 
@@ -125,6 +132,33 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     return y.to(x.dtype), s
 
 
+def _ssd(xs, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """:func:`ssd_chunked`; on a mesh on each rank's blocks: whole
+    sequences, its samples over the batch axes and its heads (independent
+    of one another) over ``model`` where they divide it. Returns (y,
+    final state) as DTensors of that layout."""
+    if not nn._is_dtensor(xs):
+        return ssd_chunked(xs, dt, A, Bm, Cm, chunk, init_state)
+    from torch.distributed.tensor import Replicate, Shard
+    batch = ("pod", "data")
+    heads = "model" if xs.shape[2] % nn.mesh_axis_size("model") == 0 \
+        else None
+    xs = nn.shard_hint(xs, batch, None, heads, None)
+    dt = nn.shard_hint(dt, batch, None, heads)
+    A = nn.shard_hint(nn.replicated_like(A, xs), heads)
+    Bm, Cm = nn.shard_hint(Bm, batch), nn.shard_hint(Cm, batch)
+    if init_state is not None:
+        init_state = nn.shard_hint(nn.replicated_like(init_state, xs), batch,
+                                   heads)
+    state_pl = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+                else Replicate() for p in xs.placements]
+    B, S, H, P = xs.shape
+    return nn.on_blocks(
+        lambda *a: ssd_chunked(*a[:5], chunk, a[5]),
+        xs, dt, A, Bm, Cm, init_state,
+        out=[(xs.placements, xs.shape), (state_pl, (B, H, P, Bm.shape[-1]))])
+
+
 def ssm_block(p, cfg: ModelConfig, x, compute_dtype=None, init_state=None,
               return_cache: bool = False, remat_policy: str = "none"
               ) -> Tuple[torch.Tensor, object]:
@@ -150,9 +184,10 @@ def _ssm_block(p, cfg: ModelConfig, x, compute_dtype=None, init_state=None,
     Cm = xBC[..., di + N:]
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, H)
     A = -torch.exp(p["A_log"])
-    y, final = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
+    y, final = _ssd(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
     y = y + xs * p["D"].to(y.dtype)[None, None, :, None]
-    y = nn.rmsnorm(p["out_norm"], y.reshape(B, S, di) * F.silu(z),
+    y = nn.rmsnorm(p["out_norm"],
+                   nn.mergeable(y, 2, 3).reshape(B, S, di) * F.silu(z),
                    cfg.norm_eps)
     out = nn.dense(p["out_proj"], y, compute_dtype)
     if return_cache:
@@ -197,6 +232,7 @@ def ssm_decode_step(p, cfg: ModelConfig, x, cache, compute_dtype=None):
              + xdt[..., None] * Bm[:, None, None, :])
     y = (state @ Cm[:, None, :, None])[..., 0]  # (B, H, P)
     y = y.to(xs.dtype) + xs * p["D"].to(xs.dtype)[None, :, None]
-    y = nn.rmsnorm(p["out_norm"], y.reshape(B, di) * F.silu(z), cfg.norm_eps)
+    y = nn.rmsnorm(p["out_norm"], nn.mergeable(y, 1, 2).reshape(B, di)
+                   * F.silu(z), cfg.norm_eps)
     out = nn.dense(p["out_proj"], y, compute_dtype)[:, None, :]
     return out, {"state": state, "conv": win[:, 1:, :]}

@@ -259,12 +259,10 @@ def forward(params, cfg: ModelConfig, tokens, *, positions=None,
     # sequence parallelism on a mesh: the reference measured it a win for
     # dense/hybrid/ssm stacks and a regression for MoE — gate by family
     nn.set_seq_shard(False if cfg.is_moe else None)
-    if cfg.tie_embeddings and not return_hidden:
+    if not return_hidden:
         # on a mesh, one FSDP gather of the tied table serves the lookup
         # and the head, and their summed gradient is reduce-scattered once
-        params = {**params, "embed": {
-            **params["embed"], "table": nn._fsdp_gather(
-                params["embed"]["table"])}}
+        params = _tied_gathered(params, cfg)
     x = nn.seq_sharded(_embed_inputs(params, cfg, tokens, vision_embeds,
                                      dtype))
 
@@ -329,7 +327,46 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return tuple(caches)
 
 
-@torch.inference_mode()
+def _tied_gathered(params, cfg: ModelConfig):
+    """On a mesh, the tied table gathered once (over every axis but
+    ``model``) for the lookup and the head; unchanged elsewhere."""
+    if not cfg.tie_embeddings:
+        return params
+    return {**params, "embed": {**params["embed"], "table": nn._fsdp_gather(
+        params["embed"]["table"])}}
+
+
+def _serving_inputs(tokens, vision_embeds, mrope_positions):
+    """A GSPMD prefill's inputs laid out as the model reads them: the
+    tokens and patches over the batch axes only (placed by the
+    reference's ``cache_specs`` their sequence or width may be split
+    over ``model``, which the lookup does not take), the M-RoPE streams
+    over the batch axes on their batch dim."""
+    if not nn._is_dtensor(tokens):
+        return tokens, vision_embeds, mrope_positions
+    batch = ("pod", "data")
+    tokens = nn.shard_hint(tokens, batch, None)
+    if vision_embeds is not None:
+        vision_embeds = nn.shard_hint(vision_embeds, batch, None, None)
+    if mrope_positions is not None:
+        mrope_positions = nn.shard_hint(mrope_positions, None, batch, None)
+    return tokens, vision_embeds, mrope_positions
+
+
+def _cache_for(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               global_window, device, placed: bool):
+    """``init_cache``, or on a GSPMD mesh (``placed``) the same cache as
+    DTensors placed by the reference's ``cache_specs``, each rank
+    allocating its block only."""
+    if not placed:
+        return init_cache(cfg, batch, max_len, dtype, global_window, device)
+    from ..launch import sharding  # deferred: launch imports the models
+    return sharding.placed_cache(
+        init_cache(cfg, batch, max_len, dtype, global_window, "meta"),
+        nn.current_mesh(), device)
+
+
+@nn.serving_mode
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
             positions=None, vision_embeds=None, mrope_positions=None,
             dtype=torch.bfloat16, global_window=None, lengths=None):
@@ -344,7 +381,11 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
     ``lengths`` (B,) serves a right-padded ragged batch: the logits are
     each row's at ``lengths[b] - 1`` and the rings hold real tokens only.
     Exact only where :func:`supports_ragged_prefill`. ``vision_embeds``
-    and ``mrope_positions`` as in :func:`forward`."""
+    and ``mrope_positions`` as in :func:`forward`.
+
+    Inside ``nn.use_mesh`` on DTensor params and tokens (a GSPMD
+    prefill) the cache comes out placed by the reference's
+    ``cache_specs``: each rank allocates and writes its own blocks."""
     check_supported(cfg)
     B, S = tokens.shape[:2]
     _check_mrope(mrope_positions, B, S)
@@ -354,33 +395,42 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
             "pure-attention stacks; this config has state-carrying or MoE "
             "blocks — prefill exact-length groups instead "
             "(see transformer.supports_ragged_prefill)")
+    tokens, vision_embeds, mrope_positions = _serving_inputs(
+        tokens, vision_embeds, mrope_positions)
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        positions = _positions(tokens)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=tokens.device)
-    x = _embed_inputs(params, cfg, tokens, vision_embeds, dtype)
-    cache = init_cache(cfg, B, max_len, x.dtype, global_window, x.device)
-    for i, slot_params in enumerate(_periods(params["blocks"])):
-        for kind, p, c in zip(cfg.layer_pattern, slot_params, cache):
-            x, _, entry = _apply_slot(p, cfg, kind, x, positions, dtype=dtype,
-                                      global_window=global_window,
-                                      mrope_positions=mrope_positions,
-                                      want_cache=True, max_len=max_len,
-                                      lengths=lengths)
-            for name, leaf in c.items():
-                leaf[i].copy_(entry[name])
-            del entry
-    if lengths is None:
-        x_last = x[:, -1:]
-    else:
-        idx = (lengths.long() - 1).clamp(0, S - 1)
-        x_last = torch.gather(x, 1, idx[:, None, None].expand(
-            B, 1, x.shape[-1]))
-    x = nn.rmsnorm(params["final_norm"], x_last, cfg.norm_eps)
-    return _lm_head(params, cfg, x)[:, 0], cache
+    params = _tied_gathered(params, cfg)
+    nn.set_seq_shard(False if cfg.is_moe else None)
+    try:
+        x = nn.seq_sharded(_embed_inputs(params, cfg, tokens, vision_embeds,
+                                         dtype))
+        cache = _cache_for(cfg, B, max_len, x.dtype, global_window,
+                           x.device, nn._is_dtensor(x))
+        for i, slot_params in enumerate(_periods(params["blocks"])):
+            for kind, p, c in zip(cfg.layer_pattern, slot_params, cache):
+                x, _, entry = _apply_slot(
+                    p, cfg, kind, x, positions, dtype=dtype,
+                    global_window=global_window,
+                    mrope_positions=mrope_positions, want_cache=True,
+                    max_len=max_len, lengths=lengths)
+                for name, leaf in c.items():
+                    nn.write_period(leaf, i, entry[name])
+                del entry
+        if lengths is None:
+            x_last = nn.last_row(x)
+        else:
+            idx = (lengths.long() - 1).clamp(0, S - 1)
+            x_last = torch.gather(x, 1, idx[:, None, None].expand(
+                B, 1, x.shape[-1]))
+        x = nn.rmsnorm(params["final_norm"], x_last, cfg.norm_eps)
+        return _lm_head(params, cfg, x)[:, 0], cache
+    finally:
+        nn.set_seq_shard(None)
 
 
-@torch.inference_mode()
+@nn.serving_mode
 def decode_step(params, cfg: ModelConfig, token, cache, cur_pos, *,
                 dtype=torch.bfloat16, global_window=None):
     """One decode step. token: (B, 1) int; cur_pos: (B,) absolute position.
@@ -389,11 +439,14 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_pos, *,
     place, period by period (the JAX package carries it through a
     ``fori_loop`` for the same reason): no second copy of the pool is
     ever made. Attention writes its ring slot; a state slot's new state
-    and conv tail are copied over the old."""
+    and conv tail are copied over the old. A cache of DTensors (placed by
+    the reference's ``cache_specs`` on a GSPMD mesh, inside
+    ``nn.use_mesh``) is written block by block on each rank."""
+    params = _tied_gathered(params, cfg)
     x = _embed(params, cfg, token, dtype)
     for i, slot_params in enumerate(_periods(params["blocks"])):
         for kind, p, c in zip(cfg.layer_pattern, slot_params, cache):
-            view = {k: leaf[i] for k, leaf in c.items()}
+            view = {k: nn.period(leaf, i) for k, leaf in c.items()}
             h = nn.rmsnorm(p["pre_norm"], x, cfg.norm_eps)
             if kind == "ssm":
                 h, new = ssm.ssm_decode_step(p["ssm"], cfg, h, view,
@@ -409,8 +462,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, cur_pos, *,
                 if cfg.use_post_norm:
                     h = nn.rmsnorm(p["post_norm"], h, cfg.norm_eps)
             if new is not view:
-                for k, leaf in view.items():
-                    leaf.copy_(new[k])
+                for k, leaf in c.items():
+                    nn.write_period(leaf, i, new[k])
             x = x + h
             if kind == "ssm":
                 continue

@@ -361,6 +361,45 @@ def test_probe_oom_climbs_the_lattice(tmp_path, monkeypatch):
     assert len(calls) == n  # "auto" probes nothing
 
 
+@pytest.mark.parametrize("full_from", [17, 6])
+def test_climb_keeps_the_reference_joint_rule(tmp_path, monkeypatch,
+                                             full_from):
+    """After a probe OOM rules the analytic policy out, the planner walks
+    the rungs left by the reference's joint rule
+    (``memory_model.suggest_remat_policy_and_micro``): the first whose
+    micro-batch reaches the whole mini-batch, else the one admitting the
+    largest, ties to the cheaper — held against the reference's own
+    function over the micro-batches the calibrated planner admits for
+    each policy pinned. ``none`` runs out of memory; ``dots`` measures
+    over the budget from micro 3, ``period`` from 7 and ``full`` from
+    ``full_from`` (17: it reaches the mini-batch of 16; 6: no policy
+    does, and ``period`` admits the most)."""
+    over = {"dots": 3, "period": 7, "full": full_from}
+
+    def fn(micro, policy):
+        if policy == "none":
+            raise torch.OutOfMemoryError("injected")
+        return int(BUDGET_60 + GB if micro >= over[policy]
+                   else 20 * GB + GB // 100 * micro)
+    _fake_oracle(monkeypatch, fn)
+    admitted = {}
+    for pol in ("dots", "period", "full"):
+        admitted[pol] = _force(tmp_path, remat_policy=pol).micro_batch_size
+    with pytest.raises(ValueError, match="remat policy 'none'"):
+        _force(tmp_path, remat_policy="none")
+    admitted["none"] = None
+    from repro.core import memory_model as jmemory_model
+    monkeypatch.setattr(
+        jmemory_model, "suggest_micro_batch_size",
+        lambda cfg, seq, mini, *, remat_policy, **kw: admitted[remat_policy])
+    want = jmemory_model.suggest_remat_policy_and_micro(
+        jconfigs.get(ARCH), 1024, 16)
+    plan = _force(tmp_path)
+    assert plan.auto_policy and plan.calibrated
+    assert (plan.remat_policy, plan.micro_batch_size) == want
+    assert want == (("full", 16) if full_from == 17 else ("period", 6))
+
+
 def test_probe_oom_of_a_pinned_policy_is_the_planners_error(tmp_path,
                                                             monkeypatch):
     """A pinned policy (or the lattice's last rung) is ruled out only by

@@ -396,12 +396,16 @@ def test_production_dry_run_reports_the_spec_arithmetic(fake_worlds):
 
 
 def test_production_dry_run_refuses_serving_shapes():
-    """Prefill and decode on a production mesh are the serving half of
-    item 11: refused by name."""
-    with pytest.raises(ValueError, match="serving half"):
-        dryrun.run_dryrun("qwen2-1.5b", "decode_32k", reduced=True,
-                          mesh_spec="production", device="cpu",
-                          probe=False, verbose=False)
+    """Prefill and decode on a production mesh are no longer refused: a
+    decode step runs as rank 0 of the 256-rank world, its cache placed by
+    ``cache_specs`` (``tests/test_torch_gspmd_serve.py`` holds the
+    rest)."""
+    res = dryrun.run_dryrun("qwen2-1.5b", "decode_32k", reduced=True,
+                            mesh_spec="production", device="cpu",
+                            probe=False, verbose=False)
+    g = res["gspmd"]
+    assert res["kind"] == "decode" and res["num_devices"] == 256
+    assert g["local_cache_bytes"] > 0 and g["collectives"]["calls"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -58,8 +58,12 @@ from repro_torch.launch import dryrun
 assert cli.main(["--device", "cpu", "--config", "qwen2_reduced",
                  "--executor", "flat"]) == 0
 assert cli.main(["--device", "cpu", "--serve"]) == 0
+assert cli.main(["--device", "cpu", "--serve", "--mesh", "2:1"]) == 0
 assert dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
                     "--reduced", "--device", "cpu", "--no-probe"]) == 0
+assert dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
+                    "--reduced", "--device", "cpu", "--no-probe",
+                    "--mesh", "production"]) == 0
 bad = sorted(k for k in sys.modules
              if k.startswith("jax") or k == "repro" or k.startswith("repro."))
 print("LEAKED", bad)
