@@ -10,7 +10,8 @@ Phases (any failure exits non-zero before the last line is printed):
      switched off for fp32 matmuls and convolutions;
   2. the CUDA C++ kernels built from ``src/repro_torch/kernels/csrc`` by
      ``nvcc`` into ``build/cuda``, one process per source, all started
-     together: K1 (``grad_accum.cu``) and K6 (``flash_attention.cu``);
+     together: K1 (``grad_accum.cu``) and K6 (``flash_attention.cu``,
+     whose build goes on while phase 3 checks K1-K4);
      ptxas's register and spill lines for every instance (a spill in K1,
      or a spill or a serialized wgmma in a bf16 K6 instance, fails the
      phase), the shared memory each K6 instance asks for, from the
@@ -157,7 +158,7 @@ Phases (any failure exits non-zero before the last line is printed):
   14a. serving full qwen2-1.5b (28 layers; fp32 weights, bf16 compute
      and cache) through ``repro_torch.launch.serve.main`` at a 10 GiB
      budget, max_len 2048, 64 Poisson requests at 32/s, prompts
-     128/512/1024, 32 to 128 new tokens, greedy (``serve_phase``): the
+     128/512/1024, 16 to 64 new tokens, greedy (``serve_phase``): the
      plan the reference's arithmetic gives (51 slots, prefill micro 8)
      and the memory model's largest fit, every request finished with its
      clamped token count, the pool all free; prefill latency, decode
@@ -168,7 +169,7 @@ Phases (any failure exits non-zero before the last line is printed):
      calls (1: the next tokens' readback);
   14b. the same for full gemma2-9b (42 layers, window 4096, soft-caps
      50 / 30) at 64 GiB, max_len 8192, 8 requests at 4/s, prompts 1024
-     and 4608, 16 to 64 new tokens (the 4608-token prompts wrap the local
+     and 4608, 8 to 32 new tokens (the 4608-token prompts wrap the local
      rings in prefill and in decode): 8 slots, prefill micro 4;
   14c. at 2 layers of each width, fp32, TF32 off
      (``serve_correctness_phase``): prefill + teacher-forced decode
@@ -179,7 +180,7 @@ Phases (any failure exits non-zero before the last line is printed):
   15a–15c. the ssm, hybrid and MoE families trained at full width
      through ``repro_torch.launch.train.main`` (``family_train_phase``:
      ``flat``, SGD-m, bf16 over fp32 weights, seed 0, 3 steps):
-     mamba2-780m (d 1536, state 128, chunk 256; depth cut to 12 of its
+     mamba2-780m (d 1536, state 128, chunk 256; depth cut to 6 of its
      48 layers) at seq 4096,
      mini-batch 16; recurrentgemma-2b (26 layers, d 2560, vocab 256,000,
      window 2048) at seq 2048, mini-batch 8; moonshot-v1-16b-a3b (d 2048,
@@ -198,7 +199,7 @@ Phases (any failure exits non-zero before the last line is printed):
   15d. serving the three through ``launch.serve.main`` (``serve_phase``,
      as 14a): mamba2-780m at 10 GiB and recurrentgemma-2b at 24 GiB (max
      len 2048 / 4096; 14a's traffic), moonshot-v1-16b-a3b at 4 layers and
-     32 GiB (16 requests at 8/s, prompts 128/512, 32 or 64 new tokens),
+     32 GiB (16 requests at 8/s, prompts 128/512, 16 or 32 new tokens),
      all in exact-length prefill groups;
   15e. at 2 layers of each of the three widths (the hybrid at 3, one
      (recurrent, recurrent, local) period), fp32, TF32 off: 14c's checks
@@ -344,8 +345,8 @@ Phases (any failure exits non-zero before the last line is printed):
      "flat")``: every rank's losses finite and equal, the first near
      ln(vocab); its parameter blocks the spec arithmetic; K1 steps × N_Smu
      × buckets and K2 steps × buckets on every rank's blocks; the steady
-     step and tokens/s (the mean of the steps after the first, a
-     warm-up); the collectives of the second step by kind and axis; each
+     step and tokens/s (GSPMD_STEPS = 2 steps: a warm-up, then the steady
+     one); the collectives of the second step by kind and axis; each
      rank's peak beside ``estimate(mesh=, fsdp_params=True)``;
   21b. the same mesh at 2 layers, fp32, TF32 off: 2 steps within phase
      5's rtol / atol 1e-6 of one device's ``compiled``;
@@ -386,10 +387,23 @@ Phases (any failure exits non-zero before the last line is printed):
      (the steps after the first), each rank's allocator peak; no kernel
      launched.
 
+  23. (``examples_phase``) the port's twins of the reference's
+     ``examples/`` (``repro_torch.examples``) in this process on the
+     card: ``quickstart``, ``serve_decode``, ``train_classifier`` and
+     ``train_segmentation`` at their defaults (each returns, its last
+     loss finite); ``train_100m --full --executor flat`` at full width
+     (12 × 768, vocab 32,768, seq 512, mini-batch 32) against
+     EXAMPLE_BUDGET_GB, whose plan streams the mini-batch in N_Smu >= 2
+     micro-batches (K1 and K2), for EXAMPLE_STEPS steps, then a second
+     call that restores its checkpoint and runs 2 steps more: the plan, the
+     allocator's peak at or under the budget beside the plan's estimate,
+     the steady step and tokens/s, the last logged loss below the first,
+     K1 and K2 launched steps × N_Smu × launch groups and steps × buckets.
+
 Each phase's seconds are printed as it ends, and all of them with the
 total before the last lines. Before the last lines come
 ``{"runtime": {...}}`` (phases 6–8's, 7a's, 7b's, 12's, 13's, 14's,
-15's, 16's, 17's, 18's, 19's, 20's, 21's and 22's numbers)
+15's, 16's, 17's, 18's, 19's, 20's, 21's, 22's and 23's numbers)
 and ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -406,6 +420,7 @@ import time
 import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()  # the script's own clock, imports included
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SLEEP_CYCLES = 50_000_000  # ~27 ms at 1.83 GHz: the host queues the calls
@@ -1991,9 +2006,11 @@ def _sass_stats(so: str):
     return stats
 
 
-def build_phase() -> dict:
+def build_phase(later=()) -> dict:
     """Builds the port's CUDA C++ libraries, one ``nvcc`` for each source,
-    all started together; returns the seconds each build took."""
+    all started together; returns the seconds each build took. The
+    sources named in ``later`` go on building while the caller runs on:
+    their entries are futures of the seconds."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _cuda
 
@@ -2002,11 +2019,17 @@ def build_phase() -> dict:
         _cuda.load(name)
         return time.perf_counter() - t0
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(CUDA_LIBRARIES)) as pool:
-        seconds = dict(zip(CUDA_LIBRARIES, pool.map(build, CUDA_LIBRARIES)))
-    print(f"build: {', '.join(f'{k} {v:.1f}s' for k, v in seconds.items())} "
-          f"(nvcc, sm_90a, in parallel; {time.perf_counter() - t0:.1f}s in "
-          f"all)", flush=True)
+    pool = ThreadPoolExecutor(len(CUDA_LIBRARIES))
+    futures = {name: pool.submit(build, name) for name in CUDA_LIBRARIES}
+    pool.shutdown(wait=False)
+    seconds = {name: f if name in later else f.result()
+               for name, f in futures.items()}
+    done = ", ".join(f"{k} {v:.1f}s" for k, v in seconds.items()
+                     if k not in later)
+    print(f"build: {done} (nvcc, sm_90a, in parallel; "
+          f"{time.perf_counter() - t0:.1f}s in all"
+          + (f"; {', '.join(later)} still building" if later else "")
+          + ")", flush=True)
     return seconds
 
 
@@ -2600,7 +2623,9 @@ def guard_phase(dev) -> dict:
     for g in (False, True):  # warm-up
         params, state, _ = step(g)
     secs = {False: [], True: []}
-    for g in (False, True, True, False):
+    # one timed step each (two each, in turns, until cut for the run's
+    # time limit: the times are only printed)
+    for g in (False, True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, _ = step(g)
@@ -3023,31 +3048,33 @@ def calibration_miss_phase(dev, calibration: dict) -> dict:
 # the serve launcher's arguments per model, and what the JAX package's
 # arithmetic admits for them: (slots, prefill micro, slot bytes, prefill
 # bytes per sample). The new-token counts set the decode steps, which set
-# the phases' seconds (14a, 14b, 15d, 22b): 32 to 128 (gemma2 16 to 64)
+# the phases' seconds (14a, 14b, 15d, 22b): 16 to 64 (gemma2 8 to 32;
+# moonshot 16 or 32), a quarter of the 64 to 256 they once were, cut for
+# the run's time limit
 SERVE_ARGV = {
     "qwen2-1.5b": ["--arch", "qwen2-1.5b", "--dtype", "bfloat16",
                    "--budget", "10", "--max-len", "2048", "--requests", "64",
                    "--rate", "32", "--prompt-lens", "128,512,1024",
-                   "--new-tokens", "32,128", "--temperature", "0"],
+                   "--new-tokens", "16,64", "--temperature", "0"],
     "gemma2-9b": ["--arch", "gemma2-9b", "--dtype", "bfloat16",
                   "--budget", "64", "--max-len", "8192", "--requests", "8",
                   "--rate", "4", "--prompt-lens", "1024,4608",
-                  "--new-tokens", "16,64", "--temperature", "0"],
+                  "--new-tokens", "8,32", "--temperature", "0"],
     # 15d: the state and MoE families, exact-length prefill groups
     "mamba2-780m": ["--arch", "mamba2-780m", "--dtype", "bfloat16",
                     "--budget", "10", "--max-len", "2048", "--requests",
                     "64", "--rate", "32", "--prompt-lens", "128,512,1024",
-                    "--new-tokens", "32,128", "--temperature", "0"],
+                    "--new-tokens", "16,64", "--temperature", "0"],
     "recurrentgemma-2b": ["--arch", "recurrentgemma-2b", "--dtype",
                           "bfloat16", "--budget", "24", "--max-len", "4096",
                           "--requests", "64", "--rate", "32",
                           "--prompt-lens", "128,512,1024", "--new-tokens",
-                          "32,128", "--temperature", "0"],
+                          "16,64", "--temperature", "0"],
     "moonshot-v1-16b-a3b": ["--arch", "moonshot-v1-16b-a3b", "--layers", "4",
                             "--dtype", "bfloat16", "--budget", "32",
                             "--max-len", "2048", "--requests", "16",
                             "--rate", "8", "--prompt-lens", "128,512",
-                            "--new-tokens", "32,64", "--temperature", "0"],
+                            "--new-tokens", "16,32", "--temperature", "0"],
 }
 # slots, prefill micro, kv_slot_bytes, prefill bytes a sample: the plan the
 # reference's arithmetic gives (tests/test_torch_serving.py pins the
@@ -3422,8 +3449,8 @@ def serve_correctness_phase(dev, arch: str) -> dict:
 # arch: the launcher's flags beyond FAMILY_ARGV (full width; moonshot's
 # depth cut to 4 of its 48 layers: 48 would be ~64 GB of fp32 params)
 FAMILY_TRAIN = {
-    # mamba2's depth cut to 12 of its 48 layers (chip_smoke's time limit)
-    "mamba2-780m": ["--seq", "4096", "--mini-batch", "16", "--layers", "12"],
+    # mamba2's depth cut to 6 of its 48 layers (chip_smoke's time limit)
+    "mamba2-780m": ["--seq", "4096", "--mini-batch", "16", "--layers", "6"],
     "recurrentgemma-2b": ["--seq", "2048", "--mini-batch", "8"],
     "moonshot-v1-16b-a3b": ["--seq", "2048", "--mini-batch", "8",
                             "--layers", "4"],
@@ -3442,8 +3469,8 @@ def _route_recorder():
     from repro_torch.models import moe
     real, records = moe.route, []
 
-    def route(p, cfg, xt):
-        out = real(p, cfg, xt)
+    def route(p, cfg, xt, blocks=None):
+        out = real(p, cfg, xt, blocks)
         keep = out[2].detach()
         records.append(((~keep).sum(), keep.numel()))
         return out
@@ -5436,7 +5463,9 @@ GSPMD_LAYERS = 2
 GSPMD_SEQ = 1024
 GSPMD_MINI = 16  # the main path's mini-batch
 GSPMD_MICROBATCHES = 2
-GSPMD_STEPS = 3  # the first a warm-up (DTensor's propagation cache)
+# the first a warm-up (DTensor's propagation cache), the second the steady
+# one, under the census (cut from 3 for the run's time limit)
+GSPMD_STEPS = 2
 GSPMD_CHECK_LAYERS = 2
 GSPMD_CHECK_STEPS = 2
 GSPMD_CHECK_SEQ = 128
@@ -6276,6 +6305,171 @@ def gspmd_serve_phase(world) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 23. the five examples (repro_torch.examples) on the card
+# ---------------------------------------------------------------------------
+
+# train_100m --full plans mini-batch 32 at seq 512 against this budget:
+# the memory model admits micro-batch 2 (its estimate at micro 2 is 2.159
+# GiB, at micro 4 2.204 GiB), so the step streams 16 micro-batches, and
+# the allocator's peak must stay under it (on an H100 80GB HBM3 it was
+# 1.963 GiB at micro 2 and 2.631 GiB at micro 4)
+EXAMPLE_BUDGET_GB = 2.18
+# then a second call resumes to EXAMPLE_STEPS + 2; the loss, in the LR's
+# warm-up, falls below the first step's for good from about step 10 on
+EXAMPLE_STEPS = 10
+
+
+class _Tee:
+    """Writes to stdout and keeps a copy."""
+
+    def __init__(self):
+        self.out, self.parts = sys.stdout, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def examples_phase(dev) -> dict:
+    """23. The port's twins of the reference's ``examples/`` in this
+    process on the card: ``quickstart``, ``serve_decode``,
+    ``train_classifier`` and ``train_segmentation`` at their defaults
+    (each returns, its last loss finite); then ``train_100m --full
+    --executor flat`` at full width (12 × 768, vocab 32,768, seq 512,
+    mini-batch 32) planned against EXAMPLE_BUDGET_GB, so the mini-batch
+    streams in N_Smu >= 2 micro-batches, for EXAMPLE_STEPS steps into
+    ``build/train_100m_ckpt``, and a second call that restores from it and
+    runs 2 steps more: the plan, the allocator's peak beside the plan's
+    estimate and the budget (at or under it), the steady step and
+    tokens/s, the last logged loss below the first; the launch counters
+    zeroed before the first call and read after the second (K1 steps ×
+    N_Smu × launch groups, K2 steps × buckets)."""
+    import contextlib
+    import shutil
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import memory_model
+    from repro_torch.engine import FlatSpec
+    from repro_torch.examples import (quickstart, serve_decode, train_100m,
+                                      train_classifier, train_segmentation)
+    from repro_torch.launch import steps
+
+    out = {}
+    t0 = time.perf_counter()
+    q = quickstart.main([])
+    check(all(math.isfinite(x) for v in q.values() for x in v),
+          f"examples: quickstart not finite: {q}")
+    out["quickstart"] = {"printed": q, "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    gen = serve_decode.main([])
+    check(tuple(gen.shape) == (4, 16), f"examples: serve_decode generated "
+                                       f"{tuple(gen.shape)}")
+    out["serve_decode"] = {"first": gen[0].tolist(),
+                           "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    cls = train_classifier.main([])
+    check(all(math.isfinite(r["loss"]) for r in cls.values()),
+          f"examples: train_classifier not finite: {cls}")
+    out["train_classifier"] = {"results": cls, "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    seg = train_segmentation.main([])
+    check(all(math.isfinite(x) for x in seg["losses"].values())
+          and math.isfinite(seg["iou"]),
+          f"examples: train_segmentation not finite: {seg}")
+    out["train_segmentation"] = {**seg, "s": time.perf_counter() - t0}
+
+    ckpt = os.path.join(ROOT, "build", "train_100m_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--full", "--executor", "flat", "--hbm-budget-gb",
+            str(EXAMPLE_BUDGET_GB), "--ckpt-dir", ckpt]
+    budget = int(EXAMPLE_BUDGET_GB * GIB)
+    gc_collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_100m.main(argv + ["--steps", str(EXAMPLE_STEPS)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    tee = _Tee()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        second = train_100m.main(argv + ["--steps",
+                                         str(EXAMPLE_STEPS + 2)])
+    resume_wall = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    plan, cfg = first["plan"], first["config"]
+    hist = first["history"] + second["history"]
+    losses = [h["loss"] for h in hist]
+    # what the Trainer printed: every 10th step and each call's last
+    logged = [h["loss"] for h in hist if h["step"] % 10 == 0
+              or h["step"] in (EXAMPLE_STEPS - 1, EXAMPLE_STEPS + 1)]
+    clocks = [h["readback_s"] for h in first["history"]]
+    gaps = [b - a for a, b in zip(clocks, clocks[1:])][:-1]
+    step_s = sum(gaps) / len(gaps)
+    seq = 512
+    estimate = memory_model.estimate(
+        cfg, seq, remat_policy=plan.remat_policy).total(
+            plan.micro_batch_size)
+    abstract = steps.abstract_params(cfg)
+    groups = _k1_groups(abstract)
+    n_b = FlatSpec.for_tree(abstract).num_buckets
+    want = (len(hist) * plan.num_micro_batches * groups, len(hist) * n_b)
+    card = card_line()
+    print(f"examples [{card}]: train_100m --full --executor flat: "
+          f"{plan.describe()}; peak allocated {peak} B ({peak / GIB:.3f} "
+          f"GiB; {base} B before) vs the plan's estimate {estimate} B "
+          f"({estimate / GIB:.3f} GiB) and the budget {budget} B "
+          f"({EXAMPLE_BUDGET_GB} GiB); losses {losses} (logged {logged}); "
+          f"steady step {step_s:.4f}s, {32 * seq / step_s:.1f} tokens/s; "
+          f"{EXAMPLE_STEPS} steps in {wall:.1f}s, resumed at step "
+          f"{second['start']} to {EXAMPLE_STEPS + 2} in {resume_wall:.1f}s; "
+          f"K1/K2 launches {counts['grad_accum']}/{counts['fused_sgd_mom']}"
+          f" (expected {want[0]}/{want[1]}); quickstart "
+          f"{out['quickstart']['s']:.1f}s, serve_decode "
+          f"{out['serve_decode']['s']:.1f}s, train_classifier "
+          f"{out['train_classifier']['s']:.1f}s, train_segmentation "
+          f"{out['train_segmentation']['s']:.1f}s", flush=True)
+    check(plan.num_micro_batches >= 2,
+          f"examples: train_100m planned {plan.describe()} at "
+          f"{EXAMPLE_BUDGET_GB} GiB: the mini-batch is not split")
+    check(f"restored checkpoint at step {EXAMPLE_STEPS}" in tee.text()
+          and second["start"] == EXAMPLE_STEPS,
+          f"examples: the second train_100m did not restore step "
+          f"{EXAMPLE_STEPS}")
+    check([h["step"] for h in hist] == list(range(EXAMPLE_STEPS + 2)),
+          f"examples: train_100m ran steps {[h['step'] for h in hist]}")
+    check(all(math.isfinite(x) for x in losses),
+          f"examples: train_100m losses not finite: {losses}")
+    check(logged[-1] < logged[0], f"examples: train_100m's last logged loss "
+                                  f"{logged[-1]} is not below the first "
+                                  f"{logged[0]}")
+    check(peak <= budget, f"examples: train_100m peaked at {peak} B, over "
+                          f"its {budget} B budget")
+    check((counts["grad_accum"], counts["fused_sgd_mom"]) == want,
+          f"examples: train_100m launched {counts}, expected K1 {want[0]} "
+          f"(steps x micro-batches x {groups} launch groups) and K2 "
+          f"{want[1]}")
+    out["train_100m"] = {
+        "card": card, "plan": plan.describe(),
+        "num_micro_batches": plan.num_micro_batches,
+        "micro": plan.micro_batch_size, "budget_bytes": budget,
+        "peak_bytes": peak, "allocated_before_bytes": base,
+        "estimate_bytes": estimate, "losses": losses,
+        "steady_step_s": step_s, "tokens_per_s": 32 * seq / step_s,
+        "wall_s": wall, "resume_wall_s": resume_wall, "counts": counts}
+    return out
+
+
 def run() -> dict:
     os.environ.setdefault("TRITON_CACHE_DIR",
                           os.path.join(ROOT, "build", "triton"))
@@ -6314,11 +6508,14 @@ def run() -> dict:
             phase_s[name] = time.perf_counter() - t0
             print(f"phase {name}: {phase_s[name]:.1f}s", flush=True)
 
-    build_s = timed("2 build", build_phase)
+    # K6's library (the longer build) builds on while phase 3 checks K1-K4
+    build_s = timed("2 build", build_phase, ("flash_attention",))
     k1_build = build_k1(build_s["grad_accum"])
-    k6_build = build_k6(build_s["flash_attention"])
     timed("3 kernels", kernel_phase, dev, errs)
     guard_cases = timed("3 GUARD kernels", guard_kernel_phase, dev)
+    build_s["flash_attention"] = timed("2 build flash_attention (the rest)",
+                                       build_s["flash_attention"].result)
+    k6_build = build_k6(build_s["flash_attention"])
     timed("4 edges", edge_phase, dev, errs)
     timed("5 cross-check", cross_check_phase, dev)
     main = timed("6 main path", main_path_phase, dev)
@@ -6357,12 +6554,13 @@ def run() -> dict:
     worlds = world_phases(timed, dev, st["train"])
     dp["check"], fault = worlds["dp_check"], worlds["fault"]
     pp, gspmd = worlds["pipeline"], worlds["gspmd"]
+    examples = timed("23 examples", examples_phase, dev)
     # launches of the comparisons above do not count: the counts are the
     # paths' — qwen2-1.5b's main path, ResNet-50's, U-Net's, the
     # families' training paths (15a-15c, 17a, 17b), the data-parallel
-    # path's ranks, the
-    # kernel-API path's and the five serving paths' — each read right
-    # after it ran (a rank's in its own process)
+    # path's ranks, the kernel-API path's, the five serving paths' and the
+    # train_100m example's — each read right after it ran (a rank's in its
+    # own process)
     serve_paths = {f"serve {a}": r["counts"]
                    for a, r in [*serve.items(), *fam["serve"].items()]}
     paths = {"qwen2-1.5b": main["counts"],
@@ -6385,6 +6583,7 @@ def run() -> dict:
                 for k, c in gspmd["serve"]["counts"].items()},
              **{f"gspmd serve qwen2-1.5b {k}": c
                 for k, c in gspmd["prefill_decode"]["counts"].items()},
+             "example train_100m": examples["train_100m"]["counts"],
              **serve_paths}
     records = []
     for name, (route, src, replaces, bytes_per, flops_per) in \
@@ -6470,11 +6669,16 @@ def run() -> dict:
                   "prefill_decode": {k: v for k, v in
                                      gspmd["prefill_decode"].items()
                                      if k != "counts"}},
+        "examples": {k: ({x: y for x, y in v.items() if x != "counts"}
+                         if k == "train_100m" else v)
+                     for k, v in examples.items()},
         "phase_s": phase_s,
         "total_s": sum(phase_s.values())}}),
         flush=True)
-    print(f"phases: {sum(phase_s.values()):.1f}s in all: " + ", ".join(
-        f"{k} {v:.1f}s" for k, v in phase_s.items()), flush=True)
+    print(f"phases: {sum(phase_s.values()):.1f}s in all, "
+          f"{time.perf_counter() - T_START:.1f}s since the script started: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()),
+          flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(f"card: {card_line()}", flush=True)
     return {"ok": True, "device": {"platform": "gpu",

@@ -62,7 +62,9 @@ host_staged_collectives``).
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -373,6 +375,39 @@ _KINDS = {"all_gather_into_tensor": "all_gather",
           "broadcast": "broadcast"}
 
 
+# DTensor's sharding propagation derives an op's global output shape by
+# running the op on fake tensors of the WHOLE shape (under the enclosing
+# fake mode, or a new one): those run through a census's dispatch too, but
+# no rank holds them or computes them
+_SHAPE_ONLY = threading.local()
+
+
+def _shape_only_depth() -> int:
+    return getattr(_SHAPE_ONLY, "depth", 0)
+
+
+def _mark_shape_propagation() -> None:
+    """Wrap DTensor's ``ShardingPropagator._propagate_tensor_meta_non_cached``
+    (once, process-wide) so a census can tell its whole-shape fake
+    tensors from the rank's own; a torch without it is left as it is."""
+    from torch.distributed.tensor import _sharding_prop as sp
+    fn = getattr(sp.ShardingPropagator, "_propagate_tensor_meta_non_cached",
+                 None)
+    if fn is None or getattr(fn, "_census_marked", False):
+        return
+
+    @functools.wraps(fn)
+    def marked(*args, **kwargs):
+        _SHAPE_ONLY.depth = _shape_only_depth() + 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _SHAPE_ONLY.depth -= 1
+
+    marked._census_marked = True
+    sp.ShardingPropagator._propagate_tensor_meta_non_cached = marked
+
+
 class CollectiveCensus(TorchDispatchMode):
     """Counts the functional collectives run inside it — DTensor's
     redistributions and the loss's reductions — by kind and by the mesh
@@ -384,7 +419,9 @@ class CollectiveCensus(TorchDispatchMode):
     ``local=True`` also counts what one rank computes: the FLOPs of its
     local matmuls (``torch.utils.flop_counter``'s formulas) and the peak
     of the live bytes of the local tensors it sees (each storage from its
-    first sight until it is freed) — the dry run's per-rank numbers."""
+    first sight until it is freed) — the dry run's per-rank numbers. The
+    whole-shape fake tensors of DTensor's sharding propagation count in
+    neither (:func:`_mark_shape_propagation`)."""
 
     def __init__(self, mesh, local: bool = False):
         super().__init__()
@@ -398,6 +435,7 @@ class CollectiveCensus(TorchDispatchMode):
         if local:
             from .steptrace import _LiveBytes
             self._live = _LiveBytes()
+            _mark_shape_propagation()
 
     @property
     def peak_bytes(self) -> int:
@@ -452,7 +490,7 @@ class CollectiveCensus(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **kwargs)
         pkt = getattr(func, "_overloadpacket", None)
-        if self._live is not None:
+        if self._live is not None and not _shape_only_depth():
             from torch.utils.flop_counter import flop_registry
             from .steptrace import _tensors
             for t in _tensors(args) + _tensors(out):

@@ -84,22 +84,35 @@ def top_k(probs, k: int):
     return v[..., :k], i[..., :k]
 
 
-def route(p, cfg: ModelConfig, xt):
+def route(p, cfg: ModelConfig, xt, blocks=None):
     """Router and dispatch plan of tokens xt (T, D): (top-k expert ids
     (T, k), renormalized weights (T, k) fp32, keep mask (T·k,), buffer
-    row per (token, choice) (T·k,), capacity C, aux loss fp32)."""
+    row per (token, choice) (T·k,), capacity C, aux loss fp32).
+
+    ``blocks`` (on a mesh) makes xt one block of a batch whose tokens are
+    split over ranks in token order: a function of the block's choices
+    per expert (E,) and summed router probabilities (E,) that returns the
+    batch's token count T, the choices per expert of the earlier blocks
+    (E,), of the whole batch (E,) and the batch's summed probabilities
+    (E,). Queue positions, the capacity and the aux loss are then the
+    whole batch's, as if one device routed it."""
     E, k = cfg.num_experts, cfg.experts_per_token
     T = xt.shape[0]
     probs = torch.softmax(nn.dense(p["router"], xt, torch.float32), dim=-1)
     topv, topi = top_k(probs, k)
     topv = topv / topv.sum(-1, keepdim=True)
-    # load-balance aux loss: E · sum_e (mean prob_e) · (fraction routed_e)
-    ce = F.one_hot(topi, E).float().sum(1).mean(0) / k
-    aux = E * torch.sum(probs.mean(0) * ce)
-    C = min(max(1, int(math.ceil(T * k / E * cfg.capacity_factor))), T)
     flat_e = topi.reshape(-1)  # token-major
     in_e = F.one_hot(flat_e, E)  # (T·k, E)
     pos = (torch.cumsum(in_e, dim=0) * in_e - 1).amax(-1)  # queue position
+    if blocks is None:
+        # load-balance aux: E · sum_e (mean prob_e) · (fraction routed_e)
+        ce = F.one_hot(topi, E).float().sum(1).mean(0) / k
+        aux = E * torch.sum(probs.mean(0) * ce)
+    else:
+        T, before, counts, psum = blocks(in_e.sum(0), probs.sum(0))
+        pos = pos + before[flat_e]
+        aux = E * torch.sum(psum / T * (counts.float() / T / k))
+    C = min(max(1, int(math.ceil(T * k / E * cfg.capacity_factor))), T)
     keep = pos < C
     idx = torch.where(keep, flat_e * C + pos,
                       torch.full_like(flat_e, E * C))  # dropped: trash row
@@ -138,66 +151,115 @@ def _moe_block(p, cfg: ModelConfig, x, compute_dtype=None):
     return nn.seq_sharded(out.reshape(B, S, D).to(x.dtype)), aux.float()
 
 
-def _grad_summed(t, mesh, grad_placements):
-    """``t`` (every rank's equal copy) as it is, its gradient summed over
-    the axes ``grad_placements`` marks ``Partial`` (each rank's gradient
-    is then a part of the whole)."""
-    from torch.distributed.tensor import Replicate
-    return nn.from_blocks(t, mesh, [Replicate()] * mesh.ndim,
-                          t.shape).to_local(grad_placements=grad_placements)
+def _grad_as(t, mesh, placements, grad_placements, shape):
+    """``t``, this rank's block of a DTensor of whole ``shape`` laid out
+    by ``placements``, as it is; its gradient taken as laid out by
+    ``grad_placements`` (a ``Partial`` axis sums the ranks' gradients
+    there)."""
+    if list(placements) == list(grad_placements):
+        return t
+    return nn.from_blocks(t, mesh, placements, shape).to_local(
+        grad_placements=grad_placements)
 
 
 def _dispatch_on_mesh(p, cfg: ModelConfig, xt):
-    """The routed experts of DTensor tokens ``xt`` (T, D): (out (T, D),
-    aux), both replicated. The routing runs on every token, whole on
-    every rank: the capacity queues are the reference's, over the whole
-    batch (DTensor's strategies for index ops on split tensors also
-    differ across torch versions). Each rank then fills only its block
-    of the (E, C, D) dispatch buffer — its experts, or its capacity
-    slots, as :func:`_hints` splits them over ``model`` — runs its
-    experts on it and combines its share of every token's output; one
-    all-reduce over ``model`` sums the shares. Nothing of size
-    T·k × D or of the whole buffer is held."""
+    """The routed experts of DTensor tokens ``xt`` (T, D): (out (T, D) in
+    the tokens' layout over the batch axes, aux replicated). Each rank
+    routes only its own block of the tokens — their split over the batch
+    axes the input splits on (``pod``, ``data``), whole over ``model``.
+    A token's queue position is its position in its block plus the
+    choices of that expert in the earlier blocks (one all-gather of E
+    counts), so the capacity queues, the drops and the aux loss are the
+    reference's over the whole batch.
+
+    The dispatch buffer is the logical (E, nd, Mc, c, D) of the (E, C, D)
+    one: its experts over ``model`` where E divides it (expert-parallel),
+    else its capacity slots where C divides it (Mc = the ``model`` size),
+    else whole; its slots split in nd chunks of c over the batch axes
+    where C divides (else nd = 1). Each rank fills its ``model`` block
+    with its own tokens at their queue positions; a reduce-scatter over
+    the batch axes (an all-reduce when nd = 1) sums the blocks, each rank
+    runs its experts on its chunk, an all-gather gives back the block's
+    outputs, and each rank combines its share of its own tokens' outputs;
+    one all-reduce over ``model`` sums the shares. Nothing of the whole
+    batch's tokens is held on a rank."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     E, k = cfg.num_experts, cfg.experts_per_token
     T, D = xt.shape
-    xt = nn.shard_hint(xt, None, None)
     dm = xt.device_mesh
-    xl = nn.whole(xt)
-    _, topv, keep, idx, C, aux = route(
-        {"router": {n: nn.whole(w) for n, w in p["router"].items()}}, cfg,
-        xl)
-    _, out_spec = _hints(E, C)
     names = list(dm.mesh_dim_names)
-    dim = out_spec.index("model") if "model" in out_spec else None
-    nE, nC, e0, c0 = E, C, 0, 0
-    if dim is not None:
-        m, r = dm.size(names.index("model")), dm.get_local_rank("model")
-        if dim == 0:
-            nE, e0 = E // m, r * (E // m)
-        else:
-            nC, c0 = C // m, r * (C // m)
-    blk = [Shard(dim) if n == "model" and dim is not None else Replicate()
-           for n in names]
-    part = [Partial() if n == "model" and dim is not None else Replicate()
-            for n in names]
-    e_of, slot = idx // C, idx % C  # a dropped choice: e_of == E
-    mine = keep & (e_of >= e0) & (e_of < e0 + nE) & (slot >= c0) \
-        & (slot < c0 + nC)
-    rows = torch.where(mine, (e_of - e0) * nC + slot - c0,
-                       nE * nC).reshape(T, k)  # this block's row, or trash
-    if dim is not None:  # each rank's share of the gradient is partial
-        xl, topv = _grad_summed(xl, dm, part), _grad_summed(topv, dm, part)
-    buf = xl.new_zeros((nE * nC + 1, D))
+    size = {n: dm.size(i) for i, n in enumerate(names)}
+    split = [n for n, pl in zip(names, xt.placements) if n != "model"
+             and isinstance(pl, Shard) and pl.dim % xt.dim() == 0]
+    tok = [Shard(0) if n in split else Replicate() for n in names]
+    if list(xt.placements) != tok:
+        xt = xt.redistribute(dm, tok)
+    nb, b = 1, 0  # blocks, and this rank's, in DTensor's nested order
+    for n in split:
+        nb, b = nb * size[n], b * size[n] + dm.get_local_rank(n)
+    xl = xt.to_local()
+    Tl = xl.shape[0]
+    over = [Partial() if n in split else Replicate() for n in names]
+    # the router whole; each block's routing gives a part of its gradient
+    router = {n: w.redistribute(dm, [Replicate()] * dm.ndim).to_local(
+        grad_placements=over) if nn._is_dtensor(w) else w
+        for n, w in p["router"].items()}
+
+    def blocks(counts, psum):
+        every = nn.from_blocks(counts[None], dm, tok, (nb, E)).full_tensor()
+        psum = nn.from_blocks(psum, dm, over, (E,)).full_tensor()
+        return T, every[:b].sum(0), every.sum(0), psum
+
+    _, topv, keep, idx, C, aux = route({"router": router}, cfg, xl,
+                                       blocks if split else None)
+    M = size.get("model", 1)
+    m = dm.get_local_rank("model") if M > 1 else 0
+    expert = M > 1 and E % M == 0
+    capacity = not expert and M > 1 and C % M == 0
+    Mc = M if capacity else 1
+    nE, e0 = (E // M, m * (E // M)) if expert else (E, 0)
+    nd = nb if C % (nb * Mc) == 0 else 1
+    c = C // (nd * Mc)
+    mpl = Shard(0) if expert else Shard(2) if capacity else Replicate()
+    pre = [mpl if n == "model" else Partial() if n in split
+           else Replicate() for n in names]
+    post = [Shard(1) if n in split and nd > 1 else q
+            if n == "model" else Replicate() for n, q in zip(names, pre)]
+    full = [Replicate() if n in split else q for n, q in zip(names, pre)]
+    part = [Partial() if n == "model" and (expert or capacity) else q
+            for n, q in zip(names, tok)]
+    e_of, s = idx // C, idx % C  # a dropped choice: e_of == E
+    q = s // c
+    mine = keep & (e_of >= e0) & (e_of < e0 + nE)
+    if capacity:
+        mine = mine & (q % Mc == m)
+    rows = torch.where(mine, ((e_of - e0) * nd + q // Mc) * c + s % c,
+                       nE * nd * c).reshape(Tl, k)  # this block's, or trash
+    # each model rank's share of a token's output takes a part of the
+    # token's gradient (the routing above took the whole)
+    xd = _grad_as(xl, dm, tok, part, (T, D))
+    topv = _grad_as(topv, dm, tok, part, (T, k))
+    buf = xl.new_zeros((nE * nd * c + 1, D))
     for j in range(k):  # choice j of every token, token-major as route's
-        buf = buf.index_add(0, rows[:, j], xl)
-    eout = _expert_ffn(p, nn.from_blocks(buf[:nE * nC].reshape(nE, nC, D),
-                                         dm, blk, (E, C, D)),
-                       cfg.ffn_kind, E)
-    el = eout.to_local().reshape(nE * nC, D)
-    el = torch.cat([el, el.new_zeros((1, D))])
-    w = torch.where(mine, topv.reshape(-1), 0.0).to(xl.dtype).reshape(T, k)
+        buf = buf.index_add(0, rows[:, j], xd)
+    shape5 = (E, nd, Mc, c, D)
+    xe = nn.from_blocks(buf[:-1].view(nE, nd, 1, c, D), dm, pre,
+                        shape5).redistribute(dm, post).to_local()
+    wgrad = [Partial() if n in split and nd > 1 else Partial()
+             if n == "model" and capacity else Shard(0)
+             if n == "model" and expert else Replicate() for n in names]
+    wpl = [Shard(0) if n == "model" and expert else Replicate()
+           for n in names]
+    wl = {n: p[n].to(xl.dtype).redistribute(dm, wpl).to_local(
+        grad_placements=wgrad) for n in ("w_up", "w_gate", "w_down")
+        if n in p}
+    eout = _expert_ffn(wl, xe.reshape(nE, -1, D), cfg.ffn_kind)
+    el = nn.from_blocks(eout.reshape(nE, -1, 1, c, D), dm, post,
+                        shape5).redistribute(dm, full).to_local(
+        grad_placements=[Partial() if n in split else q
+                         for n, q in zip(names, full)])
+    el = torch.cat([el.reshape(nE * nd * c, D), el.new_zeros((1, D))])
+    w = torch.where(mine, topv.reshape(-1), 0.0).to(xl.dtype).reshape(Tl, k)
     share = sum(el[rows[:, j]] * w[:, j, None] for j in range(k))
-    out = nn.from_blocks(share, dm, part, (T, D)).redistribute(
-        dm, [Replicate()] * dm.ndim)
+    out = nn.from_blocks(share, dm, part, (T, D)).redistribute(dm, tok)
     return out, nn.replicated_like(aux.float(), xt)

@@ -53,6 +53,9 @@ SEQ, BATCH, N_MICRO = 16, 8, 2
 DIMS = {"data": 2, "model": 2}
 ARCHS = ("qwen2-1.5b", "moonshot-v1-16b-a3b")
 ODD_VOCAB = 511  # divides no model axis: the table splits on d_model
+# a capacity factor at which MoE drops tokens: the queues must span the
+# batch's data blocks
+DROP = "capacity0.5"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -116,10 +119,19 @@ def _placed(bundle, mesh):
     return ins, outs
 
 
+def _overrides(variant) -> dict:
+    """The config fields a case's variant changes: a vocabulary (an int)
+    or MoE's capacity factor (``DROP``)."""
+    if variant is None:
+        return {}
+    if variant == DROP:
+        return {"capacity_factor": 0.5}
+    return {"vocab_size": variant}
+
+
 def _jcfg(arch: str, vocab=None):
-    cfg = jconfigs.get_reduced(arch)
-    return cfg if vocab is None else dataclasses.replace(cfg,
-                                                         vocab_size=vocab)
+    return dataclasses.replace(jconfigs.get_reduced(arch),
+                               **_overrides(vocab))
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,8 +185,8 @@ def _port(world, arch: str, inner: str, vocab=None):
     if key not in _PORT:
         w = world(4)
         w.submit(cases.lm_train, (2, 2), arch, inner, _init(arch, vocab),
-                 _batches(vocab or configs.get_reduced(arch).vocab_size),
-                 SEQ, BATCH, N_MICRO, None, vocab)
+                 _batches(_jcfg(arch, vocab).vocab_size),
+                 SEQ, BATCH, N_MICRO, None, _overrides(vocab), vocab == DROP)
         _reference(arch, vocab)
         _PORT[key] = w.collect("lm_train")
     return _PORT[key]
@@ -191,7 +203,8 @@ def _close(a, b, what):
 @pytest.mark.parametrize("arch,inner,vocab", [
     ("qwen2-1.5b", "flat", None), ("qwen2-1.5b", "compiled", None),
     ("qwen2-1.5b", "fused", None), ("qwen2-1.5b", "flat", ODD_VOCAB),
-    ("moonshot-v1-16b-a3b", "flat", None)])
+    ("moonshot-v1-16b-a3b", "flat", None),
+    ("moonshot-v1-16b-a3b", "flat", DROP)])
 def test_gspmd_step_matches_the_reference_gspmd_step(world, arch, inner,
                                                      vocab):
     """Two steps of the port's 2 × 2 GSPMD step (through
@@ -199,9 +212,14 @@ def test_gspmd_step_matches_the_reference_gspmd_step(world, arch, inner,
     GSPMD step: losses, parameters and momentum, gathered on every rank.
     moonshot exercises the MoE hints (expert-parallel, no sequence
     sharding); a vocabulary that does not divide ``model`` puts the
-    table's ``model`` split on d_model, the tokens replicated over it."""
+    table's ``model`` split on d_model, the tokens replicated over it.
+    At capacity factor 0.5 (``DROP``) MoE drops tokens, and each rank
+    routes its own data block: see :func:`_check_block_routing`."""
     ref = _reference(arch, vocab)
-    for r, out in enumerate(_port(world, arch, inner, vocab)):
+    outs = _port(world, arch, inner, vocab)
+    if vocab == DROP:
+        _check_block_routing(arch, outs)
+    for r, out in enumerate(outs):
         np.testing.assert_allclose(out["losses"], ref["losses"], atol=ATOL,
                                    rtol=0, err_msg=f"rank {r} losses")
         _close(out["params"], ref["params"], f"rank {r} params")
@@ -209,6 +227,54 @@ def test_gspmd_step_matches_the_reference_gspmd_step(world, arch, inner,
         assert out["census"]["calls"] > 0
         assert set(out["census"]["by_kind_and_axis"]) <= {
             "all_gather", "reduce_scatter", "all_reduce", "all_to_all"}
+
+
+def _reference_queues(cfg, tokens, router_w):
+    """The reference's dispatch plan of ``tokens`` (T, D) — its lines in
+    ``repro.models.moe._moe_block`` from the router to the buffer row of
+    each (token, choice) — as (keep, idx, C)."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = tokens.shape[0]
+    probs = jax.nn.softmax(jnn.dense({"w": jnp.asarray(router_w)},
+                                     jnp.asarray(tokens), jnp.float32), -1)
+    _, topi = jax.lax.top_k(probs, k)
+    C = min(max(1, int(np.ceil(T * k / E * cfg.capacity_factor))), T)
+    flat_e = topi.reshape(-1)
+    in_e = jax.nn.one_hot(flat_e, E, dtype=jnp.int32)
+    pos = jnp.max(jnp.cumsum(in_e, axis=0) * in_e - 1, axis=-1)
+    keep = pos < C
+    return np.asarray(keep), np.asarray(jnp.where(keep, flat_e * C + pos,
+                                                  E * C)), C
+
+
+def _check_block_routing(arch, outs):
+    """The first MoE call of the drop case on every rank: ``route`` saw
+    the rank's data block alone (T / 2 tokens, the same on both model
+    ranks of a data rank); the blocks' plans, side by side, are the
+    reference's plan of the whole micro-batch, which drops tokens; and
+    the second block's plan alone would differ from it (so a missing
+    prefix of the earlier block's counts could not pass)."""
+    cfg = _jcfg(arch, DROP)
+    T = BATCH // N_MICRO * SEQ
+    by_data = {}
+    for r, out in enumerate(outs):
+        rec = out["route"]
+        assert rec["token_counts"] == {T // 2}, (r, rec["token_counts"])
+        assert rec["blocked"], r
+        by_data.setdefault(out["coords"]["data"], rec)
+        np.testing.assert_array_equal(rec["idx"],
+                                      by_data[out["coords"]["data"]]["idx"])
+    tokens = np.concatenate([by_data[d]["tokens"] for d in (0, 1)])
+    router = by_data[0]["router"]
+    keep, idx, C = _reference_queues(cfg, tokens, router)
+    assert not keep.all(), "capacity 0.5 must drop tokens"
+    assert by_data[0]["C"] == by_data[1]["C"] == C
+    np.testing.assert_array_equal(
+        np.concatenate([by_data[d]["idx"] for d in (0, 1)]), idx)
+    np.testing.assert_array_equal(
+        np.concatenate([by_data[d]["keep"] for d in (0, 1)]), keep)
+    alone = _reference_queues(cfg, by_data[1]["tokens"], router)
+    assert not np.array_equal(alone[1], idx[len(idx) // 2:])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -12,24 +12,30 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the twins of the reference's examples/ (repro_torch.examples)
+EXAMPLES = ("quickstart", "serve_decode", "train_100m", "train_classifier",
+            "train_segmentation")
 TRAIN = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "qwen2-1.5b", "--reduced", "--steps", "2", "--executor", "flat"]
 SERVE = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "qwen2-1.5b", "--reduced", "--requests", "4", "--new-tokens", "3"]
 
 IMPORT_ALL = """
-import importlib, pkgutil, sys
+import contextlib, importlib, io, pkgutil, sys
 import repro_torch
-for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-    importlib.import_module(m.name)
-import chip_smoke
+said = io.StringIO()
+with contextlib.redirect_stdout(said):
+    for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        importlib.import_module(m.name)
+    import chip_smoke
 for name in ("repro_torch.engine.pipelined", "repro_torch.analysis.suite",
              "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all",
-             "repro_torch.engine.gspmd", "repro_torch.launch.sharding"):
+             "repro_torch.engine.gspmd", "repro_torch.launch.sharding",
+             *("repro_torch.examples." + e for e in EXAMPLES)):
     assert name in sys.modules, name
 bad = sorted(k for k in sys.modules
              if k.startswith("jax") or k == "repro" or k.startswith("repro."))
-print("LEAKED", bad)
+print("LEAKED", bad, "PRINTED", repr(said.getvalue()))
 """
 
 
@@ -87,9 +93,24 @@ def _no_gpu():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    out = _run([sys.executable, "-c", IMPORT_ALL])
+    """Every module of the port, the examples' twins among them, and
+    ``chip_smoke`` import without JAX, and importing runs nothing (the
+    twins print nothing until their ``main`` is called)."""
+    out = _run([sys.executable, "-c",
+                f"EXAMPLES = {EXAMPLES!r}\n" + IMPORT_ALL])
     assert out.returncode == 0, out.stderr
-    assert "LEAKED []" in out.stdout, out.stdout
+    assert "LEAKED [] PRINTED ''" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_example_without_gpu_fails_clearly(example):
+    """Each twin runs on the card unless ``--device cpu`` is given:
+    without a GPU it exits non-zero, naming it, before it prints."""
+    _no_gpu()
+    out = _run([sys.executable, "-m", f"repro_torch.examples.{example}"])
+    assert out.returncode != 0
+    assert "no CUDA GPU is available" in out.stderr, out.stderr[-2000:]
+    assert out.stdout == ""
 
 
 def test_step_builders_build_every_bundle_without_jax():

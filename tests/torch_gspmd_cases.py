@@ -58,18 +58,41 @@ def golden(world, dims, inner, params_np, steps_n):
     return out
 
 
+def _route_recorder():
+    """Wrap ``moe.route``: the token count of every call, and the first
+    call's tokens, router weight and plan (keep, idx, C). Returns (record,
+    undo)."""
+    from repro_torch.models import moe
+    real, rec = moe.route, {"token_counts": set()}
+
+    def route(p, cfg, xt, blocks=None):
+        out = real(p, cfg, xt, blocks)
+        rec["token_counts"].add(xt.shape[0])
+        if "idx" not in rec:
+            rec.update(tokens=to_np(xt), router=to_np(p["router"]["w"]),
+                       keep=out[2].numpy().copy(), idx=out[3].numpy().copy(),
+                       C=out[4], blocked=blocks is not None)
+        return out
+
+    moe.route = route
+
+    def undo():
+        moe.route = real
+    return rec, undo
+
+
 def lm_train(world, dims, arch, inner, params_np, batches_np, seq, batch,
-             n_micro, clip=None, vocab=None):
-    """``len(batches_np)`` train steps of reduced ``arch`` (fp32; its
-    vocabulary ``vocab`` when given) built by
+             n_micro, clip=None, overrides=None, record_route=False):
+    """``len(batches_np)`` train steps of reduced ``arch`` (fp32; the
+    config fields ``overrides`` replaced) built by
     ``steps.build_train_step`` on the GSPMD mesh: (losses, grad norms,
     this rank's local params and momentum, the gathered params and
     momentum, the collectives of the first step by kind and axis, the
-    local parameter bytes)."""
+    local parameter bytes; with ``record_route``, MoE's routing as
+    :func:`_route_recorder` keeps it)."""
     mesh = gspmd(world, dims)
-    cfg = configs.get_reduced(arch)
-    if vocab is not None:
-        cfg = dataclasses.replace(cfg, vocab_size=vocab)
+    cfg = dataclasses.replace(configs.get_reduced(arch), **(overrides or {}))
+    route, undo = _route_recorder() if record_route else (None, None)
     opt = steps.make_optimizer(cfg)
     if clip is not None:
         opt = optim.clip_by_global_norm(opt, clip)
@@ -92,8 +115,10 @@ def lm_train(world, dims, arch, inner, params_np, batches_np, seq, batch,
             census = cc.summary()
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    if undo is not None:
+        undo()
     full_p, full_s = ex.gather_state(p, s)
-    return {"losses": losses, "grad_norms": norms,
+    return {"losses": losses, "grad_norms": norms, "route": route,
             "local_params": to_np(p), "local_mom": to_np(s["mom"]),
             "params": to_np(full_p), "mom": to_np(full_s["mom"]),
             "census": census,
