@@ -104,7 +104,8 @@ Phases (any failure exits non-zero before the last line is printed):
      version on copies of the same inputs, within 1e-6 + 1e-5 (|old| +
      |new − old|): the same update with its roundings in another order);
      and K2–K4's ``GUARD`` variants at that size, flag 1 bit-identical and
-     flag 0 writing nothing, timed in turns beside the unguarded kernel;
+     flag 0 writing nothing, timed in turns beside the unguarded kernel,
+     flag 0 (a skipped step) under a quarter of the unguarded time;
   10. K1 at the main path's gradient leaves (one tensor a leaf, one fp32
      bucket), bit for bit, timed beside its bound, its plain version,
      ``torch._foreach_add_`` over the same pairs and ``add_`` on a flat
@@ -2484,8 +2485,12 @@ def guard_full_size_phase(dev, n: int) -> dict:
     """K2-K4 at the main path's bucket (``n`` fp32 elements): the GUARD
     variant with flag 1 bit-identical to the unguarded kernel and with
     flag 0 writing nothing; then unguarded, flag 1 and flag 0 timed in
-    turns (A B C C B A), each over 10 launches behind a sleep kernel."""
+    turns (A B C C B A), each over 10 launches behind a sleep kernel. A
+    skipped step (flag 0) must take under a quarter of the unguarded
+    kernel's time in the same turns; K4's line sets its flag 0 beside
+    K2's."""
     import torch
+    card = card_line()
     gen = torch.Generator(device=dev).manual_seed(7)
     one = torch.ones((), dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.bool, device=dev)
@@ -2511,11 +2516,17 @@ def guard_full_size_phase(dev, n: int) -> dict:
             "flag0": lambda: _guard_call(kind, ops, zero)}, 10)
         res[kind] = {k: sum(v) / len(v) for k, v in turns.items()}
         res[kind]["turns_ms"] = turns
+        beside = (f", K2's flag 0 {res['fused_sgd_mom']['flag0']:.4f} ms"
+                  if kind == "fused_adam" else "")
         print(f"full size: {kind} at n={n}: unguarded "
               f"{res[kind]['unguarded']:.4f} ms, GUARD flag 1 "
               f"{res[kind]['flag1']:.4f} ms, flag 0 {res[kind]['flag0']:.4f}"
-              f" ms (mean of two turns; turns {turns}); flag 1 "
-              f"bit-identical, flag 0 writes nothing", flush=True)
+              f" ms{beside} (mean of two turns; turns {turns}; {card}); "
+              f"flag 1 bit-identical, flag 0 writes nothing", flush=True)
+        check(res[kind]["flag0"] < res[kind]["unguarded"] / 4,
+              f"{kind} GUARD flag 0 at n={n} takes {res[kind]['flag0']:.4f}"
+              f" ms, not under a quarter of the unguarded kernel's "
+              f"{res[kind]['unguarded']:.4f} ms: a skipped step costs a pass")
         del ops
         torch.cuda.empty_cache()
     return res

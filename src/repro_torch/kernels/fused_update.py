@@ -20,10 +20,14 @@ betas, eps, decoupled) are ``tl.constexpr``.
 
 With ``GUARD`` (the supervisor's finite check in front of step ❺, the
 reference's ``lax.cond``) the scalar operand carries one more slot, the
-finite flag, after the others; each program ANDs it into its load and
-store mask, so a flag of 0 makes the launch read and write nothing.
-Without ``GUARD`` the branch is compiled away and the kernel is the
-unguarded one.
+finite flag, after the others. K2 and K3 AND it into their load and
+store mask, so a flag of 0 makes the launch read and write nothing. K4
+reads it first and ends the program where it is 0: its masked lanes
+would still run the update on the zeros that a predicated-off load
+leaves, and on a zero operand the IEEE-rounded divisions and square root
+(``div_rn``, ``sqrt_rn``) take their slow-path subroutines, so a skipped
+step would cost more than a full pass. Without ``GUARD`` the branch is
+compiled away and the kernel is the unguarded one.
 
 The arithmetic copies the Pallas kernels cast for cast, in the promotion
 rules that ``ref.py`` spells out: each product with a constant is rounded
@@ -102,10 +106,11 @@ def _kernels():
                      EPS: tl.constexpr, WD: tl.constexpr,
                      COUPLED_WD: tl.constexpr, DECOUPLED_WD: tl.constexpr,
                      GUARD: tl.constexpr, BLOCK: tl.constexpr):
+        if GUARD:  # the finite flag: 0 ends the program before any load
+            if tl.load(s_ptr + 4) == 0.0:
+                return
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n
-        if GUARD:
-            mask = mask & (tl.load(s_ptr + 4) != 0.0)
         lr = tl.load(s_ptr)
         gscale = tl.load(s_ptr + 1)
         bc1 = tl.load(s_ptr + 2)

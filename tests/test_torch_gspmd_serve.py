@@ -34,6 +34,7 @@ so logits and cache entries agree to ``ATOL`` = 2e-5 (logits of order
 1–10); ring positions agree exactly.
 """
 import concurrent.futures
+import functools
 import multiprocessing
 
 import numpy as np
@@ -143,28 +144,41 @@ def fake_world():
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory, fake_world):
-    """Every arch's ranks' results, the world started once and the
-    reference run here meanwhile: ``{arch: (ranks' results,
-    reference)}``."""
-    world = LocalWorld(4, store_dir=str(tmp_path_factory.mktemp("serve")),
-                       timeout_s=300)
-    try:
-        out = {}
-        for arch in ARCHS:
-            jcfg, params, toks = _inputs(arch)
-            world.submit(cases.prefill_decode, DIMS, arch, params,
-                         toks[:, :PROMPT], toks[:, PROMPT:], MAX_LEN)
-            ref = _reference(jcfg, params, toks)
-            out[arch] = (world.collect(arch), ref)
+    """Each arch's ranks' results beside the reference's, run here while
+    the ranks work, and the census's: ``{key: (ranks' results,
+    reference) or the exception its world call raised}``. One world
+    serves them all; a call that fails closes it and the next starts a
+    new one, so a failure fails only the tests that read its key
+    (:func:`_result`)."""
+    store = tmp_path_factory.mktemp("serve")
+
+    def start():
+        return LocalWorld(4, store_dir=str(store), timeout_s=300)
+
+    def lm(arch):
+        jcfg, params, toks = _inputs(arch)
+        return (cases.prefill_decode,
+                (DIMS, arch, params, toks[:, :PROMPT], toks[:, PROMPT:],
+                 MAX_LEN), lambda: _reference(jcfg, params, toks))
+
+    def encdec():
         params, frames, toks = _encdec_inputs()
-        world.submit(cases.encdec_decode, DIMS, ENCDEC, params, frames,
-                     toks, MAX_LEN)
-        ref = _encdec_reference(params, frames, toks)
-        out[ENCDEC] = (world.collect(ENCDEC), ref)
-        out["census"] = world.run(cases.census_by_ranks, DIMS)
-        yield out
-    finally:
-        world.close()
+        return (cases.encdec_decode,
+                (DIMS, ENCDEC, params, frames, toks, MAX_LEN),
+                lambda: _encdec_reference(params, frames, toks))
+
+    calls = [(arch, functools.partial(lm, arch)) for arch in ARCHS] + [
+        (ENCDEC, encdec),
+        ("census", lambda: (cases.census_by_ranks, (DIMS,), None))]
+    return cases.serve_each(start, calls)
+
+
+def _result(served, key):
+    """``served[key]``; the error of its world call, raised again."""
+    got = served[key]
+    if isinstance(got, BaseException):
+        raise got
+    return got
 
 
 def _err(got, want) -> float:
@@ -176,7 +190,7 @@ def _err(got, want) -> float:
 def test_gspmd_prefill_and_decode_match_one_device(served, arch):
     """Every rank's gathered logits and cache equal the reference's one
     device's through the ring's wrap."""
-    ranks, (last, logits, cache) = served[arch]
+    ranks, (last, logits, cache) = _result(served, arch)
     for r in ranks:
         assert _err(r["prefill"], last) < ATOL, arch
         for j, (got, want) in enumerate(zip(r["decode"], logits)):
@@ -198,7 +212,7 @@ def test_gspmd_encdec_decode_matches_one_device(served):
     heads, 32 wide) and its self-attention rings on their slots: every
     rank's logits, cross cache and gathered rings equal the reference's
     one device's."""
-    ranks, ((fwd, cross), logits, rings) = served[ENCDEC]
+    ranks, ((fwd, cross), logits, rings) = _result(served, ENCDEC)
     for r in ranks:
         assert _err(r["forward"], fwd) < ATOL
         for k in ("k", "v"):
@@ -216,7 +230,7 @@ def test_census_tells_an_axis_by_its_ranks(served):
     a rank's ``model`` line (DTensor's caches may hand back an equal,
     earlier ``DeviceMesh``) is counted on ``model``; one over ranks of
     no axis line on "other"."""
-    for r, by in enumerate(served["census"]):
+    for r, by in enumerate(_result(served, "census")[0]):
         want = {"model": 1, "other": 1} if r in (0, 3) else {"model": 1}
         assert by == {"all_reduce": want}, r
 
@@ -227,7 +241,8 @@ def test_ring_and_state_are_split_on_the_2x2_world(served):
     gemma2's 16-slot window ring on its head dim (32 > 16) and its global
     ring on its slots, mamba2's SSD state on its head dim; a decode step
     reduces over ``model`` (the split softmax)."""
-    lay = {a: served[a][0][0]["layout"] for a in ARCHS}
+    lay = {a: _result(served, a)[0][0]["layout"]
+           for a in ("qwen2-1.5b", "gemma2-9b", "mamba2-780m")}
     split = "(Shard(dim=1), Shard(dim={}))"
     assert lay["qwen2-1.5b"][0]["k"] == (split.format(2), (2, 2, 16, 2, 32))
     assert lay["qwen2-1.5b"][0]["pos"] == (split.format(2), (2, 2, 16))
@@ -237,7 +252,7 @@ def test_ring_and_state_are_split_on_the_2x2_world(served):
     assert lay["mamba2-780m"][0]["state"] == (split.format(3),
                                               (2, 2, 8, 16, 16))
     for a in ("qwen2-1.5b", "gemma2-9b"):
-        assert served[a][0][0]["census"]["by_kind_and_axis"][
+        assert _result(served, a)[0][0]["census"]["by_kind_and_axis"][
             "all_reduce"].get("model", 0) > 0, a
 
 

@@ -135,6 +135,48 @@ def encdec_decode(world, dims, arch, params_np, frames_np, next_np,
     return out
 
 
+def serve_each(start, calls):
+    """Runs ``calls`` — ``(key, prepare)`` pairs, ``prepare()`` giving
+    ``(fn, args, reference)`` — one after another on a world that
+    ``start()`` makes: ``fn(mesh, *args)`` on every rank while
+    ``reference()`` (or nothing, where it is None) runs here. Returns
+    ``{key: (ranks' results, reference's) or the exception the call
+    raised}``. A failed call closes its world and the next call starts a
+    new one, so that a failure is only its own key's. The host side of
+    the harness: the ranks never call it."""
+    out, world = {}, None
+    try:
+        for key, prepare in calls:
+            try:
+                fn, args, reference = prepare()
+                if world is None:
+                    world = start()
+                world.submit(fn, *args)
+                ref = reference() if reference is not None else None
+                out[key] = (world.collect(key), ref)
+            except Exception as e:  # noqa: BLE001 (kept for key's tests)
+                out[key] = e
+                if world is not None:
+                    world.close()
+                    world = None
+    finally:
+        if world is not None:
+            world.close()
+    return out
+
+
+def rank_times(world, x):
+    """This rank's number times ``x`` (a call that succeeds)."""
+    return world.rank * x
+
+
+def fail_on_rank(world, rank):
+    """Raises on rank ``rank`` (a call that fails)."""
+    if world.rank == rank:
+        raise ValueError(f"rank {rank} fails here")
+    return world.rank
+
+
 def census_by_ranks(world, dims):
     """A collective over a group of another name but the ranks of this
     rank's ``model`` line (as over an equal ``DeviceMesh`` made earlier,
