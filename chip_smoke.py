@@ -124,7 +124,12 @@ Phases (any failure exits non-zero before the last line is printed):
      runs twice), its plain version and the PyTorch call that computes it
      (SDPA; for gemma2's softcap, a compiled ``flex_attention``, checked
      against the plain version within the reference tests' bf16
-     tolerance, 2e-2);
+     tolerance, 2e-2); then K6's fp32 kernel (``simt_fp32``) at the same
+     three shapes on fp32 inputs: its output within 2e-5 of the plain
+     version's, timed beside its bound (the kept pairs' FLOPs at 67
+     TFLOP/s, the fp32 rate outside the tensor cores), the plain version
+     and the same library calls on fp32 with TF32 off (each within 1e-4
+     of the plain version first);
   12. the block tuner over the main path's bucket for K1 and K2
      (``engine.autotune.tune_for_params`` into
      ``build/tuning-blocks.json``): every candidate block's median ms,
@@ -350,11 +355,19 @@ Phases (any failure exits non-zero before the last line is printed):
      one); the collectives of the second step by kind and axis; each
      rank's peak beside ``estimate(mesh=, fsdp_params=True)``;
   21b. the same mesh at 2 layers, fp32, TF32 off: 2 steps within phase
-     5's rtol / atol 1e-6 of one device's ``compiled``;
+     5's rtol / atol 1e-6 of one device's ``compiled``; then 21a's and
+     21b's twins in the same world with the params replicated over
+     ``data`` (``fsdp=False``, the reference's ``--no-fsdp``): the same
+     checks against ``param_specs(fsdp=False)``'s arithmetic and
+     ``estimate(fsdp_params=False)``, the census all-reducing over
+     ``data`` with no weight gathered there, and the first loss the FSDP
+     step's;
   21c. (``gspmd_dryrun_phase``) 18a's step dry-run as rank 0 of the
      16 × 16 production mesh (a fake world of 256, fake CUDA tensors):
      the rank's parameter blocks (the spec arithmetic), peak, FLOPs and
-     collectives.
+     collectives; then with ``fsdp=False``: its parameter bytes
+     ``param_specs(fsdp=False)``'s arithmetic, an all-reduce over
+     ``data`` and no weight gathered there.
   22a. (``gspmd_supervised_phase``) ``--supervise`` on the GSPMD world:
      ``engine.Supervisor`` over ``GspmdExecutor(guard=True)`` at 21b's
      size for SUP_STEPS = 4 steps, a NaN in one data block at step 1
@@ -1949,6 +1962,10 @@ CE_GRAD_ATOL = 1e-6
 CE_OPS_PER_ELEM = 5  # max, subtract, exp, add, gold compare
 LIB_BF16_ATOL = 2e-2  # a library call rounds P to bf16: the reference
                       # tests' bf16 attention tolerance
+# an fp32 library call (TF32 off) sums in its own order and tiling: its
+# output within this of the plain version's (a yardstick check only; K6's
+# own fp32 bound is ATTN_ATOL)
+LIB_FP32_ATOL = 1e-4
 
 # (name, source of the widths, B, H, Hkv, S, hd, options, library call)
 ATTN_CASES = [
@@ -2400,6 +2417,7 @@ def api_phase(dev, errs) -> dict:
         "bound_ms": max(op_ms, byte_ms),
         "bound_by": "operations" if op_ms > byte_ms else "bytes",
         "bytes": nbytes})
+    records["flash_attention"] += _fp32_attention_timings(dev, gen, errs)
     for rec in records["flash_attention"] + records["cross_entropy"]:
         print(f"api timing: {rec['case']}: kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
@@ -2408,6 +2426,83 @@ def api_phase(dev, errs) -> dict:
     del cases, logits, labels, x
     torch.cuda.empty_cache()
     return {"counts": counts, "variants": variants, "records": records}
+
+
+def _fp32_attention_timings(dev, gen, errs) -> list:
+    """K6's fp32 kernel (``simt_fp32``) at the kernel-API cases' shapes,
+    on fp32 inputs: its output against the plain version's (ATTN_ATOL),
+    then each case timed beside the plain version and the library call on
+    the same fp32 inputs (TF32 off: SDPA, or the compiled
+    ``flex_attention`` with the tanh cap, each first checked against the
+    plain version within LIB_FP32_ATOL). The bound is the kept pairs'
+    FLOPs at the fp32 rate outside the tensor cores (FP32_FLOPS_PER_S) or
+    the bytes at HBM_BYTES_PER_S, the larger. The timing launches are not
+    a path's: the counters were read before."""
+    import torch
+    from repro_torch import kernels
+    fa, ref = kernels.flash_attention_kernels, kernels.ref
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "K6 fp32 timings need TF32 off")
+    out = []
+    for name, src, B, H, Hkv, S, hd, opts, lib in ATTN_CASES:
+        q, k, v = _attn_inputs(gen, dev, B, H, Hkv, S, hd, torch.float32)
+        w, cap = opts.get("window"), opts.get("softcap")
+        before = kernels.variant_launch_counts()["simt_fp32"]
+        got = fa.flash_attention(q, k, v, window=w, softcap=cap)
+        torch.cuda.synchronize()
+        check(kernels.variant_launch_counts()["simt_fp32"] == before + 1,
+              f"K6 [{name} fp32] did not launch its fp32 kernel")
+        plain = ref.attention_ref(q, k, v, window=w, softcap=cap)
+        err, ok = max_violation(got, plain, atol=ATTN_ATOL, rtol=0.0)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        check(ok, f"K6 [{name} fp32] disagrees with its plain version: "
+                  f"max abs err {err:.3e}")
+        lib_fn = _library_call(lib, q, k, v, w, cap)
+        t0 = time.perf_counter()
+        lib_out = lib_fn()  # flex_attention compiles for fp32 here
+        lib_first_s = time.perf_counter() - t0
+        lib_err, ok = max_violation(lib_out, plain, atol=LIB_FP32_ATOL,
+                                    rtol=0.0)
+        check(ok, f"[{name} fp32] the library call {LIBRARY_CALLS[lib]} "
+                  f"does not compute the plain version's function: max "
+                  f"abs err {lib_err:.3e}")
+        del got, plain, lib_out
+        ms = event_ms(lambda: fa.flash_attention(q, k, v, window=w,
+                                                 softcap=cap), ATTN_REPS)
+        plain_ms = event_ms(lambda: ref.attention_ref(q, k, v, window=w,
+                                                      softcap=cap),
+                            ATTN_REPS)
+        lib_ms = event_ms(lib_fn, ATTN_REPS)
+        lib_fn = None
+        pairs = kept_pairs(S, True, w)
+        flops = 4 * hd * pairs * B * H
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+        op_ms = flops / FP32_FLOPS_PER_S * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(op_ms, byte_ms)
+        out.append({
+            "case": f"{name} fp32", "widths_from": src,
+            "shape": {"B": B, "H": H, "Hkv": Hkv, "S": S, "hd": hd},
+            "options": {"causal": True, **opts}, "dtype": "float32",
+            "kernel": "simt_fp32", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": LIBRARY_CALLS[lib] + ", fp32, TF32 off",
+            "library_max_abs_err": lib_err,
+            "library_first_call_s": lib_first_s,
+            "bound_ms": bound,
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "pct_of_bound": 100.0 * bound / ms,
+            "flops": flops, "bytes": nbytes, "kept_pairs": pairs})
+        print(f"api fp32: {name}: K6 simt_fp32 {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({out[-1]['bound_by']}, "
+              f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s fp32), "
+              f"{out[-1]['pct_of_bound']:.1f} % of it; plain {plain_ms:.4f}"
+              f" ms; library {lib_ms:.4f} ms (max abs err {lib_err:.3e}, "
+              f"first call {lib_first_s:.1f} s); K6 max abs err {err:.3e}",
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5482,27 +5577,31 @@ GSPMD_CHECK_STEPS = 2
 GSPMD_CHECK_SEQ = 128
 
 
-def _gspmd_spec_bytes(cfg, dims) -> int:
+def _gspmd_spec_bytes(cfg, dims, fsdp: bool = True) -> int:
     """Σ numel / shard_factor × 4 over the leaves of ``cfg``'s params under
-    the reference's ``param_specs`` on ``dims``."""
+    the reference's ``param_specs(fsdp=fsdp)`` on ``dims``."""
     from repro_torch import tree
     from repro_torch.core import memory_model
     from repro_torch.launch import sharding
     shapes = memory_model.param_shapes(cfg)
-    specs = sharding.spec_leaves(sharding.param_specs(shapes, dims))
+    specs = sharding.spec_leaves(sharding.param_specs(shapes, dims,
+                                                      fsdp=fsdp))
     return sum(x.numel() // sharding.shard_factor(sp, dims) * 4
                for x, sp in zip(tree.leaves(shapes), specs))
 
 
-def gspmd_main_rank(mesh, layers: int, steps: int) -> dict:
+def gspmd_main_rank(mesh, layers: int, steps: int, fsdp: bool = True
+                    ) -> dict:
     """21a on one rank: full-width qwen2-1.5b at ``layers`` layers, bf16,
     seq 1024, mini-batch 16 in GSPMD_MICROBATCHES micro-batches, SGD-m,
     through ``launch.steps.build_train_step(mesh=gspmd_mesh(2, 2),
-    executor="flat")`` — the ``GspmdExecutor`` over ``flat``, K1 and K2
-    on this rank's blocks. The launch counters are zeroed before the first
-    step and read after the last; the first step is a warm-up (it fills
-    DTensor's propagation cache), the steps after it are the steady ones,
-    and the second runs under the collective census; the peak beside ``memory_model.estimate(mesh=, fsdp_params=True)``."""
+    executor="flat", fsdp=fsdp)`` — the ``GspmdExecutor`` over ``flat``,
+    K1 and K2 on this rank's blocks (``fsdp=False``: the params replicated
+    over ``data``, 21a's twin). The launch counters are zeroed before the
+    first step and read after the last; the first step is a warm-up (it
+    fills DTensor's propagation cache), the steps after it are the steady
+    ones, and the second runs under the collective census; the peak beside
+    ``memory_model.estimate(mesh=, fsdp_params=fsdp)``."""
     import numpy as np
     import torch
     from repro_torch import configs, engine, kernels, optim
@@ -5520,7 +5619,7 @@ def gspmd_main_rank(mesh, layers: int, steps: int) -> dict:
     bundle = steps_lib.build_train_step(
         cfg, InputShape("21a", "train", GSPMD_SEQ, GSPMD_MINI),
         num_microbatches=GSPMD_MICROBATCHES, executor="flat", mesh=gm,
-        budget_bytes=budget, device=dev)
+        fsdp=fsdp, budget_bytes=budget, device=dev)
     ex, plan, opt = bundle.runner, bundle.plan, bundle.optimizer
     t0 = time.perf_counter()
     params = steps_lib.init_params(cfg, seed=0, device=dev)
@@ -5549,7 +5648,7 @@ def gspmd_main_rank(mesh, layers: int, steps: int) -> dict:
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     est = memory_model.estimate(
-        cfg, GSPMD_SEQ, mesh=dict(gm), fsdp_params=True, act_bytes=2,
+        cfg, GSPMD_SEQ, mesh=dict(gm), fsdp_params=fsdp, act_bytes=2,
         remat_policy=plan.remat_policy,
         **optim.memory_model_kw(opt, fused=True)).total(plan.local_micro)
     n_b = engine.FlatSpec.for_tree(p).num_buckets
@@ -5564,13 +5663,15 @@ def gspmd_main_rank(mesh, layers: int, steps: int) -> dict:
             "estimate_bytes": est, "memory_fraction": mesh.memory_fraction}
 
 
-def gspmd_check_rank(mesh, layers: int, steps: int) -> dict:
-    """21b on one rank: ``steps`` steps of the 2 × 2 GSPMD step (``flat``)
-    at ``layers`` layers of full qwen2-1.5b width, fp32, TF32 off,
-    against one device's ``compiled`` steps on the same global
-    mini-batches (computed on this rank's device): this rank's params and
-    momentum blocks against the same blocks of the reference's
-    (``prepare`` cuts them), within phase 5's rtol / atol 1e-6."""
+def gspmd_check_rank(mesh, layers: int, steps: int, fsdp: bool = True
+                     ) -> dict:
+    """21b on one rank: ``steps`` steps of the 2 × 2 GSPMD step (``flat``;
+    ``fsdp=False``: the params replicated over ``data``, 21b's twin) at
+    ``layers`` layers of full qwen2-1.5b width, fp32, TF32 off, against
+    one device's ``compiled`` steps on the same global mini-batches
+    (computed on this rank's device): this rank's params and momentum
+    blocks against the same blocks of the reference's (``prepare`` cuts
+    them), within phase 5's rtol / atol 1e-6."""
     import numpy as np
     import torch
     from repro_torch import configs, engine, optim, tree
@@ -5599,8 +5700,9 @@ def gspmd_check_rank(mesh, layers: int, steps: int) -> dict:
                                          one_plan.device_split(b, dev))
         ref_losses.append(float(m["loss"]))
     plan = engine.plan_mbs(8, num_microbatches=2, remat_policy="none",
-                           mesh=gm, device=dev)
-    ex = engine.GspmdExecutor(loss_fn, sgd(), plan, mesh=gm, inner="flat")
+                           mesh=gm, fsdp_params=fsdp, device=dev)
+    ex = engine.GspmdExecutor(loss_fn, sgd(), plan, mesh=gm, inner="flat",
+                              fsdp=fsdp)
     params = steps_lib.init_params(cfg, seed=0, device=dev)
     p, s = ex.prepare(params, sgd().init(params))
     del params
@@ -5622,64 +5724,74 @@ def gspmd_check_rank(mesh, layers: int, steps: int) -> dict:
             "ref_losses": ref_losses, "max_abs_err": worst, "within": ok}
 
 
-def gspmd_train_phase(world) -> dict:
-    """21a and 21b on ``world``, a ``LocalWorld`` of four ranks sharing
-    the card (gloo, each capped at 0.24 of its memory): see
-    :func:`gspmd_main_rank` and :func:`gspmd_check_rank`. Every rank's
-    losses finite and equal, the first near ln(vocab); its parameter
-    bytes the spec arithmetic; K1 launched steps × N_Smu × buckets and K2
-    steps × buckets on every rank."""
+def _gspmd_train_run(world, fsdp: bool) -> dict:
+    """21a (``fsdp``) or its twin without FSDP, then 21b or its twin, on
+    ``world``: every rank's losses finite and equal, the first near
+    ln(vocab); its parameter bytes the spec arithmetic of the placement;
+    K1 launched steps × N_Smu × buckets and K2 steps × buckets on every
+    rank; 21b's params and momentum within its tolerance of one device.
+    Returns the results and prints them."""
     from repro_torch import configs
 
-    gc_collect()
     card = card_line()
     n = GSPMD_DIMS[0] * GSPMD_DIMS[1]
-    check(world.n == n, f"21 runs on {n} ranks, the world has {world.n}")
+    label = ("21a", "21b") if fsdp else ("21a without FSDP",
+                                          "21b without FSDP")
     t0 = time.perf_counter()
-    res = world.run(gspmd_main_rank, GSPMD_LAYERS, GSPMD_STEPS)
+    res = world.run(gspmd_main_rank, GSPMD_LAYERS, GSPMD_STEPS, fsdp)
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    chk = world.run(gspmd_check_rank, GSPMD_CHECK_LAYERS, GSPMD_CHECK_STEPS)
+    chk = world.run(gspmd_check_rank, GSPMD_CHECK_LAYERS, GSPMD_CHECK_STEPS,
+                    fsdp)
     check_s = time.perf_counter() - t0
     cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
                               num_layers=GSPMD_LAYERS)
     want_bytes = _gspmd_spec_bytes(cfg, dict(zip(("data", "model"),
-                                                 GSPMD_DIMS)))
+                                                 GSPMD_DIMS)), fsdp)
     r0 = res[0]
     for r in res:
         check(all(math.isfinite(x) for x in r["losses"]) and
-              r["params_finite"], f"21a rank {r['rank']}: losses "
+              r["params_finite"], f"{label[0]} rank {r['rank']}: losses "
                                   f"{r['losses']} or params not finite")
         check(r["losses"] == r0["losses"],
-              f"21a: rank {r['rank']}'s losses {r['losses']} differ from "
-              f"rank 0's {r0['losses']}")
+              f"{label[0]}: rank {r['rank']}'s losses {r['losses']} differ "
+              f"from rank 0's {r0['losses']}")
         check(r["local_param_bytes"] == want_bytes,
-              f"21a rank {r['rank']}: {r['local_param_bytes']} B of "
+              f"{label[0]} rank {r['rank']}: {r['local_param_bytes']} B of "
               f"parameter blocks, the spec arithmetic says {want_bytes}")
         k1 = GSPMD_STEPS * r["num_micro_batches"] * r["buckets"]
         k2 = GSPMD_STEPS * r["buckets"]
         check(r["counts"]["grad_accum"] == k1,
-              f"21a rank {r['rank']}: K1 launched "
+              f"{label[0]} rank {r['rank']}: K1 launched "
               f"{r['counts']['grad_accum']} times, expected {k1}")
         check(r["counts"]["fused_sgd_mom"] == k2,
-              f"21a rank {r['rank']}: K2 launched "
+              f"{label[0]} rank {r['rank']}: K2 launched "
               f"{r['counts']['fused_sgd_mom']} times, expected {k2}")
     check(abs(r0["losses"][0] - math.log(cfg.vocab_size)) < 1.0,
-          f"21a: first loss {r0['losses'][0]:.4f} is far from ln(vocab) "
-          f"{math.log(cfg.vocab_size):.4f}")
+          f"{label[0]}: first loss {r0['losses'][0]:.4f} is far from "
+          f"ln(vocab) {math.log(cfg.vocab_size):.4f}")
+    if not fsdp:  # the gradients all-reduced over data, no weight gathered
+        by = r0["census"]["by_kind_and_axis"]
+        check(by.get("all_reduce", {}).get("data", 0) > 0,
+              f"{label[0]}: no all-reduce over data in {by}")
+        check("data" not in r0["census"]["params_by_kind_and_axis"].get(
+            "all_gather", {}) and "data" not in by.get("reduce_scatter", {}),
+              f"{label[0]}: a weight gathered or a gradient scattered over "
+              f"data: {r0['census']}")
     steady = r0["step_s"][1:]
     step_s = sum(steady) / len(steady)
     tokens = GSPMD_MINI * GSPMD_SEQ
     for c in chk:
-        check(c["within"], f"21b: a rank's params/momentum differ from one "
-                           f"device's compiled by {c['max_abs_err']:.3e} "
-                           "(rtol 1e-6, atol 1e-6)")
+        check(c["within"], f"{label[1]}: a rank's params/momentum differ "
+                           f"from one device's compiled by "
+                           f"{c['max_abs_err']:.3e} (rtol 1e-6, atol 1e-6)")
         for x, y in zip(c["losses"], c["ref_losses"]):
             check(abs(x - y) <= 1e-5 * abs(y),
-                  f"21b: loss {x} vs one device's {y}")
-    out = {"card": card, "plan": r0["plan"], "losses": r0["losses"],
-           "step_s": r0["step_s"], "steady_step_s": step_s,
-           "tokens_per_s": tokens / step_s, "census": r0["census"],
+                  f"{label[1]}: loss {x} vs one device's {y}")
+    out = {"card": card, "fsdp": fsdp, "plan": r0["plan"],
+           "losses": r0["losses"], "step_s": r0["step_s"],
+           "steady_step_s": step_s, "tokens_per_s": tokens / step_s,
+           "census": r0["census"],
            "counts": {f"rank{r['rank']}": r["counts"] for r in res},
            "local_param_bytes": want_bytes,
            "peak_bytes": [r["peak_bytes"] for r in res],
@@ -5689,8 +5801,10 @@ def gspmd_train_phase(world) -> dict:
            "check": {"plan": chk[0]["plan"], "losses": chk[0]["losses"],
                      "ref_losses": chk[0]["ref_losses"],
                      "max_abs_err": max(c["max_abs_err"] for c in chk)}}
-    print(f"21a [{card}]: GSPMD {GSPMD_DIMS[0]}x{GSPMD_DIMS[1]} (data x "
-          f"model) on {n} ranks sharing the card over gloo, qwen2-1.5b at "
+    print(f"{label[0]} [{card}]: GSPMD {GSPMD_DIMS[0]}x{GSPMD_DIMS[1]} "
+          f"(data x model, params "
+          f"{'FSDP over data' if fsdp else 'replicated over data'}) on {n} "
+          f"ranks sharing the card over gloo, qwen2-1.5b at "
           f"{GSPMD_LAYERS} of 28 layers, full width, bf16, seq "
           f"{GSPMD_SEQ}: {r0['plan']}; losses {r0['losses']} on every rank;"
           f" step seconds {r0['step_s']} (the first a warm-up, the second "
@@ -5698,14 +5812,35 @@ def gspmd_train_phase(world) -> dict:
           f"{tokens / step_s:.1f} tokens/s; parameter blocks {want_bytes} B"
           f" a rank (the spec arithmetic); peaks "
           f"{[r['peak_bytes'] for r in res]} B beside the memory model's "
-          f"{r0['estimate_bytes']} B; collectives of the second step "
-          f"{r0['census']}; launches {out['counts']['rank0']} a rank; "
-          f"{train_s:.1f} s", flush=True)
-    print(f"21b [{card}]: GSPMD {GSPMD_DIMS[0]}x{GSPMD_DIMS[1]} flat == one "
-          f"device's compiled after {GSPMD_CHECK_STEPS} steps at qwen2-1.5b "
-          f"width, {GSPMD_CHECK_LAYERS} layers, fp32, TF32 off (losses "
-          f"{chk[0]['losses']} vs {chk[0]['ref_losses']}, max abs err "
-          f"{out['check']['max_abs_err']:.3e}); {check_s:.1f} s", flush=True)
+          f"{r0['estimate_bytes']} B (fsdp_params={fsdp}); collectives of "
+          f"the second step {r0['census']}; launches "
+          f"{[r['counts'] for r in res]} by rank; {train_s:.1f} s",
+          flush=True)
+    print(f"{label[1]} [{card}]: GSPMD {GSPMD_DIMS[0]}x{GSPMD_DIMS[1]} flat "
+          f"== one device's compiled after {GSPMD_CHECK_STEPS} steps at "
+          f"qwen2-1.5b width, {GSPMD_CHECK_LAYERS} layers, fp32, TF32 off "
+          f"(losses {chk[0]['losses']} vs {chk[0]['ref_losses']}, max abs "
+          f"err {out['check']['max_abs_err']:.3e}); {check_s:.1f} s",
+          flush=True)
+    return out
+
+
+def gspmd_train_phase(world) -> dict:
+    """21a and 21b on ``world``, a ``LocalWorld`` of four ranks sharing
+    the card (gloo, each capped at 0.24 of its memory), with the params
+    FSDP over ``data`` and then replicated over it (the twins; see
+    :func:`_gspmd_train_run`, :func:`gspmd_main_rank` and
+    :func:`gspmd_check_rank`). The twin's first loss is the FSDP step's
+    (the same forward on the same weights)."""
+    gc_collect()
+    n = GSPMD_DIMS[0] * GSPMD_DIMS[1]
+    check(world.n == n, f"21 runs on {n} ranks, the world has {world.n}")
+    out = _gspmd_train_run(world, True)
+    out["no_fsdp"] = twin = _gspmd_train_run(world, False)
+    check(abs(twin["losses"][0] - out["losses"][0])
+          <= 1e-3 * abs(out["losses"][0]),
+          f"21a without FSDP: first loss {twin['losses'][0]} vs the FSDP "
+          f"step's {out['losses'][0]}")
     return out
 
 
@@ -5715,45 +5850,68 @@ def gspmd_dryrun_phase(dev, st_train: dict) -> dict:
     the 16 × 16 production mesh: a fake world of 256 ranks in this
     process, fake CUDA tensors (nothing allocated on the card): the
     rank's peak, parameter bytes (the spec arithmetic) and FLOPs, and its
-    collectives by kind and axis."""
+    collectives by kind and axis; then the same with ``--no-fsdp``
+    (``run_dryrun(fsdp=False)``), whose parameter bytes are
+    ``param_specs(fsdp=False)``'s arithmetic and whose census all-reduces
+    over ``data`` and gathers no weight there."""
     import torch
     from repro_torch import configs
     from repro_torch.launch import dryrun
 
     card = card_line()
-    gc_collect()
-    before = torch.cuda.memory_allocated(dev)
-    t0 = time.perf_counter()
-    res = dryrun.run_dryrun(
-        STEPS_ARCH, "train_4k", executor="flat",
-        num_microbatches=st_train["num_micro_batches"],
-        remat_policy=st_train["remat"],
-        cfg_overrides={"num_layers": STEPS_TRAIN_LAYERS},
-        plan_budget_bytes=CALIBRATION_BUDGET_GB * GIB, device=dev,
-        mesh_spec="production", probe=False, verbose=False)
-    wall = time.perf_counter() - t0
-    check(torch.cuda.memory_allocated(dev) == before,
-          "21c: the dry run allocated on the card")
-    g = res["gspmd"]
     cfg = dataclasses.replace(configs.get(STEPS_ARCH),
                               num_layers=STEPS_TRAIN_LAYERS)
-    want = _gspmd_spec_bytes(cfg, g["mesh"])
-    check(g["local_param_bytes"] == want,
-          f"21c: {g['local_param_bytes']} B of parameter blocks, the spec "
-          f"arithmetic says {want}")
-    check(g["collectives"]["calls"] > 0, "21c: no collective counted")
-    out = {"card": card, "plan": g["plan"], "world": g["world"],
-           "local_param_bytes": g["local_param_bytes"],
-           "peak_bytes": g["peak_bytes"], "flops": g["flops"],
-           "modeled_bytes": res["oracle"]["modeled_bytes"],
-           "collectives": g["collectives"], "dryrun_s": wall}
-    print(f"21c dry run of {STEPS_ARCH} train_4k at {STEPS_TRAIN_LAYERS} "
-          f"layers as rank 0 of the {g['world']}-rank production mesh "
-          f"{g['mesh']} [{card}]: {g['plan']}; parameter blocks "
-          f"{g['local_param_bytes']} B; peak {g['peak_bytes']} B "
-          f"({g['peak_bytes'] / GIB:.3f} GiB) beside the memory model's "
-          f"{res['oracle']['modeled_bytes']} B; {g['flops']:.6e} FLOPs a "
-          f"step; collectives {g['collectives']}; {wall:.1f} s", flush=True)
+    out = {"card": card}
+    for fsdp in (True, False):
+        gc_collect()
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        res = dryrun.run_dryrun(
+            STEPS_ARCH, "train_4k", executor="flat",
+            num_microbatches=st_train["num_micro_batches"],
+            remat_policy=st_train["remat"],
+            cfg_overrides={"num_layers": STEPS_TRAIN_LAYERS},
+            plan_budget_bytes=CALIBRATION_BUDGET_GB * GIB, device=dev,
+            mesh_spec="production", probe=False, verbose=False, fsdp=fsdp)
+        wall = time.perf_counter() - t0
+        label = "21c" if fsdp else "21c without FSDP"
+        check(torch.cuda.memory_allocated(dev) == before,
+              f"{label}: the dry run allocated on the card")
+        g = res["gspmd"]
+        want = _gspmd_spec_bytes(cfg, g["mesh"], fsdp)
+        check(g["local_param_bytes"] == want,
+              f"{label}: {g['local_param_bytes']} B of parameter blocks, "
+              f"the spec arithmetic says {want}")
+        check(g["collectives"]["calls"] > 0, f"{label}: no collective "
+                                             "counted")
+        by = g["collectives"]["by_kind_and_axis"]
+        gathered = g["collectives"]["params_by_kind_and_axis"].get(
+            "all_gather", {})
+        if fsdp:
+            check("data" in gathered, f"{label}: no weight gathered over "
+                                      f"data: {g['collectives']}")
+        else:
+            check(by.get("all_reduce", {}).get("data", 0) > 0
+                  and "data" not in gathered,
+                  f"{label}: want an all-reduce over data and no weight "
+                  f"gathered there: {g['collectives']}")
+        rec = {"plan": g["plan"], "world": g["world"],
+               "local_param_bytes": g["local_param_bytes"],
+               "peak_bytes": g["peak_bytes"], "flops": g["flops"],
+               "modeled_bytes": res["oracle"]["modeled_bytes"],
+               "collectives": g["collectives"], "dryrun_s": wall}
+        if fsdp:
+            out.update(rec)
+        else:
+            out["no_fsdp"] = rec
+        print(f"{label} dry run of {STEPS_ARCH} train_4k at "
+              f"{STEPS_TRAIN_LAYERS} layers as rank 0 of the {g['world']}-"
+              f"rank production mesh {g['mesh']} [{card}]: {g['plan']}; "
+              f"parameter blocks {g['local_param_bytes']} B; peak "
+              f"{g['peak_bytes']} B ({g['peak_bytes'] / GIB:.3f} GiB) "
+              f"beside the memory model's {res['oracle']['modeled_bytes']} B"
+              f" (fsdp_params={fsdp}); {g['flops']:.6e} FLOPs a step; "
+              f"collectives {g['collectives']}; {wall:.1f} s", flush=True)
     return out
 
 
@@ -6588,6 +6746,8 @@ def run() -> dict:
              "analysis 20a": checker["analysis"]["counts"],
              **{f"gspmd qwen2-1.5b {k}": c
                 for k, c in gspmd["train"]["counts"].items()},
+             **{f"gspmd no-fsdp qwen2-1.5b {k}": c
+                for k, c in gspmd["train"]["no_fsdp"]["counts"].items()},
              **{f"gspmd supervised qwen2-1.5b {k}": c
                 for k, c in gspmd["supervised"]["counts"].items()},
              **{f"serve world qwen2-1.5b {k}": c
@@ -6668,8 +6828,12 @@ def run() -> dict:
                                        if k != "counts"}
                                for label, r in pp["train"].items()},
                      "check": pp["check"]},
-        "gspmd": {"train": {k: v for k, v in gspmd["train"].items()
-                            if k != "counts"},
+        "gspmd": {"train": {
+                      **{k: v for k, v in gspmd["train"].items()
+                         if k not in ("counts", "no_fsdp")},
+                      "no_fsdp": {k: v for k, v in
+                                  gspmd["train"]["no_fsdp"].items()
+                                  if k != "counts"}},
                   "dryrun": gspmd["dryrun"],
                   "supervised": {k: v for k, v in
                                  gspmd["supervised"].items()

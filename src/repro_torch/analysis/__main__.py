@@ -12,6 +12,7 @@ Examples::
         --executor flat --executor compiled --mesh host --ranks 2
     python -m repro_torch.analysis --device cpu --config qwen2_reduced \\
         --mesh 1:2
+    python -m repro_torch.analysis --device cpu --no-hlo
     python -m repro_torch.analysis --device cpu --serve [--no-donate] \
         [--mesh host|2:1]
 """
@@ -48,6 +49,10 @@ def _parse(argv):
     ap.add_argument("--remat-policy", default=None,
                     help="override the remat lattice row (default: the "
                          "target's shipped policy)")
+    ap.add_argument("--no-hlo", action="store_true",
+                    help="skip the measured-step layer (HLO001-HLO005): "
+                         "the recorded step's trace rules and the lint "
+                         "only")
     ap.add_argument("--lint-only", action="store_true",
                     help="run only the AST lint over src/repro_torch")
     ap.add_argument("--serve", action="store_true",
@@ -124,7 +129,8 @@ def main(argv=None) -> int:
                     reports.append(suite_mod.run_suite(
                         t, executor=ex, mesh=args.mesh,
                         remat_policy=args.remat_policy, lint=lint_once,
-                        device=args.device, ranks=args.ranks, **kw))
+                        device=args.device, ranks=args.ranks,
+                        hlo=not args.no_hlo, **kw))
                     lint_once = False  # the lint is matrix-invariant
                 except Exception:  # recorded; the run exits 1
                     traceback.print_exc()

@@ -195,11 +195,19 @@ def _context(target, executor, plan, dims) -> Dict[str, Any]:
             "num_micro_batches": int(plan.num_micro_batches)}
 
 
+#: the measured-step layer (``step_checks``), which ``hlo=False`` skips
+HLO_RULES = ("HLO001", "HLO002", "HLO003", "HLO004", "HLO005")
+
+
 def check_step(target: str, executor: str, *, mesh=None, dims=None,
                remat_policy: Optional[str] = None, device="cpu",
-               memory_tolerance: float = MEMORY_TOLERANCE) -> Report:
+               memory_tolerance: float = MEMORY_TOLERANCE,
+               hlo: bool = True) -> Report:
     """Build one target, run one recorded step on this process (a rank of
-    ``mesh`` when given) and check it."""
+    ``mesh`` when given) and check it. ``hlo=False`` records the step
+    only (``trace_step``) and runs the trace rules (JX) without the
+    measured layer (HLO001–HLO005, named in ``context["skipped_rules"]``),
+    as the reference's ``--no-hlo`` skips its compile."""
     spec = TARGETS[target]
     if remat_policy is None:
         remat_policy = "period" if spec.remat_capable else "none"
@@ -207,8 +215,11 @@ def check_step(target: str, executor: str, *, mesh=None, dims=None,
     plan = built["plan"]
     ex = make_executor(built, executor, mesh)
     params, opt_state, split = _state(ex, built, device)
-    run = ex.measure_step(params, opt_state, split)
-    trace = run.trace
+    if hlo:
+        run = ex.measure_step(params, opt_state, split)
+        trace = run.trace
+    else:
+        run, trace = None, ex.trace_step(params, opt_state, split)
     report = Report(context=_context(target, executor, plan, dims))
     ctx = f"{target}/{executor}"
     n_micro = int(plan.num_micro_batches)
@@ -224,17 +235,24 @@ def check_step(target: str, executor: str, *, mesh=None, dims=None,
         report.merge(trace_checks.check_pipelined_step(
             trace, plan, params, stages=stages, rank=mesh.rank, world=world,
             leaves_per_transfer=per, expect_sync=sync))
-        max_p2p = per * sum(engine.p2p_counts(stages, n_micro,
-                                              mesh.rank % stages).values())
-        report.extend(step_checks.check_pipeline_step(
-            run, expect=sync, n_micro=n_micro, stages=stages,
-            rank=mesh.rank, world=world, max_p2p=max_p2p,
-            context=ctx), "HLO005")
+        if hlo:
+            max_p2p = per * sum(engine.p2p_counts(
+                stages, n_micro, mesh.rank % stages).values())
+            report.extend(step_checks.check_pipeline_step(
+                run, expect=sync, n_micro=n_micro, stages=stages,
+                rank=mesh.rank, world=world, max_p2p=max_p2p,
+                context=ctx), "HLO005")
     else:
         report.merge(trace_checks.check_train_step(
             trace, plan, params, expect_sync=sync))
-        report.extend(step_checks.check_gradient_sync(
-            run, expect=sync, n_micro=n_micro, context=ctx), "HLO004")
+        if hlo:
+            report.extend(step_checks.check_gradient_sync(
+                run, expect=sync, n_micro=n_micro, context=ctx), "HLO004")
+    report.context["kernel_launches"] = sum(
+        1 for c in trace.kernels if c.launched and c.device == "cuda")
+    if not hlo:
+        report.context["skipped_rules"] = list(HLO_RULES)
+        return report
     report.extend(step_checks.check_aliasing(
         run, in_place=ex.updates_in_place, n_micro=n_micro, context=ctx),
         "HLO001")
@@ -245,19 +263,17 @@ def check_step(target: str, executor: str, *, mesh=None, dims=None,
         context=ctx), "HLO003")
     report.context["peak_bytes"] = run.peak_bytes
     report.context["peak_source"] = run.peak_source
-    report.context["kernel_launches"] = sum(
-        1 for c in trace.kernels if c.launched and c.device == "cuda")
     return report
 
 
 def _rank_check(mesh, target, executor, dims, remat_policy,
-                memory_tolerance):
+                memory_tolerance, hlo=True):
     """One rank of a world: its own step's report, as a dict."""
     if dims[1] > 1:
         mesh = mesh_lib.pipeline_mesh(mesh, dims[0], dims[1])
     rep = check_step(target, executor, mesh=mesh, dims=dims,
                      remat_policy=remat_policy, device=mesh.device,
-                     memory_tolerance=memory_tolerance)
+                     memory_tolerance=memory_tolerance, hlo=hlo)
     return rep.to_dict()
 
 
@@ -272,11 +288,14 @@ def _from_dict(d: Dict[str, Any]) -> Report:
 def run_suite(target: str = "qwen2_reduced", *, executor: str = "flat",
               mesh: Any = None, remat_policy: Optional[str] = None,
               lint: bool = True, memory_tolerance: float = MEMORY_TOLERANCE,
-              device="cpu", ranks: int = 2, world=None) -> Report:
+              device="cpu", ranks: int = 2, world=None,
+              hlo: bool = True) -> Report:
     """One configuration's step, recorded and checked by every applicable
     rule (and the lint, once). On a mesh the step runs on every rank of
     a ``LocalWorld`` (``world``, or one of ``DATA × MODEL`` ranks started
-    here) and each rank's findings are merged, tagged with the rank."""
+    here) and each rank's findings are merged, tagged with the rank.
+    ``hlo=False`` (``--no-hlo``) runs the trace rules and the lint only
+    (:func:`check_step`)."""
     spec = TARGETS[target]
     dims = resolve_mesh(mesh, ranks)
     if dims is not None and dims[1] > 1 and not spec.stageable:
@@ -287,7 +306,8 @@ def run_suite(target: str = "qwen2_reduced", *, executor: str = "flat",
                        "(decoder-only stacks only)"})
     if dims is None or dims[0] * dims[1] < 2:
         report = check_step(target, executor, remat_policy=remat_policy,
-                            device=device, memory_tolerance=memory_tolerance)
+                            device=device, memory_tolerance=memory_tolerance,
+                            hlo=hlo)
     else:
         from ..launch.world import LocalWorld
         n = dims[0] * dims[1]
@@ -300,7 +320,7 @@ def run_suite(target: str = "qwen2_reduced", *, executor: str = "flat",
                              f"{world.n}")
         try:
             dicts = world.run(_rank_check, target, executor, dims,
-                              remat_policy, memory_tolerance)
+                              remat_policy, memory_tolerance, hlo)
         finally:
             if own:
                 world.close()
@@ -356,16 +376,21 @@ GSPMD_REFUSED["HLO001"] = (
 
 def check_gspmd_rank(collectives: Dict[str, Any], mesh, *, peak_bytes: int,
                      modeled_bytes: Optional[int],
-                     memory_tolerance: float = MEMORY_TOLERANCE) -> Report:
+                     memory_tolerance: float = MEMORY_TOLERANCE,
+                     fsdp: bool = True) -> Report:
     """``dryrun --check`` on the production mesh, over what one rank's
-    run gives: its census of collectives (JX004's GSPMD form,
-    ``trace_checks.check_gspmd_collectives``) and its peak against
-    ``memory_model.estimate(mesh=, fsdp_params=True)`` (HLO003). The
-    rules it cannot feed are named in ``context["refused"]``, never
-    passed."""
+    run gives: its census of collectives (JX004's GSPMD form in the
+    params' placement, ``trace_checks.check_gspmd_collectives``: FSDP's
+    reduce-scatter, or with ``fsdp=False`` an all-reduce over the batch
+    axes and no weight gathered over them) and its peak against
+    ``modeled_bytes``, the caller's ``memory_model.estimate(mesh=,
+    fsdp_params=fsdp)`` (HLO003). The rules it cannot feed are named in
+    ``context["refused"]``, never passed."""
     report = Report(context={"kind": "train", "mesh": dict(mesh),
+                             "fsdp": fsdp,
                              "refused": dict(GSPMD_REFUSED)})
-    report.extend(trace_checks.check_gspmd_collectives(collectives, mesh),
+    report.extend(trace_checks.check_gspmd_collectives(collectives, mesh,
+                                                       fsdp=fsdp),
                   "JX004")
     report.extend(step_checks.check_memory_model(
         int(peak_bytes), modeled_bytes, tolerance=memory_tolerance,

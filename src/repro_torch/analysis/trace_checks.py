@@ -242,13 +242,18 @@ def check_collectives(trace, params, *, n_micro: int,
 
 
 def check_gspmd_collectives(census: Dict[str, Any], mesh,
-                            train: bool = True) -> List[Finding]:
+                            train: bool = True,
+                            fsdp: bool = True) -> List[Finding]:
     """JX004 on one rank of a GSPMD mesh, from its census
     (``engine.CollectiveCensus.summary``): every collective runs over the
     mesh's own axes (a group of none of them is a finding), and in a
     ``train`` step with a batch axis above one rank the gradients are
-    reduce-scattered over it (FSDP: a step without a reduce-scatter is a
-    finding)."""
+    synchronized over it in the params' placement. With ``fsdp`` they
+    are reduce-scattered (a step without a reduce-scatter is a finding);
+    without it (params replicated over the batch axes) they are
+    all-reduced over a batch axis, and no weight is gathered over one
+    (``params_by_kind_and_axis``: a missing all-reduce or a weight's
+    all-gather over ``data`` or ``pod`` is a finding)."""
     out: List[Finding] = []
     by = census.get("by_kind_and_axis", {})
     axes = set(mesh) | {"+".join(mesh)}
@@ -261,12 +266,36 @@ def check_gspmd_collectives(census: Dict[str, Any], mesh,
     dp = 1
     for ax in ("pod", "data"):
         dp *= mesh.get(ax, 1)
-    if train and dp > 1 and not by.get("reduce_scatter"):
+    if not train or dp < 2:
+        return out
+
+    def over_batch(kind, counts=by):
+        return sorted(ax for ax, n in counts.get(kind, {}).items()
+                      if n and {"pod", "data"} & set(ax.split("+")))
+
+    if fsdp and not by.get("reduce_scatter"):
         out.append(Finding(
             "JX004", SEVERITY_ERROR,
             f"no reduce-scatter in a GSPMD step over {dp} batch ranks: the "
             "gradients are not FSDP-reduced",
             details={"by_kind_and_axis": by}))
+    if not fsdp:
+        if not over_batch("all_reduce"):
+            out.append(Finding(
+                "JX004", SEVERITY_ERROR,
+                f"no all-reduce over a batch axis in a GSPMD step over {dp}"
+                " batch ranks with the params replicated there: the "
+                "gradients are not synchronized",
+                details={"by_kind_and_axis": by}))
+        params = census.get("params_by_kind_and_axis", {})
+        gathered = over_batch("all_gather", params)
+        if gathered:
+            out.append(Finding(
+                "JX004", SEVERITY_ERROR,
+                f"weights all-gathered over {gathered} in a GSPMD step "
+                "whose params are replicated over the batch axes (no "
+                "FSDP): a block is split where none should be",
+                details={"params_by_kind_and_axis": params}))
     return out
 
 

@@ -8,9 +8,10 @@ The port is SPMD over ``torch.distributed.tensor``:
   * every rank holds its block of each parameter, of the fp32
     accumulator and of each optimizer moment, by the reference's
     ``launch.sharding.param_specs`` (tensor-parallel over ``model``,
-    FSDP over ``data``, or over ``(pod, data)`` with ``fsdp_over_pod``):
-    a moment is split as the parameter it belongs to, so the update
-    stays elementwise on the local blocks;
+    FSDP over ``data``, or over ``(pod, data)`` with ``fsdp_over_pod``;
+    with ``fsdp=False``, the reference's ``--no-fsdp``, replicated over
+    the batch axes): a moment is split as the parameter it belongs to,
+    so the update stays elementwise on the local blocks;
   * the inner executor (``compiled``, ``fused`` or ``flat``; the
     reference's GSPMD path refuses ``streaming``, and so does this one)
     runs Algorithm 1 on those local blocks unchanged: K1 accumulates the
@@ -24,7 +25,10 @@ The port is SPMD over ``torch.distributed.tensor``:
     redistribute the activations, DTensor's propagation inserts the
     collectives GSPMD would, the vocab-sharded logits reduce in
     ``core.losses.sharded_nll``. The backward returns each gradient in
-    its parameter's placements (reduce-scattered or all-reduced);
+    its parameter's placements: reduce-scattered over ``data`` under
+    FSDP, all-reduced over it for a leaf replicated there — once a
+    micro-batch, inside the micro-batch loop, where the reference's
+    compiled step all-reduces it too (its scan body);
   * what is global is made global: the exact normalization's valid count
     (summed over the batch axes) and the gradient norm of the clip and of
     the metrics (each rank counts the leaves it owns — a leaf replicated
@@ -87,7 +91,8 @@ _SAMPLE_DIM = {"mrope_positions": 1}
 class GspmdExecutor(Traceable):
     """The MBS step on a GSPMD mesh (see the module doc). ``inner`` names
     the executor that runs the local blocks; ``fsdp_over_pod`` extends
-    FSDP to ``(pod, data)``.
+    FSDP to ``(pod, data)``; ``fsdp=False`` replicates the params over
+    the batch axes (tensor-parallel over ``model`` only).
 
     :meth:`prepare` cuts the reference-format ``(params, opt_state)``
     (whole tensors, the same on every rank) to this rank's blocks, in the
@@ -97,7 +102,8 @@ class GspmdExecutor(Traceable):
     name = "gspmd"
 
     def __init__(self, loss_fn, optimizer, plan, *, mesh, inner="flat",
-                 fsdp_over_pod: bool = False, guard: bool = False):
+                 fsdp: bool = True, fsdp_over_pod: bool = False,
+                 guard: bool = False):
         if getattr(mesh, "mode", None) != "gspmd":
             raise ValueError(f"GspmdExecutor runs on a GSPMD mesh "
                              f"(launch.mesh.gspmd_mesh), got {mesh!r}")
@@ -111,6 +117,7 @@ class GspmdExecutor(Traceable):
         self.plan = _as_plan(plan)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.fsdp = fsdp
         self.fsdp_over_pod = fsdp_over_pod
         self.inner_name = inner
         self.inner = get_executor(inner)(self._local_loss, optimizer,
@@ -127,7 +134,7 @@ class GspmdExecutor(Traceable):
     def param_specs(self, params):
         """The reference's spec tree of a params-shaped tree on this
         mesh."""
-        return sharding.param_specs(params, self.mesh,
+        return sharding.param_specs(params, self.mesh, fsdp=self.fsdp,
                                     fsdp_over_pod=self.fsdp_over_pod)
 
     def _learn(self, params) -> None:
@@ -415,6 +422,9 @@ class CollectiveCensus(TorchDispatchMode):
     …), with the bytes each moved (its input's) and the largest one's. An
     op on DTensors is handed back to DTensor first (``NotImplemented``),
     so the collectives it runs on the local blocks come through here.
+    Those run inside a weight's gather (``models.nn.gathering_params``)
+    are also counted apart, by kind and axis (``params_by_kind_and_axis``
+    in the summary).
 
     ``local=True`` also counts what one rank computes: the FLOPs of its
     local matmuls (``torch.utils.flop_counter``'s formulas) and the peak
@@ -427,6 +437,7 @@ class CollectiveCensus(TorchDispatchMode):
         super().__init__()
         self.mesh = mesh
         self.counts: Dict[str, Dict[str, int]] = {}
+        self.param_counts: Dict[str, Dict[str, int]] = {}
         self.bytes: Dict[str, int] = {}
         self.largest: Dict[str, int] = {}
         self._axis_of = self._axes(mesh)
@@ -505,8 +516,10 @@ class CollectiveCensus(TorchDispatchMode):
             group = args[-1] if isinstance(args[-1], str) else kwargs.get(
                 "group_name", "")
             axis = self._axis(group)
-            by = self.counts.setdefault(kind, {})
-            by[axis] = by.get(axis, 0) + 1
+            for counts in ((self.counts, self.param_counts)
+                           if nn.gathering_depth() else (self.counts,)):
+                by = counts.setdefault(kind, {})
+                by[axis] = by.get(axis, 0) + 1
             inp = args[0]
             n = inp.numel() * inp.element_size()
             self.bytes[kind] = self.bytes.get(kind, 0) + n
@@ -516,6 +529,8 @@ class CollectiveCensus(TorchDispatchMode):
     def summary(self) -> Dict[str, Any]:
         return {"by_kind_and_axis": {k: dict(v) for k, v in
                                      sorted(self.counts.items())},
+                "params_by_kind_and_axis": {
+                    k: dict(v) for k, v in sorted(self.param_counts.items())},
                 "bytes_by_kind": dict(sorted(self.bytes.items())),
                 "largest_by_kind": dict(sorted(self.largest.items())),
                 "calls": sum(sum(v.values()) for v in self.counts.values())}

@@ -53,6 +53,7 @@ Usage::
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k \\
       [--reduced] [--microbatches 8] [--executor flat] [--budget GB] \\
       [--check] [--no-probe] [--device cuda|cpu] [--json] [--out DIR]
+      [--mesh production] [--multi-pod] [--no-fsdp]
 
 Exit codes (shared with ``python -m repro_torch.analysis``): 0 ok, 1 tool
 error (a refused mesh; an op whose output shape depends on the data,
@@ -169,11 +170,13 @@ def _kernel_calls(trace) -> Dict[str, int]:
 
 
 def _production(cfg, shape, *, multi_pod: bool, pinned, device,
-                step_kw) -> Dict[str, Any]:
+                step_kw, fsdp: bool = True) -> Dict[str, Any]:
     """One rank's view of the step on the production mesh: a fake
     world of 256 (512 with the pod axis) ranks in this process (every
     collective returns at once), the step built for the GSPMD mesh
-    (``fsdp_over_pod`` with the pod axis, as the reference's dry run),
+    (``fsdp_over_pod`` with the pod axis, as the reference's dry run;
+    ``fsdp=False`` replicates the params over the batch axes, and a
+    prefill or decode shape ignores it, as the reference's does),
     its state cut to rank 0's blocks and run under a ``FakeTensorMode``
     — nothing allocated. A prefill or decode shape goes to
     :func:`_production_serve`. The census
@@ -192,9 +195,10 @@ def _production(cfg, shape, *, multi_pod: bool, pinned, device,
         if shape.kind != "train":
             return _production_serve(cfg, shape, mesh, world, device,
                                      step_kw)
+        over_pod = multi_pod and fsdp
         bundle = steps.build_step(cfg, shape, num_microbatches=pinned,
-                                  mesh=mesh, fsdp_over_pod=multi_pod,
-                                  **step_kw)
+                                  mesh=mesh, fsdp=fsdp,
+                                  fsdp_over_pod=over_pod, **step_kw)
         ex, plan = bundle.runner, bundle.plan
         runs = []
         # DTensor's sharding propagation runs each new op once on fake
@@ -218,7 +222,8 @@ def _production(cfg, shape, *, multi_pod: bool, pinned, device,
         return {
             "world": world, "mesh": dict(mesh), "rank": mesh.rank,
             "coords": mesh.coords(), "kind": "train",
-            "fsdp_over_pod": multi_pod, "local_param_bytes": local_bytes,
+            "fsdp": fsdp, "fsdp_over_pod": over_pod,
+            "local_param_bytes": local_bytes,
             "flops": (one.flops + (n - 1) * (two.flops - one.flops)
                       if two is not one else one.flops),
             "peak_bytes": two.peak_bytes, "collectives": collectives,
@@ -235,13 +240,19 @@ def _census_report(one, two, n: int) -> Dict[str, Any]:
     def extend(a, b):
         return a + (n - 1) * (b - a) if two is not one else a
 
-    kinds = {}
-    for kind in set(one.counts) | set(two.counts):
-        axes = set(one.counts.get(kind, {})) | set(two.counts.get(kind, {}))
-        kinds[kind] = {ax: extend(one.counts.get(kind, {}).get(ax, 0),
-                                  two.counts.get(kind, {}).get(ax, 0))
-                       for ax in sorted(axes)}
+    def by_kind(c1, c2):
+        kinds = {}
+        for kind in sorted(set(c1) | set(c2)):
+            axes = set(c1.get(kind, {})) | set(c2.get(kind, {}))
+            kinds[kind] = {ax: extend(c1.get(kind, {}).get(ax, 0),
+                                      c2.get(kind, {}).get(ax, 0))
+                           for ax in sorted(axes)}
+        return kinds
+
+    kinds = by_kind(one.counts, two.counts)
     return {"by_kind_and_axis": kinds,
+            "params_by_kind_and_axis": by_kind(one.param_counts,
+                                               two.param_counts),
             "bytes_by_kind": {k: extend(one.bytes.get(k, 0),
                                         two.bytes.get(k, 0))
                               for k in sorted(set(one.bytes)
@@ -293,7 +304,8 @@ def _production_serve(cfg, shape, mesh, world: int, device, step_kw
     return {
         "world": world, "mesh": dict(mesh), "rank": mesh.rank,
         "coords": mesh.coords(), "kind": bundle.kind,
-        "fsdp_over_pod": False, "local_param_bytes": param_bytes,
+        "fsdp": True, "fsdp_over_pod": False,
+        "local_param_bytes": param_bytes,
         "local_cache_bytes": cache_bytes, "cache_kept": kept,
         "logits_local_shape": list(logits_local),
         "flops": census.flops, "peak_bytes": census.peak_bytes,
@@ -306,9 +318,10 @@ def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
                        check=False):
     """The production run's report: the one-device report's keys where
     one rank gives them, its ``budget`` gate on the rank's peak and, with
-    ``check``, ``analysis.check_gspmd_rank`` over the rank's census and
-    peak against ``estimate(mesh=, fsdp_params=True)``. A prefill or
-    decode rank's report is :func:`_production_serve_report`'s."""
+    ``check``, ``analysis.check_gspmd_rank`` over the rank's census
+    (JX004 in the step's placement) and peak against ``estimate(mesh=,
+    fsdp_params=)`` of that placement. A prefill or decode rank's report
+    is :func:`_production_serve_report`'s."""
     if g["kind"] != "train":
         return _production_serve_report(arch, shape_name, g, device, t_step,
                                          verbose, budget_bytes, check)
@@ -318,7 +331,7 @@ def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
                  **optim.memory_model_kw(bundle.optimizer,
                                          fused=executor == "flat"))
     est = memory_model.estimate(cfg, shape.seq_len, mesh=g["mesh"],
-                                fsdp_params=True, **mm_kw)
+                                fsdp_params=g["fsdp"], **mm_kw)
     peak = g["peak_bytes"]
     modeled = est.total(plan.local_micro)
     contract = None
@@ -326,7 +339,7 @@ def _production_report(arch, shape_name, cfg, shape, g, device, t_step,
         from .. import analysis
         contract = analysis.check_gspmd_rank(
             g["collectives"], g["mesh"], peak_bytes=peak,
-            modeled_bytes=modeled).to_dict()
+            modeled_bytes=modeled, fsdp=g["fsdp"]).to_dict()
     result = {
         "arch": arch, "shape": shape_name, "mesh": list(g["mesh"].values()),
         "axes": list(g["mesh"]), "mesh_dims": list(g["mesh"].items()),
@@ -406,7 +419,8 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
                mesh_spec: Optional[str] = None, device="cuda",
                calibrate: str = "off", tuning_cache: Optional[str] = None,
                unrolled: bool = False,
-               plan_budget_bytes: Optional[int] = None) -> Dict[str, Any]:
+               plan_budget_bytes: Optional[int] = None,
+               fsdp: bool = True) -> Dict[str, Any]:
     """Dry-run one combo and return its report (printed as one JSON line
     when ``verbose``). ``budget_bytes`` is the over-budget gate (exit 2
     in :func:`main`); the planner plans against ``plan_budget_bytes``,
@@ -414,7 +428,12 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     ``unrolled`` runs every micro-batch of the step instead of extending
     the first two (see the module doc). ``mesh_spec="production"`` (or
     ``multi_pod``) dry-runs the step on the production GSPMD mesh
-    (:func:`_production`)."""
+    (:func:`_production`); there ``fsdp=False`` (``--no-fsdp``)
+    replicates a train step's params over the batch axes. Elsewhere, and
+    on serve shapes, ``fsdp`` changes nothing: the one-device step and
+    its probes hold whole params, and a pipelined mesh's report follows
+    the pipeline's own default, as the reference's dry run ignores its
+    specs there."""
     device = torch.device(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
     if cfg_overrides:
@@ -445,7 +464,7 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     t0 = time.perf_counter()
     if production:
         g = _production(cfg, shape, multi_pod=multi_pod, pinned=pinned,
-                        device=device, step_kw=step_kw)
+                        device=device, step_kw=step_kw, fsdp=fsdp)
         return _production_report(arch, shape_name, cfg, shape, g, device,
                                   time.perf_counter() - t0, plan_budget,
                                   executor, verbose,
@@ -603,6 +622,11 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true",
                     help="the 2x16x16 production mesh (a train step's "
                          "FSDP over (pod, data))")
+    ap.add_argument("--no-fsdp", action="store_true",
+                    help="replicate a train step's params over the data "
+                         "axis of the production mesh (no per-micro-batch "
+                         "weight all-gathers; only for models whose "
+                         "optimizer state fits)")
     ap.add_argument("--mesh", default=None, metavar="DATA:MODEL",
                     help="report the mesh-aware plan (and, with MODEL > 1, "
                          "the 1F1B census and per-stage bytes) for this "
@@ -672,6 +696,7 @@ def main(argv=None):
                          check=args.check, mesh_spec=args.mesh,
                          device=device, calibrate=args.calibrate,
                          tuning_cache=args.tuning_cache,
+                         fsdp=not args.no_fsdp,
                          plan_budget_bytes=(
                              int(args.hbm_budget_gb * 1024 ** 3)
                              if args.hbm_budget_gb else None))

@@ -239,7 +239,8 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
                      remat_policy: Optional[str] = None,
                      normalization: str = "paper",
                      executor: str = "compiled", mesh=None,
-                     fsdp: bool = False, fsdp_over_pod: bool = False,
+                     fsdp: Optional[bool] = None,
+                     fsdp_over_pod: bool = False,
                      calibrate: str = "off",
                      budget_bytes: Optional[int] = None,
                      tuning_cache: Optional[str] = None,
@@ -259,26 +260,34 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
     instead, as the reference's does: ``plan_mbs(pipeline=True)`` budgets
     stage-local activations × the in-flight depth, and
     :class:`engine.PipelinedExecutor` runs the plan's micro-batches
-    through the 1F1B schedule over :func:`make_staged_loss`
-    (``fsdp=True`` also shards params over the data axis; without a model
-    axis it is ignored, as in the reference). ``executor`` is then
-    "pipelined", the bundle's ``fn`` its ``step_split`` (call the
-    executor's ``prepare`` on the reference-format state first) and the
-    abstract state the reference-format trees.
+    through the 1F1B schedule over :func:`make_staged_loss`.
+    ``executor`` is then "pipelined", the bundle's ``fn`` its
+    ``step_split`` (call the executor's ``prepare`` on the
+    reference-format state first) and the abstract state the
+    reference-format trees.
 
     A GSPMD mesh (``launch.mesh.gspmd_mesh``, ``make_production_mesh``)
     places the step as the reference's dry run does: params and optimizer
-    state by ``param_specs`` (always FSDP over ``data``, the reference's
-    default; ``fsdp`` is the pipeline's; ``fsdp_over_pod`` with a pod
-    axis), the batch by ``batch_specs`` — ``plan_mbs(mesh=,
-    fsdp_params=True)`` plans it — and :class:`engine.GspmdExecutor`
-    runs ``executor`` on each rank's blocks. ``executor`` is then
-    "gspmd"; ``runner.prepare`` cuts the reference-format state."""
+    state by ``param_specs`` (``fsdp_over_pod`` with a pod axis), the
+    batch by ``batch_specs`` — ``plan_mbs(mesh=, fsdp_params=fsdp)``
+    plans it — and :class:`engine.GspmdExecutor` runs ``executor`` on
+    each rank's blocks. ``executor`` is then "gspmd";
+    ``runner.prepare`` cuts the reference-format state.
+
+    ``fsdp`` shards the params over the data axis; ``None`` takes the
+    mesh's default, the reference's: on a GSPMD mesh FSDP is on
+    (``fsdp=False`` is its dry run's ``--no-fsdp``: the params replicated
+    over the batch axes, tensor-parallel over ``model`` only), on a
+    pipeline mesh off (``fsdp=True`` is its launcher's ``--fsdp``); on
+    one device or a data-parallel mesh the params are whole on every
+    rank and ``fsdp`` is ignored, as in the reference."""
     optimizer = optimizer or make_optimizer(cfg)
     mode = getattr(mesh, "mode", None)
     pipeline = mode == "pipeline" and mesh_lib.axis_size(
         mesh, mesh_lib.MODEL_AXIS) > 1
     gspmd = mode == "gspmd"
+    if fsdp is None:
+        fsdp = gspmd
     dp = mesh_lib.data_parallel_size(mesh) if mesh is not None else 1
     plan = engine.plan_mbs(
         shape.global_batch, num_microbatches=num_microbatches,
@@ -287,7 +296,7 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
         act_bytes=torch.empty((), dtype=dtype).element_size(), remat=remat,
         remat_policy=remat_policy,
         mesh=mesh if dp > 1 or pipeline or gspmd else None,
-        fsdp_params=gspmd or dp < 2 or pipeline,
+        fsdp_params=fsdp if gspmd else dp < 2 or pipeline,
         calibrate=calibrate, tuning_cache=tuning_cache, executor=executor,
         pipeline=pipeline,
         **optim.memory_model_kw(optimizer, fused=executor == "flat"))
@@ -299,7 +308,7 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, *,
     elif gspmd:
         loss_fn = make_loss_fn(cfg, dtype, remat_policy=plan.remat_policy)
         ex = engine.GspmdExecutor(loss_fn, optimizer, plan, mesh=mesh,
-                                  inner=executor,
+                                  inner=executor, fsdp=fsdp,
                                   fsdp_over_pod=fsdp_over_pod)
         executor = "gspmd"
     else:

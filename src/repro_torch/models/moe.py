@@ -201,9 +201,10 @@ def _dispatch_on_mesh(p, cfg: ModelConfig, xt):
     Tl = xl.shape[0]
     over = [Partial() if n in split else Replicate() for n in names]
     # the router whole; each block's routing gives a part of its gradient
-    router = {n: w.redistribute(dm, [Replicate()] * dm.ndim).to_local(
-        grad_placements=over) if nn._is_dtensor(w) else w
-        for n, w in p["router"].items()}
+    with nn.gathering_params():
+        router = {n: w.redistribute(dm, [Replicate()] * dm.ndim).to_local(
+            grad_placements=over) if nn._is_dtensor(w) else w
+            for n, w in p["router"].items()}
 
     def blocks(counts, psum):
         every = nn.from_blocks(counts[None], dm, tok, (nb, E)).full_tensor()
@@ -250,9 +251,10 @@ def _dispatch_on_mesh(p, cfg: ModelConfig, xt):
              if n == "model" and expert else Replicate() for n in names]
     wpl = [Shard(0) if n == "model" and expert else Replicate()
            for n in names]
-    wl = {n: p[n].to(xl.dtype).redistribute(dm, wpl).to_local(
-        grad_placements=wgrad) for n in ("w_up", "w_gate", "w_down")
-        if n in p}
+    with nn.gathering_params():
+        wl = {n: p[n].to(xl.dtype).redistribute(dm, wpl).to_local(
+            grad_placements=wgrad) for n in ("w_up", "w_gate", "w_down")
+            if n in p}
     eout = _expert_ffn(wl, xe.reshape(nE, -1, D), cfg.ffn_kind)
     el = nn.from_blocks(eout.reshape(nE, -1, 1, c, D), dm, post,
                         shape5).redistribute(dm, full).to_local(

@@ -34,6 +34,9 @@ import torch.nn.functional as F
 # autograd's device thread, sees the mesh of the step that runs it)
 _MESH = {"mesh": None}
 _SEQ_STATE = {"enabled": None}  # per-forward override (set by forward())
+# inside a weight's gather (process-wide, as the mesh: a recomputed block
+# gathers on autograd's thread)
+_GATHERING = {"depth": 0}
 
 
 @contextlib.contextmanager
@@ -56,6 +59,24 @@ def use_mesh(mesh):
 def current_mesh():
     """The GSPMD mesh of the enclosing :func:`use_mesh` (or None)."""
     return _MESH["mesh"]
+
+
+@contextlib.contextmanager
+def gathering_params():
+    """Marks the collectives run inside as a parameter's gather (FSDP's
+    just-in-time gather of a weight's blocks): ``engine.CollectiveCensus``
+    counts them apart as well, so a step's contract can tell a weight
+    gathered over ``data`` from activations gathered there."""
+    _GATHERING["depth"] += 1
+    try:
+        yield
+    finally:
+        _GATHERING["depth"] -= 1
+
+
+def gathering_depth() -> int:
+    """How many :func:`gathering_params` enclose the caller."""
+    return _GATHERING["depth"]
 
 
 def serving_mode(fn):
@@ -338,8 +359,10 @@ def _fsdp_gather(w):
     if not _is_dtensor(w) or current_mesh() is None:
         return w
     want = _fsdp_placements(w)
-    return w if want == list(w.placements) else w.redistribute(
-        w.device_mesh, want)
+    if want == list(w.placements):
+        return w
+    with gathering_params():
+        return w.redistribute(w.device_mesh, want)
 
 
 def dense(p, x, compute_dtype=None):
@@ -544,7 +567,8 @@ def _sharded_embed(table, tokens, compute_dtype, scale: bool):
     if want != list(table.placements):
         if compute_dtype is not None:  # cast, then gather (the reference's
             table = table.to(compute_dtype)  # order): half the bytes in bf16
-        table = table.redistribute(mesh.device_mesh, want)
+        with gathering_params():
+            table = table.redistribute(mesh.device_mesh, want)
     split = want[mi] if mi is not None else Replicate()
     if _is_dtensor(tokens):
         tok_pl = list(tokens.placements)

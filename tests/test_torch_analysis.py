@@ -561,3 +561,21 @@ def test_cli_matrix_on_the_cpu(capsys):
     assert cli.main(["--device", "cpu", "--serve", "--no-donate",
                      "--config", "qwen2-1.5b"]) == F.EXIT_CONTRACT
     assert "SRV001" in capsys.readouterr().out
+
+
+def test_cli_no_hlo_runs_the_trace_rules_and_the_lint(capsys):
+    """``--no-hlo`` (the reference's flag): the recorded step's trace
+    rules and the lint, no rule of the measured layer, and the report
+    names the rules it skipped. The trace rules run are those the
+    reference's ``run_suite(hlo=False)`` runs on the same target."""
+    import json
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.analysis.suite import HLO_RULES
+    assert cli.main(["--device", "cpu", "--no-hlo", "--json"]) == F.EXIT_OK
+    rep = json.loads(capsys.readouterr().out)["reports"][0]
+    want = janalysis.run_suite("qwen2_reduced", executor="flat", hlo=False,
+                               lint=False).checks_run
+    assert rep["checks_run"] == want + ["LINT"]
+    assert rep["findings"] == []
+    assert rep["context"]["skipped_rules"] == list(HLO_RULES)
+

@@ -19,6 +19,7 @@ XLA's, so losses, parameters and momentum agree to ``ATOL`` = 1e-5. The
 tiny-MLP golden trajectory keeps the suite's 2e-6.
 """
 import concurrent.futures
+import re
 import dataclasses
 import functools
 import multiprocessing
@@ -41,9 +42,10 @@ from repro.launch import sharding as jsharding  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import nn as jnn  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
-from repro_torch import configs, tree  # noqa: E402
+from repro_torch import analysis, configs, optim, tree  # noqa: E402
+from repro_torch.analysis import findings as F  # noqa: E402
 from repro_torch.core import memory_model  # noqa: E402
-from repro_torch.launch import dryrun, sharding, train  # noqa: E402
+from repro_torch.launch import dryrun, sharding, steps, train  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch.world import LocalWorld  # noqa: E402
 
@@ -56,6 +58,10 @@ ODD_VOCAB = 511  # divides no model axis: the table splits on d_model
 # a capacity factor at which MoE drops tokens: the queues must span the
 # batch's data blocks
 DROP = "capacity0.5"
+# the production dry run without FSDP (the reference's --no-fsdp), checked
+NO_FSDP_DRYRUN = ["--arch", "qwen2-1.5b", "--shape", "train_4k", "--reduced",
+                  "--no-probe", "--device", "cpu", "--mesh", "production",
+                  "--no-fsdp", "--check"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -69,7 +75,11 @@ def fake_worlds():
         yield {"dryrun": pool.submit(cases.production_dryrun),
                **{mp: pool.submit(cases.production_layout,
                                   512 if mp else 256, 37, mp, "qwen2-1.5b")
-                  for mp in (False, True)}}
+                  for mp in (False, True)},
+               "no-fsdp": pool.submit(cases.dryrun_exit, NO_FSDP_DRYRUN),
+               "no-fsdp budget": pool.submit(
+                   cases.dryrun_exit,
+                   NO_FSDP_DRYRUN + ["--multi-pod", "--budget", "0.0001"])}
 
 
 @pytest.fixture(scope="module")
@@ -100,21 +110,21 @@ def _batches(vocab: int):
             for _ in range(2)]
 
 
-def _placed(bundle, mesh):
+def _placed(bundle, mesh, fsdp=True):
     """The in and out specs of a train bundle as the reference's dry run
     places it (``repro.launch.dryrun._in_specs`` / ``_out_specs``:
-    params and optimizer state by ``param_specs``, the split batch by
-    ``batch_specs`` on its sample dim, the metrics replicated), written
-    out here: importing that module sets ``XLA_FLAGS`` to 512 host
-    devices for the whole test process."""
+    params and optimizer state by ``param_specs(fsdp=fsdp)``, the split
+    batch by ``batch_specs`` on its sample dim, the metrics replicated),
+    written out here: importing that module sets ``XLA_FLAGS`` to 512
+    host devices for the whole test process."""
     P = jax.sharding.PartitionSpec
     params, opt_state, batch = bundle.arg_shapes
-    ins = (jsharding.param_specs(params, mesh),
-           jsharding.param_specs(opt_state, mesh),
+    ins = (jsharding.param_specs(params, mesh, fsdp=fsdp),
+           jsharding.param_specs(opt_state, mesh, fsdp=fsdp),
            jsharding.batch_specs(batch, mesh, batch_dim=1))
     out = jax.eval_shape(bundle.fn, *bundle.arg_shapes)
-    outs = (jsharding.param_specs(out[0], mesh),
-            jsharding.param_specs(out[1], mesh),
+    outs = (jsharding.param_specs(out[0], mesh, fsdp=fsdp),
+            jsharding.param_specs(out[1], mesh, fsdp=fsdp),
             jax.tree.map(lambda _: P(), out[2]))
     return ins, outs
 
@@ -143,10 +153,11 @@ def _init(arch: str, vocab=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(arch: str, vocab=None):
-    """The reference's GSPMD step on the Auto-axis 2 × 2 mesh: two steps
-    from seed-0 parameters. Returns numpy results and, per leaf, the
-    index of every device's block."""
+def _reference(arch: str, vocab=None, fsdp=True):
+    """The reference's GSPMD step on the Auto-axis 2 × 2 mesh, placed by
+    ``param_specs(fsdp=fsdp)``: two steps from seed-0 parameters.
+    Returns numpy results, per leaf the index of every device's block,
+    and the compiled step's HLO text."""
     mesh = _jmesh()
     jcfg = _jcfg(arch, vocab)
     bundle = jsteps.build_step(jcfg, InputShape("gspmd_test", "train", SEQ,
@@ -154,40 +165,45 @@ def _reference(arch: str, vocab=None):
                                num_microbatches=N_MICRO, dtype=jnp.float32)
     init = _init(arch, vocab)
     params = jax.tree.map(jnp.asarray, init)
-    ins, outs = _placed(bundle, mesh)
+    ins, outs = _placed(bundle, mesh, fsdp)
+    batches = [bundle.plan.split(b) for b in _batches(jcfg.vocab_size)]
     with mesh:
-        step = jax.jit(bundle.fn,
-                       in_shardings=tuple(jsharding.named(s, mesh)
-                                          for s in ins),
-                       out_shardings=jsharding.named(outs, mesh))
+        jitted = jax.jit(bundle.fn,
+                         in_shardings=tuple(jsharding.named(s, mesh)
+                                            for s in ins),
+                         out_shardings=jsharding.named(outs, mesh))
         p = jax.device_put(params, jsharding.named(ins[0], mesh))
         s = jax.device_put(bundle.optimizer.init(params),
                            jsharding.named(ins[1], mesh))
+        step = jitted.lower(p, s, batches[0]).compile()
         losses = []
-        for b in _batches(jcfg.vocab_size):
-            p, s, m = step(p, s, bundle.plan.split(b))
+        for b in batches:
+            p, s, m = step(p, s, b)
             losses.append(float(m["loss"]))
     devices = list(mesh.devices.flat)
     index = [[leaf.sharding.devices_indices_map(leaf.shape)[d]
               for d in devices] for leaf in jax.tree.leaves(p)]
     return {"init": init, "losses": losses,
             "params": jax.tree.map(np.asarray, p),
-            "mom": jax.tree.map(np.asarray, s["mom"]), "index": index}
+            "mom": jax.tree.map(np.asarray, s["mom"]), "index": index,
+            "hlo": step.as_text()}
 
 
 _PORT = {}
 
 
-def _port(world, arch: str, inner: str, vocab=None):
-    """The port's two steps on the 4-rank world; the reference's step
-    compiles here while the ranks run."""
-    key = (arch, inner, vocab)
+def _port(world, arch: str, inner: str, vocab=None, fsdp=True):
+    """The port's two steps on the 4-rank world (``fsdp``: the params'
+    placement); the reference's step compiles here while the ranks
+    run."""
+    key = (arch, inner, vocab, fsdp)
     if key not in _PORT:
         w = world(4)
         w.submit(cases.lm_train, (2, 2), arch, inner, _init(arch, vocab),
                  _batches(_jcfg(arch, vocab).vocab_size),
-                 SEQ, BATCH, N_MICRO, None, _overrides(vocab), vocab == DROP)
-        _reference(arch, vocab)
+                 SEQ, BATCH, N_MICRO, None, _overrides(vocab), vocab == DROP,
+                 fsdp)
+        _reference(arch, vocab, fsdp)
         _PORT[key] = w.collect("lm_train")
     return _PORT[key]
 
@@ -533,3 +549,239 @@ def test_supervise_on_a_gspmd_mesh_is_refused():
         train.main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
                     "--mesh", "production", "--steps", "1", "--supervise"])
     assert e.value.code == 2
+
+
+# ---------------------------------------------------------------------------
+# without FSDP: the params replicated over ``data`` (the reference's dry
+# run's --no-fsdp), tensor-parallel over ``model`` only
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("inner", ["flat", "compiled"])
+def test_no_fsdp_step_matches_the_reference(world, inner):
+    """Two steps of the port's 2 × 2 GSPMD step built with
+    ``build_train_step(fsdp=False)`` against the reference's jitted
+    GSPMD step placed by ``param_specs(fsdp=False)``: losses, parameters
+    and momentum, gathered on every rank, within ``ATOL``."""
+    ref = _reference("qwen2-1.5b", None, False)
+    outs = _port(world, "qwen2-1.5b", inner, None, False)
+    for r, out in enumerate(outs):
+        np.testing.assert_allclose(out["losses"], ref["losses"], atol=ATOL,
+                                   rtol=0, err_msg=f"rank {r} losses")
+        _close(out["params"], ref["params"], f"rank {r} params")
+        _close(out["mom"], ref["mom"], f"rank {r} momentum")
+
+
+def test_no_fsdp_local_blocks_are_the_reference_layout(world):
+    """Without FSDP each rank's blocks are the reference's: every leaf's
+    index on device r (``devices_indices_map``) is the port's
+    ``local_slices`` under ``param_specs(fsdp=False)`` at rank r's
+    coordinates, no leaf is split over ``data`` (the two data ranks of a
+    model coordinate hold the same blocks), momentum as its parameter;
+    the bytes held are that spec's arithmetic, above FSDP's."""
+    ref = _reference("qwen2-1.5b", None, False)
+    outs = _port(world, "qwen2-1.5b", "flat", None, False)
+    specs = sharding.spec_leaves(sharding.param_specs(ref["init"], DIMS,
+                                                      fsdp=False))
+    assert all("data" not in sharding.spec_axes(sp) for sp in specs)
+    shapes = [x.shape for x in tree.leaves(ref["init"])]
+
+    def spec_bytes(sps):
+        return sum(int(np.prod(s)) // sharding.shard_factor(sp, DIMS) * 4
+                   for s, sp in zip(shapes, sps))
+    fsdp_specs = sharding.spec_leaves(sharding.param_specs(ref["init"], DIMS))
+    assert spec_bytes(specs) > spec_bytes(fsdp_specs)
+    for r, out in enumerate(outs):
+        assert out["coords"] == {"data": r // 2, "model": r % 2}
+        assert out["local_param_bytes"] == spec_bytes(specs)
+        full_p, full_m = tree.leaves(out["params"]), tree.leaves(out["mom"])
+        twin = outs[r ^ 2]  # the other data rank of this model coordinate
+        for i, (shape, spec) in enumerate(zip(shapes, specs)):
+            idx = sharding.local_slices(shape, spec, DIMS, out["coords"])
+            assert _norm(idx, shape) == _norm(ref["index"][i][r], shape), i
+            local = tree.leaves(out["local_params"])[i]
+            assert np.array_equal(local, full_p[i][idx])
+            assert np.array_equal(tree.leaves(out["local_mom"])[i],
+                                  full_m[i][idx])
+            assert np.array_equal(local,
+                                  tree.leaves(twin["local_params"])[i])
+
+
+def _hlo_groups(line: str):
+    """The replica groups of one HLO collective line, as lists of device
+    positions: explicit (``{{0,1},{2,3}}``) or iota
+    (``[2,2]<=[2,2]T(1,0)``)."""
+    m = re.search(r"replica_groups=(\[[\d,]+\]<=\[[\d,]+\]"
+                  r"(?:T\([\d,]+\))?|\{[\d,{}]*\})", line)
+    if m is None:
+        return []
+    text = m.group(1)
+    if text.startswith("{"):
+        return [[int(x) for x in g.split(",") if x]
+                for g in re.findall(r"\{([\d,]+)\}", text)]
+    shape, dims, perm = re.match(
+        r"\[([\d,]+)\]<=\[([\d,]+)\](?:T\(([\d,]+)\))?", text).groups()
+    ids = np.arange(int(np.prod([int(d) for d in dims.split(",")])))
+    ids = ids.reshape([int(d) for d in dims.split(",")])
+    if perm:
+        ids = ids.transpose([int(p) for p in perm.split(",")])
+    return ids.reshape([int(d) for d in shape.split(",")]).tolist()
+
+
+def _hlo_census(text: str):
+    """{kind: {axis: count}} and {kind: {axis: count}} of the ENTRY
+    computation alone, of the reference's compiled HLO on the 2 × 2 mesh
+    (device position p at data p // 2, model p % 2): a group that varies
+    only the model coordinate is ``model``, only the data coordinate
+    ``data``, both ``data+model``."""
+    kinds = {"all-gather": "all_gather", "all-reduce": "all_reduce",
+             "reduce-scatter": "reduce_scatter", "all-to-all": "all_to_all"}
+    every, entry, in_entry = {}, {}, False
+    for line in text.splitlines():
+        if line and not line.startswith(" "):
+            in_entry = line.startswith("ENTRY")
+        m = re.search(r" (all-gather|all-reduce|reduce-scatter|all-to-all)"
+                      r"(?:-start)?\(", line)
+        if m is None:
+            continue
+        for g in _hlo_groups(line):
+            if len(g) < 2:
+                continue
+            ax = "+".join(a for a, vary in (
+                ("data", len({p // 2 for p in g}) > 1),
+                ("model", len({p % 2 for p in g}) > 1)) if vary)
+            for out in (every, entry) if in_entry else (every,):
+                by = out.setdefault(kinds[m.group(1)], {})
+                by[ax] = by.get(ax, 0) + 1
+    return every, entry
+
+
+def test_no_fsdp_collectives_match_the_reference_hlo(world):
+    """The port's census of the first step without FSDP against the
+    collectives of the reference's compiled step (``collective_bytes``
+    for the kinds, the replica groups for the axes): the gradients
+    all-reduced over ``data`` and no weight gathered there, where with
+    FSDP both gather the weights over ``data``; each (kind, axis) of the
+    port's all-gathers and all-reduces is one the reference's HLO has,
+    and its reduce-scatters (over ``model``, the activations) are the
+    all-reduces the reference's CPU pipeline writes with a slice (its
+    HLO has no reduce-scatter at all). The reference all-reduces the
+    gradients over ``data`` inside its micro-batch loop, none in its
+    entry computation; the port does it once a micro-batch as well."""
+    from repro.analysis.hlo_checks import collective_bytes
+    ref = _reference("qwen2-1.5b", None, False)
+    census = _port(world, "qwen2-1.5b", "flat", None, False)[0]["census"]
+    kinds = set(collective_bytes(ref["hlo"]))
+    assert "all-reduce" in kinds and "reduce-scatter" not in kinds
+    every, entry = _hlo_census(ref["hlo"])
+    by = census["by_kind_and_axis"]
+    assert "data" in every["all_reduce"] and "data" in by["all_reduce"]
+    assert "data" not in every.get("all_gather", {})
+    assert "data" not in by.get("all_gather", {})
+    assert not census["params_by_kind_and_axis"]
+    for kind in ("all_gather", "all_reduce"):
+        assert set(by.get(kind, {})) <= set(every.get(kind, {})), kind
+    assert set(by.get("reduce_scatter", {})) <= set(every["all_reduce"])
+    assert "data" not in entry.get("all_reduce", {})
+    assert by["all_reduce"]["data"] >= N_MICRO
+    # with FSDP the weights are gathered over data on both sides
+    fsdp_every, _ = _hlo_census(_reference("qwen2-1.5b")["hlo"])
+    fsdp = _port(world, "qwen2-1.5b", "flat")[0]["census"]
+    assert "data" in fsdp_every["all_gather"]
+    assert "data" in fsdp["params_by_kind_and_axis"]["all_gather"]
+
+
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_param_specs_without_fsdp_equal_the_reference(arch):
+    """``param_specs(fsdp=False)`` (and with FSDP, over ``(pod, data)``
+    on the pod mesh) of the full-size ``arch`` against the reference's,
+    spec for spec, on 2 × 2 and on the production meshes 16 × 16 and 2 ×
+    16 × 16 — the vocab table's own case included (its vocab over
+    ``model`` where it divides, d_model split over ``data`` only with
+    FSDP)."""
+    shapes = memory_model.param_shapes(configs.get(arch))
+    jshapes = jsteps.abstract_params(jconfigs.get(arch))
+    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)  # noqa
+    for dims in ({"data": 2, "model": 2}, {"data": 16, "model": 16},
+                 {"pod": 2, "data": 16, "model": 16}):
+        jm = types.SimpleNamespace(shape=dims, axis_names=tuple(dims))
+        for fsdp in (False, True):
+            over_pod = fsdp and "pod" in dims
+            got = sharding.spec_leaves(sharding.param_specs(
+                shapes, dims, fsdp=fsdp, fsdp_over_pod=over_pod))
+            want = [tuple(sp) for sp in jax.tree.leaves(
+                jsharding.param_specs(jshapes, jm, fsdp=fsdp,
+                                      fsdp_over_pod=over_pod),
+                is_leaf=is_spec)]
+            assert [tuple(sp) for sp in got] == want, (dims, fsdp)
+            if not fsdp:
+                assert all(not {"data", "pod"} & sharding.spec_axes(sp)
+                           for sp in got), dims
+
+
+def test_no_fsdp_production_dry_run(fake_worlds):
+    """``dryrun --mesh production --no-fsdp --check`` (reduced qwen2-1.5b
+    train_4k, fake tensors, rank 0 of 256): the rank's parameter bytes
+    are ``param_specs(fsdp=False)``'s arithmetic, its census all-reduces
+    over ``data`` and gathers no weight there, and ``--check`` finds
+    nothing (JX004 in its non-FSDP form, HLO003 against
+    ``estimate(fsdp_params=False)``; exit 1 for the rules one rank cannot
+    feed). On 2 × 16 × 16 with ``--budget`` 0.0001 GiB it exits 2, its
+    bytes the same arithmetic."""
+    cfg = configs.get_reduced("qwen2-1.5b")
+    shapes = memory_model.param_shapes(cfg)
+    for key, rc_want in (("no-fsdp", F.EXIT_ERROR),
+                         ("no-fsdp budget", F.EXIT_BUDGET)):
+        rc, res, err = fake_worlds[key].result(timeout=300)
+        assert rc == rc_want, (key, err)
+        g = res["gspmd"]
+        assert g["fsdp"] is False and g["fsdp_over_pod"] is False
+        specs = sharding.spec_leaves(sharding.param_specs(shapes, g["mesh"],
+                                                          fsdp=False))
+        assert g["local_param_bytes"] == sum(
+            x.numel() // sharding.shard_factor(s, g["mesh"]) * 4
+            for x, s in zip(tree.leaves(shapes), specs))
+        assert g["local_param_bytes"] == round(
+            sum(x.numel() for x in tree.leaves(shapes)) * 4
+            * memory_model.param_shard_ratio(cfg, g["mesh"], fsdp=False))
+        by = g["collectives"]["by_kind_and_axis"]
+        assert by["all_reduce"]["data"] > 0
+        assert "data" not in by.get("all_gather", {})
+        assert g["collectives"]["params_by_kind_and_axis"] == {}
+        assert res["contract"]["findings"] == []
+        assert res["contract"]["context"]["fsdp"] is False
+        assert res["oracle"]["modeled_bytes"] == memory_model.estimate(
+            cfg, 4096, mesh=g["mesh"], fsdp_params=False, act_bytes=2,
+            remat_policy=res["remat_policy"], **optim.memory_model_kw(
+                steps.make_optimizer(cfg), fused=False)).total(
+                    res["per_device"]["local_micro"])
+    assert "BUDGET EXCEEDED" in err and res["budget"]["over_budget"]
+    assert res["gspmd"]["mesh"] == {"pod": 2, "data": 16, "model": 16}
+
+
+@pytest.mark.parametrize("case", ["weight gathered", "no all-reduce",
+                                  "clean", "clean on pods"])
+def test_jx004_follows_the_placement(case):
+    """JX004's GSPMD form without FSDP (with it:
+    ``test_torch_gspmd_guard.py::test_check_gspmd_rank_findings``), over
+    planted censuses: a weight all-gathered over ``data`` and a step with
+    no all-reduce over a batch axis are findings, and activations
+    gathered and scattered over ``data`` (MoE's dispatch) are not."""
+    mesh = {"data": 16, "model": 16}
+    by = {"all_gather": {"model": 4, "data": 2},
+          "reduce_scatter": {"model": 2, "data": 2},
+          "all_reduce": {"data": 3, "model": 1}}
+    params = {}
+    if case == "weight gathered":
+        params = {"all_gather": {"data": 1}}
+    elif case == "no all-reduce":
+        by["all_reduce"] = {"model": 1}
+    elif case == "clean on pods":
+        mesh = {"pod": 2, **mesh}
+        by["all_reduce"] = {"pod": 3, "model": 1}
+    census = {"by_kind_and_axis": by, "params_by_kind_and_axis": params}
+    rep = analysis.check_gspmd_rank(census, mesh, peak_bytes=1 << 20,
+                                    modeled_bytes=1 << 20, fsdp=False)
+    want = [] if "clean" in case else ["JX004"]
+    assert [f.rule for f in rep.findings] == want
+    assert rep.exit_code() == (F.EXIT_CONTRACT if want else F.EXIT_OK)
+

@@ -82,10 +82,11 @@ def _route_recorder():
 
 
 def lm_train(world, dims, arch, inner, params_np, batches_np, seq, batch,
-             n_micro, clip=None, overrides=None, record_route=False):
+             n_micro, clip=None, overrides=None, record_route=False,
+             fsdp=True):
     """``len(batches_np)`` train steps of reduced ``arch`` (fp32; the
     config fields ``overrides`` replaced) built by
-    ``steps.build_train_step`` on the GSPMD mesh: (losses, grad norms,
+    ``steps.build_train_step(fsdp=fsdp)`` on the GSPMD mesh: (losses, grad norms,
     this rank's local params and momentum, the gathered params and
     momentum, the collectives of the first step by kind and axis, the
     local parameter bytes; with ``record_route``, MoE's routing as
@@ -99,7 +100,7 @@ def lm_train(world, dims, arch, inner, params_np, batches_np, seq, batch,
     shape = InputShape("gspmd_test", "train", seq, batch)
     bundle = steps.build_train_step(
         cfg, shape, num_microbatches=n_micro, optimizer=opt,
-        dtype=torch.float32, executor=inner, mesh=mesh,
+        dtype=torch.float32, executor=inner, mesh=mesh, fsdp=fsdp,
         budget_bytes=1 << 34, device="cpu")
     ex = bundle.fn.__self__
     params = weights.from_reference(params_np, "cpu")
