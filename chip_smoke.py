@@ -12,11 +12,12 @@ Phases (any failure exits non-zero before the last line is printed):
      ``nvcc`` into ``build/cuda``, one process per source, all started
      together: K1 (``grad_accum.cu``) and K6 (``flash_attention.cu``,
      whose build goes on while phase 3 checks K1-K4);
-     ptxas's register and spill lines for every instance (a spill in K1,
-     or a spill or a serialized wgmma in a bf16 K6 instance, fails the
-     phase), the shared memory each K6 instance asks for, from the
-     library, and the count of HGMMA instructions in K6's SASS
-     (``cuobjdump``);
+     ptxas's register and spill lines for every instance (a spill in K1
+     or in any K6 instance, or a serialized wgmma in a bf16 K6 instance,
+     fails the phase), the shared memory each K6 instance asks for, from
+     the library, the blocks of K6's fp32 kernel an SM holds at each head
+     dim (the occupancy calculator), and the count of HGMMA instructions
+     in K6's SASS (``cuobjdump``);
   3. kernels K1 (CUDA C++) and K2–K4 (Triton, built at first use, cached
      under ``build/triton``) against their plain PyTorch versions at
      ragged sizes in every dtype combination — rtol 1e-6 / atol 1e-6 in
@@ -33,7 +34,10 @@ Phases (any failure exits non-zero before the last line is printed):
      outside [0, V) among them — the per-token NLL within 1e-4, attention
      within 2e-5 in fp32 and 1 ulp + 2e-5 in bf16 (sums are taken in
      another order), each dtype through its own K6 kernel (bf16 the wgmma
-     kernel, fp32 the SIMT kernel, by the per-kernel launch counts);
+     kernel, fp32 the SIMT kernel, by the per-kernel launch counts); fp32
+     also at S one below and above the SIMT kernel's 64-row tile, hd 256
+     at G = 2 with window and cap, and operands not 16-byte aligned
+     (the wrapper launches on aligned copies);
   5. one ``flat``, one ``fused`` and one ``streaming`` step against one
      ``compiled`` step at qwen2-1.5b width, depth cut to 2 layers, bf16
      compute, same seed: params and momentum within the same tolerance,
@@ -1994,7 +1998,7 @@ def _k6_instance(fn: str) -> str:
     m = re.search(r"flash_fwd_wgmmaILi(\d+)ELi(\d+)E", fn)
     if m:
         return f"wgmma_bf16 hd {m.group(1)} tile 128 x {m.group(2)}"
-    m = re.search(r"flash_fwd_simtIfLi(\d+)E", fn)
+    m = re.search(r"flash_fwd_simtILi(\d+)E", fn)
     return f"simt_fp32 hd {m.group(1)} tile 64 x 64" if m else fn
 
 
@@ -2112,14 +2116,22 @@ def build_k1(seconds: float) -> dict:
 
 def build_k6(seconds: float) -> dict:
     """K6's build report: ptxas's lines for each instance, the dynamic
-    shared memory each head dim asks for (as the library computes it) and
-    the HGMMA count of the SASS. Fails on a spill or a serialized wgmma in
-    a bf16 instance, and on a bf16 instance without HGMMA."""
+    shared memory each head dim asks for (as the library computes it), the
+    blocks of the fp32 kernel an SM holds (the occupancy calculator) and
+    the HGMMA count of the SASS. Fails on a spill in any instance, on a
+    serialized wgmma or a missing HGMMA in a bf16 instance, and on an
+    instance missing from the report."""
     import torch
     from repro_torch.kernels import _cuda, flash_attention_kernels as fa
     report = {"build_s": seconds, "instances": ptxas_report(
-        "K6", "flash_attention", _k6_instance,
-        lambda name: name.startswith("wgmma"))}
+        "K6", "flash_attention", _k6_instance, lambda name: True)}
+    want = {f"{kind} hd {hd}" for kind in ("wgmma_bf16", "simt_fp32")
+            for hd in fa.HEAD_DIMS}
+    got = {" ".join(name.split()[:3]) for name, v in
+           report["instances"].items()
+           if "registers" in v and "spill_stores" in v}
+    check(got == want, f"K6's ptxas report lacks an instance's registers or "
+                       f"spills: {report['instances']}")
     report["smem_bytes"] = {
         f"{kind} hd {hd}": fa.smem_bytes(hd, dt)
         for kind, dt in (("wgmma_bf16", torch.bfloat16),
@@ -2127,6 +2139,21 @@ def build_k6(seconds: float) -> dict:
         for hd in fa.HEAD_DIMS}
     print(f"build: K6 dynamic shared memory a block (library's layout): "
           f"{report['smem_bytes']}", flush=True)
+    report["simt_fp32"] = {}
+    for hd in fa.HEAD_DIMS:
+        blocks, threads = fa.simt_occupancy(hd)
+        st = report["simt_fp32"][hd] = {
+            "registers": report["instances"][
+                f"simt_fp32 hd {hd} tile 64 x 64"]["registers"],
+            "smem_bytes": report["smem_bytes"][f"simt_fp32 hd {hd}"],
+            "threads": threads, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * threads // 32}
+        check(blocks >= 1, f"K6 simt_fp32 hd {hd}: no block fits an SM: "
+                           f"{st}")
+        print(f"build: K6 simt_fp32 hd {hd}: {threads} threads, "
+              f"{st['registers']} registers, {st['smem_bytes']} bytes of "
+              f"shared memory; {blocks} block(s) = {st['warps_per_sm']} "
+              f"warps an SM", flush=True)
     sass = _sass_stats(_cuda._library_path("flash_attention"))
     if sass is None:
         print("build: K6 SASS HGMMA count: not available (no cuobjdump)",
@@ -2155,6 +2182,16 @@ def _attn_inputs(gen, dev, B, H, Hkv, S, hd, dtype):
     import torch
     return [torch.randn(B, h, S, hd, generator=gen, device=dev).to(dtype)
             for h in (H, Hkv, Hkv)]
+
+
+def _shifted(x, elems: int):
+    """A contiguous copy of ``x`` that starts ``elems`` elements into its
+    storage (not 16-byte aligned for a small odd count in fp32)."""
+    import torch
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    y = buf[elems:].view(x.shape)
+    y.copy_(x)
+    return y
 
 
 def _ce_inputs(gen, dev, T, V, dtype):
@@ -2205,13 +2242,24 @@ def edge_phase(dev, errs) -> None:
             # S below one tile: boxes past S are zero-filled
             (1, 2, 1, 1, 64, {}), (1, 2, 1, 20, 128, {}),
         ]
+        if dt == torch.float32:
+            attn += [  # the SIMT kernel's 64-row tile: S one below, above
+                (1, 2, 2, 63, 64, {}), (1, 4, 2, 65, 128, {}),
+                # hd 256 at the gemma layers' G = 2, window and cap
+                (1, 4, 2, 65, 256, {"window": 32, "softcap": 50.0}),
+                (1, 4, 2, 700, 256, {"window": 300, "softcap": 50.0}),
+                # operands 4 bytes past 16-byte alignment (aligned copies)
+                (1, 4, 2, 130, 64, {"offset": 1}),
+            ]
         before = kernels.variant_launch_counts()
         for B, H, Hkv, S, hd, kw in attn:
             q, k, v = _attn_inputs(gen, dev, B, H, Hkv, S, hd, dt)
-            got = fa.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()  # a fault shows here, where it happened
+            if kw.get("offset"):
+                q, k, v = (_shifted(x, kw["offset"]) for x in (q, k, v))
             opts = {o: kw[o] for o in ("causal", "window", "softcap")
                     if o in kw}
+            got = fa.flash_attention(q, k, v, **opts)
+            torch.cuda.synchronize()  # a fault shows here, where it happened
             err, ok = max_violation(got, ref.attention_ref(q, k, v, **opts),
                                     atol=ATTN_ATOL, rtol=0.0,
                                     bf16_atol=ATTN_ATOL)

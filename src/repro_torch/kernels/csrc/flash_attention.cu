@@ -87,21 +87,68 @@
 //     loop cost the consumers their setmaxnreg budget (ptxas kept them at
 //     the launch's 168 registers, spilled, and serialized the wgmma).
 //
-// fp32 inputs stay on `flash_fwd_simt`: wgmma on fp32 operands is TF32,
-// which would drop the reference's fp32 products, and no full-width caller
-// runs fp32 attention. One block of 256 threads (16 x 16) per (q-tile,
-// head, batch), 64 x 64 tiles; a loop over k-tiles takes the place of the
-// TPU grid's sequential k axis. Thread (tx, ty) owns query rows ty + 16 i
-// and, in turn, score columns tx + 16 j and output columns tx + 16 j, so a
-// row's 16 owners are one half-warp and its max and sum are four shuffles
-// each. The Q tile and each K/V tile are staged in shared memory as fp32
-// (Q and K transposed and padded by one column, so both the transposing
-// stores and the product's loads are free of bank conflicts); P goes
-// through shared memory between the two products. Scores, m, l and the
-// output accumulator stay in fp32 registers (64 accumulators a thread at
-// hd = 256). At hd = 256 the block needs 215,296 bytes of shared memory,
-// granted as dynamic shared memory after cudaFuncSetAttribute. Its
-// ceiling is the card's fp32 rate, 67 TFLOP/s.
+// fp32 inputs stay on `flash_fwd_simt`, fp32 FMAs on the CUDA cores:
+// wgmma on fp32 operands is TF32, which would drop the reference's fp32
+// products (a 3xTF32 split would change the arithmetic, and the bound
+// with it), and no full-width caller runs fp32 attention. It is bound by
+// operations: both products at the card's 67 TFLOP/s of fp32 outside the
+// tensor cores (some 220 FLOPs a byte of q, k, v and out at qwen2-1.5b's
+// shapes, against the 20 above which the FMA units, not HBM, are the
+// limit). Within an SM the next limit is shared memory's path to the
+// registers: an LDS.128 hands 16 bytes to each of 32 threads, 512 bytes
+// at 128 a cycle, so an SM loads 32 floats a cycle against 128 FMA lanes,
+// and a product runs at the FMA rate only with 4 FMAs or more for each
+// float a thread loads. (Loads of fewer distinct addresses do not help: a
+// layout with 4 x 8 lanes a warp, each load one wavefront, timed no
+// faster than 2 x 16.) The design, against what held its first version to
+// a quarter of the bound (a scalar shared load for every 2 FMAs,
+// synchronous loads, one block an SM, the grid in index order, a branch
+// per score):
+//   * Register tiles fed by 16-byte shared loads, over 64 x 64 tiles at
+//     every head dim. Q is staged once, transposed (Q^T, [hd][64]), so that
+//     one LDS.128 gives four rows at one d; K stays row-major, so that one
+//     LDS.128 gives a row's four consecutive d, and QK^T walks d in float4
+//     steps. Each thread holds an 8 x 4 block of scores (rows 8 sy ..,
+//     columns sx + 16 j; a row's 16 owners are one half-warp, its max four
+//     shuffles): 12 LDS.128 for 128 FMAs, 2.67 FMAs a float.
+//     - hd <= 128: 128 threads, each also owns PV's 8 rows x hd / 16
+//       output columns (VW tx + 16 VW c, VW = 4, 2 at hd 32): P^T ([64][64])
+//       gives its 8 rows at one key in 2 LDS.128, V its columns in hd / 64:
+//       4 loads for 64 FMAs at hd 128, 4 FMAs a float.
+//     - hd 256: O alone would be 128 registers a thread at 8 rows, so 256
+//       threads own PV's 4 rows x 16 columns (5 loads for 64 FMAs, 3.2 a
+//       float), and QK^T splits d in two: the two half-warps of a warp take
+//       its halves of the same 8 x 4 scores, add them by one shuffle
+//       (lane ^ 16) and keep 4 rows each. With all of d, a 4 x 4 block (2
+//       FMAs a float) ran slower and 8 x 4 spilled. alpha and l reach PV's
+//       threads through shared memory.
+//     Score blocks of 8 x 8 would need, at hd 256, a 256-key tile (P alone
+//     64 KB) or 128 query rows. K's rows are padded by 4 floats, so the 16
+//     rows a half-warp reads at one d fall in all 32 banks (and every
+//     address is affine: an XOR swizzle in their place took 8 more
+//     registers a thread and spilled at hd 256).
+//   * Asynchronous copies: K and V tiles go to shared memory by cp.async.cg
+//     (16 bytes, zero-filled past S; the wrapper hands it 16-byte aligned
+//     operands, and a 4-byte path beside it cost an issue slot a chunk),
+//     each in one buffer, staggered so that a load is always in flight
+//     under the FMAs: K of tile i + 1 loads under PV of tile i, V of tile
+//     i + 1 under QK^T and the softmax of tile i + 1; two barriers a tile.
+//     Q loads once, under the first K and V.
+//   * Occupancy: 768 hd + 17,408 bytes of shared memory (Q^T, K, V, P^T;
+//     512 more at hd 256), so two blocks an SM (8 warps) at hd 128, three
+//     at hd 64, one (8 warps, 214,528 bytes) at hd 256. Registers, not
+//     warps, pay: 16 warps of 4 x 4 blocks at hd 128 ran slower (PERF.md).
+//   * The bf16 kernel's grid and masks: the q-tiles with the most live
+//     k-tiles first, the G q-heads of one KV head side by side (for L2
+//     reuse of K/V); scale, cap and mask as one branch-free loop for each
+//     of their four combinations, the causal, window and S-edge predicates
+//     only on tiles that straddle the diagonal, the window edge or S; rows
+//     past S not stored.
+//   * Softmax: masked scores are -inf, the row max and alpha = expf(m -
+//     m_new) as the reference, p = exp2f((s - m) log2 e) as the bf16
+//     kernel's; l is kept per thread over its 4 columns (the row's alpha
+//     is common to its 16 partials) and summed over the half-warp at the
+//     end.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,177 +180,427 @@ struct Args {
 
 namespace simt {
 
-constexpr int kThreads = 256;
 constexpr int kTile = 64;  // block_q = block_k = 64 at every head dim
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 
-// Shared-memory layout, in floats.
-template <int HD, int BQ, int BK>
+// PV: query rows a thread owns, 8 at hd <= 128 and 4 at hd 256 (where its
+// O is then 64 registers); the block is (64 / rows) x 16 threads.
+__host__ __device__ constexpr int rows_a_thread(int hd) {
+  return hd == 256 ? 4 : 8;
+}
+__host__ __device__ constexpr int threads(int hd) {
+  return 16 * kTile / rows_a_thread(hd);
+}
+// QK^T: d is split in this many parts (the two half-warps of a warp), so
+// that each thread's block of scores is 8 x 4 with either count of threads
+__host__ __device__ constexpr int d_parts(int hd) {
+  return threads(hd) / 128;
+}
+// Shared memory, in floats: Q^T [HD][64], K [64][HD + 4] (padded: the 16
+// rows a half-warp reads at one d fall in all 32 banks), V [64][HD], P^T
+// [64][64], then (with d in two parts) alpha and l of the 64 rows.
+template <int HD>
 struct Smem {
-  static constexpr int kLdq = BQ + 1;  // Q^T: [HD][BQ + 1]
-  static constexpr int kLdk = BK + 1;  // K^T: [HD][BK + 1]
-  static constexpr int kLdp = BQ + 1;  // P^T: [BK][BQ + 1]
-  static constexpr int kQ = HD * kLdq;
-  static constexpr int kK = HD * kLdk;
-  static constexpr int kV = BK * HD;   // V: [BK][HD]
-  static constexpr int kP = BK * kLdp;
-  static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kP);
+  static constexpr int kLdk = HD + 4;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + HD * kTile;
+  static constexpr int kV = kK + kTile * kLdk;
+  static constexpr int kP = kV + kTile * HD;
+  static constexpr int kAlpha = kP + kTile * kTile;
+  static constexpr int kL = kAlpha + kTile;
+  static constexpr size_t kBytes =
+      sizeof(float) * (d_parts(HD) == 2 ? kL + kTile : kAlpha);
 };
 
-template <typename T, int HD, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-               int S, int causal, int has_window, int window, float scale,
-               int has_softcap, float softcap) {
-  using L = Smem<HD, BQ, BK>;
-  constexpr int TM = BQ / 16;  // rows a thread owns
-  constexpr int TN = BK / 16;  // score columns a thread owns
-  constexpr int TD = HD / 16;  // output columns a thread owns
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + L::kQ;
-  float* vs = ks + L::kK;
-  float* ps = vs + L::kV;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const T* qh = q + (size_t)(b * H + h) * S * HD;
-  const T* kh = k + (size_t)(b * Hkv + hk) * S * HD;
-  const T* vh = v + (size_t)(b * Hkv + hk) * S * HD;
-  T* oh = o + (size_t)(b * H + h) * S * HD;
+// 16 bytes of global memory into shared memory, asynchronously (L2 only),
+// zero-filled where `in` is false (a row past S).
+__device__ __forceinline__ void copy16(uint32_t dst, const float* src,
+                                       bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int i = tid; i < BQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    qs[d * L::kLdq + r] =
-        q0 + r < S ? load_f32(qh + (size_t)(q0 + r) * HD + d) : 0.f;
-  }
-
-  float m[TM], l[TM], acc[TM][TD];
+// A K or V tile into rows LD floats apart, rows past `rows` zero-filled.
+template <int HD, int LD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const float* src,
+                                          int rows, int tid) {
+  constexpr int C = HD / 4;  // 16-byte chunks a row
+  constexpr int T = threads(HD);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nk = (S + BK - 1) / BK;
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * BK;
-    // the Pallas block-level skip: fully masked tiles do no work
-    if (causal && k0 > q0 + BQ - 1) break;
-    if (has_window && k0 + BK - 1 <= q0 - window) continue;
-
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD;
-      const bool in = k0 + r < S;
-      const size_t off = (size_t)(k0 + r) * HD + d;
-      ks[d * L::kLdk + r] = in ? load_f32(kh + off) : 0.f;
-      vs[r * HD + d] = in ? load_f32(vh + off) : 0.f;
-    }
-    __syncthreads();
-
-    float s[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float a[TM], c[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = qs[d * L::kLdq + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) c[j] = ks[d * L::kLdk + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool ok[TN];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (has_softcap) x = tanhf(x / softcap) * softcap;
-        ok[j] = col < S && (!causal || col <= row) &&
-                (!has_window || col > row - window);
-        s[i][j] = ok[j] ? x : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_cur = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_cur);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_cur) : 0.f;
-        ps[(tx + 16 * j) * L::kLdp + ty + 16 * i] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_cur;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();  // P is complete
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[TM], w[TD];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) p[i] = ps[c * L::kLdp + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TD; ++j) w[j] = vs[c * HD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TD; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < TD; ++j)
-      store_f32(oh + (size_t)row * HD + tx + 16 * j, acc[i][j] / denom);
+  for (int t = 0; t < kTile * C / T; ++t) {
+    const int idx = tid + t * T;
+    const int r = idx / C, c = idx % C;
+    const bool in = r < rows;
+    copy16(dst + 4u * (r * LD + 4 * c), in ? src + r * HD + 4 * c : src, in);
   }
 }
 
 template <int HD>
-cudaError_t launch(const Args& a) {
-  auto kern = flash_fwd_simt<float, HD, kTile, kTile>;
-  const size_t smem = Smem<HD, kTile, kTile>::kBytes;
+__global__ void __launch_bounds__(threads(HD))
+flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int B,
+               int H, int Hkv, int S, int causal, int has_window, int window,
+               float scale, int has_softcap, float softcap) {
+  using L = Smem<HD>;
+  constexpr int R = rows_a_thread(HD);
+  constexpr int T = threads(HD);
+  constexpr int DP = d_parts(HD);
+  constexpr int KR = 8 / DP;           // rows a thread keeps of its 8
+  constexpr int LK = L::kLdk;          // floats a K row
+  static_assert(HD / DP % 32 == 0, "a part of d is whole 32-column steps");
+  constexpr int VW = HD < 64 ? 2 : 4;  // output columns a vector
+  constexpr int NC = HD / (16 * VW);   // output vectors a row of a thread
+  constexpr int NO = HD / 16;          // output columns a thread
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem + L::kQ;
+  float* ks = smem + L::kK;
+  float* vs = smem + L::kV;
+  float* ps = smem + L::kP;
+  float* als = smem + L::kAlpha;
+  float* ls = smem + L::kL;
+
+  // PV: thread (ty, tx) owns rows R ty .. + R - 1 and output columns
+  // VW tx + 16 VW c. QK^T and the softmax: position (sy, sx) owns the 8 x 4
+  // scores of rows 8 sy .. and columns sx + 16 j, a row's 16 owners one
+  // half-warp. With d in two parts (hd 256), half-warp dh of each warp
+  // takes part dh, lanes l and l ^ 16 hold the two halves of the same
+  // scores, and after their exchange each keeps 4 of the 8 rows, 8 sy +
+  // 4 dh ..
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int dh = DP == 2 ? tid % 32 / 16 : 0;
+  const int pos = DP == 2 ? (tid / 32) * 16 + tid % 16 : tid;
+  const int sy = pos / 16;
+  const int sx = pos % 16;
+
+  // block -> (q-tile, batch, kv head, q head in the group): the G q-heads
+  // of one kv head side by side, the q-tiles with the most live k-tiles
+  // (the last, under a causal mask) first
+  const int G = H / Hkv;
+  const int nq = (S + kTile - 1) / kTile;
+  int idx = blockIdx.x;
+  const int g = idx % G;
+  idx /= G;
+  const int hk = idx % Hkv;
+  idx /= Hkv;
+  const int b = idx % B;
+  const int q0 = (nq - 1 - idx / B) * kTile;
+  const int h = hk * G + g;
+  const float* qh = q + (size_t)(b * H + h) * S * HD;
+  const float* kh = k + (size_t)(b * Hkv + hk) * S * HD;
+  const float* vh = v + (size_t)(b * Hkv + hk) * S * HD;
+  float* oh = o + (size_t)(b * H + h) * S * HD;
+
+  // the k-tiles the Pallas `live` predicate keeps
+  const int nk = (S + kTile - 1) / kTile;
+  const int kt_hi = causal ? min(nk, (q0 + kTile - 1) / kTile + 1) : nk;
+  int kt_lo = 0;
+  if (has_window && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / kTile;
+  const int n = kt_hi - kt_lo;
+
+  // K and V of the first live tile in flight, one commit group each; Q^T
+  // by plain loads meanwhile (consecutive threads on consecutive rows, so
+  // the transposing stores are free of bank conflicts)
+  const uint32_t ks_u = smem_u32(ks), vs_u = smem_u32(vs);
+  if (n > 0) {
+    const size_t off = (size_t)kt_lo * kTile * HD;
+    load_tile<HD, LK>(ks_u, kh + off, S - kt_lo * kTile, tid);
+    cp_commit();
+    load_tile<HD, HD>(vs_u, vh + off, S - kt_lo * kTile, tid);
+    cp_commit();
+  }
+#pragma unroll
+  for (int t = 0; t < kTile * HD / 4 / T; ++t) {
+    const int i = tid + t * T;
+    const int r = i % kTile, c = i / kTile;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < S)
+      x = *reinterpret_cast<const float4*>(qh + (size_t)(q0 + r) * HD + 4 * c);
+    qs[(4 * c + 0) * kTile + r] = x.x;
+    qs[(4 * c + 1) * kTile + r] = x.y;
+    qs[(4 * c + 2) * kTile + r] = x.z;
+    qs[(4 * c + 3) * kTile + r] = x.w;
+  }
+
+  float acc[R][NO];  // PV's rows
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[i][j] = 0.f;
+  float m[KR], l[KR];  // the softmax's rows
+#pragma unroll
+  for (int i = 0; i < KR; ++i) m[i] = kNegInf, l[i] = 0.f;
+  // this thread's part of Q^T's columns 8 sy .. and of its K rows sx +
+  // 16 j, its P^T column and V columns
+  const float* qt = qs + (dh * HD / DP) * kTile + 8 * sy;
+  const float* kt = ks + sx * LK + dh * HD / DP;
+  const float* pt = ps + R * ty;
+  const float* vp = vs + VW * tx;
+
+  cp_wait<1>();  // K of the first tile
+  __syncthreads();
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt_lo + it) * kTile;
+
+    // ---- S = Q K^T over this part of d, in float4 steps ----
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int u = 0; u < HD / DP / 32; ++u) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        float4 kv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(kt + 16 * j * LK +
+                                                   32 * u + 4 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float av[8];
+#pragma unroll
+          for (int r = 0; r < 8; r += 4) {
+            const float4 a = *reinterpret_cast<const float4*>(
+                qt + (32 * u + 4 * t + e) * kTile + r);
+            av[r] = a.x, av[r + 1] = a.y, av[r + 2] = a.z, av[r + 3] = a.w;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float bv = e == 0   ? kv[j].x
+                             : e == 1 ? kv[j].y
+                             : e == 2 ? kv[j].z
+                                      : kv[j].w;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) s[i][j] = fmaf(av[i], bv, s[i][j]);
+          }
+        }
+      }
+    }
+    // with d in two parts, their sums added: this lane keeps rows 8 sy +
+    // 4 dh .. and hands the other 4 to lane ^ 16
+    float f[KR][4];
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (DP == 2) {
+          const float give = dh ? s[i][j] : s[4 + i][j];
+          const float keep = dh ? s[4 + i][j] : s[i][j];
+          f[i][j] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
+        } else {
+          f[i][j] = s[i][j];
+        }
+      }
+
+    // ---- scale, cap, mask (only where a mask bites), softmax ----
+    const bool masked = (causal && k0 + kTile - 1 > q0) ||
+                        (has_window && k0 <= q0 + kTile - 1 - window) ||
+                        k0 + kTile > S;
+    // one branch-free loop for each combination (see the note at the top)
+    auto cap_and_mask = [&](auto cap, auto mask) {
+#pragma unroll
+      for (int i = 0; i < KR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = f[i][j] * scale;
+          if constexpr (decltype(cap)::value)
+            x = tanhf(x / softcap) * softcap;
+          if constexpr (decltype(mask)::value) {
+            const int row = q0 + 8 * sy + KR * dh + i;
+            const int col = k0 + sx + 16 * j;
+            const bool keep = (col < S) & (!causal | (col <= row)) &
+                              (!has_window | (col > row - window));
+            // -inf, not the reference's -1e30: m starts at -1e30, so a
+            // masked score leaves the max as -1e30 would, and its p,
+            // exp2f(-inf), is the 0 the reference writes over it
+            x = keep ? x : -INFINITY;
+          }
+          f[i][j] = x;
+        }
+    };
+    if (has_softcap) {
+      if (masked) cap_and_mask(std::true_type(), std::true_type());
+      else cap_and_mask(std::true_type(), std::false_type());
+    } else {
+      if (masked) cap_and_mask(std::false_type(), std::true_type());
+      else cap_and_mask(std::false_type(), std::false_type());
+    }
+    float alpha[KR];
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      float mx = fmaxf(fmaxf(f[i][0], f[i][1]), fmaxf(f[i][2], f[i][3]));
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_cur = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_cur);
+      m[i] = m_cur;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        f[i][j] = exp2f((f[i][j] - m_cur) * kLog2e);
+        sum += f[i][j];
+      }
+      l[i] = l[i] * alpha[i] + sum;
+      if constexpr (DP == 1) {  // the thread's PV rows are these
+#pragma unroll
+        for (int j = 0; j < NO; ++j) acc[i][j] *= alpha[i];
+      }
+    }
+    // P^T (column sx + 16 j, this lane's rows as float4s) and, at hd 256,
+    // the rows' alpha for PV's threads (the barrier at the end of the last
+    // tile freed both)
+#pragma unroll
+    for (int r = 0; r < KR; r += 4) {
+      float* row = ps + 8 * sy + KR * dh + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(row + (sx + 16 * j) * kTile) = make_float4(
+            f[r][j], f[r + 1][j], f[r + 2][j], f[r + 3][j]);
+      if (DP == 2 && sx == 0)
+        *reinterpret_cast<float4*>(als + 8 * sy + KR * dh + r) = make_float4(
+            alpha[r], alpha[r + 1], alpha[r + 2], alpha[r + 3]);
+    }
+
+    cp_wait<0>();  // V of this tile
+    __syncthreads();  // P and alpha complete, V visible, K read
+    if (it + 1 < n) {  // K of the next tile, under PV
+      load_tile<HD, LK>(ks_u, kh + (size_t)(k0 + kTile) * HD,
+                          S - k0 - kTile, tid);
+      cp_commit();
+    }
+
+    // ---- O = O alpha + P V (alpha from the softmax's threads at hd
+    // 256, where they are others) ----
+    if constexpr (DP == 2) {
+#pragma unroll
+      for (int r = 0; r < R; r += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(als + R * ty + r);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NO; ++j) acc[r + i][j] *= av[i];
+      }
+    }
+    constexpr int KU = HD == 256 ? 4 : 8;  // keys a step (registers)
+#pragma unroll 1
+    for (int j0 = 0; j0 < kTile; j0 += KU) {
+#pragma unroll
+      for (int jj = 0; jj < KU; ++jj) {
+        const int j = j0 + jj;
+        float pv[R];
+#pragma unroll
+        for (int r = 0; r < R; r += 4) {
+          const float4 p = *reinterpret_cast<const float4*>(pt + j * kTile +
+                                                            r);
+          pv[r] = p.x, pv[r + 1] = p.y, pv[r + 2] = p.z, pv[r + 3] = p.w;
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          float w[VW];
+          if constexpr (VW == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(
+                vp + j * HD + 16 * VW * c);
+            w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(
+                vp + j * HD + 16 * VW * c);
+            w[0] = x.x, w[1] = x.y;
+          }
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int e = 0; e < VW; ++e)
+              acc[i][c * VW + e] = fmaf(pv[i], w[e], acc[i][c * VW + e]);
+        }
+      }
+    }
+
+    cp_wait<0>();  // K of the next tile
+    __syncthreads();  // V, P and alpha read by every thread, K visible
+    if (it + 1 < n) {  // V of the next tile, under its QK^T and softmax
+      load_tile<HD, HD>(vs_u, vh + (size_t)(k0 + kTile) * HD,
+                           S - k0 - kTile, tid);
+      cp_commit();
+    }
+  }
+
+  // l over the row's 16 owners (to PV's threads at hd 256); out = acc /
+  // max(l, 1e-30), rows past S not stored
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    if (DP == 2 && sx == 0) ls[8 * sy + KR * dh + i] = l[i];
+  }
+  if constexpr (DP == 2) __syncthreads();
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + R * ty + i;
+    if (row >= S) continue;
+    const float denom = fmaxf(DP == 2 ? ls[R * ty + i] : l[i], 1e-30f);
+    float* dst = oh + (size_t)row * HD + VW * tx;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float y[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) y[e] = acc[i][c * VW + e] / denom;
+      float* p = dst + 16 * VW * c;
+      if constexpr (VW == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+        *reinterpret_cast<float2*>(p) = make_float2(y[0], y[1]);
+      }
+    }
+  }
+}
+
+template <int HD>
+cudaError_t set_attributes() {
+  auto kern = flash_fwd_simt<HD>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Smem<HD>::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
-  kern<<<grid, kThreads, smem, a.stream>>>(
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int HD>
+cudaError_t launch(const Args& a) {
+  cudaError_t err = set_attributes<HD>();
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((a.S + kTile - 1) / kTile) * a.B * a.H;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidConfiguration;
+  // 16-byte copies and stores: the wrapper aligns its operands
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.o)) %
+      16)
+    return cudaErrorMisalignedAddress;
+  flash_fwd_simt<HD><<<(unsigned)blocks, threads(HD), Smem<HD>::kBytes,
+                       a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.H, a.Hkv,
-      a.S, a.causal, a.has_window, a.window, a.scale, a.has_softcap,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.B, a.H,
+      a.Hkv, a.S, a.causal, a.has_window, a.window, a.scale, a.has_softcap,
       a.softcap);
   return cudaGetLastError();
 }
@@ -321,10 +618,31 @@ cudaError_t by_head_dim(const Args& a, int hd, int bq, int bk) {
 
 size_t smem_bytes(int hd) {
   switch (hd) {
-    case 32: return Smem<32, kTile, kTile>::kBytes;
-    case 64: return Smem<64, kTile, kTile>::kBytes;
-    case 128: return Smem<128, kTile, kTile>::kBytes;
-    case 256: return Smem<256, kTile, kTile>::kBytes;
+    case 32: return Smem<32>::kBytes;
+    case 64: return Smem<64>::kBytes;
+    case 128: return Smem<128>::kBytes;
+    case 256: return Smem<256>::kBytes;
+    default: return 0;
+  }
+}
+
+template <int HD>
+int blocks_per_sm_at() {
+  int blocks = 0;
+  if (set_attributes<HD>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, flash_fwd_simt<HD>, threads(HD), Smem<HD>::kBytes) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+int blocks_per_sm(int hd) {
+  switch (hd) {
+    case 32: return blocks_per_sm_at<32>();
+    case 64: return blocks_per_sm_at<64>();
+    case 128: return blocks_per_sm_at<128>();
+    case 256: return blocks_per_sm_at<256>();
     default: return 0;
   }
 }
@@ -1054,6 +1372,17 @@ extern "C" int repro_flash_attention_fwd(
 extern "C" long long repro_flash_attention_smem_bytes(int hd, int is_bf16) {
   return static_cast<long long>(is_bf16 ? hopper::smem_bytes(hd)
                                         : simt::smem_bytes(hd));
+}
+
+// Blocks of the fp32 kernel an SM holds at head dim `hd` (the occupancy
+// calculator's answer for its threads, registers and shared memory), its
+// threads a block in `*threads`; 0 for a head dim without an instance, -1
+// if the runtime refuses the query.
+extern "C" int repro_flash_attention_simt_occupancy(int hd, int* threads) {
+  *threads = hd == 32 || hd == 64 || hd == 128 || hd == 256
+                 ? simt::threads(hd)
+                 : 0;
+  return simt::blocks_per_sm(hd);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -20,17 +20,26 @@ raises):
     16-byte aligned (TMA), which the wrapper checks.
   * fp32 → ``simt_fp32``: both products as fp32 FMAs on the CUDA cores
     (``wgmma`` on fp32 operands is TF32, which would drop the reference's
-    fp32 products).
+    fp32 products): 64 × 64 tiles, each thread an 8 × 4 block of scores
+    and a block of the output in registers (8 rows of 128 threads at
+    hd ≤ 128; 4 rows of 256 at hd 256, where QKᵀ's d is split between
+    the two halves of a warp), fed by 16-byte shared loads (Q staged
+    transposed, K row-major and padded), K/V tiles brought in by
+    ``cp.async`` under the FMAs, the bf16 kernel's grid order and
+    branch-free masks; its operands are 16-byte aligned (an unaligned
+    one is copied, :func:`aligned16`). Blocks an SM:
+    :func:`simt_occupancy`.
 
 The design and what bounds it are noted in the source. Each kernel has one
 tile per head dim, in :data:`TILES`: bf16 128 × 128 at hd ≤ 128 and
-128 × 64 at hd 256, fp32 64 × 64. ``block_q``/``block_k`` are kept, as the
-reference's arguments and the tuner's keys (``flash_q``/``flash_k``), and
-take only the instance's tile; another tile gets an instance once a tuner
-has measured that it pays. The kernels mask the ragged tail of S
-themselves, so no copy is padded; the reference's contract is kept all the
-same: where S is not a multiple of the tiles (each clamped to S), only
-causal attention is accepted, as the reference's padded path asserts.
+128 × 64 at hd 256, fp32 64 × 64 at every head dim. ``block_q`` and
+``block_k`` are kept, as the reference's arguments and the tuner's keys
+(``flash_q``/``flash_k``), and take only the instance's tile; another
+tile gets an instance once a tuner has measured that it pays. The kernels
+mask the ragged tail of S themselves, so no copy is padded; the
+reference's contract is kept all the same: where S is not a multiple of
+the tiles (each clamped to S), only causal attention is accepted, as the
+reference's padded path asserts.
 """
 from __future__ import annotations
 
@@ -75,6 +84,19 @@ def smem_bytes(hd: int, dtype) -> int:
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
     return int(fn(hd, int(dtype == torch.bfloat16)))
+
+
+def simt_occupancy(hd: int) -> Tuple[int, int]:
+    """(blocks an SM holds, threads a block) of the fp32 kernel at head
+    dim ``hd``, the blocks as the CUDA occupancy calculator gives them for
+    its threads, registers and shared memory (builds the library at first
+    use; needs the card)."""
+    fn = _cuda.load("flash_attention").repro_flash_attention_simt_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    threads = ctypes.c_int(0)
+    blocks = fn(hd, ctypes.byref(threads))
+    return int(blocks), int(threads.value)
 
 
 def tile(dtype, hd: Optional[int] = None) -> Tuple[int, int]:
@@ -133,6 +155,13 @@ def check_aligned(*tensors: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: bf16 operands must be "
                              f"16-byte aligned for TMA; one starts at "
                              f"address {x.data_ptr():#x}")
+
+
+def aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it at a 16-byte aligned address: the fp32
+    kernel moves its operands in 16-byte chunks (``cp.async``, float4
+    loads and stores) and refuses an unaligned one."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _check(q, k, v) -> torch.device:
@@ -197,6 +226,8 @@ def _attention(dev, q, k, v, causal, window, softcap, block_q, block_k):
     fn, err_str = _entry()
     if q.dtype == torch.bfloat16:
         check_aligned(q, k, v, out)
+    else:
+        q, k, v = (aligned16(x) for x in (q, k, v))
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, k.shape[1], S, hd, int(q.dtype == torch.bfloat16),
